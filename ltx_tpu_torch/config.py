@@ -1,0 +1,115 @@
+"""Model and generation configuration.
+
+Port of the parts of ltx_tpu/core/config.py that the text-to-video path
+reads, field for field and with the same defaults (tests/test_torch_static.py
+holds them against the reference's classes): the DiT's `TransformerConfig`,
+the pixel/latent scale factors, `GenerationConfig` and the memory knobs the
+port honours.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """DiT architecture constants, the same for dev and distilled."""
+
+    num_layers: int = 48
+    num_heads: int = 32
+    head_dim: int = 128
+    in_channels: int = 128
+    out_channels: int = 128
+    cross_attention_dim: int = 4096
+    caption_channels: int = 3840
+    rope_theta: float = 10000.0
+    max_pos: Tuple[int, ...] = (20, 2048, 2048)
+    timestep_scale_multiplier: float = 1000.0
+    norm_eps: float = 1e-6
+    ffn_mult: int = 4
+    # audio stream of the dual AV transformer (not ported yet)
+    audio_num_heads: int = 32
+    audio_head_dim: int = 64
+    audio_in_channels: int = 128
+    audio_out_channels: int = 128
+    audio_max_pos: Tuple[int, ...] = (20,)
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.inner_dim * self.ffn_mult
+
+    def tiny(self) -> "TransformerConfig":
+        """A CPU-test-sized config with the same structure."""
+        return dataclasses.replace(
+            self, num_layers=2, num_heads=4, head_dim=32, in_channels=16,
+            out_channels=16, cross_attention_dim=128, caption_channels=48,
+            audio_num_heads=4, audio_head_dim=16, audio_in_channels=16,
+            audio_out_channels=16)
+
+
+# pixel <-> latent scale factors
+TEMPORAL_SCALE = 8
+SPATIAL_SCALE = 32
+LATENT_CHANNELS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    """All generation knobs. The port runs single-stage T2V at cfg 1.0;
+    `LTXPipeline.generate_video` raises NotImplementedError for the rest."""
+
+    width: int = 704
+    height: int = 480
+    num_frames: int = 121
+    num_steps: int = 8
+    cfg_scale: float = 1.0
+    seed: Optional[int] = None
+    negative_prompt: Optional[str] = None
+    guidance_rescale: float = 0.0
+    cross_attention_scale: float = 1.0
+    ge_gamma: float = 0.0
+    stg_scale: float = 0.0
+    stg_blocks: Tuple[int, ...] = (29,)
+    two_stage: bool = False
+    enhance_prompt: bool = False
+    enhancement_spec_k: int = 8
+    image_path: Optional[str] = None
+    image_cond_noise_scale: float = 0.0
+    fps: float = 24.0
+    # custom sigma table; None = the model's schedule
+    sigmas_override: Optional[Tuple[float, ...]] = None
+
+    def validate(self) -> None:
+        """The reference's checks; raises ValueError, as its error classes are."""
+        if self.width % 32 != 0 or self.height % 32 != 0:
+            raise ValueError(f"Width and height must be divisible by 32, got "
+                             f"{self.width}x{self.height}")
+        if (self.num_frames - 1) % 8 != 0:
+            raise ValueError(f"num_frames must be 8n+1, got {self.num_frames}")
+        bounds = (("width", 64, 2048), ("height", 64, 2048),
+                  ("num_frames", 9, 257), ("num_steps", 1, 100),
+                  ("cfg_scale", 1.0, 20.0))
+        for name, lo, hi in bounds:
+            if not lo <= getattr(self, name) <= hi:
+                raise ValueError(f"{name} must be in [{lo}, {hi}], "
+                                 f"got {getattr(self, name)}")
+        if self.two_stage and (self.width % 64 or self.height % 64):
+            raise ValueError("Two-stage requires width and height divisible by "
+                             f"64. Got {self.width}x{self.height}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryConfig:
+    """The reference's memory knobs that the port honours, same defaults."""
+
+    vae_tile_size: int = 0  # latent frames per decode tile; 0 = no tiling
+    offload_text_encoder: bool = True  # drop Gemma weights after encoding
+    # keep components on the host and place each on the device only for its
+    # phase, releasing it afterwards
+    phase_staging: bool = False

@@ -1,0 +1,165 @@
+"""Parameter trees of the JAX package -> the port's modules.
+
+The one place where layouts change. A tree is nested dicts/lists of arrays
+(jax or numpy), as `ltx_tpu.models.*.init_params` and the weight loaders
+build them. The rules:
+  * a dict meeting an nn.ModuleList is STACKED (the reference's scanned
+    `blocks` / `layers`): leaf i along the leading axis goes to entry i;
+    a list meets a ModuleList entry by entry;
+  * "w" -> "weight", "b" -> "bias" on Linear, Conv3d, NormWeight, Embedding;
+  * Linear weights transpose (in, out) -> (out, in); Conv3d weights permute
+    DHWIO (kt, kh, kw, I, O) -> (O, I, kt, kh, kw); everything else copies;
+  * strict: a leaf with no parameter, a parameter with no leaf, or a shape or
+    dtype that differs raises ValueError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ltx_tpu_torch.models.common import Conv3d, Embedding, Linear, NormWeight
+
+_RENAMED = (Linear, Conv3d, NormWeight, Embedding)
+
+
+def _leaves(tree, module: nn.Module, prefix: str) -> Iterator[Tuple[str, object]]:
+    """(torch parameter name, array) for every leaf of `tree` under
+    `module`; raises ValueError for a key with no submodule or parameter."""
+    if isinstance(module, nn.ModuleList):
+        if isinstance(tree, dict):   # stacked along the leading axis
+            for i, sub in enumerate(module):
+                yield from _leaves(_index(tree, i, len(module), prefix), sub,
+                                   f"{prefix}{i}.")
+            return
+        if len(tree) != len(module):
+            raise ValueError(f"{prefix}: {len(tree)} entries, module has {len(module)}")
+        for i, (item, sub) in enumerate(zip(tree, module)):
+            yield from _leaves(item, sub, f"{prefix}{i}.")
+        return
+    for key, value in tree.items():
+        if isinstance(value, (dict, list, tuple)):
+            child = getattr(module, key, None)
+            if not isinstance(child, nn.Module):
+                raise ValueError(f"unconsumed subtree {prefix}{key}")
+            yield from _leaves(value, child, f"{prefix}{key}.")
+            continue
+        name = {"w": "weight", "b": "bias"}.get(key, key) if isinstance(
+            module, _RENAMED) else key
+        yield f"{prefix}{name}", value
+
+
+def _index(tree, i: int, n: int, prefix: str):
+    if isinstance(tree, dict):
+        return {k: _index(v, i, n, f"{prefix}{k}.") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, i, n, prefix) for v in tree]
+    if tree.shape[0] != n:
+        raise ValueError(f"stacked leaf {prefix} has leading dim {tree.shape[0]}, "
+                         f"the module has {n} entries")
+    return tree[i]
+
+
+def _to_numpy(tree):
+    """Every leaf as a host numpy array, converted once (a stacked leaf is
+    then sliced per entry without another device copy)."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_numpy(v) for v in tree]
+    return np.asarray(tree)
+
+
+def _owner(module: nn.Module, name: str) -> nn.Module:
+    owner = module
+    for part in name.split(".")[:-1]:
+        owner = owner[int(part)] if isinstance(owner, nn.ModuleList) else getattr(owner, part)
+    return owner
+
+
+def _to_torch(array, owner: nn.Module, leaf: str) -> Tuple[torch.Tensor, str]:
+    """Host copy of one leaf in the port's layout, and its dtype name."""
+    arr = np.asarray(array)
+    dtype_name = str(arr.dtype)
+    host = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+    if leaf == "weight" and isinstance(owner, Linear):
+        host = host.t()
+    elif leaf == "weight" and isinstance(owner, Conv3d):
+        host = host.permute(4, 3, 0, 1, 2)
+    return host, dtype_name
+
+
+@torch.no_grad()
+def load_tree(module: nn.Module, tree) -> nn.Module:
+    """Fill every parameter of `module` from `tree`, strictly. Returns it."""
+    params: Dict[str, torch.Tensor] = dict(module.named_parameters())
+    filled = set()
+    for name, array in _leaves(_to_numpy(tree), module, ""):
+        if name not in params:
+            raise ValueError(f"unconsumed leaf {name}: no such parameter")
+        target = params[name]
+        host, dtype_name = _to_torch(array, _owner(module, name), name.rsplit(".", 1)[-1])
+        if dtype_name != str(target.dtype).removeprefix("torch."):
+            raise ValueError(f"{name}: leaf dtype {dtype_name}, parameter {target.dtype}")
+        if tuple(host.shape) != tuple(target.shape):
+            raise ValueError(f"{name}: leaf shape {tuple(host.shape)} (converted), "
+                             f"parameter {tuple(target.shape)}")
+        target.copy_(host)
+        filled.add(name)
+    missing = sorted(set(params) - filled)
+    if missing:
+        raise ValueError(f"parameters with no leaf: {missing[:8]}"
+                         + (" ..." if len(missing) > 8 else ""))
+    return module
+
+
+def port_config(cfg, cls):
+    """A reference config dataclass -> the port's class of the same fields."""
+    return cls(**dataclasses.asdict(cfg))
+
+
+def tree_dtype(tree) -> torch.dtype:
+    """The torch dtype of a tree's first leaf."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return getattr(torch, str(np.asarray(tree).dtype))
+
+
+def transformer(tree, cfg, device=None):
+    """dit.init_params tree -> LTXTransformer (cfg: TransformerConfig)."""
+    from ltx_tpu_torch.models.dit import LTXTransformer
+
+    dtype = tree_dtype(tree["patchify_proj"]["w"])
+    return load_tree(LTXTransformer(cfg, device=device, dtype=dtype), tree)
+
+
+def vae_decoder(tree, cfg, device=None):
+    """vae.init_decoder_params tree -> VideoDecoder (cfg: a VAEConfig)."""
+    from ltx_tpu_torch.models.vae import VAEConfig, VideoDecoder
+
+    dtype = tree_dtype(tree["conv_in"]["w"])
+    return load_tree(VideoDecoder(port_config(cfg, VAEConfig), device=device,
+                                  dtype=dtype), tree)
+
+
+def gemma(tree, cfg, device=None):
+    """gemma3.init_params tree -> Gemma3Model (cfg: a Gemma3Config)."""
+    from ltx_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
+
+    dtype = tree_dtype(tree["embed_tokens"]["w"])
+    return load_tree(Gemma3Model(port_config(cfg, Gemma3Config), device=device,
+                                 dtype=dtype), tree)
+
+
+def text_encoder(tree, cfg, device=None):
+    """text_encoder.init_params tree -> TextEncoder (cfg: a
+    TextEncoderConfig). A tree with the audio connector raises."""
+    from ltx_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+
+    dtype = tree_dtype(tree["feature_extractor"]["aggregate_embed"]["w"])
+    return load_tree(TextEncoder(port_config(cfg, TextEncoderConfig),
+                                 device=device, dtype=dtype), tree)

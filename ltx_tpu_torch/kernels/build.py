@@ -1,0 +1,91 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under `ltx_tpu_torch/csrc/` is compiled on first use into a
+shared library with a plain C interface, for `sm_90a` (Hopper), into
+`build/ltx_tpu_torch/` at the repository root. The library's file name
+carries a digest of the source and the flags, so an edited source builds
+anew. Nothing here runs at import time: the CPU tests import the kernel
+modules on machines without nvcc or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "ltx_tpu_torch"
+
+# every kernel source of the port, by stem
+SOURCES = ("flash_attention_fwd",)
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LIBRARIES: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then $PATH."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every named source that has no up-to-date library. Returns
+    the seconds each build took (0.0 when it was already built); raises with
+    nvcc's log on a failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {}
+    for name in names:
+        out = library_path(name)
+        seconds[name] = 0.0
+        if out.is_file():
+            continue
+        t0 = time.perf_counter()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, check=False, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build of {name} failed "
+                               f"(nvcc exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+        seconds[name] = time.perf_counter() - t0
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source, built first if needed."""
+    lib = _LIBRARIES.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBRARIES[name] = lib
+    return lib

@@ -1,0 +1,143 @@
+"""Shared layers: Linear, Conv3d, norm weights, embeddings, activations.
+
+Port of ltx_tpu/models/common.py and of the plain (unquantized) branch of
+ltx_tpu/kernels/quantization.py::linear_any.
+
+Parameters are created empty on an explicit device and dtype; nothing is
+initialised at construction. `convert.py` fills them from a JAX parameter
+tree, or `init_random_` draws them from a torch.Generator with the JAX
+package's init scales. Each module's parameter names follow the JAX tree's
+keys, with "w" -> "weight" and "b" -> "bias".
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def linear(x, weight, bias=None):
+    """x @ weight.T (+ bias) with f32 accumulation, the bias added in f32
+    before one rounding to x's dtype: the reference's
+    `dot(..., preferred_element_type=f32) + b.astype(f32)` then cast.
+
+    `F.linear` (addmm) gives exactly that for bf16 on CUDA (cuBLASLt's bias
+    epilogue) and on the CPU, with bf16 reductions in f32 (package init). A
+    bf16 `x @ w + b` would round twice."""
+    return F.linear(x, weight, bias)
+
+
+def gelu_tanh(x):
+    """GELU with the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def silu(x):
+    return F.silu(x)
+
+
+class Linear(nn.Module):
+    """weight (d_out, d_in) in torch's layout (the JAX tree is (d_in, d_out)),
+    optional bias (d_out,)."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True,
+                 device=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(d_out, d_in, device=device, dtype=dtype),
+            requires_grad=False)
+        self.bias = (nn.Parameter(torch.empty(d_out, device=device, dtype=dtype),
+                                  requires_grad=False) if bias else None)
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)
+
+    def reset_parameters(self, gen: torch.Generator):
+        """normal * d_in**-0.5, zero bias (the reference's linear_init)."""
+        _normal_(self.weight, gen, self.weight.shape[1] ** -0.5)
+        if self.bias is not None:
+            self.bias.zero_()
+
+
+class Conv3d(nn.Module):
+    """weight (C_out, C_in, kt, kh, kw) (the JAX tree is DHWIO), bias
+    (C_out,). Padding is the caller's (see vae.causal_conv3d)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 3, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(c_out, c_in, k, k, k, device=device, dtype=dtype),
+            requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(c_out, device=device, dtype=dtype),
+                                 requires_grad=False)
+
+    def reset_parameters(self, gen: torch.Generator):
+        """normal * (c_in * k^3)**-0.5, zero bias (vae.conv3d_init)."""
+        fan_in = self.weight[0].numel()
+        _normal_(self.weight, gen, fan_in**-0.5)
+        self.bias.zero_()
+
+
+class NormWeight(nn.Module):
+    """A norm's weight vector; `init` is its random-init value (1 for the
+    DiT and connector QK norms, 0 for Gemma's (1 + w) norms)."""
+
+    def __init__(self, dim: int, init: float, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.init = init
+        self.weight = nn.Parameter(torch.empty(dim, device=device, dtype=dtype),
+                                   requires_grad=False)
+
+    def reset_parameters(self, gen: torch.Generator):
+        self.weight.fill_(self.init)
+
+
+class Embedding(nn.Module):
+    """Token table (vocab, dim), the same layout in both packages."""
+
+    def __init__(self, vocab: int, dim: int, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(vocab, dim, device=device, dtype=dtype),
+            requires_grad=False)
+
+    def forward(self, ids):
+        return self.weight[ids.long()]
+
+    def reset_parameters(self, gen: torch.Generator):
+        _normal_(self.weight, gen, 0.02)
+
+
+def param(*shape, device=None, dtype=torch.float32) -> nn.Parameter:
+    """An empty, frozen parameter for a module's own tables."""
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+def _normal_(t, gen: torch.Generator, scale: float):
+    """t <- normal(0, 1) * scale drawn in float32 on the generator's device,
+    then cast to t's dtype (the reference draws f32 then casts)."""
+    draw = torch.randn(t.shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+    t.copy_(draw.mul_(scale))
+
+
+def uniform_(t, gen: torch.Generator, low: float, high: float):
+    draw = torch.rand(t.shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
+    t.copy_(draw.mul_(high - low).add_(low))
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Draw every parameter of `module` from `gen`, with the JAX package's
+    init scales: each submodule's `reset_parameters(gen)` fills its own
+    parameters. Returns the module."""
+    for m in module.modules():
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(gen)
+    return module

@@ -1,0 +1,187 @@
+"""Video diffusion transformer (DiT): the denoising hot path.
+
+Port of ltx_tpu/models/dit.py. The 48 blocks are an nn.ModuleList run in a
+Python loop (the reference stacks them and scans). Semantics kept exactly:
+QK RMSNorm across all heads on the flat (B, T, H*D) tensor, then RoPE on the
+flat tensor, then the head split; AdaLN-single with a per-block (6, D) f32
+scale_shift_table; affine-free LayerNorm and a (2, D) table at the output.
+Every attention goes through ops.attention.sdpa, so on CUDA through the
+flash-attention kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ltx_tpu_torch.config import TransformerConfig
+from ltx_tpu_torch.models.common import Linear, NormWeight, gelu_tanh, param, silu
+from ltx_tpu_torch.ops.attention import sdpa
+from ltx_tpu_torch.ops.embeddings import get_timestep_embedding
+from ltx_tpu_torch.ops.normalization import adaln, layer_norm_no_affine, rms_norm
+from ltx_tpu_torch.ops.rope import apply_rope_split
+
+
+class Attention(nn.Module):
+    def __init__(self, query_dim, context_dim, inner_dim, num_heads, head_dim,
+                 norm_eps, device, dtype):
+        super().__init__()
+        self.num_heads, self.head_dim, self.norm_eps = num_heads, head_dim, norm_eps
+        self.to_q = Linear(query_dim, inner_dim, device=device, dtype=dtype)
+        self.to_k = Linear(context_dim, inner_dim, device=device, dtype=dtype)
+        self.to_v = Linear(context_dim, inner_dim, device=device, dtype=dtype)
+        self.to_out = Linear(inner_dim, query_dim, device=device, dtype=dtype)
+        self.q_norm = NormWeight(inner_dim, 1.0, device=device, dtype=dtype)
+        self.k_norm = NormWeight(inner_dim, 1.0, device=device, dtype=dtype)
+
+    def forward(self, x, context, bias=None, rope=None):
+        """QK RMSNorm on the flat tensor, RoPE on the flat tensor, then the
+        head split and attention."""
+        b, tq, _ = x.shape
+        tk = context.shape[1]
+        h, d = self.num_heads, self.head_dim
+        q = rms_norm(self.to_q(x), self.q_norm.weight, eps=self.norm_eps)
+        k = rms_norm(self.to_k(context), self.k_norm.weight, eps=self.norm_eps)
+        v = self.to_v(context)
+        if rope is not None:
+            cos, sin = rope
+            q = apply_rope_split(q, cos, sin)
+            k = apply_rope_split(k, cos, sin)
+        q = q.reshape(b, tq, h, d).transpose(1, 2).contiguous()
+        k = k.reshape(b, tk, h, d).transpose(1, 2).contiguous()
+        v = v.reshape(b, tk, h, d).transpose(1, 2).contiguous()
+        out = sdpa(q, k, v, bias=bias)
+        out = out.transpose(1, 2).reshape(b, tq, h * d)
+        return self.to_out(out)
+
+
+class FeedForward(nn.Module):
+    """Linear -> GELU(tanh) -> Linear."""
+
+    def __init__(self, dim, hidden, device, dtype):
+        super().__init__()
+        self.project_in = Linear(dim, hidden, device=device, dtype=dtype)
+        self.project_out = Linear(hidden, dim, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.project_out(gelu_tanh(self.project_in(x)))
+
+
+class TwoLinear(nn.Module):
+    """linear_1 -> act -> linear_2 (timestep MLP, caption projection)."""
+
+    def __init__(self, d_in, d_hidden, d_out, device, dtype):
+        super().__init__()
+        self.linear_1 = Linear(d_in, d_hidden, device=device, dtype=dtype)
+        self.linear_2 = Linear(d_hidden, d_out, device=device, dtype=dtype)
+
+
+class AdaLNSingle(nn.Module):
+    def __init__(self, d, device, dtype):
+        super().__init__()
+        self.emb = TwoLinear(256, d, d, device, dtype)
+        self.linear = Linear(d, 6 * d, device=device, dtype=dtype)
+
+    def forward(self, t):
+        """Timestep -> (6*D modulation, D embedded timestep): sinusoid(256)
+        -> Linear -> SiLU -> Linear, then SiLU -> Linear."""
+        emb = get_timestep_embedding(t, 256)
+        emb = self.emb.linear_1(emb.to(self.emb.linear_1.weight.dtype))
+        embedded = self.emb.linear_2(silu(emb))
+        return self.linear(silu(embedded)), embedded
+
+
+def _ada_values(table, ts_emb, start: int):
+    """(shift, scale, gate) f32 from a block's (6, D) table and the
+    (B, T', 6, D) timestep modulation."""
+    vals = table[None, None, start:start + 3] + ts_emb[:, :, start:start + 3].float()
+    return vals[:, :, 0], vals[:, :, 1], vals[:, :, 2]
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device, dtype):
+        super().__init__()
+        d = cfg.inner_dim
+        self.norm_eps = cfg.norm_eps
+        args = (cfg.num_heads, cfg.head_dim, cfg.norm_eps, device, dtype)
+        self.attn1 = Attention(d, d, d, *args)
+        self.attn2 = Attention(d, cfg.cross_attention_dim, d, *args)
+        self.ff = FeedForward(d, cfg.ffn_dim, device, dtype)
+        self.scale_shift_table = param(6, d, device=device)
+
+    def reset_parameters(self, gen):
+        self.scale_shift_table.zero_()
+
+    def forward(self, x, context, ts_emb, rope, bias):
+        eps = self.norm_eps
+        table = self.scale_shift_table.float()
+        dtype = x.dtype
+
+        shift, scale, gate = _ada_values(table, ts_emb, 0)
+        normed = adaln(x, scale.to(dtype), shift.to(dtype), eps=eps)
+        x = x + self.attn1(normed, normed, rope=rope) * gate.to(dtype)
+
+        # cross-attention has no pre-norm (q_norm inside handles Q)
+        x = x + self.attn2(x, context, bias=bias)
+
+        shift, scale, gate = _ada_values(table, ts_emb, 3)
+        normed = adaln(x, scale.to(dtype), shift.to(dtype), eps=eps)
+        return x + self.ff(normed) * gate.to(dtype)
+
+
+class LTXTransformer(nn.Module):
+    """The video DiT. Parameter names follow ltx_tpu.models.dit.init_params;
+    the JAX tree's stacked `blocks` axis is the ModuleList index here."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.inner_dim
+        self.patchify_proj = Linear(cfg.in_channels, d, device=device, dtype=dtype)
+        self.adaln_single = AdaLNSingle(d, device, dtype)
+        self.caption_projection = TwoLinear(cfg.caption_channels, d, d, device, dtype)
+        self.blocks = nn.ModuleList(
+            Block(cfg, device, dtype) for _ in range(cfg.num_layers))
+        self.proj_out = Linear(d, cfg.out_channels, device=device, dtype=dtype)
+        self.scale_shift_table = param(2, d, device=device)
+
+    def reset_parameters(self, gen):
+        self.scale_shift_table.zero_()
+
+    def prepare_timestep(self, timesteps, batch: int, dtype):
+        """(B,) or (B, T) sigmas -> ((B, T', 6, D), (B, T', D)), T' in {1, T}."""
+        d = self.cfg.inner_dim
+        scaled = timesteps.float() * self.cfg.timestep_scale_multiplier
+        ada, embedded = self.adaln_single(scaled.reshape(-1))
+        return (ada.reshape(batch, -1, 6, d).to(dtype),
+                embedded.reshape(batch, -1, d).to(dtype))
+
+    def caption_projection_forward(self, context):
+        p = self.caption_projection
+        return p.linear_2(gelu_tanh(p.linear_1(context)))
+
+    def output_head(self, x, embedded_ts):
+        """Final AdaLN LayerNorm and projection."""
+        dtype = x.dtype
+        vals = self.scale_shift_table.float()[None, None] + embedded_ts[:, :, None].float()
+        shift, scale = vals[:, :, 0].to(dtype), vals[:, :, 1].to(dtype)
+        out = layer_norm_no_affine(x, eps=self.cfg.norm_eps)
+        out = out * (1 + scale) + shift
+        return self.proj_out(out)
+
+    def forward(self, latent, context, timesteps, rope, context_bias=None):
+        """Velocity prediction.
+
+        latent: (B, T, C) patchified tokens; context: (B, S, caption
+        channels); timesteps: (B,) or (B, T) sigmas in [0, 1]; rope: (cos,
+        sin) each (H, T, head_dim / 2) f32; context_bias: (B, 1, 1, S)
+        additive key bias or None. Returns (B, T, C)."""
+        b = latent.shape[0]
+        dtype = latent.dtype
+        x = self.patchify_proj(latent)
+        ts_emb, embedded_ts = self.prepare_timestep(timesteps, b, dtype)
+        ctx = self.caption_projection_forward(context.to(dtype))
+        ctx = ctx.reshape(b, -1, self.cfg.inner_dim)
+        for block in self.blocks:
+            x = block(x, ctx, ts_emb, rope, context_bias)
+        return self.output_head(x, embedded_ts)

@@ -1,0 +1,60 @@
+"""Scaled-dot-product attention dispatch.
+
+Port of ltx_tpu/ops/attention.py. Attention with as many key heads as query
+heads and at most a key bias (every DiT and connector attention) goes to
+`kernels.flash_attention`, whatever its length: on CUDA that is the hand
+kernel, on the CPU its plain version. Grouped-query attention with a full
+mask (Gemma) stays plain PyTorch, as it stayed on XLA in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ltx_tpu_torch.kernels.flash_attention import flash_attention
+
+
+def _gqa_sdpa(q, k, v, bias=None, scale: Optional[float] = None):
+    """Grouped-query attention without repeating K/V, f32 logits and softmax.
+
+    q: (B, H, Tq, D); k, v: (B, Hkv, Tk, D) with H = G * Hkv; bias
+    broadcasts over heads: (B, 1, Tq, Tk), (B, 1, 1, Tk) or (B, H, Tq, Tk).
+    """
+    b, h, tq, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    qg = q.reshape(b, hkv, g, tq, d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) * scale
+    if bias is not None:
+        if bias.shape[1] not in (1, h):
+            raise ValueError(f"bias heads {bias.shape[1]} != 1 or {h}")
+        bias5 = (bias.reshape(b, hkv, g, *bias.shape[2:])
+                 if bias.shape[1] == h else bias[:, :, None])
+        logits = logits + bias5.float()
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(b, h, tq, d).to(q.dtype)
+
+
+def sdpa(q, k, v, bias=None, scale: Optional[float] = None):
+    """q: (B, H, Tq, D); k, v: (B, Hkv, Tk, D) with H % Hkv == 0; bias an
+    additive float mask. Hkv < H goes to `_gqa_sdpa`; Hkv == H to the
+    flash-attention kernel, which takes no bias or a key bias only."""
+    if k.shape[1] != q.shape[1]:
+        return _gqa_sdpa(q, k, v, bias=bias, scale=scale)
+    return flash_attention(q, k, v, bias=bias, scale=scale)
+
+
+def prepare_additive_mask(mask, dtype=torch.float32):
+    """(B, S) {0, 1} validity mask -> (B, 1, 1, S) additive bias, 0 = attend,
+    -10000 = pad. A floating mask is taken as already additive."""
+    if mask is None:
+        return None
+    if mask.is_floating_point():
+        return mask
+    bias = (1 - mask.float()) * -10000.0
+    return bias.reshape(mask.shape[0], 1, 1, mask.shape[-1]).to(dtype)
