@@ -3,8 +3,8 @@
 Port of the parts of ltx_tpu/core/config.py that the text-to-video path
 reads, field for field and with the same defaults (tests/test_torch_static.py
 holds them against the reference's classes): the DiT's `TransformerConfig`,
-the pixel/latent scale factors, `GenerationConfig` and the memory knobs the
-port honours.
+the pixel/latent scale factors, `GenerationConfig`, `QuantizationConfig` and
+the memory knobs the port honours.
 """
 
 from __future__ import annotations
@@ -102,6 +102,19 @@ class GenerationConfig:
         if self.two_stage and (self.width % 64 or self.height % 64):
             raise ValueError("Two-stage requires width and height divisible by "
                              f"64. Got {self.width}x{self.height}")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizationConfig:
+    """Weight-only quantization of the transformer. The port runs "bf16",
+    "qint8" and "int4"; "w8a8" (int8 activations too) is not ported yet."""
+
+    mode: str = "bf16"  # "bf16" | "qint8" | "int4" | "w8a8"
+    group_size: int = 64
+
+    @property
+    def bits(self) -> Optional[int]:
+        return {"bf16": None, "qint8": 8, "int4": 4, "w8a8": 8}[self.mode]
 
 
 @dataclasses.dataclass(frozen=True)

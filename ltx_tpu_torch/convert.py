@@ -9,8 +9,13 @@ build them. The rules:
   * "w" -> "weight", "b" -> "bias" on Linear, Conv3d, NormWeight, Embedding;
   * Linear weights transpose (in, out) -> (out, in); Conv3d weights permute
     DHWIO (kt, kh, kw, I, O) -> (O, I, kt, kh, kw); everything else copies;
+  * a quantized linear leaf ({"w_q4"|"w_q", "scale", "bias", "b"?}) meeting
+    a Linear turns it into a QuantizedLinear shaped from the leaf, whose
+    parameters keep the JAX keys and layout (`transformer` only); a W8A8
+    leaf ({"w8", "sw"}) raises NotImplementedError;
   * strict: a leaf with no parameter, a parameter with no leaf, or a shape or
-    dtype that differs raises ValueError.
+    dtype that differs raises ValueError. Integer codes cast through float32
+    and back, which is exact for uint8.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ltx_tpu_torch.models.common import Conv3d, Embedding, Linear, NormWeight
+from ltx_tpu_torch.kernels.quantization import is_quantized
+from ltx_tpu_torch.models.common import Conv3d, Embedding, Linear, NormWeight, QuantizedLinear
 
 _RENAMED = (Linear, Conv3d, NormWeight, Embedding)
 
@@ -51,6 +57,34 @@ def _leaves(tree, module: nn.Module, prefix: str) -> Iterator[Tuple[str, object]
         name = {"w": "weight", "b": "bias"}.get(key, key) if isinstance(
             module, _RENAMED) else key
         yield f"{prefix}{name}", value
+
+
+def _swap_quantized(module: nn.Module, tree) -> None:
+    """Replace each Linear that meets a quantized leaf in `tree` by an empty
+    QuantizedLinear of the leaf's bits and group size, for load_tree to
+    fill (a stacked leaf's group count is its second-to-last dim too)."""
+    if isinstance(module, nn.ModuleList):
+        items = [tree] * len(module) if isinstance(tree, dict) else tree
+        for item, sub in zip(items, module):
+            _swap_quantized(sub, item)
+        return
+    for key, value in tree.items():
+        child = getattr(module, key, None)
+        if not isinstance(value, (dict, list)) or not isinstance(child, nn.Module):
+            continue
+        if isinstance(child, Linear) and is_quantized(value):
+            if "w8" in value:
+                raise NotImplementedError(f"{key}: W8A8 linears are not ported yet")
+            if "scale" not in value:
+                raise ValueError(f"quantized leaf {key} has no scale")
+            d_out, d_in = child.weight.shape
+            groups = np.shape(value["scale"])[-2]
+            setattr(module, key, QuantizedLinear(
+                d_in, d_out, 4 if "w_q4" in value else 8, d_in // groups,
+                bias="b" in value, device=child.weight.device,
+                dtype=child.weight.dtype))
+        else:
+            _swap_quantized(child, value)
 
 
 def _index(tree, i: int, n: int, prefix: str):
@@ -130,11 +164,14 @@ def tree_dtype(tree) -> torch.dtype:
 
 
 def transformer(tree, cfg, device=None):
-    """dit.init_params tree -> LTXTransformer (cfg: TransformerConfig)."""
+    """dit.init_params tree, plain or quantized by
+    quantize_transformer_params -> LTXTransformer (cfg: TransformerConfig)."""
     from ltx_tpu_torch.models.dit import LTXTransformer
 
     dtype = tree_dtype(tree["patchify_proj"]["w"])
-    return load_tree(LTXTransformer(cfg, device=device, dtype=dtype), tree)
+    model = LTXTransformer(cfg, device=device, dtype=dtype)
+    _swap_quantized(model, tree)
+    return load_tree(model, tree)
 
 
 def vae_decoder(tree, cfg, device=None):

@@ -24,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ltx_tpu_torch"
 
 # every kernel source of the port, by stem
-SOURCES = ("flash_attention_fwd",)
+SOURCES = ("flash_attention_fwd", "int4_matmul")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,27 +57,35 @@ def library_path(name: str) -> Path:
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every named source that has no up-to-date library. Returns
-    the seconds each build took (0.0 when it was already built); raises with
-    nvcc's log on a failure."""
+    """Compile every named source that has no up-to-date library, one nvcc
+    per source, all started together. Returns the seconds each build took
+    (0.0 when it was already built); raises with nvcc's log on a failure,
+    after every started nvcc has ended."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    seconds = {}
-    for name in names:
+    seconds = {name: 0.0 for name in names}
+    started = {}
+    t0 = time.perf_counter()
+    for name in seconds:
         out = library_path(name)
-        seconds[name] = 0.0
         if out.is_file():
             continue
-        t0 = time.perf_counter()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, check=False, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         tmp, out)
+    failures = []
+    for name, (proc, tmp, out) in started.items():
+        log = proc.communicate()[0]
+        seconds[name] = time.perf_counter() - t0
         (BUILD_DIR / f"{name}.log").write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"kernel build of {name} failed "
-                               f"(nvcc exit {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-        seconds[name] = time.perf_counter() - t0
+            failures.append(f"kernel build of {name} failed "
+                            f"(nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
     return seconds
 
 

@@ -1,13 +1,15 @@
 """Shared layers: Linear, Conv3d, norm weights, embeddings, activations.
 
-Port of ltx_tpu/models/common.py and of the plain (unquantized) branch of
-ltx_tpu/kernels/quantization.py::linear_any.
+Port of ltx_tpu/models/common.py and of the linears of
+ltx_tpu/kernels/quantization.py::linear_any: `Linear` for plain weights,
+`QuantizedLinear` for int8 / int4 ones.
 
 Parameters are created empty on an explicit device and dtype; nothing is
 initialised at construction. `convert.py` fills them from a JAX parameter
 tree, or `init_random_` draws them from a torch.Generator with the JAX
 package's init scales. Each module's parameter names follow the JAX tree's
-keys, with "w" -> "weight" and "b" -> "bias".
+keys, with "w" -> "weight" and "b" -> "bias" (QuantizedLinear keeps the
+JAX keys as they are).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ltx_tpu_torch.kernels.quantization import linear_any, quantize_weight
 
 
 def linear(x, weight, bias=None):
@@ -58,6 +62,56 @@ class Linear(nn.Module):
         _normal_(self.weight, gen, self.weight.shape[1] ** -0.5)
         if self.bias is not None:
             self.bias.zero_()
+
+
+class QuantizedLinear(nn.Module):
+    """A weight-only quantized linear, in the JAX package's layout and with
+    its leaf names, not transposed (the int4 packing runs along d_in):
+    codes `w_q4` (d_in/2, d_out) uint8 for 4 bits or `w_q` (d_in, d_out)
+    uint8 for 8, `scale` and `bias` (d_in/group, d_out) f32 (the per-group
+    affine), and the linear's own bias `b` (d_out,) or None. `forward` is
+    `linear_any` on the parameters by name, which are the JAX leaf dict.
+    Frozen parameters, so that phase staging moves them; a dtype cast of the
+    module raises, since it would change the format."""
+
+    def __init__(self, d_in: int, d_out: int, bits: int, group_size: int = 64,
+                 bias: bool = True, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        if bits not in (4, 8) or d_in % group_size:
+            raise ValueError(f"bits {bits}, d_in {d_in}, group {group_size}")
+        codes = "w_q4" if bits == 4 else "w_q"
+        rows = d_in // 2 if bits == 4 else d_in
+        setattr(self, codes, param(rows, d_out, device=device, dtype=torch.uint8))
+        self.scale = param(d_in // group_size, d_out, device=device)
+        self.bias = param(d_in // group_size, d_out, device=device)
+        self.b = param(d_out, device=device, dtype=dtype) if bias else None
+
+    def forward(self, x):
+        return linear_any(dict(self.named_parameters(recurse=False)), x)
+
+    def _apply(self, fn, recurse=True):
+        if fn(torch.empty(0, device=self.scale.device)).dtype != torch.float32:
+            raise TypeError("QuantizedLinear keeps its format: cast the "
+                            "activations, not the module")
+        return super()._apply(fn, recurse)
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, linear: Linear, bits: int, group_size: int = 64,
+                    device=None) -> "QuantizedLinear":
+        """`linear` quantized on `device` (default: where it lives, as
+        quantize_weight on its (d_in, d_out) weight); the result lives where
+        `linear` lived."""
+        d_out, d_in = linear.weight.shape
+        home = linear.weight.device
+        qp = quantize_weight(linear.weight.to(device or home).t(), bits, group_size)
+        out = cls(d_in, d_out, bits, group_size, bias=linear.bias is not None,
+                  device=home, dtype=linear.weight.dtype)
+        for name, value in qp.items():
+            getattr(out, name).copy_(value)
+        if linear.bias is not None:
+            out.b.copy_(linear.bias)
+        return out
 
 
 class Conv3d(nn.Module):

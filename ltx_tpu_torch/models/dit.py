@@ -6,7 +6,9 @@ QK RMSNorm across all heads on the flat (B, T, H*D) tensor, then RoPE on the
 flat tensor, then the head split; AdaLN-single with a per-block (6, D) f32
 scale_shift_table; affine-free LayerNorm and a (2, D) table at the output.
 Every attention goes through ops.attention.sdpa, so on CUDA through the
-flash-attention kernel.
+flash-attention kernel. `quantize_transformer` swaps the blocks' large
+linears for int8 / int4 `QuantizedLinear`s, as the reference's
+`quantize_transformer_params` quantizes the tree.
 """
 
 from __future__ import annotations
@@ -15,7 +17,15 @@ import torch
 from torch import nn
 
 from ltx_tpu_torch.config import TransformerConfig
-from ltx_tpu_torch.models.common import Linear, NormWeight, gelu_tanh, param, silu
+from ltx_tpu_torch.kernels.quantization import _MIN_QUANT_SIZE, QUANTIZABLE_LEAVES
+from ltx_tpu_torch.models.common import (
+    Linear,
+    NormWeight,
+    QuantizedLinear,
+    gelu_tanh,
+    param,
+    silu,
+)
 from ltx_tpu_torch.ops.attention import sdpa
 from ltx_tpu_torch.ops.embeddings import get_timestep_embedding
 from ltx_tpu_torch.ops.normalization import adaln, layer_norm_no_affine, rms_norm
@@ -185,3 +195,25 @@ class LTXTransformer(nn.Module):
         for block in self.blocks:
             x = block(x, ctx, ts_emb, rope, context_bias)
         return self.output_head(x, embedded_ts)
+
+
+@torch.no_grad()
+def quantize_transformer(module: nn.Module, bits: int, group_size: int = 64,
+                         device=None, w8a8: bool = False) -> nn.Module:
+    """Quantize, in place, every large linear under `module.blocks`: each
+    Linear named in QUANTIZABLE_LEAVES with d_in * d_out >= _MIN_QUANT_SIZE
+    and d_in % group_size == 0 becomes a QuantizedLinear, one layer at a
+    time, quantized on `device` (default: where the layer lives) and kept
+    where the layer lived. Everything outside the blocks, norms and tables
+    stay as they are. Returns `module`."""
+    if w8a8:
+        raise NotImplementedError("W8A8 quantization is not ported yet")
+    targets = [(parent, name, child)
+               for parent in module.blocks.modules()
+               for name, child in parent.named_children()
+               if name in QUANTIZABLE_LEAVES and isinstance(child, Linear)
+               and child.weight.numel() >= _MIN_QUANT_SIZE
+               and child.weight.shape[1] % group_size == 0]
+    for parent, name, child in targets:
+        setattr(parent, name, QuantizedLinear.from_linear(child, bits, group_size, device))
+    return module

@@ -22,9 +22,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ltx_tpu_torch.config import GenerationConfig, MemoryConfig, TransformerConfig
+from ltx_tpu_torch.config import (
+    GenerationConfig,
+    MemoryConfig,
+    QuantizationConfig,
+    TransformerConfig,
+)
 from ltx_tpu_torch.models.common import init_random_
-from ltx_tpu_torch.models.dit import LTXTransformer
+from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
 from ltx_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
 from ltx_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from ltx_tpu_torch.models.vae import VAEConfig, VideoDecoder, decode_video
@@ -110,15 +115,22 @@ class LTXPipeline:
     def random(cls, tcfg: TransformerConfig, vcfg: VAEConfig, gcfg: Gemma3Config,
                tecfg: TextEncoderConfig, device, seed: int = 0,
                dtype=torch.bfloat16, vae_dtype=torch.bfloat16,
-               memory: MemoryConfig = MemoryConfig()):
+               memory: MemoryConfig = MemoryConfig(),
+               quantization: QuantizationConfig = QuantizationConfig()):
         """Random weights at the given configs, drawn on `device` from one
         seeded torch.Generator per component with the reference's init
-        scales. With phase staging each component then moves to the host."""
+        scales. With `quantization.mode` "int4" or "qint8" the DiT's block
+        linears are then quantized there, layer by layer; Gemma, the
+        connector and the VAE stay unquantized. With phase staging each
+        component then moves to the host."""
         device = torch.device(device)
 
         def build(i, make):
             gen = torch.Generator(device=device).manual_seed(seed * 16 + i)
             module = init_random_(make(), gen)
+            if i == 0 and quantization.bits is not None:
+                quantize_transformer(module, quantization.bits, quantization.group_size,
+                                     w8a8=quantization.mode == "w8a8")
             return module.to("cpu") if memory.phase_staging else module
 
         return cls(
@@ -129,21 +141,26 @@ class LTXPipeline:
             memory=memory, device=device)
 
     @classmethod
-    def random_full(cls, device, seed: int = 0,
-                    memory: MemoryConfig = MemoryConfig(phase_staging=True)):
+    def random_full(cls, device="cuda", seed: int = 0,
+                    memory: MemoryConfig = MemoryConfig(phase_staging=True),
+                    quantization: QuantizationConfig = QuantizationConfig()):
         """Full widths and depths: Gemma-3-12B, the 30x128 connector, the
-        48-block DiT, the 1024-channel VAE decoder; bf16 throughout."""
+        48-block DiT (bf16, or quantized per `quantization`), the
+        1024-channel VAE decoder; bf16 otherwise."""
         return cls.random(TransformerConfig(), VAEConfig(), Gemma3Config(),
-                          TextEncoderConfig(), device, seed=seed, memory=memory)
+                          TextEncoderConfig(), device, seed=seed, memory=memory,
+                          quantization=quantization)
 
     @classmethod
-    def random_tiny(cls, device="cpu", seed: int = 0,
-                    memory: MemoryConfig = MemoryConfig()):
+    def random_tiny(cls, device="cuda", seed: int = 0,
+                    memory: MemoryConfig = MemoryConfig(),
+                    quantization: QuantizationConfig = QuantizationConfig()):
         """The reference's tiny test configs; f32 VAE like its tiny pipeline.
         Torch draws differ from jax.random's: parity tests convert the
         reference's parameters instead (convert.py)."""
         return cls.random(*tiny_configs(), device, seed=seed,
-                          vae_dtype=torch.float32, memory=memory)
+                          vae_dtype=torch.float32, memory=memory,
+                          quantization=quantization)
 
     # ------------------------------------------------------------------
     # Phase staging

@@ -1,0 +1,120 @@
+"""Where a denoise step's device time goes, on one NVIDIA GPU.
+
+    python -m ltx_tpu_torch.profile_step [--frames 25 --height 512 --width 768]
+
+Builds the full-width, full-depth DiT with random bf16 weights from a seed
+on the card, runs one warm-up denoise step at the given clip size (a random
+1024-token text context with 300 padded keys), then profiles two steps with
+torch.profiler and prints, per step: the host time, the device time by
+kernel group (the flash-attention and int4 kernels of this package, GEMMs,
+everything else) and the device's idle share. Then it quantizes the same
+DiT to int4 on the card and does the same again. The last line is one JSON
+object with both breakdowns. Fails without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
+from ltx_tpu_torch.models.common import init_random_
+from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
+from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
+from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
+
+# kernel-name fragments of each group, matched in this order
+GROUPS = (
+    ("flash_attention", ("flash_fwd_kernel",)),
+    ("int4_matmul", ("int4_matmul_kernel",)),
+    ("dequant_int4", ("dequant_int4_kernel",)),
+    ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")),
+)
+PROFILED_STEPS = 2
+
+
+def group_of(name: str) -> str:
+    for group, fragments in GROUPS:
+        if any(f in name for f in fragments):
+            return group
+    return "other"
+
+
+def profile_steps(step, latent) -> dict:
+    """One warm-up step, then PROFILED_STEPS steps under the profiler;
+    returns per-step host ms, device ms by group, and the idle share
+    (1 - device ms / host ms, not floored: a negative share is a
+    measurement error to look into)."""
+    with torch.inference_mode():
+        step(latent, 1.0, 0.9)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                step(latent, 1.0, 0.9)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    device_ms = {name: 0.0 for name, _ in GROUPS}
+    device_ms["other"] = 0.0
+    for avg in prof.key_averages():
+        if avg.device_type == DeviceType.CUDA:
+            device_ms[group_of(avg.key)] += avg.self_device_time_total / 1e3 / PROFILED_STEPS
+    busy = sum(device_ms.values())
+    if busy <= 0.0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"host_ms": host_ms, "device_ms": device_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / host_ms}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--frames", type=int, default=25)
+    parser.add_argument("--height", type=int, default=512)
+    parser.add_argument("--width", type=int, default=768)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: CUDA is not available")
+    device = torch.device("cuda", 0)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True, capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[profile] gpu: {gpu}, torch {torch.__version__}", flush=True)
+
+    cfg = TransformerConfig()
+    gen = torch.Generator(device=device).manual_seed(0)
+    transformer = init_random_(LTXTransformer(cfg, device, torch.bfloat16), gen)
+    config = GenerationConfig(width=args.width, height=args.height, num_frames=args.frames)
+    shape = VideoLatentShape.from_pixels(1, args.frames, args.height, args.width,
+                                         channels=cfg.in_channels)
+    latent = generate_noise(shape, gen)
+    context = torch.randn(1, 1024, cfg.caption_channels, generator=gen,
+                          device=device).bfloat16()
+    bias = torch.zeros(1, 1, 1, 1024, device=device)
+    bias[..., :300] = -10000.0
+
+    results = {}
+    for mode in ("bf16", "int4"):
+        if mode == "int4":
+            quantize_transformer(transformer, bits=4, group_size=64)
+            torch.cuda.empty_cache()
+        step = make_denoise_step(transformer, GuidanceSpec.from_config(config), shape,
+                                 context, bias, fps=config.fps)
+        res = profile_steps(step, latent)
+        results[mode] = res
+        groups = ", ".join(f"{k} {v:.2f}" for k, v in res["device_ms"].items())
+        print(f"[profile] {mode} {args.frames}f@{args.width}x{args.height} "
+              f"({shape.token_count} tokens): host {res['host_ms']:.2f} ms/step, device "
+              f"{res['device_busy_ms']:.2f} ms/step ({groups}), idle share "
+              f"{res['idle_share']:.3f}", flush=True)
+    print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "steps": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,7 +9,9 @@ only torch (tests/conftest.py imports jax, hence --noconftest):
 
 The cases and tolerances are ltx_tpu_torch.checks', which chip_smoke.py
 runs too: attention element by element within 2**-8 * (P @ |V|) plus two
-bf16 ulps of the plain output; the tiny pipeline's frames within 2e-2.
+bf16 ulps of the plain output; the int4 product within one bf16 ulp plus
+2**-12 * (|X| @ |W|); dequant_int4 and quantize_weight on the card bit for
+bit; the tiny pipeline's frames within 2e-2.
 """
 
 import pytest
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from ltx_tpu_torch import checks
 from ltx_tpu_torch.kernels import flash_attention as fa
+from ltx_tpu_torch.kernels import quantization as qz
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +49,41 @@ def test_flash_kernel_rejects_what_it_does_not_take(device):
     q48 = torch.randn(1, 2, 8, 48, device=device).bfloat16()
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q48, q48, q48)
+
+
+@pytest.mark.parametrize("case", checks.INT4_CASES, ids=lambda c: c.name)
+def test_int4_route_matches_plain(device, case):
+    res = checks.check_int4(case, device)
+    big = case.m >= qz.BIG_M_DEQUANT_THRESHOLD
+    assert (res["int4_matmul_launches"], res["dequant_int4_launches"]) == (
+        (0, 1) if big else (1, 0))
+
+
+def test_dequant_kernel_is_exact(device):
+    for shape in checks.DEQUANT_SHAPES:
+        assert checks.check_dequant(device, shape)["mismatches"] == 0
+    assert checks.check_dequant(device, (512, 264), group=32)["mismatches"] == 0
+
+
+def test_quantize_on_the_card_matches_the_cpu(device):
+    assert not any(checks.check_quantize_on_device(device).values())
+
+
+def test_int4_kernels_reject_what_they_do_not_take(device):
+    case = checks.Int4Case("reject", 64, 512, 256)
+    x, qp = checks.int4_inputs(case, device)
+    args = (qp["w_q4"], qp["scale"], qp["bias"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        qz.int4_matmul(x.float(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        qz.int4_matmul(x.t().contiguous().t(), *args)
+    with pytest.raises(ValueError, match="scale is"):
+        qz.int4_matmul(x, qp["w_q4"], qp["scale"].bfloat16(), qp["bias"])
+    with pytest.raises(ValueError, match="K % 256"):
+        small = checks.int4_weights(128, 256, 64, device)
+        qz.int4_matmul(x[:, :128].contiguous(), small["w_q4"], small["scale"], small["bias"])
+    with pytest.raises(ValueError, match="do not match"):
+        qz.dequant_int4(qp["w_q4"], qp["scale"][:3], qp["bias"][:3])
 
 
 def test_bf16_linear_rounds_once(device):

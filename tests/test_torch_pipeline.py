@@ -8,7 +8,11 @@ run of the reference on the same prompt and noise.
 Tolerance: 2e-2 absolute on frames in [0, 1] (first frame and the video's
 mean/std/min/max), for bf16 Gemma, connector and DiT whose roundings fall
 at different places in the two frameworks; measured 9.9e-3 against the
-live run and 5.3e-3 against the golden's first frame."""
+live run and 5.3e-3 against the golden's first frame. The same 2e-2 holds
+the int4 pipeline (the reference's DiT tree through
+quantize_transformer_params) against a live reference run: at the tiny
+widths only the FF linears are large enough to quantize, and their N or K
+of 128 keeps them off the kernel route on both sides."""
 
 import dataclasses
 import pathlib
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 from ltx_tpu.core import config as jconfig
+from ltx_tpu.kernels.quantization import quantize_transformer_params
 from ltx_tpu.models import dit as jdit
 from ltx_tpu.models import gemma3 as jgemma
 from ltx_tpu.models import text_encoder as jte
@@ -27,7 +32,8 @@ from ltx_tpu.models import vae as jvae
 from ltx_tpu.ops.latents import VideoLatentShape as JShape
 from ltx_tpu.pipeline.generate import LTXPipeline as JaxPipeline
 from ltx_tpu_torch import convert
-from ltx_tpu_torch.config import GenerationConfig, MemoryConfig
+from ltx_tpu_torch.config import GenerationConfig, MemoryConfig, QuantizationConfig
+from ltx_tpu_torch.models.common import QuantizedLinear
 from ltx_tpu_torch.pipeline import generate
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
 
@@ -106,6 +112,30 @@ def test_generate_video_matches_live_reference(runs):
     assert len(got.timings.denoise_steps) == 8
 
 
+def test_generate_video_int4_matches_live_reference(pipes):
+    ref, port = pipes
+    bf16_tree = ref.transformer_params
+    tree = quantize_transformer_params(bf16_tree, 4, 64)
+    int4 = LTXPipeline(
+        transformer=convert.transformer(tree, port.tcfg), vae_decoder=port.vae_decoder,
+        gemma=port.gemma, text_encoder=port.text_encoder,
+        memory=MemoryConfig(offload_text_encoder=False))
+    assert sum(isinstance(m, QuantizedLinear) for m in int4.transformer.modules()) == 4
+    noise = _reference_noise(CONFIG, port.tcfg.in_channels)
+    ref.transformer_params = tree
+    try:
+        want = np.asarray(ref.generate_video(
+            PROMPT, convert.port_config(CONFIG, jconfig.GenerationConfig)).frames, np.float32)
+    finally:
+        ref.transformer_params = bf16_tree
+    frames = int4.generate_video(PROMPT, CONFIG, torch.from_numpy(noise)).frames
+    assert frames.shape == want.shape and np.isfinite(frames).all()
+    err = float(np.abs(frames - want).max())
+    print(f"[parity] int4 generate_video vs live reference: max abs {err:.3e} "
+          f"(tol {FRAME_ATOL:.0e})")
+    assert err <= FRAME_ATOL
+
+
 def test_generate_video_matches_golden(runs):
     want, got = runs
     with np.load(GOLDEN) as z:
@@ -156,13 +186,34 @@ def test_unported_configs_raise(pipes, kw):
         port.generate_video(PROMPT, config, noise)
 
 
+def test_staged_int4_pipeline_keeps_its_codes_on_the_host():
+    """Phase staging with an int4 DiT: quantized on the pipeline's device,
+    moved there for the denoise phase and released back to the same host
+    tensors, uint8 codes and f32 scales unchanged."""
+    port = LTXPipeline.random_tiny(device="cpu", seed=1,
+                                   memory=MemoryConfig(phase_staging=True),
+                                   quantization=QuantizationConfig(mode="int4"))
+    layer = port.transformer.blocks[0].ff.project_in
+    assert isinstance(layer, QuantizedLinear) and not layer.w_q4.requires_grad
+    before = {n: (p.data_ptr(), p.dtype) for n, p in port.transformer.named_parameters()}
+    noise = torch.randn(1, port.tcfg.in_channels, 2, 2, 2,
+                        generator=torch.Generator().manual_seed(0))
+    result = port.generate_video("staged int4", CONFIG, noise)
+    assert result.frames.shape == (9, 64, 64, 3) and np.isfinite(result.frames).all()
+    for n, p in port.transformer.named_parameters():
+        assert (p.data_ptr(), p.dtype) == before[n], n
+    assert (layer.w_q4.dtype, layer.scale.dtype) == (torch.uint8, torch.float32)
+
+
 def test_staged_pipeline_runs_and_tiling_raises():
-    port = LTXPipeline.random_tiny(seed=1, memory=MemoryConfig(phase_staging=True))
+    port = LTXPipeline.random_tiny(device="cpu", seed=1,
+                                   memory=MemoryConfig(phase_staging=True))
     noise = torch.randn(1, port.tcfg.in_channels, 2, 2, 2,
                         generator=torch.Generator().manual_seed(0))
     result = port.generate_video("staged", CONFIG, noise)
     assert result.frames.shape == (9, 64, 64, 3) and np.isfinite(result.frames).all()
     assert port.gemma is not None  # staging keeps every component
-    tiled = LTXPipeline.random_tiny(seed=1, memory=MemoryConfig(vae_tile_size=1))
+    tiled = LTXPipeline.random_tiny(device="cpu", seed=1,
+                                    memory=MemoryConfig(vae_tile_size=1))
     with pytest.raises(NotImplementedError):
         tiled.generate_video("tiled", CONFIG, noise)

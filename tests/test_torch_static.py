@@ -46,13 +46,18 @@ def test_port_never_imports_jax(path):
         assert top not in ("jax", "jaxlib", "flax", "ltx_tpu"), f"{path.name} imports {mod}"
 
 
-@pytest.mark.parametrize("name", ["TransformerConfig", "GenerationConfig"])
+@pytest.mark.parametrize("name", ["TransformerConfig", "GenerationConfig",
+                                  "QuantizationConfig"])
 def test_configs_match_reference(name):
     port, ref = getattr(config, name)(), getattr(jconfig, name)()
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     if name == "TransformerConfig":
         assert dataclasses.asdict(port.tiny()) == dataclasses.asdict(ref.tiny())
         assert (port.inner_dim, port.ffn_dim) == (ref.inner_dim, ref.ffn_dim)
+    if name == "QuantizationConfig":
+        modes = ("bf16", "qint8", "int4", "w8a8")
+        assert [config.QuantizationConfig(mode=m).bits for m in modes] == [
+            jconfig.QuantizationConfig(mode=m).bits for m in modes]
 
 
 def test_memory_config_and_scales_match_reference():

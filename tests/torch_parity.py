@@ -35,3 +35,28 @@ def assert_rel(got, want, tol: float, what: str) -> float:
     print(f"[parity] {what}: {err:.3e} (tol {tol:.1e})")
     assert err <= tol, f"{what}: relative error {err:.3e} > {tol:.1e}"
     return err
+
+
+def reference_int4_kernel_route(monkeypatch) -> list:
+    """Make ltx_tpu's linear_any take its int4 kernel route on the CPU, as
+    it does on a TPU: `_use_pallas_int4` becomes the shape rule alone and
+    `int4_matmul` runs in Pallas interpret mode. Returns a list that gains
+    one entry each time the reference traces or calls the kernel."""
+    from ltx_tpu.kernels import quantization as jq
+
+    tiles = (1024, 768, 512, 256)
+    calls = []
+
+    def shape_rule(p, x):
+        return bool("w_q4" in p and jq._pick_block(x.shape[-1], tiles)
+                    and jq._pick_block(p["w_q4"].shape[1], tiles)
+                    and x.shape[-1] % jq.PACK_BLOCK == 0)
+
+    def interpreted(p, x):
+        calls.append(tuple(x.shape))
+        return kernel(p, x, interpret=True)
+
+    kernel = jq.int4_matmul
+    monkeypatch.setattr(jq, "_use_pallas_int4", shape_rule)
+    monkeypatch.setattr(jq, "int4_matmul", interpreted)
+    return calls
