@@ -21,9 +21,21 @@ Phases, each printing its own lines:
   5. the big-M route: one int4 DiT call at 121 frames, 1024x576 (9216
      tokens), where the 9216-row linears go through dequant_int4 and a
      plain product and the 1024-row text K/V through int4_matmul;
-  6. a JSON line of the kernels: launches (each from the path that runs
+  6. the training path: `python -m ltx_tpu_torch.train.cli`'s `run` at full
+     width and depth (the 48-block DiT, random and seeded, quantized to
+     int4 and frozen, rank-16 LoRA on its 480 block linears) on a latent
+     shard of two 25f@768x512 rows (1536 tokens) with 1024-token,
+     left-padded text contexts: 4 steps with checkpoints, then a resume leg
+     to step 6; every attention through the statistics forward and the two
+     backward kernels, the int4 base through int4_matmul forward and
+     dequant_int4 in its straight-through backward, with the launch counts
+     read around every step; the checkpoint and the exported adapter read
+     back. (Phase 2 also holds the tiny LoRA train on the card against the
+     CPU, and the statistics and backward kernels against their plain
+     versions.)
+  7. a JSON line of the kernels: launches (each from the path that runs
      it), max error, kernel, plain and library ms, the bound and what sets it;
-  7. the last line, {"ok": true, "device": {...}}.
+  8. the last line, {"ok": true, "device": {...}}.
 
 There is no fallback: without CUDA, or when a kernel fails to build, launch
 or agree, the script raises and exits non-zero before the last line.
@@ -31,7 +43,9 @@ or agree, the script raises and exits non-zero before the last line.
 
 from __future__ import annotations
 
+import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -41,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ltx_tpu_torch import checks
-from ltx_tpu_torch.config import GenerationConfig
+from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
 from ltx_tpu_torch.kernels import build
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
@@ -50,6 +64,9 @@ from ltx_tpu_torch.models.dit import quantize_transformer
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 from ltx_tpu_torch.pipeline.generate import GenerationTimings, LTXPipeline
+from ltx_tpu_torch.train import cli as train_cli
+from ltx_tpu_torch.train.data import write_shard
+from ltx_tpu_torch.train.export import read_safetensors
 
 PROMPT = "A beaver builds a dam in a mountain stream at golden hour"
 NORTH_STAR = GenerationConfig(width=768, height=512, num_frames=25, num_steps=8, seed=0)
@@ -223,25 +240,143 @@ def phase_int4_kernels(device):
     return matmul, dequant
 
 
+def sdpa_backward_ms(q, k, v, mask, do, scale) -> float:
+    """The library yardstick of the backward: scaled_dot_product_attention
+    forward plus backward, minus its forward, on the same inputs."""
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def both():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                         scale=scale))
+    return cuda_ms(both) - fwd
+
+
+def phase_flash_training_kernels(device):
+    """The statistics forward (B2) and the two backward kernels (B3) against
+    their plain versions at the training path's shapes and the ragged ones
+    (checks.BWD_CASES, element-wise tolerances, exact zeros on -1e30 masked
+    keys); returns the kernels-line entries (without launches), timed at
+    the DiT's self-attention. The plain and library times of the backward
+    are those of the whole backward (one plain function, one library call,
+    computing dQ, dK and dV together)."""
+    errs = {"stats": 0.0, "dq": 0.0, "dkv": 0.0}
+    timings = {}
+    for case in checks.BWD_CASES:
+        st = checks.check_stats(case, device)
+        bw = checks.check_backward(case, device)
+        errs["stats"] = max(errs["stats"], st["max_abs_err"])
+        errs["dq"] = max(errs["dq"], bw["dq"]["max_abs_err"])
+        errs["dkv"] = max(errs["dkv"], bw["dk"]["max_abs_err"], bw["dv"]["max_abs_err"])
+        q, k, v, do, bias, o, lse = checks.backward_inputs(case, device)
+        b, h, tq, tk, d = case.b, case.h, case.tq, case.tk, case.d
+        scale = case.scale if case.scale is not None else d**-0.5
+        mask = None if bias is None else bias.to(q.dtype)
+        work = b * h * tq * tk * d
+        io = 2.0 * b * h * d * (tq + tk) + (0 if bias is None else 4.0 * b * tk)
+        # the forward: read q, k, v, write o; the statistics 8 bytes a row
+        s_ms = cuda_ms(lambda: fa.flash_attention_stats(q, k, v, bias, case.scale))
+        s_plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, bias, case.scale,
+                                                               return_stats=True))
+        s_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                               scale=case.scale))
+        s_bound = bound(4.0 * work, io + 2.0 * b * h * tq * d + 8.0 * b * h * tq)
+        # the backward: delta as the wrapper computes it, then each kernel;
+        # dq reads q, k, v, dO, lse, delta and writes dQ (S, dP, dQ: 6 flops
+        # per (q, k, d)); dkv reads the same and writes dK, dV (S, dP, dV,
+        # dK: 8); the pair's essential work is 10 (S and dP once)
+        kb = fa.key_bias(bias, b, tk)
+        kb = None if kb is None else kb.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        rows = 2.0 * b * h * tq * d + 8.0 * b * h * tq
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, kb, do, lse, delta, scale))
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, kb, do, lse, delta,
+                                                            scale))
+        b_plain = cuda_ms(lambda: fa.flash_attention_backward_reference(
+            q, k, v, bias, o, lse, do, case.scale))
+        b_lib = sdpa_backward_ms(q, k, v, mask, do, case.scale)
+        dq_bound = bound(6.0 * work, io + rows + 2.0 * b * h * tq * d)
+        dkv_bound = bound(8.0 * work, io + rows + 4.0 * b * h * tk * d)
+        pair_bound = bound(10.0 * work, io + rows + 2.0 * b * h * d * (tq + 2 * tk))
+        timings[case.name] = (s_ms, s_plain, s_lib, s_bound, dq_ms, dkv_ms, b_plain, b_lib,
+                              dq_bound, dkv_bound)
+        log(f"[kernel] flash_attention_stats {case.name} q{(b, h, tq, d)} k{(b, h, tk, d)} "
+            f"bias={case.bias}: max_abs_err {st['max_abs_err']:.3e}, out {st['tol_share']:.3f},"
+            f" m {st['m_share']:.3f}, l {st['l_share']:.3f} of their tolerances; kernel"
+            f" {s_ms:.4f} ms, plain {s_plain:.4f} ms, library (sdpa fwd) {s_lib:.4f} ms,"
+            f" bound {s_bound[0]:.4f} ms ({s_bound[1]})")
+        log(f"[kernel] flash_attention backward {case.name}: dq err "
+            f"{bw['dq']['max_abs_err']:.3e} ({bw['dq']['tol_share']:.3f} of its tolerance),"
+            f" dk {bw['dk']['max_abs_err']:.3e} ({bw['dk']['tol_share']:.3f}), dv "
+            f"{bw['dv']['max_abs_err']:.3e} ({bw['dv']['tol_share']:.3f})"
+            + (f", masked keys nonzero {bw['masked_nonzero']}" if "masked_nonzero" in bw
+               else "")
+            + f"; dq kernel {dq_ms:.4f} ms (bound {dq_bound[0]:.4f}), dkv kernel "
+            f"{dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f}), pair {dq_ms + dkv_ms:.4f} ms "
+            f"(bound {pair_bound[0]:.4f}, {pair_bound[1]}); plain backward {b_plain:.4f} ms,"
+            f" library (sdpa fwd+bwd - fwd) {b_lib:.4f} ms")
+        del q, k, v, do, bias, o, lse, delta
+    (s_ms, s_plain, s_lib, s_bound, dq_ms, dkv_ms, b_plain, b_lib, dq_bound,
+     dkv_bound) = timings["dit_self_attn"]
+    src = "ltx_tpu_torch/csrc/flash_attention_bwd.cu"
+    return [
+        {"name": "flash_attention_stats", "route": "cuda",
+         "source": "ltx_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "ltx_tpu/kernels/flash_attention.py:124", "max_abs_err": errs["stats"],
+         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0], "bound_by": s_bound[1],
+         "library_ms": s_lib},
+        {"name": "flash_attention_bwd_dq", "route": "cuda", "source": src,
+         "replaces": "ltx_tpu/kernels/flash_attention.py:347", "max_abs_err": errs["dq"],
+         "ms": dq_ms, "plain_ms": b_plain, "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+         "library_ms": b_lib},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda", "source": src,
+         "replaces": "ltx_tpu/kernels/flash_attention.py:347", "max_abs_err": errs["dkv"],
+         "ms": dkv_ms, "plain_ms": b_plain, "bound_ms": dkv_bound[0],
+         "bound_by": dkv_bound[1], "library_ms": b_lib},
+    ]
+
+
 def phase_tiny_agreement(device) -> None:
-    """The tiny pipeline on the card against the same weights on the CPU."""
+    """The tiny pipeline and the tiny LoRA train on the card against the
+    same weights on the CPU."""
     res = checks.check_tiny_pipeline(device)
     log(f"[tiny] pipeline on the card vs the CPU: max abs err "
         f"{res['max_abs_err']:.3e} (tol {checks.TINY_FRAME_ATOL:.0e}), "
         f"{res['launches']} kernel launches")
+    res = checks.check_tiny_train(device)
+    log(f"[tiny] LoRA train ({checks.TINY_TRAIN_STEPS} steps, bf16) on the card vs the CPU:"
+        f" first-backward LoRA gradients {res['grad_rel']:.3e}, losses {res['loss_rel']:.3e},"
+        f" LoRA leaves after the steps {res['lora_rel']:.3e} (relative, tol "
+        f"{checks.TINY_TRAIN_TOL:.0e}); launches {json.dumps(res['launches'])}")
 
 
-KERNELS = {"flash_attention": fa.flash_attention, "int4_matmul": qz.int4_matmul,
-           "dequant_int4": qz.dequant_int4}
+KERNELS = {"flash_attention": fa.flash_attention,
+           "flash_attention_stats": fa.flash_attention_stats,
+           "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+           "int4_matmul": qz.int4_matmul, "dequant_int4": qz.dequant_int4}
+
+
+NO_LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_counts() -> None:
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
 
 
 def run_counted(fn):
     """fn() with every kernel's launch count set to 0 just before it and
     read just after; returns (fn's result, {kernel: launches})."""
-    for kernel in KERNELS.values():
-        kernel.launches = 0
+    reset_counts()
     out = fn()
-    return out, {name: kernel.launches for name, kernel in KERNELS.items()}
+    return out, read_counts()
 
 
 def check_launches(tag: str, launches: dict, expected: dict) -> None:
@@ -290,8 +425,8 @@ def phase_main_path(device):
                                          NORTH_STAR.width, channels=pipe.tcfg.in_channels)
     noise = generate_noise(shape, torch.Generator(device=device).manual_seed(0))
     steps = len(pipe._sigmas(NORTH_STAR, shape)) - 1
-    expected = {"flash_attention": steps * pipe.tcfg.num_layers * 2
-                + pipe.tecfg.connector_layers, "int4_matmul": 0, "dequant_int4": 0}
+    expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
+                + pipe.tecfg.connector_layers}
     return pipe, noise, steps, north_star_run("main", pipe, noise, expected, device)
 
 
@@ -307,8 +442,8 @@ def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device)
     log(f"[int4] DiT quantized on the card, kept on the host: {quantized} linears, "
         f"{time.perf_counter() - t0:.2f} s; DiT now {nbytes / 1e9:.2f} GB")
     layers = pipe.tcfg.num_layers
-    expected = {"flash_attention": steps * layers * 2 + pipe.tecfg.connector_layers,
-                "int4_matmul": steps * layers * 10, "dequant_int4": 0}
+    expected = {**NO_LAUNCHES, "flash_attention": steps * layers * 2
+                + pipe.tecfg.connector_layers, "int4_matmul": steps * layers * 10}
     launches, int4_run = north_star_run("int4", pipe, noise, expected, device)
     for name, (result, peak) in (("bf16", bf16_run), ("int4", int4_run)):
         tm, frames = result.timings, result.frames
@@ -347,7 +482,7 @@ def phase_big_m(pipe: LTXPipeline, device) -> dict:
     log(f"[bigm] {BIG_M.num_frames}f@{BIG_M.width}x{BIG_M.height}: {shape.token_count} "
         f"tokens, one int4 DiT call {seconds:.3f} s; velocity {tuple(velocity.shape)}, "
         f"mean {velocity.mean().item():.4f}, std {velocity.std().item():.4f}")
-    check_launches("bigm", launches, {"flash_attention": layers * 2,
+    check_launches("bigm", launches, {**NO_LAUNCHES, "flash_attention": layers * 2,
                                       "int4_matmul": layers * 2,
                                       "dequant_int4": layers * 8})
     if shape.token_count < qz.BIG_M_DEQUANT_THRESHOLD or \
@@ -356,12 +491,133 @@ def phase_big_m(pipe: LTXPipeline, device) -> dict:
     return launches
 
 
+TRAIN_GRID = (4, 16, 24)   # 25f@768x512: 1536 latent tokens
+TRAIN_TEXT = 1024
+TRAIN_PADS = (300, 500)    # left padding of each row's text context
+TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY, TRAIN_RANK = 4, 6, 2, 16
+
+
+def train_step_launches(cfg: TransformerConfig) -> dict:
+    """Launches in one QLoRA train step, from the code: per-block remat runs
+    each block forward twice (the step's forward, then its recompute in the
+    backward), each with two statistics launches (self- and
+    cross-attention) and its 10 int4 block linears through int4_matmul (1536
+    latent and 1024 text rows, both under 8192); the backward runs each
+    attention's dq and dkv kernels once, and the straight-through backward
+    dequantizes once per int4 linear whose input needs a gradient: not
+    block 0's attn1 q/k/v (their input is the frozen patchify projection's)
+    nor any attn2 to_k/to_v (the frozen caption projection's)."""
+    layers = cfg.num_layers
+    return {**NO_LAUNCHES, "flash_attention_stats": 2 * 2 * layers,
+            "flash_attention_bwd_dq": 2 * layers, "flash_attention_bwd_dkv": 2 * layers,
+            "int4_matmul": 2 * 10 * layers, "dequant_int4": 10 * layers - 3 - 2 * layers}
+
+
+def write_train_shard(directory) -> None:
+    """Two rows of 1536 latent tokens x 128 channels and 1024 x 3840 text
+    contexts with left-padded masks, from a seed."""
+    cfg = TransformerConfig()
+    rng = np.random.default_rng(0)
+    f, h, w = TRAIN_GRID
+    mask = np.ones((2, TRAIN_TEXT), np.int64)
+    for row, pad in enumerate(TRAIN_PADS):
+        mask[row, :pad] = 0
+    write_shard(directory / "shard0.npz",
+                rng.standard_normal((2, f * h * w, cfg.in_channels), dtype=np.float32),
+                rng.standard_normal((2, TRAIN_TEXT, cfg.caption_channels),
+                                    dtype=np.float32), TRAIN_GRID, mask)
+
+
+def train_leg(tag: str, argv, expected: dict) -> list:
+    """train.cli.run on `argv`, the counts set to 0 just before it; each
+    step's launches read from the counts in the run's per-step report.
+    Returns the report's entries with the step launches added."""
+    reports = []
+
+    def report(entry):
+        if "step" in entry:
+            entry["launches"] = read_counts()
+            log(f"[{tag}] step {entry['step']}: loss {entry['loss']:.6f}, grad_norm "
+                f"{entry['grad_norm']:.6f}, {entry['seconds']:.3f} s (synchronised), peak "
+                f"{entry['peak_gib'] or 0.0:.2f} GiB")
+        else:
+            log(f"[{tag}] setup (s): {json.dumps(entry['setup'])}; starts at step "
+                f"{entry['start']}")
+        reset_counts()
+        reports.append(entry)
+
+    reset_counts()
+    if train_cli.main(argv, report) != 0:
+        raise AssertionError(f"{tag}: train.cli returned non-zero")
+    for entry in reports[1:]:
+        check_launches(f"{tag} step {entry['step']}", entry["launches"], expected)
+        if not np.isfinite(entry["loss"]) or not np.isfinite(entry["grad_norm"]):
+            raise AssertionError(f"{tag}: non-finite loss or grad_norm at step {entry['step']}")
+    return reports
+
+
+def phase_train(device) -> dict:
+    """The training path at full width and depth through train.cli: 4 steps
+    with a checkpoint every 2, then a resume leg to step 6. Asserts the
+    launches of every step, finite losses, lora_b moved from 0 by the first
+    steps, the resume starting at step 4 and an adapter of 480 x 3 tensors
+    that reads back. Returns the summed launches of the first leg."""
+    cfg = TransformerConfig()
+    work = build.BUILD_DIR.parent / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "data").mkdir(parents=True)
+    write_train_shard(work / "data")
+    ckpt, out = work / "train.npz", work / "adapter.safetensors"
+    argv = ["--data", str(work / "data"), "--out", str(out), "--random-init", "full",
+            "--quant", "int4", "--rank", str(TRAIN_RANK), "--sdpa", "pallas",
+            "--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--log-every", "1", "--ckpt", str(ckpt), "--device", str(device)]
+    expected = train_step_launches(cfg)
+    log(f"[train] {cfg.num_layers} blocks, int4 base, rank {TRAIN_RANK} LoRA, grid "
+        f"{TRAIN_GRID}, {TRAIN_TEXT} text tokens; expected launches per step "
+        f"{json.dumps(expected)}")
+    first = train_leg("train", argv, expected)
+    with np.load(ckpt) as z:
+        step = int(z["__step__"])
+        lora_b = [z[k] for k in z.files if k.startswith("t[") and k.endswith("['lora_b']")]
+    moved = float(np.mean([np.mean(b != 0) for b in lora_b]))
+    log(f"[train] checkpoint at step {step}: {len(lora_b)} stacked lora_b leaves, "
+        f"{moved:.4f} of their values nonzero")
+    if step != TRAIN_STEPS or moved < 0.5:
+        raise AssertionError(f"train: checkpoint step {step}, nonzero lora_b share {moved}")
+
+    resumed = train_leg("resume", argv[:argv.index("--steps")] + [
+        "--steps", str(TRAIN_RESUMED_STEPS), "--resume"] + argv[argv.index("--steps") + 2:],
+        expected)
+    if resumed[0]["start"] != TRAIN_STEPS or len(resumed) != 1 + TRAIN_RESUMED_STEPS - TRAIN_STEPS:
+        raise AssertionError(f"resume: started at {resumed[0]['start']}, "
+                             f"{len(resumed) - 1} steps")
+    adapter = read_safetensors(out)
+    linears = cfg.num_layers * 10
+    up = [v for k, v in adapter.items() if k.endswith("lora_up.weight")]
+    log(f"[train] adapter {out.name}: {len(adapter)} tensors ({linears} linears x 3), "
+        f"{out.stat().st_size / 2**20:.1f} MiB; lora_up nonzero share "
+        f"{float(np.mean([np.mean(u != 0) for u in up])):.4f}")
+    if len(adapter) != 3 * linears or not all(np.isfinite(v).all() for v in adapter.values()) \
+            or not any(np.any(u != 0) for u in up):
+        raise AssertionError(f"train: adapter of {len(adapter)} tensors, or non-finite, "
+                             "or lora_up all zero")
+    steps = first[1:] + resumed[1:]
+    log("[train] seconds per step: " + ", ".join(f"{e['seconds']:.3f}" for e in steps)
+        + f"; peak {max(e['peak_gib'] for e in steps):.2f} GiB")
+    shutil.rmtree(work, ignore_errors=True)
+    totals = {name: sum(e["launches"][name] for e in first[1:]) for name in KERNELS}
+    log(f"[train] launches over the first leg's {TRAIN_STEPS} steps: {json.dumps(totals)}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     device = torch.device("cuda", 0)
     phase_environment()
     flash = phase_flash_kernel(device)
+    stats, dq, dkv = phase_flash_training_kernels(device)
     matmul, dequant = phase_int4_kernels(device)
     phase_tiny_agreement(device)
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
@@ -369,7 +625,13 @@ def main() -> int:
     matmul["launches"] = phase_int4_main_path(pipe, noise, steps, bf16_run,
                                               device)["int4_matmul"]
     dequant["launches"] = phase_big_m(pipe, device)["dequant_int4"]
-    log(json.dumps({"kernels": [flash, matmul, dequant]}))
+    del pipe, noise, bf16_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(device)
+    for entry in (stats, dq, dkv):
+        entry["launches"] = train[entry["name"]]
+    log(json.dumps({"kernels": [flash, stats, dq, dkv, matmul, dequant]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,21 +25,57 @@ K = 16384, the largest K on the path. Their difference is then within
 of the larger output:
 
     |kernel - plain| <= ulp_bf16(max(|kernel|, |plain|)) + 2**-12 * (|X| @ |W|)
+
+Softmax statistics (the forward's stats variant), row by row. The kernel
+and the plain version compute the same f32 logits with the D-long dot in
+another order (each within (D/16 + 16) * 2**-23 * scale * (|Q| @ |K|^T) of
+exact, < 2**-17 of it at D = 128 and |logit| ~ 10 at the path shapes), so
+
+    |m_kernel - m_plain| <= 2**-14 * max(|m_plain|, 1),
+    |l_kernel - l_plain| <= 2**-12 * l_plain
+
+(l sums Tk terms in f32, each off by about its logit's error); the output
+is held to the attention bound above.
+
+Backward, element by element. Both take the same q, k, v, dO, lse and the
+same delta (one torch op). The kernel rounds P and dS to bf16 before the
+dV, dK and dQ products (each off by at most 2**-9 of itself), the plain
+version keeps them f32; both sum in f32 in other orders and round once to
+bf16. Besides that rounding, P carries its logit's error (eps_P below) and
+dS carries P's error and dO V^T's sum order (eps_S):
+
+    eps_P = 2**-16 * P * scale * (|Q| @ |K|^T)
+    eps_S = 2**-16 * P * scale * (|dO| @ |V|^T) + eps_P * |dP - delta| * scale
+    |dV_k - dV_p| <= (2**-8 * P + eps_P)^T @ |dO| + 2 ulp_bf16(|dV_p|)
+    |dQ_k - dQ_p| <= (2**-8 * |dS| + eps_S) @ |K| + 2 ulp_bf16(|dQ_p|)
+    |dK_k - dK_p| <= (2**-8 * |dS| + eps_S)^T @ |Q| + 2 ulp_bf16(|dK_p|)
+
+(2**-16 is more than twice the (D/16 + 16) * 2**-23 sum-order bound at
+D <= 128.) Keys that the bias masks with -1e30 must get exactly 0 in dK and
+dV on both sides.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ltx_tpu_torch.config import GenerationConfig
+from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
+from ltx_tpu_torch.models.common import init_random_
+from ltx_tpu_torch.models.dit import LTXTransformer
+from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from ltx_tpu_torch.ops.latents import VideoLatentShape
+from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
+from ltx_tpu_torch.train.flow_match import flow_match_loss
+from ltx_tpu_torch.train.lora import add_lora
+from ltx_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +185,151 @@ def check_attention(case: AttentionCase, device) -> dict:
     return out
 
 
+# the statistics' tolerances (docstring)
+STATS_M_REL = 2.0**-14
+STATS_L_REL = 2.0**-12
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardCase:
+    name: str
+    b: int
+    h: int
+    tq: int
+    tk: int
+    d: int
+    # None; ("left", n): the first n keys -10000, as the tokenizer pads;
+    # ("rows", n0, n1): per-row tails of -10000 from key n0 (row 0) and n1
+    # (row 1); ("masked", n): keys from n on -1e30 (their dK, dV must be 0)
+    bias: Optional[tuple] = None
+    scale: Optional[float] = None
+
+
+BWD_CASES = (
+    # the training path's shapes at 25f@768x512: DiT self-attention and the
+    # cross-attention over a 1024-token, left-padded text context
+    BackwardCase("dit_self_attn", 1, 32, 1536, 1536, 128),
+    BackwardCase("dit_cross_attn", 1, 32, 1536, 1024, 128, bias=("left", 300)),
+    # ragged tails (Tq, Tk not multiples of 64 or 32), every head dim, per-row
+    # biases, a -1e30 masked key tail
+    BackwardCase("ragged_d128_rows", 2, 3, 200, 77, 128, bias=("rows", 60, 33)),
+    BackwardCase("ragged_d64", 1, 2, 130, 67, 64, scale=0.3),
+    BackwardCase("ragged_d64_rows", 2, 2, 97, 130, 64, bias=("rows", 100, 7)),
+    BackwardCase("ragged_d32_masked", 1, 4, 77, 50, 32, bias=("masked", 41)),
+    BackwardCase("ragged_d16_masked", 2, 2, 33, 40, 16, bias=("masked", 17)),
+)
+
+
+def backward_inputs(case: BackwardCase, device, seed: int = 2024):
+    """q, k, v, dO (bf16) and the (B, 1, 1, Tk) f32 bias or None; o and lse
+    from the plain statistics forward, shared by kernel and plain."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(case.b, case.h, t, case.d, generator=gen,
+                               device=device).bfloat16()
+                   for t in (case.tq, case.tk, case.tk, case.tq))
+    bias = None
+    if case.bias is not None:
+        bias = torch.zeros(case.b, 1, 1, case.tk, device=device)
+        kind = case.bias[0]
+        if kind == "left":
+            bias[..., :case.bias[1]] = -10000.0
+        elif kind == "rows":
+            for row, start in enumerate(case.bias[1:1 + case.b]):
+                bias[row, ..., start:] = -10000.0
+        else:
+            bias[..., case.bias[1]:] = -1e30
+    o, m, l = fa.flash_attention_reference(q, k, v, bias, case.scale, return_stats=True)
+    return q, k, v, do, bias, o, fa.softmax_lse(m, l)
+
+
+def check_stats(case: BackwardCase, device) -> dict:
+    """The forward's statistics variant against the plain version: out
+    within the attention bound, m and l within STATS_M_REL / STATS_L_REL.
+    Raises AssertionError beyond them; returns the errors and shares."""
+    q, k, v, _, bias, _, _ = backward_inputs(case, device)
+    o, m, l = fa.flash_attention_stats(q, k, v, bias, case.scale)
+    o_p, m_p, l_p = fa.flash_attention_reference(q, k, v, bias, case.scale,
+                                                  return_stats=True)
+    err = (o.float() - o_p.float()).abs()
+    out = {
+        "max_abs_err": err.max().item(),
+        "tol_share": (err / attention_tolerance(q, k, v, bias, case.scale, o_p)).max().item(),
+        "m_share": ((m - m_p).abs() / (STATS_M_REL * m_p.abs().clamp_min(1.0))).max().item(),
+        "l_share": ((l - l_p).abs() / (STATS_L_REL * l_p)).max().item(),
+    }
+    if not max(out["tol_share"], out["m_share"], out["l_share"]) <= 1.0:
+        raise AssertionError(f"flash_attention_stats {case.name}: shares of the tolerance "
+                             f"out {out['tol_share']:.3f}, m {out['m_share']:.3f}, "
+                             f"l {out['l_share']:.3f}")
+    return out
+
+
+def tolerance_share(got, want, tol) -> float:
+    """The largest |got - want| / tol, an exact 0 counting 0 where tol is 0
+    (a masked key's gradient)."""
+    err = (got.float() - want.float()).abs()
+    return torch.where(err == 0, 0.0, err / tol).max().item()
+
+
+def backward_tolerance(q, k, v, bias, do, lse, scale, want):
+    """The element-wise backward bounds of the module docstring, for the
+    plain gradients `want` = (dQ, dK, dV)."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    if scale is None:
+        scale = q.shape[-1]**-0.5
+    o = fa.flash_attention_reference(q, k, v, bias, scale)
+    delta = (dof * o.float()).sum(dim=-1)
+    p = torch.exp(fa.attention_logits(q, k, bias, scale) - lse[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) * scale).abs()
+    eps_p = 2.0**-16 * p * scale * torch.matmul(qf.abs(), kf.abs().transpose(-1, -2))
+    eps_s = (2.0**-16 * p * scale * torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+             + eps_p * (dp - delta[..., None]).abs() * scale)
+    del dp
+    s_term = 2.0**-8 * ds + eps_s
+    del ds, eps_s
+    dq_w, dk_w, dv_w = want
+    tol_dq = torch.matmul(s_term, kf.abs()) + 2 * bf16_ulp(dq_w)
+    tol_dk = torch.matmul(s_term.transpose(-1, -2), qf.abs()) + 2 * bf16_ulp(dk_w)
+    tol_dv = (torch.matmul((2.0**-8 * p + eps_p).transpose(-1, -2), dof.abs())
+              + 2 * bf16_ulp(dv_w))
+    return tol_dq, tol_dk, tol_dv
+
+
+def check_backward(case: BackwardCase, device) -> dict:
+    """flash_attention_backward (the dq and dkv kernels) against
+    flash_attention_backward_reference; raises AssertionError beyond the
+    element-wise bounds, or when a -1e30 masked key gets a nonzero dK or
+    dV. Returns per gradient the max abs error and the largest share of an
+    element's tolerance, and the launches of each kernel."""
+    q, k, v, do, bias, o, lse = backward_inputs(case, device)
+    before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    got = fa.flash_attention_backward(q, k, v, bias, o, lse, do, case.scale)
+    launches = (fa.flash_attention_bwd_dq.launches - before[0],
+                fa.flash_attention_bwd_dkv.launches - before[1])
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, case.scale)
+    tols = backward_tolerance(q, k, v, bias, do, lse, case.scale, want)
+    out = {"dq_launches": launches[0], "dkv_launches": launches[1]}
+    for name, g, w, tol in zip(("dq", "dk", "dv"), got, want, tols):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"backward {case.name} {name}: {tuple(g.shape)} {g.dtype}")
+        out[name] = {"max_abs_err": (g.float() - w.float()).abs().max().item(),
+                     "tol_share": tolerance_share(g, w, tol)}
+    if case.bias is not None and case.bias[0] == "masked":
+        masked = slice(case.bias[1], None)
+        out["masked_nonzero"] = int((got[1][:, :, masked] != 0).sum()
+                                    + (got[2][:, :, masked] != 0).sum())
+        if out["masked_nonzero"]:
+            raise AssertionError(f"backward {case.name}: {out['masked_nonzero']} nonzero "
+                                 "dK/dV values on masked keys")
+    worst = max(out[n]["tol_share"] for n in ("dq", "dk", "dv"))
+    if not worst <= 1.0:
+        raise AssertionError(f"backward {case.name}: shares of the tolerance "
+                             + ", ".join(f"{n} {out[n]['tol_share']:.3f}"
+                                         for n in ("dq", "dk", "dv")))
+    return out
+
+
 def int4_weights(k: int, n: int, group: int, device, seed: int = 4321) -> dict:
     """A (k, n) weight drawn at the linear init scale k**-0.5, quantized to
     int4 on `device`: {"w_q4", "scale", "bias"}."""
@@ -254,3 +435,97 @@ def check_tiny_pipeline(device) -> dict:
         raise AssertionError(f"tiny pipeline: {launches} kernel launches, "
                              f"expected {expected}")
     return {"max_abs_err": err, "launches": launches}
+
+
+# the tiny LoRA train, device against CPU, bf16 compute: the flow-matching
+# loss per step, the first backward's LoRA gradients and the LoRA leaves
+# after the steps, each as the largest error relative to the CPU's largest
+# magnitude (the reference's bf16 parity tolerance, 5e-2)
+TINY_TRAIN_STEPS = 3
+TINY_TRAIN_TOL = 5e-2
+TINY_GRID = (2, 4, 6)
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def _tiny_train_case(seed: int = 5):
+    """A tiny bf16 DiT with rank-4 LoRA leaves (lora_b drawn nonzero, so
+    that lora_a gets a gradient from the first step), a 2-row batch with a
+    left-padded context mask, and each step's sigma and noise; on the CPU."""
+    cfg = TransformerConfig().tiny()
+    gen = torch.Generator().manual_seed(seed)
+    model = init_random_(LTXTransformer(cfg, device="cpu", dtype=torch.bfloat16), gen)
+    add_lora(model, gen, rank=4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    f, h, w = TINY_GRID
+    tokens = torch.randn(2, f * h * w, cfg.in_channels, generator=gen)
+    context = torch.randn(2, 16, cfg.caption_channels, generator=gen)
+    mask = torch.ones(2, 16, dtype=torch.int64)
+    mask[0, :5] = 0
+    mask[1, :9] = 0
+    cos, sin = video_rope(f, h, w, cfg.inner_dim, cfg.num_heads)
+    draws = [(torch.rand(2, generator=gen) * 0.98 + 0.01,
+              torch.randn(tokens.shape, generator=gen)) for _ in range(TINY_TRAIN_STEPS)]
+    batch = (tokens, context, (torch.from_numpy(cos), torch.from_numpy(sin)),
+             prepare_additive_mask(mask))
+    return model, batch, draws
+
+
+def _tiny_train_run(model, batch, draws, device):
+    tokens, context, rope, bias = (
+        tuple(t.to(device) for t in x) if isinstance(x, tuple) else x.to(device)
+        for x in batch)
+    tc = TrainConfig(lora_only=True, learning_rate=1e-3)
+    trainable, _, opt_state = init_train_state(model, tc)
+    sigma, noise = (t.to(device) for t in draws[0])
+    loss, _ = flow_match_loss(model, tokens, context, rope, sigma, noise, bias)
+    names = list(trainable)
+    grads = dict(zip(names, torch.autograd.grad(loss, [trainable[n] for n in names])))
+    step = make_train_step(model, tc)
+    losses = []
+    for sigma, noise in draws:
+        trainable, opt_state, aux = step(trainable, opt_state, tokens, context, rope,
+                                         sigma.to(device), noise.to(device), bias)
+        losses.append(aux["loss"])
+    return grads, losses, trainable
+
+
+def check_tiny_train(device) -> dict:
+    """The tiny LoRA train on `device` (the flash statistics forward and
+    backward kernels) against the same weights, batch and draws on the CPU
+    (the plain versions, held against the reference by the CPU tests).
+    Raises AssertionError beyond TINY_TRAIN_TOL or on a wrong launch count;
+    returns the errors and the kernel launches."""
+    model, batch, draws = _tiny_train_case()
+    want = _tiny_train_run(copy.deepcopy(model), batch, draws, "cpu")
+    counters = (fa.flash_attention_stats, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, fa.flash_attention)
+    before = [c.launches for c in counters]
+    got = _tiny_train_run(model.to(device), batch, draws, device)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    layers = len(model.blocks)
+    # one backward alone, then the steps; each a remat forward, the blocks'
+    # recompute (stats), and one backward (dq, dkv) per attention
+    calls = 1 + TINY_TRAIN_STEPS
+    expected = [calls * 2 * 2 * layers, calls * 2 * layers, calls * 2 * layers, 0]
+    out = {
+        "grad_rel": _rel(torch.cat([g.flatten() for g in got[0].values()]),
+                         torch.cat([g.flatten() for g in want[0].values()])),
+        "loss_rel": max(_rel(g, w) for g, w in zip(got[1], want[1])),
+        "lora_rel": _rel(torch.cat([p.flatten() for p in got[2].values()]),
+                         torch.cat([p.flatten() for p in want[2].values()])),
+        "launches": dict(zip(("flash_attention_stats", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv", "flash_attention"), launches)),
+    }
+    if launches != expected:
+        raise AssertionError(f"tiny train: launches {launches}, expected {expected}")
+    worst = max(out["grad_rel"], out["loss_rel"], out["lora_rel"])
+    if not worst <= TINY_TRAIN_TOL:
+        raise AssertionError(f"tiny train: device vs CPU {out}")
+    return out

@@ -13,6 +13,11 @@ build them. The rules:
     a Linear turns it into a QuantizedLinear shaped from the leaf, whose
     parameters keep the JAX keys and layout (`transformer` only); a W8A8
     leaf ({"w8", "sw"}) raises NotImplementedError;
+  * a linear leaf carrying a LoRA side path ({"lora_a" (in, r), "lora_b"
+    (r, out), "lora_s" ()}, stacked (L, in, r), (L, r, out), (L,) in the
+    blocks, as train.lora.add_lora inserts them) gives its Linear or
+    QuantizedLinear the three parameters, of the leaf's rank and dtype, in
+    the same layout (`transformer` only);
   * strict: a leaf with no parameter, a parameter with no leaf, or a shape or
     dtype that differs raises ValueError. Integer codes cast through float32
     and back, which is exact for uint8.
@@ -87,6 +92,25 @@ def _swap_quantized(module: nn.Module, tree) -> None:
             _swap_quantized(child, value)
 
 
+def _add_lora_slots(module: nn.Module, tree) -> None:
+    """Give each linear that meets a leaf with "lora_a" in `tree` empty
+    LoRA parameters of that leaf's rank and dtype, for load_tree to fill."""
+    if isinstance(module, nn.ModuleList):
+        items = [tree] * len(module) if isinstance(tree, dict) else tree
+        for item, sub in zip(items, module):
+            _add_lora_slots(sub, item)
+        return
+    for key, value in tree.items():
+        child = getattr(module, key, None)
+        if not isinstance(value, (dict, list)) or not isinstance(child, nn.Module):
+            continue
+        if isinstance(child, (Linear, QuantizedLinear)) and "lora_a" in value:
+            a = np.asarray(value["lora_a"])
+            child.add_lora_params(a.shape[-1], getattr(torch, str(a.dtype)))
+        else:
+            _add_lora_slots(child, value)
+
+
 def _index(tree, i: int, n: int, prefix: str):
     if isinstance(tree, dict):
         return {k: _index(v, i, n, f"{prefix}{k}.") for k, v in tree.items()}
@@ -119,7 +143,7 @@ def _to_torch(array, owner: nn.Module, leaf: str) -> Tuple[torch.Tensor, str]:
     """Host copy of one leaf in the port's layout, and its dtype name."""
     arr = np.asarray(array)
     dtype_name = str(arr.dtype)
-    host = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+    host = torch.from_numpy(np.array(arr, dtype=np.float32))  # 0-d stays 0-d
     if leaf == "weight" and isinstance(owner, Linear):
         host = host.t()
     elif leaf == "weight" and isinstance(owner, Conv3d):
@@ -165,12 +189,15 @@ def tree_dtype(tree) -> torch.dtype:
 
 def transformer(tree, cfg, device=None):
     """dit.init_params tree, plain or quantized by
-    quantize_transformer_params -> LTXTransformer (cfg: TransformerConfig)."""
+    quantize_transformer_params, with or without LoRA side paths from
+    train.lora.add_lora -> LTXTransformer (cfg: TransformerConfig)."""
     from ltx_tpu_torch.models.dit import LTXTransformer
 
+    tree = _to_numpy(tree)
     dtype = tree_dtype(tree["patchify_proj"]["w"])
     model = LTXTransformer(cfg, device=device, dtype=dtype)
     _swap_quantized(model, tree)
+    _add_lora_slots(model, tree)
     return load_tree(model, tree)
 
 

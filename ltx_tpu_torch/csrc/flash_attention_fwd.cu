@@ -26,6 +26,13 @@
 // Layout: one thread block of 4 warps owns 64 query rows of one (batch, head);
 // each warp owns 16 rows. The block loops over K/V in tiles of 64 keys: K is
 // staged row-major, V transposed, so both B operands load as 32-bit pairs.
+//
+// With kStats the same kernel also writes each row's final softmax
+// statistics, replacing _stats_kernel / _stats_kernel_bias_free: m, the max
+// of the scaled, biased logits (-1e30 pad logits included, as on the TPU),
+// and l, the sum of exp(logit - m), both f32 (batch_heads, tq). The
+// differentiable attention takes lse = m + log(l) from them for the backward
+// (csrc/flash_attention_bwd.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,13 +90,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D, bool kHasBias>
+template <int D, bool kHasBias, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const float* __restrict__ bias,
                  __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
                  int heads, int tq, int tk, float scale) {
   using S = Smem<D>;
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
@@ -258,13 +266,25 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(acc[n][2] / l1, acc[n][3] / l1);
     }
   }
+  // the quad's four threads hold the same row statistics: one writes them
+  if (kStats && t4 == 0) {
+    if (row0 < tq) {
+      m_out[(size_t)bh * tq + row0] = m_run[0];
+      l_out[(size_t)bh * tq + row0] = l_run[0];
+    }
+    if (row1 < tq) {
+      m_out[(size_t)bh * tq + row1] = m_run[1];
+      l_out[(size_t)bh * tq + row1] = l_run[1];
+    }
+  }
 }
 
-template <int D, bool kHasBias>
+template <int D, bool kHasBias, bool kStats>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* o, int batch_heads, int heads,
-                   int tq, int tk, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D, kHasBias>;
+                   const void* bias, void* o, void* m, void* l,
+                   int batch_heads, int heads, int tq, int tk, float scale,
+                   cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<D, kHasBias, kStats>;
   const int smem = static_cast<int>(Smem<D>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -273,46 +293,58 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(o), heads, tq, tk, scale);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(m),
+      static_cast<float*>(l), heads, tq, tk, scale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch_bias(const void* q, const void* k, const void* v,
-                          const void* bias, void* o, int batch_heads, int heads,
-                          int tq, int tk, float scale, cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* bias, void* o, void* m, void* l,
+                     int batch_heads, int heads, int tq, int tk, float scale,
+                     cudaStream_t stream) {
+  const bool stats = m != nullptr;
   if (bias != nullptr) {
-    return launch<D, true>(q, k, v, bias, o, batch_heads, heads, tq, tk, scale,
-                           stream);
+    return stats ? launch<D, true, true>(q, k, v, bias, o, m, l, batch_heads,
+                                         heads, tq, tk, scale, stream)
+                 : launch<D, true, false>(q, k, v, bias, o, m, l, batch_heads,
+                                          heads, tq, tk, scale, stream);
   }
-  return launch<D, false>(q, k, v, bias, o, batch_heads, heads, tq, tk, scale,
-                          stream);
+  return stats ? launch<D, false, true>(q, k, v, bias, o, m, l, batch_heads,
+                                        heads, tq, tk, scale, stream)
+               : launch<D, false, false>(q, k, v, bias, o, m, l, batch_heads,
+                                         heads, tq, tk, scale, stream);
 }
 
 }  // namespace
 
 // q, o: (batch_heads, tq, head_dim) bf16; k, v: (batch_heads, tk, head_dim)
-// bf16; bias: NULL or (batch_heads / heads, tk) f32. All contiguous, 16-byte
-// aligned. Returns the CUDA error of the launch (0 on success).
+// bf16; bias: NULL or (batch_heads / heads, tk) f32; m, l: both NULL, or
+// both (batch_heads, tq) f32 for the softmax statistics. All contiguous,
+// 16-byte aligned. Returns the CUDA error of the launch (0 on success).
 extern "C" int ltx_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* bias,
-                                       void* o, int batch_heads, int heads,
-                                       int tq, int tk, int head_dim,
-                                       float scale, void* stream) {
+                                       void* o, void* m, void* l,
+                                       int batch_heads, int heads, int tq,
+                                       int tk, int head_dim, float scale,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((m == nullptr) != (l == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (head_dim) {
     case 16:
-      return dispatch_bias<16>(q, k, v, bias, o, batch_heads, heads, tq, tk,
-                               scale, s);
+      return dispatch<16>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
+                          scale, s);
     case 32:
-      return dispatch_bias<32>(q, k, v, bias, o, batch_heads, heads, tq, tk,
-                               scale, s);
+      return dispatch<32>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
+                          scale, s);
     case 64:
-      return dispatch_bias<64>(q, k, v, bias, o, batch_heads, heads, tq, tk,
-                               scale, s);
+      return dispatch<64>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
+                          scale, s);
     case 128:
-      return dispatch_bias<128>(q, k, v, bias, o, batch_heads, heads, tq, tk,
-                                scale, s);
+      return dispatch<128>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
+                           scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,11 +1,19 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain version.
+"""Flash attention: the hand-written Hopper kernels and their plain versions.
 
-Port of ltx_tpu/kernels/flash_attention.py::flash_attention (forward only).
-The CUDA kernel is `ltx_tpu_torch/csrc/flash_attention_fwd.cu`, built with
+Port of ltx_tpu/kernels/flash_attention.py: the forward `flash_attention`
+(B1), the forward with the softmax statistics `flash_attention_stats` (B2),
+the two backward kernels `flash_attention_bwd_dq` and
+`flash_attention_bwd_dkv` behind `flash_attention_backward` (B3), and the
+differentiable `flash_attention_vjp` (a torch.autograd.Function: B2 forward,
+B3 backward). The CUDA kernels are `ltx_tpu_torch/csrc/flash_attention_fwd.cu`
+(B1 and B2, one template) and `csrc/flash_attention_bwd.cu` (B3), built with
 nvcc for sm_90a on first use and bound with ctypes.
 
-`flash_attention` takes the plain PyTorch version only for tensors on the
-CPU. For CUDA tensors it launches the kernel or raises: there is no fallback.
+Each wrapper takes its plain PyTorch version only for tensors on the CPU.
+For CUDA tensors it launches its kernel or raises: there is no fallback.
+Each counts its own launches (`flash_attention.launches`,
+`flash_attention_stats.launches`, `flash_attention_bwd_dq.launches`,
+`flash_attention_bwd_dkv.launches`).
 """
 
 from __future__ import annotations
@@ -18,8 +26,9 @@ import torch
 from ltx_tpu_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
-_LIB_NAME = "flash_attention_fwd"
-_C_FN = None
+_FWD_LIB = "flash_attention_fwd"
+_BWD_LIB = "flash_attention_bwd"
+_C_FNS = {}
 
 
 def key_bias(bias, batch: int, tk: int):
@@ -37,35 +46,55 @@ def key_bias(bias, batch: int, tk: int):
     return bias.float()
 
 
+def _wide(t):
+    """t in float32, or float64 when it is float64: the plain versions'
+    working precision (float64 only for gradient checks)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def attention_probs(q, k, bias=None, scale: Optional[float] = None):
     """f32 softmax(scale * Q K^T + key_bias), (B, H, Tq, Tk)."""
+    return torch.softmax(attention_logits(q, k, bias, scale), dim=-1)
+
+
+def attention_logits(q, k, bias=None, scale: Optional[float] = None):
+    """f32 scale * Q K^T + key_bias, (B, H, Tq, Tk)."""
     b, _, _, d = q.shape
     if scale is None:
         scale = d**-0.5
     bias = key_bias(bias, b, k.shape[2])
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias[:, None, None, :]
-    return torch.softmax(logits, dim=-1)
+    return logits
 
 
-def flash_attention_reference(q, k, v, bias=None, scale: Optional[float] = None):
+def flash_attention_reference(q, k, v, bias=None, scale: Optional[float] = None,
+                              return_stats: bool = False):
     """Plain PyTorch version: f32 logits, f32 softmax, P cast to V's dtype,
-    f32 P V, output in q's dtype. Same signature as `flash_attention`."""
-    probs = attention_probs(q, k, bias, scale)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    f32 P V, output in q's dtype. Same signature as `flash_attention`; with
+    return_stats=True also the f32 (B, H, Tq) row statistics m (max logit)
+    and l (sum of exp(logit - m)), as the reference's `return_stats`."""
+    if not return_stats:
+        probs = attention_probs(q, k, bias, scale)
+        return torch.matmul(_wide(probs.to(v.dtype)), _wide(v)).to(q.dtype)
+    logits = attention_logits(q, k, bias, scale)
+    m = logits.amax(dim=-1)
+    e = torch.exp(logits - m[..., None])
+    l = e.sum(dim=-1)
+    probs = e / torch.where(l == 0, 1.0, l)[..., None]
+    out = torch.matmul(_wide(probs.to(v.dtype)), _wide(v)).to(q.dtype)
+    return out, m, l
 
 
-def _c_function():
-    global _C_FN
-    if _C_FN is None:
-        fn = build.load(_LIB_NAME).ltx_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
+def _c_function(lib: str, name: str, argtypes):
+    fn = _C_FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load(lib), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _C_FN = fn
-    return _C_FN
+        _C_FNS[name] = fn
+    return fn
 
 
 def _check_cuda_args(q, k, v, bias):
@@ -92,14 +121,8 @@ def _check_cuda_args(q, k, v, bias):
         raise ValueError("flash_attention: bias must be contiguous on q's device")
 
 
-def flash_attention(q, k, v, bias=None, scale: Optional[float] = None):
-    """q: (B, H, Tq, D); k, v: (B, H, Tk, D); bias: None, (B, Tk) or
-    (B, 1, 1, Tk) additive key bias (made f32). Returns (B, H, Tq, D).
-
-    CPU tensors go to `flash_attention_reference`; CUDA tensors launch the
-    kernel (bf16, D in HEAD_DIMS), counted in `flash_attention.launches`."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, scale)
+def _launch_forward(q, k, v, bias, scale, stats: bool):
+    """One launch of the forward kernel; returns out, or (out, m, l)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if scale is None:
@@ -109,16 +132,205 @@ def flash_attention(q, k, v, bias=None, scale: Optional[float] = None):
         bias = bias.contiguous()
     _check_cuda_args(q, k, v, bias)
     out = torch.empty_like(q)
-    fn = _c_function()
+    m = l = None
+    if stats:
+        m = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    fn = _c_function(_FWD_LIB, "ltx_flash_attention_fwd",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 None if m is None else m.data_ptr(),
+                 None if l is None else l.data_ptr(),
                  b * h, h, tq, tk, d, float(scale),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    return (out, m, l) if stats else out
+
+
+def flash_attention(q, k, v, bias=None, scale: Optional[float] = None,
+                    return_stats: bool = False):
+    """q: (B, H, Tq, D); k, v: (B, H, Tk, D); bias: None, (B, Tk) or
+    (B, 1, 1, Tk) additive key bias (made f32). Returns (B, H, Tq, D), or
+    with return_stats=True `flash_attention_stats`'s (out, m, l).
+
+    CPU tensors go to `flash_attention_reference`; CUDA tensors launch the
+    kernel (bf16, D in HEAD_DIMS), counted in `flash_attention.launches`."""
+    if return_stats:
+        return flash_attention_stats(q, k, v, bias, scale)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, scale)
+    out = _launch_forward(q, k, v, bias, scale, stats=False)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_stats(q, k, v, bias=None, scale: Optional[float] = None):
+    """The forward with the softmax statistics: (out, m, l), m and l f32
+    (B, H, Tq): the max of the scaled, biased logits and the sum of
+    exp(logit - m). out is normalised, as without the statistics.
+
+    CPU tensors go to `flash_attention_reference(return_stats=True)`; CUDA
+    tensors launch the forward kernel's statistics variant, counted in
+    `flash_attention_stats.launches` (not in `flash_attention.launches`)."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, scale, return_stats=True)
+    out = _launch_forward(q, k, v, bias, scale, stats=True)
+    flash_attention_stats.launches += 1
+    return out
+
+
+flash_attention_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+
+def softmax_lse(m, l):
+    """lse = m + log(l) with l == 0 taken as 1, as the reference's VJP."""
+    return m + torch.log(torch.where(l == 0, torch.ones_like(l), l))
+
+
+def flash_attention_backward_reference(q, k, v, bias, o, lse, do,
+                                       scale: Optional[float] = None):
+    """Plain version of `flash_attention_backward`, the reference's
+    `_bwd_tile` formulas in f32 on the whole (Tq, Tk) at once:
+    delta = rowsum(dO * O), P = exp((Q * scale) K^T + bias - lse),
+    dV = P^T dO, dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q.
+    Gradients in the dtypes of q, k and v."""
+    b, _, _, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    bias = key_bias(bias, b, k.shape[2])
+    qf, kf, vf, dof = _wide(q), _wide(k), _wide(v), _wide(do)
+    delta = (dof * _wide(o)).sum(dim=-1)
+    s = torch.matmul(qf * scale, kf.transpose(-1, -2))
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.exp(s - _wide(lse)[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7
+
+
+def _check_bwd_args(q, k, v, bias, do, lse, delta):
+    _check_cuda_args(q, k, v, bias)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("flash_attention backward: dO must be a contiguous, 16-byte "
+                         f"aligned bfloat16 tensor of q's shape {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be a contiguous "
+                             f"float32 {tuple(q.shape[:3])} tensor on {q.device}")
+
+
+def _bwd_call(fn, q, k, v, bias, do, lse, delta, outs, scale):
+    b, h, tq, d = q.shape
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 None if bias is None else bias.data_ptr(),
+                 *(t.data_ptr() for t in outs), b * h, h, tq, k.shape[2], d,
+                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
+
+
+def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, scale: float):
+    """dQ by the dq kernel (CUDA only; the arguments as prepared by
+    `flash_attention_backward`: bias None or (B, Tk) f32, delta = rowsum(dO *
+    O) f32). Counted in `flash_attention_bwd_dq.launches`."""
+    _check_bwd_args(q, k, v, bias, do, lse, delta)
+    dq = torch.empty_like(q)
+    fn = _c_function(_BWD_LIB, "ltx_flash_attention_bwd_dq",
+                     _BWD_ARGTYPES + [ctypes.c_void_p] + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_void_p])
+    _bwd_call(fn, q, k, v, bias, do, lse, delta, (dq,), scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, scale: float):
+    """(dK, dV) by the dkv kernel (CUDA only; arguments as
+    `flash_attention_bwd_dq`). Counted in `flash_attention_bwd_dkv.launches`."""
+    _check_bwd_args(q, k, v, bias, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _c_function(_BWD_LIB, "ltx_flash_attention_bwd_dkv",
+                     _BWD_ARGTYPES + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_void_p])
+    _bwd_call(fn, q, k, v, bias, do, lse, delta, (dk, dv), scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, bias, o, lse, do, scale: Optional[float] = None):
+    """(dQ, dK, dV) of `flash_attention` at (q, k, v) for the incoming
+    gradient do, from the forward's output o and lse = m + log(l) (f32
+    (B, H, Tq)). bias: None, (B, Tk) or (B, 1, 1, Tk); it gets no gradient.
+
+    CPU tensors go to `flash_attention_backward_reference`; CUDA tensors
+    compute delta = rowsum(dO * O) in f32 (plain torch, as XLA did in the
+    reference) and launch the dq and the dkv kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, bias, o, lse, do, scale)
+    b, _, _, d = q.shape
+    if scale is None:
+        scale = d**-0.5
+    bias = key_bias(bias, b, k.shape[2])
+    if bias is not None:
+        bias = bias.contiguous()
+    do = do.contiguous()
+    lse = lse.float().contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    return dq, dk, dv
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """B2 forward, saving (q, k, v, bias, o, lse); B3 backward. The bias is
+    an input, not a parameter: no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        o, m, l = flash_attention_stats(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, o, softmax_lse(m, l))
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        # the gradient arrives as a transposed view of (B, Tq, H, D)
+        dq, dk, dv = flash_attention_backward(q, k, v, bias, o, lse,
+                                              do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_vjp(q, k, v, bias=None, scale: Optional[float] = None):
+    """Differentiable flash attention, the port of the reference's
+    `flash_attention_vjp`: the same primal as `flash_attention`, computed by
+    the statistics forward; its backward is `flash_attention_backward`."""
+    return _FlashAttentionFn.apply(q, k, v, bias, scale)

@@ -1,9 +1,10 @@
 """Weight-only group-wise affine quantization (int8 / int4): the formats, the
 two int4 kernels with their plain versions, and the linear that routes
-between them.
+between them, with the trainable LoRA side path.
 
-Port of ltx_tpu/kernels/quantization.py (formats, `int4_matmul`,
-`dequant_int4_pallas`, `linear_any`; W8A8 is not ported yet). Same scheme:
+Port of ltx_tpu/kernels/quantization.py (formats, `int4_matmul` with its
+straight-through backward, `dequant_int4_pallas`, `_lora_delta`,
+`linear_any`; W8A8 is not ported yet). Same scheme:
 groups of `group_size` rows along the INPUT dimension, asymmetric affine,
 
     w ~= q * scale[g] + bias[g],   q in [0, 2**bits - 1],
@@ -283,11 +284,7 @@ def use_int4_kernel(p: dict, x) -> bool:
                 and k % PACK_BLOCK == 0)
 
 
-def int4_mm(x, w_q4, scale, bias):
-    """x (..., K) -> (..., N) bf16 through the int4 kernels, by the
-    reference's row rule: below BIG_M_DEQUANT_THRESHOLD rows the fused
-    `int4_matmul`; from it on `dequant_int4` once, then one plain product
-    (f32 accumulation, one rounding). x is cast to bf16 first."""
+def _int4_mm_impl(x, w_q4, scale, bias):
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k).to(torch.bfloat16).contiguous()
     if x2.shape[0] >= BIG_M_DEQUANT_THRESHOLD:
@@ -297,20 +294,82 @@ def int4_mm(x, w_q4, scale, bias):
     return out.reshape(*lead, w_q4.shape[1])
 
 
+class _Int4MatmulSTE(torch.autograd.Function):
+    """The reference's `_int4_mm_ste`: the int4 product forward; backward
+    g @ dequant(W)^T for x only (the frozen codes, scale and bias get none),
+    the weight dequantized by `dequant_int4` (the kernel on the card, bit
+    for bit the reference's `dequantize_weight`), a bf16 product with f32
+    accumulation, the result in g's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w_q4, scale, bias):
+        ctx.save_for_backward(w_q4, scale, bias)
+        ctx.x_dtype = x.dtype
+        return _int4_mm_impl(x, w_q4, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        w = dequant_int4(*ctx.saved_tensors)
+        gx = torch.matmul(g.to(torch.bfloat16), w.t()).to(g.dtype)
+        return gx.to(ctx.x_dtype), None, None, None
+
+
+def int4_mm(x, w_q4, scale, bias):
+    """x (..., K) -> (..., N) bf16 through the int4 kernels, by the
+    reference's row rule: below BIG_M_DEQUANT_THRESHOLD rows the fused
+    `int4_matmul`; from it on `dequant_int4` once, then one plain product
+    (f32 accumulation, one rounding). x is cast to bf16 first.
+    Differentiable in x by the straight-through `_Int4MatmulSTE`."""
+    return _Int4MatmulSTE.apply(x, w_q4, scale, bias)
+
+
+def lora_delta(p: dict, x):
+    """The trainable LoRA side path s * (x @ A) @ B of a leaf dict holding
+    "lora_a" (in, r), "lora_b" (r, out) and "lora_s" (), in f32 and rounded
+    to x's dtype (the reference's `_lora_delta`)."""
+    d = torch.matmul(x.float(), p["lora_a"].float())
+    d = torch.matmul(d, p["lora_b"].float())
+    return (d * p["lora_s"].float()).to(x.dtype)
+
+
+def f32_linear(x, w_t, b=None, lora=None):
+    """x @ w_t (w_t (K, N)) accumulated in f32, then the LoRA delta and the
+    bias b each added in f32, one rounding to x's dtype: the reference's
+    `dot(..., preferred_element_type=f32) + lora + b`. Without a LoRA this
+    is `F.linear` (addmm), which gives exactly that for bf16 on CUDA
+    (cuBLASLt's bias epilogue) and on the CPU, with bf16 reductions in f32
+    (package init); a bf16 `x @ w + b` would round twice. With a LoRA the
+    product stays f32 (a float32 product on the card, outside the int4
+    kernel route)."""
+    if lora is None:
+        return F.linear(x, w_t.t(), None if b is None else b.to(x.dtype))
+    out = torch.matmul(x.float(), w_t.float()) + lora.float()
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
 def linear_any(p: dict, x):
     """A quantized linear's leaves ({"w_q"|"w_q4", "scale", "bias", "b"?},
-    the JAX package's keys) applied to x (..., K). Plain linears are
-    `models.common.linear`; W8A8 leaves are refused where a tree is loaded.
+    the JAX package's keys, and "lora_a"/"lora_b"/"lora_s" when a LoRA side
+    path is present) applied to x (..., K). Plain linears are
+    `models.common.Linear`; W8A8 leaves are refused where a tree is loaded.
 
     int4 leaves that pass `use_int4_kernel` go through `int4_mm` (x cast to
-    bf16, a bf16 product) and then add the bias in x's dtype, as the
-    reference's kernel route does: two roundings. Every other leaf
-    dequantizes to bf16, then one f32-accumulated product with the bias
-    added in f32 and one rounding to x's dtype (the reference's XLA route).
+    bf16, a bf16 product), then add the LoRA delta and then the bias, each
+    in x's dtype, as the reference's kernel route does: three roundings.
+    Every other leaf dequantizes to bf16, then `f32_linear`: the LoRA delta
+    and the bias added in f32 and one rounding to x's dtype (the reference's
+    XLA route).
     """
     b = p.get("b")
+    lora = lora_delta(p, x) if "lora_a" in p else None
     if use_int4_kernel(p, x):
         out = int4_mm(x, p["w_q4"], p["scale"], p["bias"]).to(x.dtype)
+        if lora is not None:
+            out = out + lora
         return out if b is None else out + b.to(x.dtype)
     w = dequantize_weight(p, torch.bfloat16).to(x.dtype)
-    return F.linear(x, w.t(), None if b is None else b.to(x.dtype))
+    return f32_linear(x, w, b, lora)

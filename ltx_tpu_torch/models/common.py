@@ -2,7 +2,9 @@
 
 Port of ltx_tpu/models/common.py and of the linears of
 ltx_tpu/kernels/quantization.py::linear_any: `Linear` for plain weights,
-`QuantizedLinear` for int8 / int4 ones.
+`QuantizedLinear` for int8 / int4 ones. Either may carry a trainable LoRA
+side path (`add_lora_params`): `lora_a` (d_in, r), `lora_b` (r, d_out) and
+`lora_s` (), the JAX tree's leaf names and layout, f32 by default.
 
 Parameters are created empty on an explicit device and dtype; nothing is
 initialised at construction. `convert.py` fills them from a JAX parameter
@@ -18,18 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ltx_tpu_torch.kernels.quantization import linear_any, quantize_weight
+from ltx_tpu_torch.kernels.quantization import f32_linear, linear_any, lora_delta, quantize_weight
 
-
-def linear(x, weight, bias=None):
-    """x @ weight.T (+ bias) with f32 accumulation, the bias added in f32
-    before one rounding to x's dtype: the reference's
-    `dot(..., preferred_element_type=f32) + b.astype(f32)` then cast.
-
-    `F.linear` (addmm) gives exactly that for bf16 on CUDA (cuBLASLt's bias
-    epilogue) and on the CPU, with bf16 reductions in f32 (package init). A
-    bf16 `x @ w + b` would round twice."""
-    return F.linear(x, weight, bias)
+LORA_KEYS = ("lora_a", "lora_b", "lora_s")
 
 
 def gelu_tanh(x):
@@ -41,9 +34,38 @@ def silu(x):
     return F.silu(x)
 
 
-class Linear(nn.Module):
+class _LoRAHost(nn.Module):
+    """The LoRA side path's parameters, None until `add_lora_params`."""
+
+    def __init__(self):
+        super().__init__()
+        for key in LORA_KEYS:
+            self.register_parameter(key, None)
+
+    @property
+    def has_lora(self) -> bool:
+        return self.lora_a is not None
+
+    def add_lora_params(self, rank: int, dtype=torch.float32) -> None:
+        """Empty `lora_a` (d_in, rank), `lora_b` (rank, d_out) and `lora_s` ()
+        on the module's device, trainable; the caller fills them."""
+        d_in, d_out = self.dims
+        device = next(self.parameters()).device
+        self.lora_a = nn.Parameter(torch.empty(d_in, rank, device=device, dtype=dtype))
+        self.lora_b = nn.Parameter(torch.empty(rank, d_out, device=device, dtype=dtype))
+        self.lora_s = nn.Parameter(torch.empty((), device=device, dtype=dtype))
+
+    def remove_lora_params(self) -> None:
+        for key in LORA_KEYS:
+            setattr(self, key, None)
+
+
+class Linear(_LoRAHost):
     """weight (d_out, d_in) in torch's layout (the JAX tree is (d_in, d_out)),
-    optional bias (d_out,)."""
+    optional bias (d_out,). `f32_linear`: with a LoRA side path the product
+    is accumulated in f32 and the delta and the bias added in f32 before one
+    rounding (the reference's plain `linear_any` route); without one,
+    `F.linear`, whose bias epilogue does the same."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
                  device=None, dtype=torch.bfloat16):
@@ -54,8 +76,15 @@ class Linear(nn.Module):
         self.bias = (nn.Parameter(torch.empty(d_out, device=device, dtype=dtype),
                                   requires_grad=False) if bias else None)
 
+    @property
+    def dims(self):
+        """(d_in, d_out)."""
+        return self.weight.shape[1], self.weight.shape[0]
+
     def forward(self, x):
-        return linear(x, self.weight, self.bias)
+        lora = (lora_delta({k: getattr(self, k) for k in LORA_KEYS}, x)
+                if self.has_lora else None)
+        return f32_linear(x, self.weight.t(), self.bias, lora)
 
     def reset_parameters(self, gen: torch.Generator):
         """normal * d_in**-0.5, zero bias (the reference's linear_init)."""
@@ -64,7 +93,7 @@ class Linear(nn.Module):
             self.bias.zero_()
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(_LoRAHost):
     """A weight-only quantized linear, in the JAX package's layout and with
     its leaf names, not transposed (the int4 packing runs along d_in):
     codes `w_q4` (d_in/2, d_out) uint8 for 4 bits or `w_q` (d_in, d_out)
@@ -72,7 +101,8 @@ class QuantizedLinear(nn.Module):
     affine), and the linear's own bias `b` (d_out,) or None. `forward` is
     `linear_any` on the parameters by name, which are the JAX leaf dict.
     Frozen parameters, so that phase staging moves them; a dtype cast of the
-    module raises, since it would change the format."""
+    module raises, since it would change the format. A LoRA side path's
+    leaves join the dict under their JAX names."""
 
     def __init__(self, d_in: int, d_out: int, bits: int, group_size: int = 64,
                  bias: bool = True, device=None, dtype=torch.bfloat16):
@@ -85,6 +115,12 @@ class QuantizedLinear(nn.Module):
         self.scale = param(d_in // group_size, d_out, device=device)
         self.bias = param(d_in // group_size, d_out, device=device)
         self.b = param(d_out, device=device, dtype=dtype) if bias else None
+
+    @property
+    def dims(self):
+        """(d_in, d_out); int4 packs two input rows a byte."""
+        d_in = self.w_q4.shape[0] * 2 if hasattr(self, "w_q4") else self.w_q.shape[0]
+        return d_in, self.scale.shape[1]
 
     def forward(self, x):
         return linear_any(dict(self.named_parameters(recurse=False)), x)

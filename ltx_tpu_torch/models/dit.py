@@ -8,13 +8,16 @@ scale_shift_table; affine-free LayerNorm and a (2, D) table at the output.
 Every attention goes through ops.attention.sdpa, so on CUDA through the
 flash-attention kernel. `quantize_transformer` swaps the blocks' large
 linears for int8 / int4 `QuantizedLinear`s, as the reference's
-`quantize_transformer_params` quantizes the tree.
+`quantize_transformer_params` quantizes the tree. For training, `remat`
+and `remat_segments` rematerialise the blocks with
+torch.utils.checkpoint, as the reference's jax.checkpoint over its scan.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ltx_tpu_torch.config import TransformerConfig
 from ltx_tpu_torch.kernels.quantization import _MIN_QUANT_SIZE, QUANTIZABLE_LEAVES
@@ -179,22 +182,52 @@ class LTXTransformer(nn.Module):
         out = out * (1 + scale) + shift
         return self.proj_out(out)
 
-    def forward(self, latent, context, timesteps, rope, context_bias=None):
+    def forward(self, latent, context, timesteps, rope, context_bias=None,
+                remat: bool = False, remat_segments: int = 0):
         """Velocity prediction.
 
         latent: (B, T, C) patchified tokens; context: (B, S, caption
         channels); timesteps: (B,) or (B, T) sigmas in [0, 1]; rope: (cos,
         sin) each (H, T, head_dim / 2) f32; context_bias: (B, 1, 1, S)
-        additive key bias or None. Returns (B, T, C)."""
+        additive key bias or None. Returns (B, T, C).
+
+        While autograd records: remat=True checkpoints each block (its
+        activations are recomputed in the backward, one extra forward);
+        remat_segments=S > 1 (which wins over remat) checkpoints S groups of
+        num_layers / S blocks with each block inside checkpointed too, as
+        the reference's segmented remat (two extra forwards; S must divide
+        num_layers)."""
         b = latent.shape[0]
         dtype = latent.dtype
         x = self.patchify_proj(latent)
         ts_emb, embedded_ts = self.prepare_timestep(timesteps, b, dtype)
         ctx = self.caption_projection_forward(context.to(dtype))
         ctx = ctx.reshape(b, -1, self.cfg.inner_dim)
-        for block in self.blocks:
-            x = block(x, ctx, ts_emb, rope, context_bias)
+        args = (ctx, ts_emb, rope, context_bias)
+        blocks = list(self.blocks)
+        if remat_segments and remat_segments > 1:
+            if len(blocks) % remat_segments:
+                raise ValueError(f"remat_segments {remat_segments} must divide "
+                                 f"num_layers {len(blocks)}")
+            per = len(blocks) // remat_segments
+            for i in range(0, len(blocks), per):
+                x = _remat(_run_blocks, blocks[i:i + per], x, *args, remat=True)
+        else:
+            x = _run_blocks(blocks, x, *args, remat=remat)
         return self.output_head(x, embedded_ts)
+
+
+def _remat(fn, *args, remat: bool = False):
+    """fn(*args), checkpointed when `remat` and autograd records."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _run_blocks(blocks, x, ctx, ts_emb, rope, bias, remat: bool = False):
+    for block in blocks:
+        x = _remat(block, x, ctx, ts_emb, rope, bias, remat=remat)
+    return x
 
 
 @torch.no_grad()

@@ -3,8 +3,13 @@
 Port of ltx_tpu/ops/attention.py. Attention with as many key heads as query
 heads and at most a key bias (every DiT and connector attention) goes to
 `kernels.flash_attention`, whatever its length: on CUDA that is the hand
-kernel, on the CPU its plain version. Grouped-query attention with a full
-mask (Gemma) stays plain PyTorch, as it stayed on XLA in the reference.
+kernel, on the CPU its plain version. When autograd records (grad enabled
+and an input that requires grad: training) it goes to the differentiable
+`flash_attention_vjp` instead, the statistics forward and the backward
+kernels, as the reference's `sdpa_impl="pallas"` routes through its
+`flash_attention_vjp`; under `torch.inference_mode` or `no_grad`
+(generation) nothing records and B1 runs. Grouped-query attention with a
+full mask (Gemma) stays plain PyTorch, as it stayed on XLA in the reference.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ltx_tpu_torch.kernels.flash_attention import flash_attention
+from ltx_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_vjp
 
 
 def _gqa_sdpa(q, k, v, bias=None, scale: Optional[float] = None):
@@ -43,9 +48,11 @@ def _gqa_sdpa(q, k, v, bias=None, scale: Optional[float] = None):
 def sdpa(q, k, v, bias=None, scale: Optional[float] = None):
     """q: (B, H, Tq, D); k, v: (B, Hkv, Tk, D) with H % Hkv == 0; bias an
     additive float mask. Hkv < H goes to `_gqa_sdpa`; Hkv == H to the
-    flash-attention kernel, which takes no bias or a key bias only."""
+    flash-attention kernels, which take no bias or a key bias only."""
     if k.shape[1] != q.shape[1]:
         return _gqa_sdpa(q, k, v, bias=bias, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attention_vjp(q, k, v, bias=bias, scale=scale)
     return flash_attention(q, k, v, bias=bias, scale=scale)
 
 

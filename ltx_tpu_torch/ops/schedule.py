@@ -1,8 +1,10 @@
-"""Flow-matching sigma schedules (host numpy) and the Euler stepper (torch).
+"""Flow-matching sigma schedules (host numpy), the Euler stepper and the
+training forward process (torch).
 
 Port of ltx_tpu/ops/schedule.py. The schedule is a handful of floats and
 stays numpy on the host, unchanged; `euler_step` keeps the reference's
-dtype round-trip and terminal branch.
+dtype round-trip and terminal branch; `add_noise` and `velocity_target` are
+the flow-matching objective's conventions (train/flow_match.py).
 """
 
 from __future__ import annotations
@@ -101,3 +103,15 @@ def euler_step(latent, velocity, sigma: float, sigma_next: float):
     else:
         out = denoised_f32
     return out.to(dtype)
+
+
+def add_noise(samples, noise, sigma):
+    """Flow-matching forward x_t = (1 - t) x_0 + t noise, with t (a float or
+    a tensor broadcasting against `samples`) in the samples' dtype."""
+    t = torch.as_tensor(sigma, dtype=samples.dtype, device=samples.device)
+    return (1 - t) * samples + t * noise
+
+
+def velocity_target(sample, noise):
+    """The flow-matching velocity v = noise - sample."""
+    return noise - sample

@@ -1,6 +1,8 @@
-"""Where a denoise step's device time goes, on one NVIDIA GPU.
+"""Where a denoise step's, or a train step's, device time goes, on one
+NVIDIA GPU.
 
     python -m ltx_tpu_torch.profile_step [--frames 25 --height 512 --width 768]
+    python -m ltx_tpu_torch.profile_step --train [--frames ... as above]
 
 Builds the full-width, full-depth DiT with random bf16 weights from a seed
 on the card, runs one warm-up denoise step at the given clip size (a random
@@ -10,6 +12,13 @@ kernel group (the flash-attention and int4 kernels of this package, GEMMs,
 everything else) and the device's idle share. Then it quantizes the same
 DiT to int4 on the card and does the same again. The last line is one JSON
 object with both breakdowns. Fails without CUDA.
+
+With --train it profiles one QLoRA train step instead: the same DiT
+quantized to int4 and frozen, rank-16 LoRA on its 480 block linears, the
+flow-matching loss with per-block remat, its backward and the optimizer, at
+batch 1 and the given clip size, split into the flash forward (statistics)
+and backward kernels, int4_matmul, dequant_int4, GEMMs, other and idle,
+with the step's peak device memory.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 # kernel-name fragments of each group, matched in this order
 GROUPS = (
     ("flash_attention", ("flash_fwd_kernel",)),
+    ("flash_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("int4_matmul", ("int4_matmul_kernel",)),
     ("dequant_int4", ("dequant_int4_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")),
@@ -46,20 +56,27 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def profile_steps(step, latent) -> dict:
+def profile_steps(step, latent=None) -> dict:
     """One warm-up step, then PROFILED_STEPS steps under the profiler;
     returns per-step host ms, device ms by group, and the idle share
     (1 - device ms / host ms, not floored: a negative share is a
-    measurement error to look into)."""
-    with torch.inference_mode():
-        step(latent, 1.0, 0.9)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILED_STEPS):
+    measurement error to look into). With `latent`, `step` is a denoise
+    step run in inference mode; without, a train step taking no arguments."""
+    def run():
+        if latent is None:
+            step()
+        else:
+            with torch.inference_mode():
                 step(latent, 1.0, 0.9)
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
     device_ms = {name: 0.0 for name, _ in GROUPS}
     device_ms["other"] = 0.0
     for avg in prof.key_averages():
@@ -72,11 +89,45 @@ def profile_steps(step, latent) -> dict:
             "idle_share": 1.0 - busy / host_ms}
 
 
+def profile_train(transformer, shape, context, bias, gen) -> dict:
+    """One int4 QLoRA train step of `transformer` (quantized in place, LoRA
+    added) on random clean latents of `shape`: device ms by group, idle
+    share and peak memory."""
+    from ltx_tpu_torch.ops.latents import patchify
+    from ltx_tpu_torch.ops.rope import video_rope
+    from ltx_tpu_torch.train.lora import add_lora
+    from ltx_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+    cfg = transformer.cfg
+    quantize_transformer(transformer, bits=4, group_size=64)
+    add_lora(transformer, gen, rank=16)
+    torch.cuda.empty_cache()
+    tc = TrainConfig(lora_only=True, sdpa_impl="pallas")
+    trainable, _, opt_state = init_train_state(transformer, tc)
+    train_step = make_train_step(transformer, tc)
+    tokens = patchify(generate_noise(shape, gen))
+    cos, sin = video_rope(shape.frames, shape.height, shape.width, cfg.inner_dim,
+                          cfg.num_heads)
+    rope = (torch.as_tensor(cos, device=tokens.device), torch.as_tensor(sin, device=tokens.device))
+    sigma = torch.full((1,), 0.5, device=tokens.device)
+    noise = torch.randn(tokens.shape, generator=gen, device=tokens.device)
+
+    def step():
+        train_step(trainable, opt_state, tokens, context, rope, sigma, noise, bias)
+
+    torch.cuda.reset_peak_memory_stats()
+    res = profile_steps(step)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=25)
     parser.add_argument("--height", type=int, default=512)
     parser.add_argument("--width", type=int, default=768)
+    parser.add_argument("--train", action="store_true",
+                        help="profile one int4 QLoRA train step instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: CUDA is not available")
@@ -97,6 +148,16 @@ def main() -> int:
                           device=device).bfloat16()
     bias = torch.zeros(1, 1, 1, 1024, device=device)
     bias[..., :300] = -10000.0
+
+    if args.train:
+        res = profile_train(transformer, shape, context, bias, gen)
+        groups = ", ".join(f"{k} {v:.2f}" for k, v in res["device_ms"].items())
+        print(f"[profile] train int4 QLoRA {args.frames}f@{args.width}x{args.height} "
+              f"({shape.token_count} tokens): host {res['host_ms']:.2f} ms/step, device "
+              f"{res['device_busy_ms']:.2f} ms/step ({groups}), idle share "
+              f"{res['idle_share']:.3f}, peak {res['peak_gib']:.2f} GiB", flush=True)
+        print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "train": res}))
+        return 0
 
     results = {}
     for mode in ("bf16", "int4"):

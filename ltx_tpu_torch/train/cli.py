@@ -1,0 +1,245 @@
+"""LoRA fine-tune driver: latent shards -> adapter safetensors.
+
+    python -m ltx_tpu_torch.train.cli --data SHARDS --out adapter.safetensors \
+        --random-init full --quant int4 --rank 16 --steps 1000 [--device cuda]
+
+Port of ltx_tpu/train/cli.py (the trainer behind `scripts/train_lora.py`):
+dataset (train/data.py shards) -> QLoRA/LoRA flow-matching steps on one
+device -> periodic checkpoints with the dataset cursor -> the adapter in
+the ComfyUI LoRA schema (the EMA adapter when --ema is on). The flags and
+defaults are the reference's, plus --device (default cuda; the CPU runs the
+kernels' plain versions). Not ported yet, each raising NotImplementedError:
+--quant w8a8 (the reference's default; ROADMAP A10), --weights (A9),
+--mesh / --coordinator / --num-processes and --sdpa ring (A18).
+
+Each step's noise levels and noise come from a torch.Generator seeded with
+(seed + 2, step), and the checkpoint's dataset cursor is that of the last
+batch a step consumed, so a resumed run draws what the uninterrupted run
+drew. The EMA is not checkpointed: a resumed run restarts it from the
+restored adapter.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+_SEED_STRIDE = 1_000_003
+
+
+def add_train_arguments(ap) -> None:
+    """Register the trainer's flags on an argparse parser or subparser."""
+    ap.add_argument("--data", required=True, help="shard directory")
+    ap.add_argument("--out", required=True, help="adapter .safetensors path")
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--rank", type=int, default=16)
+    ap.add_argument("--alpha", type=float, default=None)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--warmup", type=int, default=0)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--remat-segments", type=int, default=0,
+                    help="segmented remat over the 48 blocks: S checkpointed "
+                         "groups of 48/S blocks instead of one per block")
+    ap.add_argument("--ema", type=float, default=0.0,
+                    help="EMA decay (0 = off); exports the EMA adapter")
+    ap.add_argument("--quant", choices=("none", "w8a8", "int4"),
+                    default="w8a8", help="frozen-base quantization (w8a8 is "
+                                         "not ported yet: pass int4 or none)")
+    ap.add_argument("--weights", default=None,
+                    help="unified checkpoint (.safetensors); not ported yet")
+    ap.add_argument("--random-init", choices=("tiny", "full"), default=None,
+                    help="random base instead of --weights (tiny is not quantized)")
+    ap.add_argument("--compute", choices=("bf16", "f32"), default="bf16",
+                    help="f32 runs on the CPU only (the card's kernels take bf16)")
+    ap.add_argument("--ckpt", default=None, help="checkpoint .npz path")
+    ap.add_argument("--ckpt-every", type=int, default=200)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="dp+tp over a device mesh; not ported yet")
+    ap.add_argument("--sdpa", choices=("xla", "pallas", "ring"), default="xla",
+                    help="attention for the loss: xla and pallas compute the "
+                         "same function here (the flash forward and backward "
+                         "kernels on the card, their plain versions on the "
+                         "CPU); ring is not ported yet")
+    ap.add_argument("--mesh-slices", type=int, default=None, metavar="N")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default cuda)")
+
+
+def _check_ported(args) -> None:
+    if args.quant == "w8a8":
+        raise NotImplementedError("--quant w8a8 is not ported yet (ROADMAP A10): "
+                                  "pass --quant int4 or --quant none")
+    if args.weights:
+        raise NotImplementedError("--weights: the weight loader is not ported yet "
+                                  "(ROADMAP A9); pass --random-init")
+    if args.mesh or args.coordinator or args.num_processes:
+        raise NotImplementedError("--mesh / --coordinator / --num-processes: "
+                                  "parallel training is not ported yet (ROADMAP A18)")
+    if args.sdpa == "ring":
+        raise NotImplementedError("--sdpa ring is not ported yet (ROADMAP A18)")
+    if args.compute == "f32" and torch.device(args.device).type == "cuda":
+        raise NotImplementedError("--compute f32 runs on the CPU only: the card's "
+                                  "attention kernels take bfloat16 (ROADMAP A17)")
+    if not args.random_init:
+        raise SystemExit("pass --random-init {tiny,full}")
+
+
+def _step_generator(seed: int, step: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed((seed + 2) * _SEED_STRIDE + step)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _atomic_np_save(path, obj) -> None:
+    """np.save through a pid-unique temporary file and os.replace."""
+    tmp = f"{path}.tmp.{os.getpid()}.npy"
+    try:
+        np.save(tmp, obj, allow_pickle=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def run(args, report=None) -> int:
+    """Train per `args` (the flags of add_train_arguments). With `report`
+    (a callable), it is called after every step with a dict of that step's
+    number, loss, grad_norm, synchronised seconds and peak device memory,
+    and once before the first step with the set-up seconds."""
+    from ltx_tpu_torch.config import TransformerConfig
+    from ltx_tpu_torch.models.common import init_random_
+    from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
+    from ltx_tpu_torch.ops.rope import video_rope
+    from ltx_tpu_torch.train.checkpoint import load_train_checkpoint, save_train_checkpoint
+    from ltx_tpu_torch.train.data import LatentShardDataset, prefetch_to_device
+    from ltx_tpu_torch.train.export import save_lora
+    from ltx_tpu_torch.train.flow_match import sample_sigmas
+    from ltx_tpu_torch.train.lora import add_lora
+    from ltx_tpu_torch.train.step import (
+        TrainConfig,
+        ema_init,
+        init_train_state,
+        make_ema_update,
+        make_train_step,
+    )
+
+    def log(msg):
+        print(f"[train_lora] {msg}", file=sys.stderr, flush=True)
+
+    _check_ported(args)
+    device = torch.device(args.device)
+    cfg = TransformerConfig()
+    if args.random_init == "tiny":
+        cfg = cfg.tiny()
+    compute_dtype = torch.float32 if args.compute == "f32" else torch.bfloat16
+
+    ds = LatentShardDataset(args.data, args.batch, seed=args.seed)
+    f, h, w = ds.grid
+    if ds.batch_size * (f * h * w) * cfg.in_channels == 0:
+        raise SystemExit("empty dataset")
+    log(f"dataset: {ds.num_rows} rows, grid {ds.grid}, batch {args.batch}")
+
+    setup = {}
+    t0 = time.perf_counter()
+    model = LTXTransformer(cfg, device=device, dtype=compute_dtype)
+    init_random_(model, torch.Generator(device=device).manual_seed(args.seed))
+    _sync(device)
+    setup["random_init_s"] = time.perf_counter() - t0
+    log(f"random {args.random_init} base on {device}: {setup['random_init_s']:.2f} s")
+    if args.quant != "none" and args.random_init != "tiny":
+        t0 = time.perf_counter()
+        quantize_transformer(model, bits=4, group_size=64)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        _sync(device)
+        setup["quantize_s"] = time.perf_counter() - t0
+        log(f"frozen base quantized: {args.quant}, {setup['quantize_s']:.2f} s")
+    add_lora(model, torch.Generator(device=device).manual_seed(args.seed + 1),
+             rank=args.rank, alpha=args.alpha)
+
+    cos, sin = video_rope(f, h, w, cfg.inner_dim, cfg.num_heads)
+    rope = (torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device))
+    tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup, lora_only=True,
+                     accum_steps=args.accum, remat_segments=args.remat_segments,
+                     sdpa_impl=args.sdpa, compute_dtype=compute_dtype)
+    trainable, _, opt_state = init_train_state(model, tc)
+    step = make_train_step(model, tc)
+    ema = ema_init(trainable) if args.ema > 0 else None
+    ema_upd = make_ema_update(args.ema) if args.ema > 0 else None
+    log(f"LoRA rank {args.rank}: {len(trainable)} trainable tensors, "
+        f"{sum(p.numel() for p in trainable.values())} values")
+
+    cursor_path = args.ckpt + ".data.0.npy" if args.ckpt else None
+    start = 0
+    if args.resume and args.ckpt and os.path.exists(args.ckpt):
+        trainable, opt_state, start = load_train_checkpoint(args.ckpt, trainable, opt_state)
+        if os.path.exists(cursor_path):
+            ds.restore(np.load(cursor_path, allow_pickle=True).item())
+        if ema is not None:
+            ema = ema_init(trainable)
+        log(f"resumed from {args.ckpt} at step {start}")
+    if report is not None:
+        report({"setup": setup, "start": start})
+
+    it = prefetch_to_device(iter(ds), depth=2, device=device)
+    t_run = time.perf_counter()
+    for i in range(start, args.steps):
+        t_step = time.perf_counter()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        batch = next(it)
+        gen = _step_generator(args.seed, i, device)
+        sigma = sample_sigmas(gen, batch.tokens.shape[0], tc.sigma_scheme)
+        noise = torch.randn(batch.tokens.shape, generator=gen, dtype=torch.float32,
+                            device=device)
+        trainable, opt_state, aux = step(trainable, opt_state, batch.tokens, batch.context,
+                                         rope, sigma, noise, context_bias=batch.bias)
+        if ema is not None:
+            ema = ema_upd(ema, trainable)
+        loss, gnorm = float(aux["loss"]), float(aux["grad_norm"])  # reads back: a sync
+        seconds = time.perf_counter() - t_step
+        if not np.isfinite(loss):
+            raise SystemExit(f"non-finite loss at step {i + 1}")
+        if report is not None:
+            peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                    if device.type == "cuda" else None)
+            report({"step": i + 1, "loss": loss, "grad_norm": gnorm, "seconds": seconds,
+                    "peak_gib": peak})
+        if (i + 1) % args.log_every == 0 or i == start:
+            log(f"step {i + 1}/{args.steps} loss={loss:.4f} gnorm={gnorm:.3f} "
+                f"({(time.perf_counter() - t_run) / (i + 1 - start):.2f} s/step)")
+        if args.ckpt and (i + 1) % args.ckpt_every == 0:
+            save_train_checkpoint(args.ckpt, trainable, opt_state, i + 1)
+            _atomic_np_save(cursor_path, batch.cursor)
+            log(f"checkpoint @ step {i + 1} -> {args.ckpt}")
+
+    n = save_lora(ema if ema is not None else trainable, args.out)
+    log(f"exported {'EMA ' if ema is not None else ''}adapter: {n} tensors -> {args.out}")
+    print(f"TRAIN LORA OK: {args.steps - start} steps, adapter {args.out}")
+    return 0
+
+
+def main(argv=None, report=None) -> int:
+    """The command line: parse `argv` (default sys.argv) and `run`."""
+    ap = argparse.ArgumentParser(description="LoRA fine-tune of the LTX-2 DiT")
+    add_train_arguments(ap)
+    return run(ap.parse_args(argv), report)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

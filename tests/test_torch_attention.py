@@ -7,8 +7,16 @@ Tolerances: float32 2e-5 relative, as the Pallas contract tests use. bf16:
 running max before normalising (the plain version normalises first), and
 2**-7 against the XLA path, which rounds where the plain version does.
 The card's element-wise tolerance (ltx_tpu_torch.checks) is held here
-against the Pallas kernel, whose arithmetic the CUDA kernel follows."""
+against the Pallas kernel, whose arithmetic the CUDA kernel follows.
 
+Training: the plain statistics forward and backward against the Pallas
+stats and backward kernels in interpret mode and against jax.grad of
+flash_attention_vjp, float32, within the contract's 5e-5 relative; the
+autograd Function against jax.grad and torch's gradcheck in float64; the
+card's backward tolerance against the Pallas backward and a bf16 emulation
+of the CUDA kernels' rounding."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +26,7 @@ from ltx_tpu.kernels.flash_attention import flash_attention as j_flash
 from ltx_tpu.ops.attention import _gqa_sdpa as j_gqa
 from ltx_tpu.ops.attention import _xla_sdpa as j_xla
 from ltx_tpu_torch import checks
+from ltx_tpu_torch.kernels.flash_attention import attention_logits as fa_logits
 from ltx_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -148,3 +157,147 @@ def test_flash_raises_on_full_mask_and_non_cpu_tensor():
     # kernel, and a device the kernel does not take raises
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# Training: the statistics forward (B2), the backward (B3), the VJP
+# ---------------------------------------------------------------------------
+
+from ltx_tpu.kernels.flash_attention import _flash_backward as j_flash_backward  # noqa: E402
+from ltx_tpu.kernels.flash_attention import flash_attention_vjp as j_flash_vjp  # noqa: E402
+from ltx_tpu_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_stats,
+    flash_attention_vjp,
+    softmax_lse,
+)
+
+# the backward contract's cases (tests/test_pallas_kernels.py:182-230): name,
+# (b, h, tq, tk, d), per-row valid key counts (-1e30 beyond) or None, 4-D bias
+BWD_CASES = [
+    ("no_bias", (2, 3, 32, 32, 16), None, False),
+    ("key_bias", (2, 4, 24, 40, 16), (33, 17), False),
+    ("padded_tail", (1, 2, 23, 37, 16), None, False),
+    ("bias4d", (2, 2, 16, 48, 16), (40, 40), True),
+]
+
+
+def _bwd_inputs(shape, valid, four_d, seed=0):
+    b, h, tq, tk, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = _qkv(seed, b, h, tq, tk, d)
+    do = rng.standard_normal((b, h, tq, d)).astype(np.float32)
+    bias = None
+    if valid is not None:
+        bias = np.zeros((b, tk), np.float32)
+        for row, n in enumerate(valid):
+            bias[row, n:] = -1e30
+        if four_d:
+            bias = bias[:, None, None, :]
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("name,shape,valid,four_d", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_stats_and_backward_match_pallas_and_jax_grad(name, shape, valid, four_d):
+    """f32: the plain statistics forward against the Pallas stats kernel,
+    the plain backward against the two Pallas backward kernels (interpret
+    mode, 16x16 blocks), within the contract's 5e-5; keys masked with -1e30
+    get exactly zero dK, dV. (jax.grad of flash_attention_vjp, which runs
+    the same kernels, is held in the next test.)"""
+    q, k, v, do, bias = _bwd_inputs(shape, valid, four_d)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jb = None if bias is None else jnp.asarray(bias)
+    o_j, m_j, l_j = j_flash(jq, jk, jv, bias=jb, block_q=16, block_k=16, interpret=True,
+                            return_stats=True)
+    tq_, tk_, tv_, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tb = None if bias is None else torch.from_numpy(bias)
+    o, m, l = flash_attention_stats(tq_, tk_, tv_, tb)
+    assert_rel(o, o_j, 5e-5, f"stats {name} out")
+    assert_rel(m, m_j, 5e-5, f"stats {name} m")
+    assert_rel(l, l_j, 5e-5, f"stats {name} l")
+
+    lse = softmax_lse(m, l)
+    key_bias2 = None if jb is None else (jb[:, 0, 0] if jb.ndim == 4 else jb)
+    pallas = j_flash_backward(jq, jk, jv, key_bias2, jnp.asarray(o.numpy()),
+                              jnp.asarray(lse.numpy()), jdo, shape[4]**-0.5,
+                              block_q=16, block_k=16, interpret=True)
+    got = flash_attention_backward(tq_, tk_, tv_, tb, o, lse, tdo)
+    for g, p, n in zip(got, pallas, ("dq", "dk", "dv")):
+        assert_rel(g, p, 5e-5, f"backward {name} {n} vs pallas")
+    if valid is not None:
+        for row, n in enumerate(valid):
+            assert not got[1][row, :, n:].any() and not got[2][row, :, n:].any()
+
+
+def test_vjp_function_matches_jax_grad_and_routes():
+    """The autograd Function (plain versions on the CPU) gives jax.grad's
+    gradients through flash_attention_vjp, no gradient to the bias, and
+    sdpa routes there only while autograd records."""
+    q, k, v, do, bias = _bwd_inputs((2, 2, 20, 28, 32), (21, 9), True, seed=3)
+    jb = jnp.asarray(bias)
+    want = jax.grad(lambda a, b_, c: jnp.sum(
+        j_flash_vjp(a, b_, c, jb, 0.2, 8, 8, True) * jnp.asarray(do)),
+        argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq_, tk_, tv_ = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    tb = torch.from_numpy(bias).requires_grad_(True)
+    out = sdpa(tq_, tk_, tv_, bias=tb, scale=0.2)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, (tq_, tk_, tv_, tb), torch.from_numpy(do),
+                              allow_unused=True)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        assert_rel(g, w, 5e-5, f"vjp {n} vs jax.grad")
+    assert got[3] is None
+    with torch.no_grad():
+        assert sdpa(tq_, tk_, tv_, bias=tb, scale=0.2).grad_fn is None
+
+
+def test_vjp_gradcheck_f64():
+    """torch.autograd.gradcheck of the Function in float64 (the plain
+    versions keep float64): the backward formulas are the forward's
+    derivative, with a key bias and a ragged tail."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, t, 8, generator=gen, dtype=torch.float64,
+                           requires_grad=True) for t in (5, 7, 7))
+    bias = torch.zeros(1, 7, dtype=torch.float64)
+    bias[0, 5:] = -1e30
+    assert torch.autograd.gradcheck(lambda a, b_, c: flash_attention_vjp(a, b_, c, bias, 0.4),
+                                    (q, k, v))
+
+
+@pytest.mark.parametrize("case", [
+    checks.BackwardCase("cpu_d32_rows", 2, 2, 70, 90, 32, bias=("rows", 80, 33)),
+    checks.BackwardCase("cpu_d64_masked", 1, 2, 65, 100, 64, bias=("masked", 70)),
+], ids=lambda c: c.name)
+def test_card_backward_tolerance_admits_bf16_and_rejects_a_dropped_tile(case):
+    """checks.backward_tolerance (the card's bound) admits the Pallas
+    backward in interpret mode and an emulation of the CUDA kernels' bf16
+    rounding of P and dS, and a backward that skipped one K/V tile breaks
+    it."""
+    q, k, v, do, bias, o, lse = checks.backward_inputs(case, "cpu")
+    want = flash_attention_backward_reference(q, k, v, bias, o, lse, do)
+    tols = checks.backward_tolerance(q, k, v, bias, do, lse, None, want)
+    jb = None if bias is None else jnp.asarray(bias[:, 0, 0].numpy())
+    pallas = j_flash_backward(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+                              jb, jnp.asarray(o.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(lse.numpy()),
+                              jnp.asarray(do.float().numpy(), jnp.bfloat16), case.d**-0.5,
+                              block_q=32, block_k=32, interpret=True)
+    scale = case.d**-0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(fa_logits(q, k, bias, scale) - lse[..., None])
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * o.float()).sum(-1)[..., None]) * scale
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    emulated = ((dsb @ kf).bfloat16(), (dsb.transpose(-1, -2) @ qf).bfloat16(),
+                (pb.transpose(-1, -2) @ dof).bfloat16())
+    for name, side in (("pallas", [torch.from_numpy(np.asarray(x, np.float32)) for x in pallas]),
+                       ("bf16 emulation", emulated)):
+        shares = [checks.tolerance_share(g, w, t) for g, w, t in zip(side, want, tols)]
+        print(f"[parity] {case.name} {name} vs plain: {[round(s, 3) for s in shares]} "
+              "of the card's backward tolerance")
+        assert max(shares) <= 1.0
+    dropped = torch.zeros(case.b, 1, 1, case.tk) if bias is None else bias.clone()
+    dropped[..., 32:64] = -1e30
+    skipped = flash_attention_backward_reference(q, k, v, dropped, o, lse, do)
+    assert all(((s.float() - w.float()).abs() > t).any()
+               for s, w, t in zip(skipped, want, tols))

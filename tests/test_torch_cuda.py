@@ -9,9 +9,12 @@ only torch (tests/conftest.py imports jax, hence --noconftest):
 
 The cases and tolerances are ltx_tpu_torch.checks', which chip_smoke.py
 runs too: attention element by element within 2**-8 * (P @ |V|) plus two
-bf16 ulps of the plain output; the int4 product within one bf16 ulp plus
-2**-12 * (|X| @ |W|); dequant_int4 and quantize_weight on the card bit for
-bit; the tiny pipeline's frames within 2e-2.
+bf16 ulps of the plain output; the softmax statistics within 2**-14 (m) and
+2**-12 (l) relative; the backward's dQ, dK, dV element by element (the bf16
+rounding of P and dS, checks' docstring) and exactly 0 on -1e30 masked
+keys; the int4 product within one bf16 ulp plus 2**-12 * (|X| @ |W|);
+dequant_int4 and quantize_weight on the card bit for bit; the tiny
+pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative.
 """
 
 import pytest
@@ -49,6 +52,29 @@ def test_flash_kernel_rejects_what_it_does_not_take(device):
     q48 = torch.randn(1, 2, 8, 48, device=device).bfloat16()
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q48, q48, q48)
+
+
+@pytest.mark.parametrize("case", checks.BWD_CASES, ids=lambda c: c.name)
+def test_flash_stats_and_backward_kernels_match_plain(device, case):
+    before = (fa.flash_attention_stats.launches, fa.flash_attention.launches)
+    checks.check_stats(case, device)
+    assert (fa.flash_attention_stats.launches, fa.flash_attention.launches) == (
+        before[0] + 1, before[1])
+    res = checks.check_backward(case, device)
+    assert (res["dq_launches"], res["dkv_launches"]) == (1, 1)
+
+
+def test_flash_backward_rejects_what_it_does_not_take(device):
+    case = checks.BackwardCase("reject", 1, 2, 40, 40, 32)
+    q, k, v, do, bias, o, lse = checks.backward_inputs(case, device)
+    with pytest.raises(ValueError, match="dO"):
+        fa.flash_attention_backward(q, k, v, bias, o, lse, do.float())
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_dq(q, k, v, None, do, lse[:, :, :8], lse, 0.1)
+
+
+def test_tiny_lora_train_cuda_matches_cpu(device):
+    checks.check_tiny_train(device)
 
 
 @pytest.mark.parametrize("case", checks.INT4_CASES, ids=lambda c: c.name)

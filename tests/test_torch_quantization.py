@@ -23,6 +23,10 @@ Tolerances:
   rounding) while the port takes the kernel route (bf16 product, then a
   bf16 bias add): the bound plus one bf16 ulp of the product, for the
   extra rounding. qint8 leaves take the XLA route on both sides.
+* the int4 straight-through backward against jax.vjp of the reference's
+  int4_matmul (interpret mode): the same element bound on g @ dequant(W)^T.
+* a LoRA side path on each route, forward and the gradients of x and the
+  three LoRA leaves against jax.vjp of linear_any: 2**-7 relative.
 """
 
 import jax
@@ -39,7 +43,7 @@ from ltx_tpu_torch.config import TransformerConfig
 from ltx_tpu_torch.kernels import quantization as tq
 from ltx_tpu_torch.models.common import QuantizedLinear
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
-from torch_parity import reference_int4_kernel_route
+from torch_parity import assert_rel, reference_int4_kernel_route
 
 
 def _t(a):
@@ -307,3 +311,91 @@ def test_quantized_linear_keeps_its_format():
         torch.nn.Sequential(layer).half()
     with pytest.raises(NotImplementedError):
         quantize_transformer(LTXTransformer(CFG, dtype=torch.float32), 8, w8a8=True)
+
+
+# ---------------------------------------------------------------------------
+# Training: the int4 straight-through backward and the LoRA side path
+# ---------------------------------------------------------------------------
+
+
+def test_int4_ste_matches_jax_grad():
+    """d/dx of the int4 product: the port's straight-through backward (the
+    plain dequant on the CPU, a bf16 product) against jax.vjp of the
+    reference's int4_matmul in interpret mode, within one bf16 ulp plus the
+    sum-order term of the int4 bound; the codes get no gradient."""
+    rng = np.random.default_rng(21)
+    x = np.asarray(jnp.asarray(rng.standard_normal((40, 512)), jnp.bfloat16))
+    g = np.asarray(jnp.asarray(rng.standard_normal((40, 256)), jnp.bfloat16))
+    qp = jq.quantize_weight(jnp.asarray(_weight(512, 256, seed=21)), 4, 64)
+    _, vjp = jax.vjp(lambda xx: jq.int4_matmul(qp, xx, interpret=True), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0], np.float32)
+    xt = _t(x).requires_grad_(True)
+    args = [_t(qp[k]) for k in ("w_q4", "scale", "bias")]
+    (got,) = torch.autograd.grad(tq.int4_mm(xt, *args), xt, _t(g))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    w = tq.dequant_int4_reference(*args).float().numpy()
+    bound = checks.bf16_ulp(torch.from_numpy(np.maximum(np.abs(got), np.abs(want)))).numpy() \
+        + checks.INT4_C * (np.abs(g.astype(np.float32)) @ np.abs(w).T)
+    _assert_within(got, want, bound, "int4 STE backward vs jax.vjp")
+
+
+def _lora_leaf(k, n, seed, r=4):
+    rng = np.random.default_rng(seed)
+    return {"lora_a": (rng.standard_normal((k, r)) * k**-0.5).astype(np.float32),
+            "lora_b": (rng.standard_normal((r, n)) * 0.1).astype(np.float32),
+            "lora_s": np.asarray(1.5, np.float32)}
+
+
+@pytest.mark.parametrize("route", ["int4_kernel", "qint8_xla", "plain"])
+def test_linear_any_lora_forward_and_grads(monkeypatch, route):
+    """A LoRA side path on the int4 kernel route (the reference's kernel
+    route forced on the CPU), the dequantize-then-f32 route (qint8) and a
+    plain bf16 Linear module: the output and the gradients of x, lora_a,
+    lora_b and lora_s against jax.vjp of the reference's linear_any, bf16
+    activations. Tolerance 2**-7 of the largest magnitude (one bf16
+    rounding of the output; the f32 LoRA gradients see the same bf16
+    cotangent on both sides)."""
+    rng = np.random.default_rng(31)
+    x = np.asarray(jnp.asarray(rng.standard_normal((2, 40, 512)), jnp.bfloat16))
+    g = np.asarray(jnp.asarray(rng.standard_normal((2, 40, 256)), jnp.bfloat16))
+    b = np.asarray(jnp.asarray(rng.standard_normal(256) * 0.1, jnp.bfloat16))
+    w = _weight(512, 256, seed=31, dtype=jnp.bfloat16)
+    if route == "plain":
+        jp = {"w": w, "b": b}
+    else:
+        jp = dict(jq.quantize_weight(jnp.asarray(w), 4 if route == "int4_kernel" else 8, 64),
+                  b=b)
+    if route == "int4_kernel":
+        reference_int4_kernel_route(monkeypatch)
+    jp.update(_lora_leaf(512, 256, 32))
+    names = ("lora_a", "lora_b", "lora_s")
+    base = {k: jnp.asarray(v) for k, v in jp.items() if k not in names}
+
+    def ref(xx, a, bb, s):
+        return jq.linear_any(dict(base, lora_a=a, lora_b=bb, lora_s=s), xx)
+
+    want, vjp = jax.vjp(ref, jnp.asarray(x), *(jnp.asarray(jp[k]) for k in names))
+    want_grads = vjp(jnp.asarray(g))
+
+    leaves = {k: _t(v).requires_grad_(k in names) for k, v in jp.items()}
+    xt = _t(x).requires_grad_(True)
+    if route == "plain":
+        from ltx_tpu_torch.models.common import Linear
+        layer = Linear(512, 256, dtype=torch.bfloat16)
+        with torch.no_grad():
+            layer.weight.copy_(leaves["w"].t())
+            layer.bias.copy_(leaves["b"])
+        layer.add_lora_params(4)
+        for k in names:
+            setattr(layer, k, torch.nn.Parameter(leaves[k]))
+            leaves[k] = getattr(layer, k)
+        got = layer(xt)
+    else:
+        assert tq.use_int4_kernel(leaves, xt) == (route == "int4_kernel")
+        got = tq.linear_any(leaves, xt)
+    got_grads = torch.autograd.grad(got, [xt] + [leaves[k] for k in names], _t(g))
+    assert got.dtype == torch.bfloat16
+    assert_rel(got, want, 2.0**-7, f"linear_any LoRA {route} forward")
+    for n, gg, ww in zip(("x",) + names, got_grads, want_grads):
+        assert_rel(gg, ww, 2.0**-7, f"linear_any LoRA {route} d{n}")

@@ -1,0 +1,436 @@
+"""Port parity: LoRA training (ltx_tpu_torch.train against ltx_tpu.train) on
+the tiny DiT, the same numpy-made inputs and the reference's own jax.random
+draws of sigma and noise fed to both sides.
+
+Tolerances (largest error relative to the reference's largest magnitude):
+* flow_match_loss and its LoRA gradients, remat off, per block and
+  segmented (the port's three against the reference's, without remat):
+  float32 1e-4 per leaf (the same math; sums in other orders); bf16 5e-2
+  over all leaves (the two frameworks round bf16 at different places, as in
+  the DiT's forward parity).
+* 6 train steps (LoRA-only, warmup, gradient accumulation 2, EMA) in
+  float32: the trainable leaves and the EMA 1e-4 per leaf, the losses and
+  gradient norms 1e-4.
+* the optimizer against optax: 1e-6 per leaf (float32, the same formulas).
+* datasets, checkpoint resume, the JAX checkpoint's trainable part, the
+  exported adapter: equal.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ltx_tpu.core import config as jconfig
+from ltx_tpu.lora import fuse as jfuse
+from ltx_tpu.ops import rope as jrope
+from ltx_tpu.ops.attention import prepare_additive_mask as j_mask
+from ltx_tpu.train import checkpoint as jckpt
+from ltx_tpu.train import data as jdata
+from ltx_tpu.train import export as jexport
+from ltx_tpu.train import flow_match as jfm
+from ltx_tpu.train import lora as jlora
+from ltx_tpu.train import step as jstep
+from ltx_tpu_torch import convert
+from ltx_tpu_torch.config import TransformerConfig
+from ltx_tpu_torch.train import checkpoint, cli, data, export, lora, step
+from ltx_tpu_torch.train.flow_match import flow_match_loss, sample_sigmas
+from test_torch_dit import _params
+from torch_parity import as_np, assert_rel
+
+CFG = TransformerConfig().tiny()
+JCFG = convert.port_config(CFG, jconfig.TransformerConfig)
+GRID = (2, 2, 3)
+RANK = 4
+
+
+def _lora_tree(dtype):
+    """The reference's tiny DiT (its zero tables, biases and unit norms
+    redrawn) with rank-4 LoRA leaves from add_lora, lora_b redrawn nonzero
+    so that lora_a gets a gradient; numpy leaves."""
+    tree = jax.tree.map(jnp.asarray, _params(dtype))
+    tree = jlora.add_lora(tree, jax.random.key(4), rank=RANK)
+    rng = np.random.default_rng(9)
+
+    def bump(t):
+        return {k: bump(v) if isinstance(v, dict) else (
+            (rng.standard_normal(np.shape(v)) * 0.05).astype(np.float32)
+            if k == "lora_b" else np.asarray(v)) for k, v in t.items()}
+
+    return bump(tree)
+
+
+def _batch():
+    rng = np.random.default_rng(1)
+    f, h, w = GRID
+    tokens = rng.standard_normal((2, f * h * w, CFG.in_channels)).astype(np.float32)
+    context = rng.standard_normal((2, 16, CFG.caption_channels)).astype(np.float32)
+    mask = np.ones((2, 16), np.int32)
+    mask[0, :5] = 0
+    mask[1, :11] = 0
+    cos, sin = jrope.video_rope(f, h, w, CFG.inner_dim, CFG.num_heads)
+    return tokens, context, mask, (np.asarray(cos), np.asarray(sin))
+
+
+def _draws(key, shape):
+    """What the reference's flow_match_loss draws from `key`."""
+    k_sigma, k_noise = jax.random.split(key)
+    return (np.asarray(jfm.sample_sigmas(k_sigma, shape[0], "logit_normal")),
+            np.asarray(jax.random.normal(k_noise, shape, jnp.float32)))
+
+
+def _torch_batch(batch, dtype=torch.float32):
+    tokens, context, mask, (cos, sin) = batch
+    return (torch.from_numpy(tokens), torch.from_numpy(context),
+            (torch.from_numpy(cos), torch.from_numpy(sin)),
+            prepare_bias(mask))
+
+
+def prepare_bias(mask):
+    from ltx_tpu_torch.ops.attention import prepare_additive_mask
+    return prepare_additive_mask(torch.from_numpy(mask))
+
+
+def _stacked(tree: dict) -> dict:
+    """{reference key path: array} of a reference tree's leaves."""
+    return {jax.tree_util.keystr(p): np.asarray(v, np.float32)
+            for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+@pytest.fixture(scope="module", params=["f32", "bf16"])
+def loss_case(request):
+    """The reference's loss and LoRA gradients for one dtype (no remat: the
+    reference's remat changes no number, and compiles slower), and the
+    port's model converted from the same tree."""
+    dtype = jnp.float32 if request.param == "f32" else jnp.bfloat16
+    tree = _lora_tree(dtype)
+    batch = _batch()
+    tokens, context, mask, rope = batch
+    key = jax.random.key(11)
+    sigma, noise = _draws(key, tokens.shape)
+    params = jax.tree.map(jnp.asarray, tree)
+    tc = jstep.TrainConfig(lora_only=True, compute_dtype=dtype)
+    trainable, frozen = jstep.partition_trainable(params, tc)
+
+    def loss_fn(tr):
+        return jfm.flow_match_loss(
+            jstep.combine_params(tr, frozen), jnp.asarray(tokens), jnp.asarray(context),
+            tuple(map(jnp.asarray, rope)), key, JCFG, context_bias=j_mask(jnp.asarray(mask)),
+            sdpa_impl="xla", remat=False, compute_dtype=dtype)[0]
+
+    loss, grads = jax.value_and_grad(loss_fn)(trainable)
+    model = convert.transformer(tree, CFG)
+    return request.param, model, batch, (sigma, noise), float(loss), _stacked(grads)
+
+
+@pytest.mark.parametrize("remat,segments", [(False, 0), (True, 0), (True, 2)],
+                         ids=["no_remat", "remat", "segments2"])
+def test_flow_match_loss_and_lora_grads(loss_case, remat, segments):
+    name, model, batch, (sigma, noise), want_loss, want = loss_case
+    tokens, context, rope, bias = _torch_batch(batch)
+    trainable, _ = step.partition_trainable(model, step.TrainConfig(lora_only=True))
+    dtype = torch.float32 if name == "f32" else torch.bfloat16
+    loss, aux = flow_match_loss(model, tokens, context, rope, torch.tensor(sigma),
+                                torch.tensor(noise), bias, remat=remat,
+                                remat_segments=segments, compute_dtype=dtype)
+    grads = torch.autograd.grad(loss, list(trainable.values()))
+    got = checkpoint.flatten_params(dict(zip(trainable, grads)), "")
+    assert sorted(got) == sorted(want)
+    tol = 1e-4 if name == "f32" else 5e-2
+    assert_rel(torch.tensor([loss.item()]), np.asarray([want_loss]), tol, f"loss {name}")
+    if name == "f32":
+        worst = max(assert_rel(got[k], want[k], tol, f"d{k} {name}") for k in want)
+    else:
+        worst = assert_rel(np.concatenate([got[k].ravel() for k in want]),
+                           np.concatenate([want[k].ravel() for k in want]), tol,
+                           f"LoRA gradients {name} remat={remat} segments={segments}")
+    assert np.isfinite(worst)
+
+
+def test_segmented_remat_rejects_a_non_divisor():
+    model = convert.transformer(_lora_tree(jnp.float32), CFG)
+    tokens, context, rope, bias = _torch_batch(_batch())
+    with pytest.raises(ValueError, match="must divide"):
+        flow_match_loss(model, tokens, context, rope, torch.full((2,), 0.5),
+                        torch.zeros_like(tokens), bias, remat_segments=3,
+                        compute_dtype=torch.float32)
+
+
+def test_train_steps_match_reference():
+    """6 steps of the LoRA-only train step with a 2-step warmup, gradient
+    accumulation over 2 (3 updates, at learning rates 0, lr/2 and lr) and
+    an EMA, float32, fed the reference's draws. Adam's eps is 1e-3 here:
+    some LoRA gradients of this tiny DiT are 0 in the reference and ~1e-9
+    on the port (saturated tanh-GELU), and Adam's g / (|g| + eps) turns a
+    rounding-level gradient into up to a whole learning rate when eps is
+    1e-8. With eps 1e-3 such elements stay put on both sides; the
+    optimizer's own test holds the default eps against optax."""
+    tree = _lora_tree(jnp.float32)
+    batch = _batch()
+    tokens, context, mask, rope = batch
+    jtc = jstep.TrainConfig(lora_only=True, warmup_steps=2, accum_steps=2, eps=1e-3,
+                            learning_rate=1e-2, compute_dtype=jnp.float32, sdpa_impl="xla")
+    params = jax.tree.map(jnp.asarray, tree)
+    trainable, frozen, opt_state = jstep.init_train_state(params, jtc)
+    jstep_fn = jstep.make_train_step(JCFG, jtc, donate=False)
+    ema, ema_upd = jstep.ema_init(trainable), jstep.make_ema_update(0.9)
+
+    model = convert.transformer(tree, CFG)
+    tc = step.TrainConfig(lora_only=True, warmup_steps=2, accum_steps=2, eps=1e-3,
+                          learning_rate=1e-2, compute_dtype=torch.float32)
+    t_trainable, _, t_opt = step.init_train_state(model, tc)
+    t_step = step.make_train_step(model, tc)
+    t_ema, t_ema_upd = step.ema_init(t_trainable), step.make_ema_update(0.9)
+    tt, tc_, trope, tbias = _torch_batch(batch)
+
+    key = jax.random.key(5)
+    for i in range(6):
+        key, sub = jax.random.split(key)
+        trainable, opt_state, aux = jstep_fn(
+            trainable, frozen, opt_state, jnp.asarray(tokens), jnp.asarray(context),
+            tuple(map(jnp.asarray, rope)), sub, context_bias=j_mask(jnp.asarray(mask)))
+        ema = ema_upd(ema, trainable)
+        sigma, noise = _draws(sub, tokens.shape)
+        t_trainable, t_opt, t_aux = t_step(t_trainable, t_opt, tt, tc_, trope,
+                                           torch.tensor(sigma), torch.tensor(noise), tbias)
+        t_ema = t_ema_upd(t_ema, t_trainable)
+        assert_rel(t_aux["loss"].reshape(1), np.asarray([aux["loss"]]), 1e-4, f"loss {i}")
+        assert_rel(t_aux["grad_norm"].reshape(1), np.asarray([aux["grad_norm"]]), 1e-4,
+                   f"grad_norm {i}")
+    for got, want, what in ((t_trainable, trainable, "params"), (t_ema, ema, "ema")):
+        got, want = checkpoint.flatten_params(got, ""), _stacked(want)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert_rel(got[k], want[k], 1e-4, f"{what} {k} after 6 steps")
+    assert int(t_opt["gradient_step"]) == 3 and int(t_opt["inner"]["count"]) == 3
+
+
+@pytest.mark.parametrize("kw", [
+    dict(weight_decay=0.05, warmup_steps=3),
+    dict(grad_clip=0.5, b2=0.99),
+    dict(accum_steps=2, warmup_steps=2, weight_decay=0.01),
+], ids=["decay_warmup", "clip", "accum"])
+def test_optimizer_matches_optax(kw):
+    """make_optimizer against the reference's optax chain over 6 updates,
+    weight decay judged on the reference's (stacked) shapes: a block's 1-D
+    bias is 2-D there and decays, a top-level 1-D bias does not."""
+    rng = np.random.default_rng(3)
+    shapes = {"blocks.0.lin.lora_a": (6, 3), "blocks.0.lin.lora_s": (),
+              "blocks.0.lin.bias": (5,), "proj.bias": (5,), "proj.weight": (5, 6)}
+    params = {n: torch.from_numpy(np.asarray(rng.standard_normal(s), np.float32))
+              for n, s in shapes.items()}
+    tc = step.TrainConfig(**kw)
+    jtc = jstep.TrainConfig(**kw)
+    tx, jtx = step.make_optimizer(tc), jstep.make_optimizer(jtc)
+
+    def tree(d):
+        t = {}
+        for key, arr in checkpoint.flatten_params(d, "").items():
+            node = t
+            parts = key[2:-2].split("']['")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = jnp.asarray(arr)
+        return t
+
+    state, jstate, jparams = tx.init(params), jtx.init(tree(params)), tree(params)
+    jupdate = jax.jit(jtx.update)
+    for i in range(6):
+        scale = 3.0 if i % 2 else 0.05  # the clip triggers on odd updates
+        grads = {n: torch.from_numpy(np.asarray(rng.standard_normal(s) * scale, np.float32))
+                 for n, s in shapes.items()}
+        updates, state = tx.update(grads, state, params)
+        params = {n: p + updates[n] for n, p in params.items()}
+        jupdates, jstate = jupdate(tree(grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, jupdates)
+        got, want = checkpoint.flatten_params(params, ""), _stacked(jparams)
+        for k in want:
+            assert_rel(got[k], want[k], 1e-6, f"optimizer {kw} {k} update {i}")
+
+
+def _write_shards(root, n_shards=2, rows=5, s=16):
+    rng = np.random.default_rng(0)
+    f, h, w = GRID
+    for i in range(n_shards):
+        mask = np.ones((rows, s), np.int32)
+        mask[:, :i + 3] = 0
+        data.write_shard(root / f"shard{i}.npz",
+                         rng.standard_normal((rows, f * h * w, 16)).astype(np.float16),
+                         rng.standard_normal((rows, s, 48)).astype(np.float32), GRID, mask)
+
+
+def test_datasets_give_identical_batches_and_resume(tmp_path):
+    _write_shards(tmp_path)
+    ours, ref = data.LatentShardDataset(tmp_path, 3, seed=4), jdata.LatentShardDataset(
+        tmp_path, 3, seed=4)
+    assert ours.grid == ref.grid and ours.num_rows == ref.num_rows
+    for i in range(7):
+        if i == 3:
+            saved = ours.state()
+        a, b = next(ours), next(ref)
+        for field in ("tokens", "context", "mask"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    ours.restore(saved)
+    ref2 = jdata.LatentShardDataset(tmp_path, 3, seed=4)
+    for _ in range(3):
+        next(ref2)
+    for _ in range(4):
+        np.testing.assert_array_equal(next(ours).tokens, next(ref2).tokens)
+    # the device batches: pinned only on a card; the additive bias as the reference's
+    it = data.prefetch_to_device(data.LatentShardDataset(tmp_path, 2, seed=1), 2, "cpu")
+    batch = next(it)
+    want = next(jdata.prefetch_to_device(jdata.LatentShardDataset(tmp_path, 2, seed=1), 2))
+    for got, w in zip(batch[:3], want):
+        np.testing.assert_array_equal(as_np(got), np.asarray(w, np.float32))
+    assert batch.cursor["pos"] == 2
+
+
+def test_checkpoint_resume_exact_and_reference_checkpoints_load(tmp_path):
+    """The port's checkpoint restores bitwise into a template; the trainable
+    part of a reference checkpoint loads here, and the port's trainable part
+    loads in the reference; a mismatched template raises."""
+    tree = _lora_tree(jnp.float32)
+    model = convert.transformer(tree, CFG)
+    tc = step.TrainConfig(lora_only=True, accum_steps=2)
+    trainable, _, opt = step.init_train_state(model, tc)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for d in (opt["acc_grads"], opt["inner"]["mu"], opt["inner"]["nu"]):
+            for t in d.values():
+                t.copy_(torch.randn(t.shape, generator=gen))
+    opt["inner"]["count"] = torch.tensor(7, dtype=torch.int32)
+    path = tmp_path / "c.npz"
+    checkpoint.save_train_checkpoint(path, trainable, opt, 9)
+    saved = {n: t.clone() for n, t in trainable.items()}
+    saved_mu = {n: t.clone() for n, t in opt["inner"]["mu"].items()}
+
+    model2 = convert.transformer(_lora_tree(jnp.float32), CFG)
+    with torch.no_grad():
+        for p in model2.parameters():
+            p.zero_()
+    tr2, _, opt2 = step.init_train_state(model2, tc)
+    tr2, opt2, step_n = checkpoint.load_train_checkpoint(path, tr2, opt2)
+    assert step_n == 9 and int(opt2["inner"]["count"]) == 7
+    assert all(torch.equal(tr2[n], saved[n]) for n in saved)
+    assert all(torch.equal(opt2["inner"]["mu"][n], saved_mu[n]) for n in saved_mu)
+    # the reference reads the port's trainable part
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jtr, _ = jstep.partition_trainable(jparams, jstep.TrainConfig(lora_only=True))
+    with np.load(path) as z:
+        store = {k: z[k] for k in z.files}
+    restored = jckpt._restore(jtr, store, "t")
+    for k, v in _stacked(restored).items():
+        np.testing.assert_array_equal(v, checkpoint.flatten_params(saved, "")[k])
+    # the port reads a reference checkpoint's trainable part (its optax
+    # state keeps optax's names)
+    jpath = tmp_path / "j.npz"
+    jckpt.save_train_checkpoint(jpath, jtr, jstep.make_optimizer(
+        jstep.TrainConfig(lora_only=True)).init(jtr), 3)
+    tr3, _, s3 = checkpoint.load_train_checkpoint(jpath, tr2)
+    assert s3 == 3
+    for k, v in _stacked(jtr).items():
+        np.testing.assert_array_equal(checkpoint.flatten_params(tr3, "")[k], v)
+    with pytest.raises(KeyError):
+        checkpoint.load_train_checkpoint(jpath, tr2, opt2)
+    small, _, _ = step.init_train_state(lora.add_lora(
+        convert.transformer(_params(jnp.float32), CFG), torch.Generator(), rank=2),
+        step.TrainConfig(lora_only=True))
+    with pytest.raises(ValueError, match="shape"):
+        checkpoint.load_train_checkpoint(path, small)
+
+
+def test_export_equals_reference_and_fuses(tmp_path):
+    tree = _lora_tree(jnp.float32)
+    model = convert.transformer(tree, CFG)
+    got = export.lora_state_dict(dict(model.named_parameters()))
+    want = jexport.lora_state_dict(jax.tree.map(jnp.asarray, tree))
+    assert sorted(got) == sorted(want) and len(got) == 3 * 10 * CFG.num_layers
+    for k in want:
+        assert got[k].dtype == np.float32 and got[k].shape == np.shape(want[k]), k
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+    path = tmp_path / "a.safetensors"
+    assert export.save_lora(dict(model.named_parameters()), path) == len(want)
+    from safetensors.numpy import load_file
+    loaded = load_file(str(path))
+    assert sorted(loaded) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(loaded[k], got[k])
+    np.testing.assert_array_equal(export.read_safetensors(path)[k], got[k])
+    base = jax.tree.map(jnp.asarray, jlora.strip_lora(tree))
+    jpath = tmp_path / "j.safetensors"
+    jexport.save_lora(jax.tree.map(jnp.asarray, tree), jpath)
+    fused, jfused = jfuse.fuse_lora_file(base, path), jfuse.fuse_lora_file(base, jpath)
+    for (kp, a), b in zip(jax.tree_util.tree_leaves_with_path(fused),
+                          jax.tree_util.tree_leaves(jfused)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=jax.tree_util.keystr(kp))
+
+
+def test_add_strip_merge_and_convert():
+    """add_lora's shapes and init, strip_lora, merge_lora against the
+    reference's merge, and convert's strictness on LoRA leaves."""
+    tree = _lora_tree(jnp.float32)
+    model = convert.transformer(tree, CFG)
+    mask = lora.lora_param_mask(model)
+    assert sum(mask.values()) == 3 * 10 * CFG.num_layers
+    merged = lora.merge_lora(convert.transformer(tree, CFG))
+    want = convert.transformer(jax.tree.map(np.asarray, jlora.merge_lora(
+        jax.tree.map(jnp.asarray, tree))), CFG)
+    ref = dict(want.named_parameters())
+    for n, p in merged.named_parameters():
+        assert_rel(p, ref[n], 1e-6, f"merge_lora {n}")
+    assert not any(lora.lora_param_mask(merged).values())
+
+    fresh = lora.add_lora(convert.transformer(_params(jnp.float32), CFG),
+                          torch.Generator().manual_seed(0), rank=8, alpha=4.0)
+    to_q = fresh.blocks[0].attn1.to_q
+    assert to_q.lora_a.shape == (CFG.inner_dim, 8) and to_q.lora_b.shape == (8, CFG.inner_dim)
+    assert not to_q.lora_b.any() and float(to_q.lora_s.detach()) == 0.5
+    lora.strip_lora(fresh)
+    assert not any(lora.lora_param_mask(fresh).values())
+
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["blocks"]["attn1"]["to_q"]["lora_b"] = bad["blocks"]["attn1"]["to_q"]["lora_b"][:, :2]
+    with pytest.raises(ValueError, match="shape"):
+        convert.transformer(bad, CFG)
+
+
+def test_sample_sigmas_ranges():
+    gen = torch.Generator().manual_seed(0)
+    for scheme in ("uniform", "logit_normal"):
+        s = sample_sigmas(gen, 512, scheme)
+        assert s.dtype == torch.float32 and ((s > 0) & (s < 1)).all()
+    with pytest.raises(ValueError):
+        sample_sigmas(gen, 4, "nope")
+
+
+def test_train_cli_cpu_and_resume(tmp_path):
+    """The trainer on the CPU: 4 steps with checkpoints, then a resume leg
+    to 6 steps, exports what an uninterrupted 6-step run exports, bit for
+    bit; the unported options raise, naming their ROADMAP item."""
+    shards = tmp_path / "shards"
+    shards.mkdir()
+    _write_shards(shards, n_shards=1, rows=3)
+    common = ["--data", str(shards), "--random-init", "tiny", "--quant", "none",
+              "--ckpt-every", "2", "--log-every", "2", "--device", "cpu"]
+    assert cli.main(common + ["--out", str(tmp_path / "full.safetensors"), "--steps", "6"]) == 0
+    ckpt = str(tmp_path / "c.npz")
+    reports = []
+    assert cli.main(common + ["--out", str(tmp_path / "a.safetensors"), "--steps", "4",
+                              "--ckpt", ckpt]) == 0
+    assert cli.main(common + ["--out", str(tmp_path / "b.safetensors"), "--steps", "6",
+                              "--ckpt", ckpt, "--resume"], reports.append) == 0
+    assert reports[0]["start"] == 4 and [r["step"] for r in reports[1:]] == [5, 6]
+    full = export.read_safetensors(tmp_path / "full.safetensors")
+    resumed = export.read_safetensors(tmp_path / "b.safetensors")
+    assert len(full) == 3 * 10 * CFG.num_layers and sorted(full) == sorted(resumed)
+    for k in full:
+        np.testing.assert_array_equal(full[k], resumed[k])
+    for extra, item in ((["--quant", "w8a8"], "A10"), (["--weights", "x.safetensors"], "A9"),
+                        (["--mesh", "1,1"], "A18"), (["--sdpa", "ring"], "A18"),
+                        (["--compute", "f32", "--device", "cuda"], "A17")):
+        argv = common + ["--out", str(tmp_path / "x.safetensors"), "--steps", "1"] + extra
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(argv)
