@@ -10,11 +10,26 @@ Phases, each printing its own lines:
      shapes the paths give it and at ragged ones, each output element
      within its stated tolerance (ltx_tpu_torch.checks; dequant_int4 with 0
      error), with kernel, plain and library times and the card's bound;
-     then the tiny pipeline on the card against the same weights on the CPU;
+     then the tiny pipeline, the tiny two-stage I2V pipeline (its norms
+     through the rms_norm kernel) and the tiny LoRA train on the card
+     against the same weights and draws on the CPU;
   3. the bf16 main path: LTXPipeline.generate_video at full width and depth
      (Gemma-3-12B, the text connector, the 48-block DiT, the VAE decoder;
      random bf16 weights from a seeded generator) at 25 frames, 768x512,
      8 distilled steps, with the kernel launch counts read around it;
+  3b. the two-stage path, every model norm through the rms_norm kernel:
+     LTXPipeline.generate_video_two_stage at full width and depth, I2V from
+     a seeded pixel array through encode_image at half and at full
+     resolution (the full-width VAE encoder), 121 frames at 1024x576: a
+     guided stage 1 at 512x288 (CFG 4, STG on block 29, rescale 0.7: three
+     rows a step, 8 steps), the full-width latent upscaler and AdaIN, a
+     3-step stage 2 at 9216 tokens (two rows: STG stays, CFG goes), the
+     conditioned frame re-noised every
+     step, and a temporally tiled decode (8 latent frames a tile, overlap
+     2, uint8 tiles) to exactly 121 frames;
+  3c. the batched path: generate_videos with two prompts at 25f@768x512,
+     each sample against its solo generate_video on the same noise; then
+     one denoise step timed under both norm choices;
   4. the int4 main path: the same DiT quantized to int4 in place on the
      card, the same generate_video and noise; every block linear through
      int4_matmul (8 steps x 48 blocks x 10);
@@ -33,8 +48,11 @@ Phases, each printing its own lines:
      back. (Phase 2 also holds the tiny LoRA train on the card against the
      CPU, and the statistics and backward kernels against their plain
      versions.)
-  7. a JSON line of the kernels: launches (each from the path that runs
-     it), max error, kernel, plain and library ms, the bound and what sets it;
+  7. a JSON line of the seven kernels: launches (each from the path that runs
+     it), max error, kernel, plain and library ms, the bound and what sets
+     it, and `timing`, the clock that read the times ("idle": CUDA events
+     around each call on an idle card; "queued": the launches queued behind
+     other work, over buffers rotated past the L2's size);
   8. the last line, {"ok": true, "device": {...}}.
 
 There is no fallback: without CUDA, or when a kernel fails to build, launch
@@ -43,6 +61,7 @@ or agree, the script raises and exits non-zero before the last line.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import shutil
@@ -59,9 +78,12 @@ from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
 from ltx_tpu_torch.kernels import build
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
+from ltx_tpu_torch.kernels import rms_norm as rk
 from ltx_tpu_torch.models.common import QuantizedLinear
 from ltx_tpu_torch.models.dit import quantize_transformer
+from ltx_tpu_torch.ops import schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
+from ltx_tpu_torch.ops.normalization import set_rms_impl
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 from ltx_tpu_torch.pipeline.generate import GenerationTimings, LTXPipeline
 from ltx_tpu_torch.train import cli as train_cli
@@ -71,9 +93,20 @@ from ltx_tpu_torch.train.export import read_safetensors
 PROMPT = "A beaver builds a dam in a mountain stream at golden hour"
 NORTH_STAR = GenerationConfig(width=768, height=512, num_frames=25, num_steps=8, seed=0)
 BIG_M = GenerationConfig(width=1024, height=576, num_frames=121, num_steps=8, seed=0)
+TWO_STAGE = GenerationConfig(width=1024, height=576, num_frames=121, num_steps=8, seed=0,
+                             cfg_scale=4.0, stg_scale=1.0, stg_blocks=(29,),
+                             guidance_rescale=0.7, image_cond_noise_scale=0.15,
+                             two_stage=True)
+TWO_STAGE_TILE, TWO_STAGE_OVERLAP = 8, 2
+BATCH_PROMPTS = (PROMPT, "A paper boat drifts down a rain-soaked street at dusk")
+# a batched sample against its solo run, on frames in [0, 1]: the same bf16
+# arithmetic, but the products of 3072 rows may sum in another order than
+# those of 1536
+BATCH_FRAME_ATOL = 5e-2
 
 # the published peaks of one H100 SXM (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -106,6 +139,47 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return times[len(times) // 2]
 
 
+# more than twice the H100's 50 MB L2: what one turn through the rotated
+# buffers of `queued_ms` must touch, so that no call finds its rows in cache
+ROTATE_BYTES = 128 * 2**20
+
+
+def rotated(x, out_bytes: int):
+    """Copies of x, as many as make one turn through them (each call reading
+    its copy and writing out_bytes) touch ROTATE_BYTES; at least two."""
+    n = max(2, -(-ROTATE_BYTES // (x.numel() * x.element_size() + out_bytes)))
+    return [x.clone() for _ in range(n)]
+
+
+def queued_ms(calls, reps: int = 50) -> float:
+    """Milliseconds of one call on the card when the launches queue up behind
+    earlier work, as they do inside a model step. `calls` are closures of
+    the same function over different input buffers (`rotated`), taken in
+    turn, each result kept until its turn comes again, so that inputs and
+    outputs come from device memory and not from L2. Some 15 ms of matrix
+    products go first, so that the host has enqueued all `reps` calls before
+    the first one starts, then one pair of CUDA events around the run, over
+    the count. `cuda_ms` on an idle card reads the host's time to launch
+    instead, which is most of what it shows for a kernel of a few
+    microseconds."""
+    n = len(calls)
+    kept = [None] * n
+    for i in range(max(3, n)):
+        kept[i % n] = calls[i % n]()
+    blocker = torch.zeros(8192, 8192, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    for _ in range(8):
+        torch.matmul(blocker, blocker)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        kept[i % n] = calls[i % n]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def phase_environment() -> dict:
     log(f"[env] gpu: {gpu_name_and_power()}")
     log(f"[env] torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -123,10 +197,11 @@ def phase_environment() -> dict:
     return seconds
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     """(ms, "operations" | "bytes"): the least time the card could take, the
-    larger of flops at the bf16 tensor-core peak and bytes at HBM's rate."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    larger of flops at their type's peak (the bf16 tensor cores unless
+    given) and bytes at HBM's rate."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -141,19 +216,22 @@ def phase_flash_kernel(device) -> dict:
         res = checks.check_attention(case, device)
         max_err = max(max_err, res["max_abs_err"])
         q, k, v, bias = checks.attention_inputs(case, device)
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, bias, case.scale))
-        plain = cuda_ms(
-            lambda: fa.flash_attention_reference(q, k, v, bias, case.scale))
+        flops = 4.0 * case.b * case.h * case.tq * case.tk * case.d
+        # fewer turns at the shapes that take milliseconds
+        turns = dict(warmup=1, iters=5) if flops > 1e11 else {}
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, bias, case.scale), **turns)
+        plain = cuda_ms(lambda: checks.attention_reference_by_heads(q, k, v, bias,
+                                                                    case.scale), **turns)
         mask = None if bias is None else bias.to(q.dtype)
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=case.scale))
-        flops = 4.0 * case.b * case.h * case.tq * case.tk * case.d
+            q, k, v, attn_mask=mask, scale=case.scale), **turns)
         nbytes = 2.0 * case.b * case.h * case.d * (2 * case.tq + 2 * case.tk) \
             + (0 if bias is None else 4.0 * case.b * case.tk)
         bound_ms, bound_by = bound(flops, nbytes)
         timings[case.name] = (ms, plain, library, bound_ms, bound_by)
         log(f"[kernel] flash_attention {case.name} q{(case.b, case.h, case.tq, case.d)}"
-            f" k{(case.b, case.h, case.tk, case.d)} bias={'yes' if bias is not None else 'no'}:"
+            f" k{(case.b, case.h, case.tk, case.d)} masked keys={case.pad}"
+            f"{' (head)' if case.pad_left else ''}:"
             f" max_abs_err {res['max_abs_err']:.3e}, {res['tol_share']:.3f} of its"
             f" element's tolerance, {res['rel_to_max']:.3e} of max|plain|;"
             f" kernel {ms:.4f} ms, plain {plain:.4f} ms, library (sdpa) {library:.4f} ms,"
@@ -338,13 +416,65 @@ def phase_flash_training_kernels(device):
     ]
 
 
+RMS_LINE_CASE = "dit_stage1_qk"  # the kernels line's shape: three rows of 2304 tokens
+
+
+def phase_rms_kernel(device) -> dict:
+    """rms_norm against rms_norm_reference at the two-stage and north-star
+    paths' shapes and at ragged ones (checks.RMS_CASES, element-wise
+    tolerance), each with kernel, plain and library (F.rms_norm, timed and
+    never called by the port) times and the bound by bytes: x read once, the
+    output written once. The times are `queued_ms`'s (the device's, the
+    launches queued as in a DiT step, over buffers rotated past the L2's
+    size); the kernel's `cuda_ms` on an idle card, which adds the host's
+    launch time, is printed beside them and kept as `idle_ms`.
+    Returns the kernels-line entry (without launches), timed at stage 1's
+    weighted norm."""
+    max_err = 0.0
+    timings = {}
+    for case in checks.RMS_CASES:
+        res = checks.check_rms(case, device)
+        max_err = max(max_err, res["max_abs_err"])
+        x, w = checks.rms_inputs(case, device)
+        xs = rotated(x, x.numel() * x.element_size())
+        ms = queued_ms([lambda t=t: rk.rms_norm(t, w) for t in xs])
+        idle_ms = cuda_ms(lambda: rk.rms_norm(x, w))
+        plain = queued_ms([lambda t=t: rk.rms_norm_reference(t, w) for t in xs])
+        w_lib = None if w is None else w.to(x.dtype)
+        library = queued_ms([lambda t=t: F.rms_norm(t, (case.d,), w_lib, 1e-6) for t in xs])
+        del xs
+        nbytes = 2.0 * x.numel() * x.element_size() \
+            + (0 if w is None else w.numel() * w.element_size())
+        # a square and an add, then one or two products a value, all f32
+        bound_ms, bound_by = bound(4.0 * x.numel(), nbytes, PEAK_F32_FLOPS)
+        timings[case.name] = (ms, plain, library, bound_ms, bound_by, idle_ms)
+        log(f"[kernel] rms_norm {case.name} ({case.rows}, {case.d}) {case.dtype} "
+            f"weight={case.weight}: max_abs_err {res['max_abs_err']:.3e}, "
+            f"{res['tol_share']:.3f} of its element's tolerance, "
+            f"{res['differ_share']:.3e} of the elements differ from plain; kernel "
+            f"{ms:.4f} ms ({idle_ms:.4f} ms from an idle card), plain {plain:.4f} ms, "
+            f"library (F.rms_norm) {library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    ms, plain, library, bound_ms, bound_by, idle_ms = timings[RMS_LINE_CASE]
+    return {"name": "rms_norm", "route": "cuda",
+            "source": "ltx_tpu_torch/csrc/rms_norm.cu",
+            "replaces": "ltx_tpu/kernels/rms_norm.py:48",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+            "timing": "queued", "idle_ms": idle_ms}
+
+
 def phase_tiny_agreement(device) -> None:
-    """The tiny pipeline and the tiny LoRA train on the card against the
-    same weights on the CPU."""
+    """The tiny pipeline, the tiny two-stage I2V pipeline and the tiny LoRA
+    train on the card against the same weights on the CPU."""
     res = checks.check_tiny_pipeline(device)
     log(f"[tiny] pipeline on the card vs the CPU: max abs err "
         f"{res['max_abs_err']:.3e} (tol {checks.TINY_FRAME_ATOL:.0e}), "
         f"{res['launches']} kernel launches")
+    res = checks.check_tiny_two_stage(device)
+    log(f"[tiny] two-stage I2V pipeline (guided stage 1, upscaler, refine, tiled uint8 "
+        f"decode; norms through the rms_norm kernel) on the card vs the CPU: max abs err "
+        f"{res['max_abs_err']:.3e}, mean {res['mean_abs_err']:.3e} (tol "
+        f"{checks.TINY_FRAME_ATOL:.0e}); launches {json.dumps(res['launches'])}")
     res = checks.check_tiny_train(device)
     log(f"[tiny] LoRA train ({checks.TINY_TRAIN_STEPS} steps, bf16) on the card vs the CPU:"
         f" first-backward LoRA gradients {res['grad_rel']:.3e}, losses {res['loss_rel']:.3e},"
@@ -356,7 +486,8 @@ KERNELS = {"flash_attention": fa.flash_attention,
            "flash_attention_stats": fa.flash_attention_stats,
            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-           "int4_matmul": qz.int4_matmul, "dequant_int4": qz.dequant_int4}
+           "int4_matmul": qz.int4_matmul, "dequant_int4": qz.dequant_int4,
+           "rms_norm": rk.rms_norm}
 
 
 NO_LAUNCHES = {name: 0 for name in KERNELS}
@@ -385,6 +516,17 @@ def check_launches(tag: str, launches: dict, expected: dict) -> None:
         raise AssertionError(f"{tag}: launches {launches}, expected {expected}")
 
 
+def check_frames(tag: str, frames, config: GenerationConfig) -> None:
+    log(f"[{tag}] frames {frames.shape} {frames.dtype}, mean {frames.mean():.4f}, "
+        f"std {frames.std():.4f}, min {frames.min():.4f}, max {frames.max():.4f}")
+    if frames.shape != (config.num_frames, config.height, config.width, 3):
+        raise AssertionError(f"{tag}: frames shape {frames.shape}")
+    if not (np.isfinite(frames).all() and frames.min() >= 0.0 and frames.max() <= 1.0):
+        raise AssertionError(f"{tag}: frames are not finite values in [0, 1]")
+    if not frames.std() > 0.0:
+        raise AssertionError(f"{tag}: frames are constant")
+
+
 def north_star_run(tag: str, pipe: LTXPipeline, noise, expected: dict, device):
     """generate_video at the north star with the counts read around it;
     checks the frames and the counts and prints the phases. Returns the
@@ -403,14 +545,8 @@ def north_star_run(tag: str, pipe: LTXPipeline, noise, expected: dict, device):
         f"vae_decode {tm.vae_decode:.3f}, total {tm.total:.3f}")
     log(f"[{tag}] denoise steps (s): " + ", ".join(f"{s:.4f}" for s in tm.denoise_steps))
     log(f"[{tag}] peak device memory: {peak_gib:.2f} GiB")
-    frames = result.frames
-    log(f"[{tag}] frames {frames.shape} {frames.dtype}, mean {frames.mean():.4f}, "
-        f"std {frames.std():.4f}, min {frames.min():.4f}, max {frames.max():.4f}")
     check_launches(tag, launches, expected)
-    if frames.shape != (config.num_frames, config.height, config.width, 3):
-        raise AssertionError(f"{tag}: frames shape {frames.shape}")
-    if not (np.isfinite(frames).all() and frames.min() >= 0.0 and frames.max() <= 1.0):
-        raise AssertionError(f"{tag}: frames are not finite values in [0, 1]")
+    check_frames(tag, result.frames, config)
     return launches, (result, peak_gib)
 
 
@@ -428,6 +564,174 @@ def phase_main_path(device):
     expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
                 + pipe.tecfg.connector_layers}
     return pipe, noise, steps, north_star_run("main", pipe, noise, expected, device)
+
+
+def phase_two_stage(pipe: LTXPipeline, device) -> dict:
+    """generate_video_two_stage at full width and depth, I2V, guided stage
+    1, tiled decode, with every model norm through the rms_norm kernel.
+    Checks the launches of flash_attention and rms_norm against the counts
+    the code implies, and the frames. Returns the launches."""
+    config = TWO_STAGE
+    tcfg, tecfg = pipe.tcfg, pipe.tecfg
+    c = tcfg.in_channels
+    s1 = VideoLatentShape.from_pixels(1, config.num_frames, config.height // 2,
+                                      config.width // 2, channels=c)
+    s2 = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                      channels=c)
+    n1 = len(schedule.get_sigmas(config.num_steps, distilled=False,
+                                 token_count=s1.token_count)) - 1
+    n2 = len(schedule.STAGE_2_SIGMAS) - 1
+    dit_calls = n1 + n2
+    expected = {**NO_LAUNCHES,
+                "flash_attention": dit_calls * tcfg.num_layers * 2 + tecfg.connector_layers,
+                "rms_norm": dit_calls * checks.rms_launches_per_dit_call(tcfg)
+                + checks.rms_launches_per_encode(tecfg)}
+    gen = torch.Generator(device=device).manual_seed(7)
+    image = torch.rand(1, 3, 1, config.height, config.width, generator=gen,
+                       device=device) * 2 - 1
+    half_image = F.interpolate(image[:, :, 0], scale_factor=0.5, mode="bilinear")[:, :, None]
+    memory = pipe.memory
+    pipe.memory = dataclasses.replace(memory, vae_tile_size=TWO_STAGE_TILE,
+                                      vae_tile_overlap=TWO_STAGE_OVERLAP)
+    tiles = pipe.decode_tile_frames(s2.frames)
+    log(f"[two-stage] {config.num_frames}f@{config.width}x{config.height} I2V: stage 1 "
+        f"{s1.token_count} tokens x {GuidanceSpec.from_config(config).num_rows} rows, {n1} "
+        f"steps; stage 2 {s2.token_count} tokens x "
+        f"{GuidanceSpec.from_config(config, use_cfg=False).num_rows} rows (no CFG, STG "
+        f"kept), {n2} steps; decode tiles of "
+        f"{tiles} latent frames; expected launches {json.dumps(expected)}")
+    set_rms_impl("cuda")
+    try:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        enc = GenerationTimings()
+        half = pipe.encode_image(half_image, enc)
+        full = pipe.encode_image(image, enc)
+        draws = dict(
+            stage1_noise=generate_noise(s1, gen), stage2_noise=generate_noise(s2, gen),
+            stage1_cond_noise=[torch.randn(half.shape, generator=gen, device=device)
+                               for _ in range(n1)],
+            stage2_cond_noise=[torch.randn(full.shape, generator=gen, device=device)
+                               for _ in range(n2)])
+        result, launches = run_counted(lambda: pipe.generate_video_two_stage(
+            PROMPT, config, image_latent=half, full_res_image_latent=full, **draws))
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        set_rms_impl("torch")
+        pipe.memory = memory
+    tm = result.timings
+    log(f"[two-stage] image latents {tuple(half.shape)} and {tuple(full.shape)}: encoder "
+        f"staging {enc.staging:.3f} s, image encode {enc.image_encode:.3f} s")
+    log(f"[two-stage] phases (s): staging {tm.staging:.3f}, gemma {tm.gemma:.3f}, "
+        f"connector {tm.connector:.3f}, stage 1 {sum(tm.denoise_steps[:n1]):.3f}, upscale "
+        f"{tm.upscale:.3f}, stage 2 {sum(tm.denoise_steps[n1:]):.3f}, vae_decode "
+        f"{tm.vae_decode:.3f}, total {tm.total:.3f}")
+    log("[two-stage] denoise steps (s): "
+        + ", ".join(f"{s:.4f}" for s in tm.denoise_steps))
+    log(f"[two-stage] peak device memory: {peak_gib:.2f} GiB")
+    check_launches("two-stage", launches, expected)
+    if len(tm.denoise_steps) != dit_calls:
+        raise AssertionError(f"two-stage: {len(tm.denoise_steps)} denoise steps")
+    check_frames("two-stage", result.frames, config)
+    return launches
+
+
+def phase_batched(pipe: LTXPipeline, device) -> None:
+    """generate_videos with two prompts at the north star, then each prompt
+    alone through generate_video on the same noise: each batched sample
+    within BATCH_FRAME_ATOL of its solo run; the norms through the rms_norm
+    kernel in all three."""
+    config = NORTH_STAR
+    shape = VideoLatentShape.from_pixels(len(BATCH_PROMPTS), config.num_frames,
+                                         config.height, config.width,
+                                         channels=pipe.tcfg.in_channels)
+    noise = generate_noise(shape, torch.Generator(device=device).manual_seed(3))
+    steps = len(pipe._sigmas(config, shape)) - 1
+    expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
+                + pipe.tecfg.connector_layers,
+                "rms_norm": steps * checks.rms_launches_per_dit_call(pipe.tcfg)
+                + checks.rms_launches_per_encode(pipe.tecfg)}
+    set_rms_impl("cuda")
+    try:
+        _batched_and_solo(pipe, config, noise, expected, device)
+    finally:
+        set_rms_impl("torch")
+
+
+def _batched_and_solo(pipe, config, noise, expected, device) -> None:
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    results, launches = run_counted(
+        lambda: pipe.generate_videos(BATCH_PROMPTS, config, noise))
+    seconds = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    tm = results[0].timings
+    log(f"[batched] {len(BATCH_PROMPTS)} prompts, {config.num_frames}f@{config.width}x"
+        f"{config.height}: {seconds:.3f} s in all; per prompt staging {tm.staging:.3f}, "
+        f"gemma {tm.gemma:.3f}, connector {tm.connector:.3f}, denoise "
+        f"{sum(tm.denoise_steps):.3f}, vae_decode {tm.vae_decode:.3f}; peak "
+        f"{peak_gib:.2f} GiB")
+    check_launches("batched", launches, expected)
+    for i, (prompt, batched) in enumerate(zip(BATCH_PROMPTS, results)):
+        check_frames(f"batched {i}", batched.frames, config)
+        solo = pipe.generate_video(prompt, config, noise[i:i + 1])
+        diff = np.abs(batched.frames - solo.frames)
+        log(f"[batched] sample {i} vs its solo generate_video ({solo.timings.total:.3f} s):"
+            f" max abs {diff.max():.3e}, mean abs {diff.mean():.3e} "
+            f"(tol {BATCH_FRAME_ATOL:.0e})")
+        if not diff.max() <= BATCH_FRAME_ATOL:
+            raise AssertionError(f"batched sample {i} differs from its solo run by "
+                                 f"{diff.max()}")
+
+
+def phase_norm_choice(pipe: LTXPipeline, device) -> None:
+    """One bf16 north-star denoise step under both norm choices: the plain
+    chain, the kernel, the kernel, the plain chain; three synchronised
+    steps each after one warm-up, with the rms_norm launches of a step."""
+    config = NORTH_STAR
+    shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
+                                         config.width, channels=pipe.tcfg.in_channels)
+    gen = torch.Generator(device=device).manual_seed(1)
+    latent = generate_noise(shape, gen)
+    context = torch.randn(1, 1024, pipe.tcfg.caption_channels, generator=gen,
+                          device=device).bfloat16()
+    bias = torch.zeros(1, 1, 1, 1024, device=device)
+    bias[..., :300] = -10000.0
+    transformer = pipe._on_device("transformer", GenerationTimings())
+    step = make_denoise_step(transformer, GuidanceSpec.from_config(config), shape,
+                             context, bias, fps=config.fps)
+    times = {"torch": [], "cuda": []}
+    outs = {}
+    try:
+        for impl in ("torch", "cuda", "cuda", "torch"):
+            set_rms_impl(impl)
+            with torch.inference_mode():
+                step(latent, 1.0, 0.9)
+                torch.cuda.synchronize(device)
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    (_, velocity), launches = run_counted(lambda: step(latent, 1.0, 0.9))
+                    torch.cuda.synchronize(device)
+                    times[impl].append(time.perf_counter() - t0)
+            outs[impl] = velocity
+            want = checks.rms_launches_per_dit_call(pipe.tcfg) if impl == "cuda" else 0
+            if launches["rms_norm"] != want:
+                raise AssertionError(f"norm choice {impl}: {launches['rms_norm']} rms_norm "
+                                     f"launches in a step, expected {want}")
+    finally:
+        set_rms_impl("torch")
+        pipe._release("transformer")
+    diff = (outs["cuda"] - outs["torch"]).abs().max().item()
+    scale = outs["torch"].abs().max().item()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f"[norm] one bf16 denoise step at {shape.token_count} tokens: plain chain "
+        f"{med['torch'] * 1e3:.2f} ms, rms_norm kernel {med['cuda'] * 1e3:.2f} ms (medians "
+        f"of 6 synchronised steps each; all: "
+        + json.dumps({k: [round(t * 1e3, 2) for t in v] for k, v in times.items()})
+        + f"); velocity differs by {diff:.3e} of max {scale:.3e}")
+    if not (np.isfinite(diff) and diff <= 5e-2 * scale):
+        raise AssertionError(f"norm choice: velocities differ by {diff} (max {scale})")
 
 
 def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device) -> dict:
@@ -619,9 +923,13 @@ def main() -> int:
     flash = phase_flash_kernel(device)
     stats, dq, dkv = phase_flash_training_kernels(device)
     matmul, dequant = phase_int4_kernels(device)
+    rms = phase_rms_kernel(device)
     phase_tiny_agreement(device)
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
     flash["launches"] = launches["flash_attention"]
+    rms["launches"] = phase_two_stage(pipe, device)["rms_norm"]
+    phase_batched(pipe, device)
+    phase_norm_choice(pipe, device)
     matmul["launches"] = phase_int4_main_path(pipe, noise, steps, bf16_run,
                                               device)["int4_matmul"]
     dequant["launches"] = phase_big_m(pipe, device)["dequant_int4"]
@@ -631,7 +939,12 @@ def main() -> int:
     train = phase_train(device)
     for entry in (stats, dq, dkv):
         entry["launches"] = train[entry["name"]]
-    log(json.dumps({"kernels": [flash, stats, dq, dkv, matmul, dequant]}))
+    kernels = [flash, stats, dq, dkv, matmul, dequant, rms]
+    for entry in kernels:
+        # which clock read ms, plain_ms and library_ms: `cuda_ms` on an idle
+        # card unless the entry says `queued_ms`
+        entry.setdefault("timing", "idle")
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -53,13 +53,28 @@ dS carries P's error and dO V^T's sum order (eps_S):
 (2**-16 is more than twice the (D/16 + 16) * 2**-23 sum-order bound at
 D <= 128.) Keys that the bias masks with -1e30 must get exactly 0 in dK and
 dV on both sides.
+
+RMSNorm tolerance, element by element. The kernel and the plain version
+evaluate the same f32 expression, (x * inv) * w with inv = rsqrt(mean(x^2) +
+eps): they differ in the order of the mean's sum (d positive terms, each
+order within about log2(d) f32 roundings of the exact sum) and in the card's
+rsqrt (2 ulp). Before the output rounding the kernel's value is therefore
+within RMS_F32_ULPS = 16 units of the last f32 place of the plain one, and
+the output rounding (none for f32, to nearest even for bf16) adds at most
+half a bf16 ulp to a value compared with the plain version's f32 one:
+
+    |kernel - plain_f32| <= RMS_F32_ULPS * 2**-23 * |plain_f32| [+ ulp_bf16 / 2]
+
+so a bf16 output differs from the plain bf16 output by at most one bf16 ulp,
+and only where the two f32 values straddle a rounding boundary; the share of
+such elements is reported.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -67,10 +82,13 @@ import torch
 from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
+from ltx_tpu_torch.kernels import rms_norm as rk
 from ltx_tpu_torch.models.common import init_random_
 from ltx_tpu_torch.models.dit import LTXTransformer
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
+from ltx_tpu_torch.ops import schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape
+from ltx_tpu_torch.ops.normalization import get_rms_impl, set_rms_impl
 from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
 from ltx_tpu_torch.train.flow_match import flow_match_loss
@@ -86,8 +104,12 @@ class AttentionCase:
     tq: int
     tk: int
     d: int
-    pad: Optional[int] = None  # keys at the tail masked with -10000
+    # keys masked with -10000: one count for every row, or one count per row
+    # (0: that row's bias is all zeros); at the tail, or at the head as the
+    # tokenizer pads
+    pad: Optional[Union[int, tuple]] = None
     scale: Optional[float] = None
+    pad_left: bool = False
 
 
 ATTN_CASES = (
@@ -96,6 +118,21 @@ ATTN_CASES = (
     AttentionCase("dit_self_attn", 1, 32, 1536, 1536, 128),
     AttentionCase("dit_cross_attn", 1, 32, 1536, 1024, 128, pad=300),
     AttentionCase("connector_attn", 1, 30, 1024, 1024, 128, scale=128**-0.5),
+    # the guided two-stage path at 121f@1024x576: stage 1's three guidance
+    # rows (conditional, negative, STG) of 2304 tokens, stage 2's two rows of
+    # 9216, each over its own 1024-token text context. The connector hands on
+    # a mask of ones, so the path's key bias is a tensor of zeros; the cases
+    # give every row its own, rows of zeros among them. The connector at two
+    # text rows (prompt and negative, or two prompts); two prompts at the
+    # north star
+    AttentionCase("stage1_self_attn", 3, 32, 2304, 2304, 128),
+    AttentionCase("stage1_cross_attn", 3, 32, 2304, 1024, 128, pad=(300, 0, 517),
+                  pad_left=True),
+    AttentionCase("stage2_self_attn", 2, 32, 9216, 9216, 128),
+    AttentionCase("stage2_cross_attn", 2, 32, 9216, 1024, 128, pad=(0, 300), pad_left=True),
+    AttentionCase("connector_attn_two_rows", 2, 30, 1024, 1024, 128, scale=128**-0.5),
+    AttentionCase("batched_self_attn", 2, 32, 1536, 1536, 128),
+    AttentionCase("batched_cross_attn", 2, 32, 1536, 1024, 128, pad=(300, 0), pad_left=True),
     # ragged tails, every head dim, a bias, a custom scale
     AttentionCase("ragged_d128_bias", 2, 3, 200, 77, 128, pad=30),
     AttentionCase("ragged_d64", 2, 3, 130, 67, 64),
@@ -151,7 +188,10 @@ def attention_inputs(case: AttentionCase, device, seed: int = 1234):
     bias = None
     if case.pad is not None:
         bias = torch.zeros(case.b, 1, 1, case.tk, device=device)
-        bias[..., case.tk - case.pad:] = -10000.0
+        pads = case.pad if isinstance(case.pad, tuple) else (case.pad,) * case.b
+        for row, pad in enumerate(pads):
+            keys = slice(0, pad) if case.pad_left else slice(case.tk - pad, case.tk)
+            bias[row, ..., keys] = -10000.0
     return q, k, v, bias
 
 
@@ -162,10 +202,32 @@ def bf16_ulp(x):
     return torch.where(x > 0, torch.ldexp(torch.ones_like(x), exp - 8), 0.0)
 
 
+# the plain version keeps a (B, heads, Tq, Tk) f32 score matrix: the checks
+# take it this many bytes at a time, some heads after others, so that the
+# 9216-token shapes fit beside the rest
+PLAIN_SCORE_BYTES = 2**31
+
+
+def head_slices(q, k):
+    """Slices of the head axis, each with a score matrix of at most
+    PLAIN_SCORE_BYTES (at least one head)."""
+    b, h, tq, _ = q.shape
+    step = max(1, int(PLAIN_SCORE_BYTES // (4 * b * tq * k.shape[2])))
+    return [slice(s, min(s + step, h)) for s in range(0, h, step)]
+
+
+def attention_reference_by_heads(q, k, v, bias, scale):
+    """flash_attention_reference, some heads after others (head_slices):
+    the same values, heads being independent."""
+    return torch.cat([fa.flash_attention_reference(q[:, hs], k[:, hs], v[:, hs], bias, scale)
+                      for hs in head_slices(q, k)], dim=1)
+
+
 def attention_tolerance(q, k, v, bias, scale, want):
     """The element-wise bound of the module docstring."""
-    probs = fa.attention_probs(q, k, bias, scale)
-    return 2.0**-8 * torch.matmul(probs, v.float().abs()) + 2 * bf16_ulp(want)
+    pv = torch.cat([torch.matmul(fa.attention_probs(q[:, hs], k[:, hs], bias, scale),
+                                 v[:, hs].float().abs()) for hs in head_slices(q, k)], dim=1)
+    return 2.0**-8 * pv + 2 * bf16_ulp(want)
 
 
 def check_attention(case: AttentionCase, device) -> dict:
@@ -174,7 +236,9 @@ def check_attention(case: AttentionCase, device) -> dict:
     share of its element's tolerance, and the max error over max |plain|."""
     q, k, v, bias = attention_inputs(case, device)
     got = fa.flash_attention(q, k, v, bias, case.scale)
-    want = fa.flash_attention_reference(q, k, v, bias, case.scale)
+    want = attention_reference_by_heads(q, k, v, bias, case.scale)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"flash_attention {case.name}: {tuple(got.shape)} {got.dtype}")
     err = (got.float() - want.float()).abs()
     share = (err / attention_tolerance(q, k, v, bias, case.scale, want)).max().item()
     out = {"max_abs_err": err.max().item(), "tol_share": share,
@@ -330,6 +394,101 @@ def check_backward(case: BackwardCase, device) -> dict:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class RmsCase:
+    name: str
+    rows: int
+    d: int
+    dtype: str = "bfloat16"       # x's dtype
+    weight: Optional[str] = None  # None (weightless), or the weight's dtype
+
+
+RMS_CASES = (
+    # the guided two-stage path at 121f@1024x576: stage 1's three guidance
+    # rows of 2304 tokens and stage 2's two rows (STG stays, CFG goes) of
+    # 9216, the DiT's q/k norms (weighted) and adaln norms (weightless);
+    # attn2's k norm over each stage's text context; one row of 9216 tokens;
+    # the north star's 1536 tokens; the connector's norms at 3840
+    RmsCase("dit_stage1_qk", 3 * 2304, 4096, weight="bfloat16"),
+    RmsCase("dit_stage1_adaln", 3 * 2304, 4096),
+    RmsCase("dit_stage2_qk", 2 * 9216, 4096, weight="bfloat16"),
+    RmsCase("dit_stage2_adaln", 2 * 9216, 4096),
+    RmsCase("dit_stage1_text_k", 3 * 1024, 4096, weight="bfloat16"),
+    RmsCase("dit_stage2_text_k", 2 * 1024, 4096, weight="bfloat16"),
+    RmsCase("one_row_9216_qk", 9216, 4096, weight="bfloat16"),
+    RmsCase("one_row_9216_adaln", 9216, 4096),
+    RmsCase("north_star_qk", 1536, 4096, weight="bfloat16"),
+    RmsCase("north_star_adaln", 1536, 4096),
+    RmsCase("batched_adaln", 2 * 1536, 4096),  # two prompts; its q/k shape is above
+    # the connector over the two text rows of a guided or a two-prompt run
+    # (the two-stage and batched paths), and over one prompt's
+    RmsCase("connector_two_rows_qk", 2 * 1024, 3840, weight="bfloat16"),
+    RmsCase("connector_two_rows_out", 2 * 1024, 3840),
+    RmsCase("connector_qk", 1024, 3840, weight="bfloat16"),
+    RmsCase("connector_out", 1024, 3840),
+    # ragged rows, narrow and wide rows, f32, a weight in f32 under bf16 x
+    RmsCase("one_row_d128", 1, 128),
+    RmsCase("five_rows_d128_f32", 5, 128, "float32", "float32"),
+    RmsCase("ragged_d256_f32", 148, 256, "float32"),
+    RmsCase("ragged_d384", 16, 384, weight="bfloat16"),
+    RmsCase("ragged_d2048_f32w", 77, 2048, weight="float32"),
+    RmsCase("ragged_d3840", 1537, 3840, weight="bfloat16"),
+    RmsCase("ragged_d3840_f32", 1537, 3840, "float32", "float32"),
+    RmsCase("ragged_d4096_f32", 1537, 4096, "float32"),
+    RmsCase("wide_d16384", 5, 16384, weight="bfloat16"),
+    RmsCase("wide_d16384_f32", 3, 16384, "float32", "bfloat16"),
+)
+RMS_F32_ULPS = 16  # the f32 term of the RMSNorm tolerance (docstring)
+
+
+def rms_inputs(case: RmsCase, device, seed: int = 77):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(case.rows, case.d, generator=gen, device=device)
+    # rows of different scales: the norm must not depend on them
+    x = (x * torch.logspace(-2, 2, case.rows, device=device)[:, None]).to(
+        getattr(torch, case.dtype))
+    weight = None
+    if case.weight is not None:
+        weight = (1 + 0.5 * torch.randn(case.d, generator=gen, device=device)).to(
+            getattr(torch, case.weight))
+    return x, weight
+
+
+def rms_tolerance(x, weight, got, eps: float = 1e-6):
+    """(the plain version's value before its output rounding, the
+    element-wise bound of the module docstring for the output `got`)."""
+    plain32 = rk.rms_norm_reference(x.float(), None if weight is None
+                                    else weight.float(), eps)
+    tol = RMS_F32_ULPS * 2.0**-23 * plain32.abs()
+    if got.dtype == torch.bfloat16:
+        # the ulp where the output landed, should it have crossed a binade
+        tol = tol + 0.5 * bf16_ulp(torch.maximum(plain32.abs(), got.float().abs()))
+    return plain32, tol
+
+
+def check_rms(case: RmsCase, device, eps: float = 1e-6) -> dict:
+    """One launch of the rms_norm kernel against rms_norm_reference; raises
+    AssertionError beyond the tolerance. Returns the max abs error against
+    the plain output, the largest share of an element's tolerance, and the
+    share of output elements that differ from the plain output."""
+    x, weight = rms_inputs(case, device)
+    before = rk.rms_norm.launches
+    got = rk.rms_norm(x, weight, eps)
+    launched = rk.rms_norm.launches - before
+    want = rk.rms_norm_reference(x, weight, eps)
+    if got.shape != want.shape or got.dtype != want.dtype or launched != 1:
+        raise AssertionError(f"rms_norm {case.name}: {tuple(got.shape)} {got.dtype}, "
+                             f"{launched} launches")
+    plain32, tol = rms_tolerance(x, weight, got, eps)
+    out = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "tol_share": tolerance_share(got, plain32, tol),
+           "differ_share": (got != want).float().mean().item()}
+    if not (out["tol_share"] <= 1.0 and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"rms_norm {case.name}: error {out['max_abs_err']:.3e} is "
+                             f"{out['tol_share']:.3f} of its element's tolerance")
+    return out
+
+
 def int4_weights(k: int, n: int, group: int, device, seed: int = 4321) -> dict:
     """A (k, n) weight drawn at the linear init scale k**-0.5, quantized to
     int4 on `device`: {"w_q4", "scale", "bias"}."""
@@ -404,6 +563,15 @@ def check_quantize_on_device(device, shape=FF_IN_SHAPE, group: int = 64) -> dict
     return mismatches
 
 
+def _move(pipe: LTXPipeline, device) -> LTXPipeline:
+    """Every component of `pipe` onto `device`."""
+    for name in ("transformer", "vae_decoder", "gemma", "text_encoder", "vae_encoder",
+                 "upscaler"):
+        getattr(pipe, name).to(device)
+    pipe.device = torch.device(device)
+    return pipe
+
+
 def check_tiny_pipeline(device) -> dict:
     """The tiny pipeline on `device` (its kernels) against the same weights
     on the CPU (the plain versions, held against the reference by the CPU
@@ -417,9 +585,7 @@ def check_tiny_pipeline(device) -> dict:
     want = cpu.generate_video("a tiny prompt", config, noise).frames
 
     dev = LTXPipeline.random_tiny(device="cpu", seed=2)
-    for name in ("transformer", "vae_decoder", "gemma", "text_encoder"):
-        getattr(dev, name).to(device)
-    dev.device = torch.device(device)
+    _move(dev, device)
     before = fa.flash_attention.launches
     got = dev.generate_video("a tiny prompt", config, noise).frames
     launches = fa.flash_attention.launches - before
@@ -435,6 +601,83 @@ def check_tiny_pipeline(device) -> dict:
         raise AssertionError(f"tiny pipeline: {launches} kernel launches, "
                              f"expected {expected}")
     return {"max_abs_err": err, "launches": launches}
+
+
+def rms_launches_per_encode(tecfg) -> int:
+    """rms_norm kernel launches of one connector pass (any batch): per block
+    two weightless norms and the q and k norms, and the final norm; none
+    when the connector's width is not a multiple of 128."""
+    if tecfg.inner_dim % rk.LANES:
+        return 0
+    return tecfg.connector_layers * 4 + 1
+
+
+def rms_launches_per_dit_call(tcfg) -> int:
+    """rms_norm kernel launches of one DiT call, whatever its rows: per
+    block attn1's and attn2's q and k norms and the two adaln norms."""
+    return 0 if tcfg.inner_dim % rk.LANES else 6 * tcfg.num_layers
+
+
+def check_tiny_two_stage(device) -> dict:
+    """The tiny two-stage I2V pipeline on `device`, its norms through the
+    rms_norm kernel, against the same weights and draws on the CPU (the
+    plain versions, held against the reference by the CPU tests): both
+    image encodes, a CFG + STG + rescale stage 1 with re-noised
+    conditioning, the upscaler and AdaIN, the refine, and a tiled uint8
+    decode that blends. Raises AssertionError on a disagreement or a wrong
+    launch count; returns the max abs error on the frames and the launches."""
+    config = GenerationConfig(width=64, height=64, num_frames=33, num_steps=4, seed=3,
+                              cfg_scale=2.0, stg_scale=1.0, stg_blocks=(1,),
+                              guidance_rescale=0.7, image_cond_noise_scale=0.15)
+    memory = dataclasses.replace(LTXPipeline.random_tiny(device="cpu").memory,
+                                 vae_tile_size=3, vae_tile_overlap=2)
+    gen = torch.Generator().manual_seed(11)
+    images = [torch.rand(1, 3, 1, s, s, generator=gen) * 2 - 1 for s in (32, 64)]
+
+    def run(pipe):
+        c = pipe.tcfg.in_channels
+        s1 = VideoLatentShape.from_pixels(1, config.num_frames, 32, 32, channels=c)
+        s2 = VideoLatentShape.from_pixels(1, config.num_frames, 64, 64, channels=c)
+        n1 = len(schedule.get_sigmas(config.num_steps, distilled=False,
+                                     token_count=s1.token_count)) - 1
+        n2 = len(schedule.STAGE_2_SIGMAS) - 1
+        g = torch.Generator().manual_seed(5)
+        half, full = (pipe.encode_image(img) for img in images)
+        draws = dict(
+            stage1_noise=torch.randn(s1.shape, generator=g),
+            stage2_noise=torch.randn(s2.shape, generator=g),
+            stage1_cond_noise=[torch.randn(half.shape, generator=g) for _ in range(n1)],
+            stage2_cond_noise=[torch.randn(full.shape, generator=g) for _ in range(n2)])
+        out = pipe.generate_video_two_stage("a tiny two-stage prompt", config,
+                                            image_latent=half, full_res_image_latent=full,
+                                            **draws)
+        return out.frames, n1 + n2
+
+    cpu = LTXPipeline.random_tiny(device="cpu", seed=2, memory=memory)
+    want, dit_steps = run(cpu)
+    dev = _move(LTXPipeline.random_tiny(device="cpu", seed=2, memory=memory), device)
+    counters = (fa.flash_attention, rk.rms_norm)
+    before = [c.launches for c in counters]
+    previous = get_rms_impl()
+    set_rms_impl("cuda")
+    try:
+        got, _ = run(dev)
+    finally:
+        set_rms_impl(previous)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    expected = [dit_steps * dev.tcfg.num_layers * 2 + dev.tecfg.connector_layers,
+                dit_steps * rms_launches_per_dit_call(dev.tcfg)
+                + rms_launches_per_encode(dev.tecfg)]
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or got.shape[0] != config.num_frames \
+            or not np.isfinite(got).all():
+        raise AssertionError(f"tiny two-stage: frames {got.shape}")
+    if not err <= TINY_FRAME_ATOL:
+        raise AssertionError(f"tiny two-stage: device and CPU differ by {err}")
+    if launches != expected:
+        raise AssertionError(f"tiny two-stage: launches {launches}, expected {expected}")
+    return {"max_abs_err": err, "mean_abs_err": float(np.abs(got - want).mean()),
+            "launches": dict(zip(("flash_attention", "rms_norm"), launches))}
 
 
 # the tiny LoRA train, device against CPU, bf16 compute: the flow-matching

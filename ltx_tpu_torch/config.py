@@ -1,7 +1,7 @@
 """Model and generation configuration.
 
-Port of the parts of ltx_tpu/core/config.py that the text-to-video path
-reads, field for field and with the same defaults (tests/test_torch_static.py
+Port of the parts of ltx_tpu/core/config.py that the generation paths
+read, field for field and with the same defaults (tests/test_torch_static.py
 holds them against the reference's classes): the DiT's `TransformerConfig`,
 the pixel/latent scale factors, `GenerationConfig`, `QuantizationConfig` and
 the memory knobs the port honours.
@@ -53,6 +53,28 @@ class TransformerConfig:
             audio_out_channels=16)
 
 
+# The reference's default negative prompt, verbatim: checkpoint-defined
+# behavioural data, not code.
+DEFAULT_NEGATIVE_PROMPT = (
+    "blurry, out of focus, overexposed, underexposed, low contrast, washed "
+    "out colors, excessive noise, grainy texture, poor lighting, flickering, "
+    "motion blur, distorted proportions, unnatural skin tones, deformed "
+    "facial features, asymmetrical face, missing facial features, extra "
+    "limbs, disfigured hands, wrong hand count, artifacts around text, "
+    "inconsistent perspective, camera shake, incorrect depth of field, "
+    "background too sharp, background clutter, distracting reflections, "
+    "harsh shadows, inconsistent lighting direction, color banding, "
+    "cartoonish rendering, 3D CGI look, unrealistic materials, uncanny "
+    "valley effect, incorrect ethnicity, wrong gender, exaggerated "
+    "expressions, wrong gaze direction, mismatched lip sync, silent or "
+    "muted audio, distorted voice, robotic voice, echo, background noise, "
+    "off-sync audio, incorrect dialogue, added dialogue, repetitive speech, "
+    "jittery movement, awkward pauses, incorrect timing, unnatural "
+    "transitions, inconsistent framing, tilted camera, flat lighting, "
+    "inconsistent tone, cinematic oversaturation, stylized filters, or AI "
+    "artifacts."
+)
+
 # pixel <-> latent scale factors
 TEMPORAL_SCALE = 8
 SPATIAL_SCALE = 32
@@ -61,8 +83,9 @@ LATENT_CHANNELS = 128
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
-    """All generation knobs. The port runs single-stage T2V at cfg 1.0;
-    `LTXPipeline.generate_video` raises NotImplementedError for the rest."""
+    """All generation knobs. The port runs T2V and I2V, single- and
+    two-stage, with CFG, STG, guidance rescale and extrapolation;
+    `enhance_prompt` raises NotImplementedError (ROADMAP A13)."""
 
     width: int = 704
     height: int = 480
@@ -122,6 +145,10 @@ class MemoryConfig:
     """The reference's memory knobs that the port honours, same defaults."""
 
     vae_tile_size: int = 0  # latent frames per decode tile; 0 = no tiling
+    vae_tile_overlap: int = 1  # latent-frame overlap between tiles
+    # what a tiled decode copies to the host: "uint8" (RGB, a quarter of
+    # f32's bytes, at most 1/255 off); "yuv420" is not ported (ROADMAP A4b)
+    decode_transfer: str = "uint8"
     offload_text_encoder: bool = True  # drop Gemma weights after encoding
     # keep components on the host and place each on the device only for its
     # phase, releasing it afterwards

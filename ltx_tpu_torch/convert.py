@@ -6,9 +6,11 @@ build them. The rules:
   * a dict meeting an nn.ModuleList is STACKED (the reference's scanned
     `blocks` / `layers`): leaf i along the leading axis goes to entry i;
     a list meets a ModuleList entry by entry;
-  * "w" -> "weight", "b" -> "bias" on Linear, Conv3d, NormWeight, Embedding;
+  * "w" -> "weight", "b" -> "bias" on Linear, Conv3d, Conv2d, NormWeight,
+    NormAffine, Embedding;
   * Linear weights transpose (in, out) -> (out, in); Conv3d weights permute
-    DHWIO (kt, kh, kw, I, O) -> (O, I, kt, kh, kw); everything else copies;
+    DHWIO (kt, kh, kw, I, O) -> (O, I, kt, kh, kw), Conv2d weights HWIO ->
+    (O, I, kh, kw); everything else copies;
   * a quantized linear leaf ({"w_q4"|"w_q", "scale", "bias", "b"?}) meeting
     a Linear turns it into a QuantizedLinear shaped from the leaf, whose
     parameters keep the JAX keys and layout (`transformer` only); a W8A8
@@ -33,9 +35,17 @@ import torch
 from torch import nn
 
 from ltx_tpu_torch.kernels.quantization import is_quantized
-from ltx_tpu_torch.models.common import Conv3d, Embedding, Linear, NormWeight, QuantizedLinear
+from ltx_tpu_torch.models.common import (
+    Conv2d,
+    Conv3d,
+    Embedding,
+    Linear,
+    NormAffine,
+    NormWeight,
+    QuantizedLinear,
+)
 
-_RENAMED = (Linear, Conv3d, NormWeight, Embedding)
+_RENAMED = (Linear, Conv3d, Conv2d, NormWeight, NormAffine, Embedding)
 
 
 def _leaves(tree, module: nn.Module, prefix: str) -> Iterator[Tuple[str, object]]:
@@ -79,7 +89,8 @@ def _swap_quantized(module: nn.Module, tree) -> None:
             continue
         if isinstance(child, Linear) and is_quantized(value):
             if "w8" in value:
-                raise NotImplementedError(f"{key}: W8A8 linears are not ported yet")
+                raise NotImplementedError(f"{key}: W8A8 linears are not ported yet "
+                                          "(ROADMAP A10)")
             if "scale" not in value:
                 raise ValueError(f"quantized leaf {key} has no scale")
             d_out, d_in = child.weight.shape
@@ -148,6 +159,8 @@ def _to_torch(array, owner: nn.Module, leaf: str) -> Tuple[torch.Tensor, str]:
         host = host.t()
     elif leaf == "weight" and isinstance(owner, Conv3d):
         host = host.permute(4, 3, 0, 1, 2)
+    elif leaf == "weight" and isinstance(owner, Conv2d):
+        host = host.permute(3, 2, 0, 1)
     return host, dtype_name
 
 
@@ -208,6 +221,25 @@ def vae_decoder(tree, cfg, device=None):
     dtype = tree_dtype(tree["conv_in"]["w"])
     return load_tree(VideoDecoder(port_config(cfg, VAEConfig), device=device,
                                   dtype=dtype), tree)
+
+
+def vae_encoder(tree, cfg, device=None):
+    """vae.init_encoder_params tree -> VideoEncoder (cfg: a VAEConfig)."""
+    from ltx_tpu_torch.models.vae import VAEConfig, VideoEncoder
+
+    dtype = tree_dtype(tree["conv_in"]["w"])
+    return load_tree(VideoEncoder(port_config(cfg, VAEConfig), device=device,
+                                  dtype=dtype), tree)
+
+
+def upscaler(tree, cfg, device=None):
+    """upscaler.init_params / load_params tree -> LatentUpscaler (cfg: an
+    UpscalerConfig)."""
+    from ltx_tpu_torch.models.upscaler import LatentUpscaler, UpscalerConfig
+
+    dtype = tree_dtype(tree["initial_conv"]["w"])
+    return load_tree(LatentUpscaler(port_config(cfg, UpscalerConfig), device=device,
+                                    dtype=dtype), tree)
 
 
 def gemma(tree, cfg, device=None):

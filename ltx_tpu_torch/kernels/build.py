@@ -24,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ltx_tpu_torch"
 
 # every kernel source of the port, by stem
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "int4_matmul")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "int4_matmul", "rms_norm")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -170,6 +170,35 @@ class Conv3d(nn.Module):
         self.bias.zero_()
 
 
+class Conv2d(nn.Module):
+    """weight (C_out, C_in, kh, kw) (the JAX tree is HWIO), bias (C_out,)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 3, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = param(c_out, c_in, k, k, device=device, dtype=dtype)
+        self.bias = param(c_out, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator):
+        """normal * (c_in * k^2)**-0.5, zero bias."""
+        _normal_(self.weight, gen, self.weight[0].numel()**-0.5)
+        self.bias.zero_()
+
+
+class NormAffine(nn.Module):
+    """A norm's weight and bias vectors (the upscaler's GroupNorms): ones
+    and zeros at random init."""
+
+    def __init__(self, dim: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = param(dim, device=device, dtype=dtype)
+        self.bias = param(dim, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+
 class NormWeight(nn.Module):
     """A norm's weight vector; `init` is its random-init value (1 for the
     DiT and connector QK norms, 0 for Gemma's (1 + w) norms)."""

@@ -15,6 +15,7 @@ torch.utils.checkpoint, as the reference's jax.checkpoint over its scan.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -125,21 +126,37 @@ class Block(nn.Module):
     def reset_parameters(self, gen):
         self.scale_shift_table.zero_()
 
-    def forward(self, x, context, ts_emb, rope, bias):
+    def forward(self, x, context, ts_emb, rope, bias, skip_self_attn=None,
+                skip_ff=None, cross_attn_scale=None):
+        """skip_self_attn / skip_ff: None or (B,) bool, the rows whose
+        self-attention (feed-forward) this block skips (STG). The skipped
+        row's branch is still computed and then replaced by its input, so
+        the work does not depend on the skips. cross_attn_scale: None or a
+        scalar that multiplies the cross-attention's output."""
         eps = self.norm_eps
         table = self.scale_shift_table.float()
         dtype = x.dtype
 
         shift, scale, gate = _ada_values(table, ts_emb, 0)
         normed = adaln(x, scale.to(dtype), shift.to(dtype), eps=eps)
-        x = x + self.attn1(normed, normed, rope=rope) * gate.to(dtype)
+        x_attn = x + self.attn1(normed, normed, rope=rope) * gate.to(dtype)
+        if skip_self_attn is not None:
+            x_attn = torch.where(skip_self_attn[:, None, None], x, x_attn)
+        x = x_attn
 
         # cross-attention has no pre-norm (q_norm inside handles Q)
-        x = x + self.attn2(x, context, bias=bias)
+        cross = self.attn2(x, context, bias=bias)
+        if cross_attn_scale is not None:
+            cross = cross * torch.as_tensor(cross_attn_scale, dtype=dtype,
+                                            device=cross.device)
+        x = x + cross
 
         shift, scale, gate = _ada_values(table, ts_emb, 3)
         normed = adaln(x, scale.to(dtype), shift.to(dtype), eps=eps)
-        return x + self.ff(normed) * gate.to(dtype)
+        x_ff = x + self.ff(normed) * gate.to(dtype)
+        if skip_ff is not None:
+            x_ff = torch.where(skip_ff[:, None, None], x, x_ff)
+        return x_ff
 
 
 class LTXTransformer(nn.Module):
@@ -183,13 +200,16 @@ class LTXTransformer(nn.Module):
         return self.proj_out(out)
 
     def forward(self, latent, context, timesteps, rope, context_bias=None,
-                remat: bool = False, remat_segments: int = 0):
+                remat: bool = False, remat_segments: int = 0,
+                skip_self_attn=None, skip_ff=None, cross_attn_scale=None):
         """Velocity prediction.
 
         latent: (B, T, C) patchified tokens; context: (B, S, caption
         channels); timesteps: (B,) or (B, T) sigmas in [0, 1]; rope: (cos,
         sin) each (H, T, head_dim / 2) f32; context_bias: (B, 1, 1, S)
-        additive key bias or None. Returns (B, T, C).
+        additive key bias or None. Returns (B, T, C). skip_self_attn,
+        skip_ff: None or (L, B) bool per block and row (`stg_skip_masks`);
+        cross_attn_scale: None, a scalar or (L,) per block.
 
         While autograd records: remat=True checkpoints each block (its
         activations are recomputed in the backward, one extra forward);
@@ -205,15 +225,27 @@ class LTXTransformer(nn.Module):
         ctx = ctx.reshape(b, -1, self.cfg.inner_dim)
         args = (ctx, ts_emb, rope, context_bias)
         blocks = list(self.blocks)
+        extras = [()] * len(blocks)
+        if skip_self_attn is not None or skip_ff is not None \
+                or cross_attn_scale is not None:
+            scales = None
+            if cross_attn_scale is not None:
+                scales = torch.as_tensor(cross_attn_scale, dtype=torch.float32,
+                                         device=x.device).broadcast_to(len(blocks))
+            extras = [(None if skip_self_attn is None else skip_self_attn[i],
+                       None if skip_ff is None else skip_ff[i],
+                       None if scales is None else scales[i])
+                      for i in range(len(blocks))]
         if remat_segments and remat_segments > 1:
             if len(blocks) % remat_segments:
                 raise ValueError(f"remat_segments {remat_segments} must divide "
                                  f"num_layers {len(blocks)}")
             per = len(blocks) // remat_segments
             for i in range(0, len(blocks), per):
-                x = _remat(_run_blocks, blocks[i:i + per], x, *args, remat=True)
+                x = _remat(_run_blocks, blocks[i:i + per], extras[i:i + per], x, *args,
+                           remat=True)
         else:
-            x = _run_blocks(blocks, x, *args, remat=remat)
+            x = _run_blocks(blocks, extras, x, *args, remat=remat)
         return self.output_head(x, embedded_ts)
 
 
@@ -224,10 +256,24 @@ def _remat(fn, *args, remat: bool = False):
     return fn(*args)
 
 
-def _run_blocks(blocks, x, ctx, ts_emb, rope, bias, remat: bool = False):
-    for block in blocks:
-        x = _remat(block, x, ctx, ts_emb, rope, bias, remat=remat)
+def _run_blocks(blocks, extras, x, ctx, ts_emb, rope, bias, remat: bool = False):
+    """extras: per block, () or its (skip_self_attn, skip_ff, cross_attn_scale)."""
+    for block, extra in zip(blocks, extras):
+        x = _remat(block, x, ctx, ts_emb, rope, bias, *extra, remat=remat)
     return x
+
+
+def stg_skip_masks(cfg: TransformerConfig, batch: int, stg_blocks, perturbed_rows,
+                   skip_ff_too: bool = False, device=None):
+    """(L, B) bool skip masks: the rows in `perturbed_rows` skip
+    self-attention (and, with skip_ff_too, the feed-forward) in
+    `stg_blocks`, so that the STG-perturbed row batches with the others."""
+    sa = np.zeros((cfg.num_layers, batch), bool)
+    for blk in stg_blocks:
+        for row in perturbed_rows:
+            sa[blk, row] = True
+    ff = sa if skip_ff_too else np.zeros_like(sa)
+    return (torch.from_numpy(sa).to(device), torch.from_numpy(ff).to(device))
 
 
 @torch.no_grad()
@@ -240,7 +286,7 @@ def quantize_transformer(module: nn.Module, bits: int, group_size: int = 64,
     where the layer lived. Everything outside the blocks, norms and tables
     stay as they are. Returns `module`."""
     if w8a8:
-        raise NotImplementedError("W8A8 quantization is not ported yet")
+        raise NotImplementedError("W8A8 quantization is not ported yet (ROADMAP A10)")
     targets = [(parent, name, child)
                for parent in module.blocks.modules()
                for name, child in parent.named_children()

@@ -1,6 +1,8 @@
-"""Video VAE decoder: causal-3D-conv decoder to pixels.
+"""Video VAE: causal-3D-conv decoder to pixels, and the encoder for image
+and video conditioning.
 
-Port of the decoder half of ltx_tpu/models/vae.py. The reference runs
+Port of ltx_tpu/models/vae.py (all but the mesh-sharded decode, ROADMAP A18,
+and the yuv420 transfer format, ROADMAP A4b). The reference runs
 channels-last (NDHWC, DHWIO weights); this port runs torch's NCDHW with
 (O, I, D, H, W) weights, converted once in convert.py. The public layout is
 the same in both: latents (B, C, F, H, W) in, pixels (B, 3, T, H, W) out.
@@ -10,6 +12,12 @@ Decoder: conv_in 128 -> 1024, then [5 res blocks, depth-to-space x2
 upsample] x3 (1024 -> 512 -> 256 -> 128), PixelNorm + AdaLN out, conv_out
 128 -> 48, spatial unpatchify 4x4. Output frames = 8 * (latent_frames - 1) + 1.
 Padding: time replicates (causally or symmetrically), space reflects.
+`decode_video` tiles long clips in time, frame-aligned, as the reference.
+
+Encoder: spatial patchify 4x4 (3 -> 48), conv_in 48 -> 128, then per stage
+[res blocks, space-to-depth downsample] over 128 -> 256 -> 512 -> 1024 ->
+2048, a 2-block mid stage, PixelNorm + SiLU, conv_out to 128 + 1 channels of
+which the 128 means are kept. Causal in time, zero padding in space.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,7 +46,7 @@ class VAEConfig:
     timestep_conditioning: bool = False
     decode_noise_scale: float = 0.025
     timestep_scale_multiplier: float = 1000.0
-    # encoder (not ported yet; kept so configs compare field for field)
+    # encoder
     encoder_causal: bool = True
     encoder_channels: Tuple[int, ...] = (128, 256, 512, 1024, 2048)
     encoder_resnets: Tuple[int, ...] = (4, 6, 6, 2)
@@ -272,13 +281,242 @@ class VideoDecoder(nn.Module):
         return decoder_unpatchify(x, cfg.patch_size)
 
 
+def _tile_starts(frames: int, tile_size: int, stride: int):
+    starts, s = [], 0
+    while s < frames:
+        starts.append(s)
+        if s + tile_size >= frames:
+            break
+        s += stride
+    return starts
+
+
+def _pull(t):
+    """Start the device -> host copy of `t`; returns wait() -> numpy array
+    (bf16 widened to f32 on the host). On CUDA the copy is asynchronous into
+    pinned memory, so what is launched after it overlaps the host's work."""
+    if t.is_cuda:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
+    else:
+        host, done = t, None
+
+    def wait():
+        if done is not None:
+            done.synchronize()
+        return (host if host.dtype == torch.uint8 else host.float()).numpy()
+
+    return wait
+
+
 def decode_video(decoder: VideoDecoder, latent, timestep: Optional[float] = None,
-                 noise=None):
-    """Untiled decode -> frames (F, H, W, 3) in [0, 1], in the decoder's
-    dtype. Temporal tiling is not ported yet (NotImplementedError upstream
-    in the pipeline)."""
+                 noise=None, tile_size: int = 0, tile_overlap: int = 1,
+                 transfer_uint8=False):
+    """Decode with optional temporal tiling -> frames (F, H, W, 3) in [0, 1].
+
+    Untiled (tile_size <= 0 or no more latent frames than one tile): one
+    decoder call; `noise` is a tensor of the latent's shape (or None); the
+    frames are a tensor on the latent's device, in the decoder's dtype.
+
+    Tiled: tiles of `tile_size` latent frames overlapping by `tile_overlap`,
+    stitched frame-aligned on the host (pixel p >= 1 of a tile starting at
+    latent s is global pixel 8s + p): each later tile drops its re-anchored
+    first pixel frame, 8 * (tile_overlap - 1) coincident frames blend
+    linearly, and exactly 8 * (F - 1) + 1 frames come out, as a float32
+    numpy array on the host. The next tile is launched before the current
+    one is waited for, so at most two decoded tiles are on the device.
+    `noise` is a sequence with one tensor per tile, each of its tile's
+    latent shape (the reference folds the tile index into its key).
+    transfer_uint8=True rounds each tile to uint8 on the device before the
+    copy (a quarter of f32's bytes) and blends in uint8 with f32 weights,
+    rounded: at most 1/255 off. "yuv420" is not ported (ROADMAP A4b)."""
+    if transfer_uint8 == "yuv420":
+        raise NotImplementedError("the yuv420 decode transfer is not ported yet "
+                                  "(ROADMAP A4b)")
     if latent.ndim == 4:
         latent = latent[None]
-    x = decoder(latent, timestep, noise)
-    frames = torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
-    return frames[0].permute(1, 2, 3, 0)
+    f = latent.shape[2]
+    if tile_size <= 0 or f <= tile_size:
+        if isinstance(noise, (list, tuple)):
+            (noise,) = noise
+        x = decoder(latent, timestep, noise)
+        frames = torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
+        return frames[0].permute(1, 2, 3, 0)
+
+    tile_overlap = max(tile_overlap, 1)
+    if tile_overlap >= tile_size:
+        raise ValueError(f"vae_tile_overlap ({tile_overlap}) must be < vae_tile_size "
+                         f"({tile_size}); stride would be <= 0")
+    starts = _tile_starts(f, tile_size, tile_size - tile_overlap)
+    pixel_blend = 8 * (tile_overlap - 1)
+    if noise is not None and (not isinstance(noise, (list, tuple))
+                              or len(noise) != len(starts)):
+        raise ValueError(f"a tiled decode takes one noise tensor per tile: "
+                         f"{len(starts)} tiles")
+
+    def launch(i):
+        tile = latent[:, :, starts[i]:starts[i] + tile_size]
+        px = decoder(tile, timestep, None if noise is None else noise[i])
+        if transfer_uint8:
+            px = torch.round(torch.clamp((px.float() + 1.0) / 2.0, 0.0, 1.0)
+                             * 255.0).to(torch.uint8)
+        return _pull(px)
+
+    out = None  # host (B, 3, 8(f-1)+1, H, W), allocated on the first tile
+    filled = 0
+    pending = launch(0)
+    for idx in range(len(starts)):
+        wait = pending
+        if idx + 1 < len(starts):
+            pending = launch(idx + 1)
+        chunk = wait()
+        if idx == 0:
+            b, _, _, hh, ww = chunk.shape
+            out = np.empty((b, 3, 8 * (f - 1) + 1, hh, ww), chunk.dtype)
+            out[:, :, :chunk.shape[2]] = chunk
+            filled = chunk.shape[2]
+            continue
+        nxt = chunk[:, :, 1:]  # drop the re-anchored first pixel frame
+        if 0 < pixel_blend < filled and pixel_blend < nxt.shape[2]:
+            wts = (np.arange(1, pixel_blend + 1, dtype=np.float32)
+                   / (pixel_blend + 1)).reshape(1, 1, -1, 1, 1)
+            blended = (out[:, :, filled - pixel_blend:filled] * (1 - wts)
+                       + nxt[:, :, :pixel_blend] * wts)
+            if transfer_uint8:
+                blended = np.round(blended)
+            out[:, :, filled - pixel_blend:filled] = blended
+            rest = nxt[:, :, pixel_blend:]
+        else:
+            rest = nxt
+        out[:, :, filled:filled + rest.shape[2]] = rest
+        filled += rest.shape[2]
+    if filled != out.shape[2]:
+        raise AssertionError(f"tiled decode filled {filled} of {out.shape[2]} frames")
+    if transfer_uint8:
+        frames = out.astype(np.float32) / 255.0
+    else:
+        frames = np.clip((out + 1.0) / 2.0, 0.0, 1.0)
+    return frames[0].transpose(1, 2, 3, 0)
+
+
+def tile_latent_frames(latent_frames: int, tile_size: int, tile_overlap: int = 1):
+    """The latent frame count of each tile decode_video cuts `latent_frames`
+    into, in order (one entry when it does not tile): one decode-noise
+    tensor is needed per tile."""
+    if tile_size <= 0 or latent_frames <= tile_size:
+        return [latent_frames]
+    tile_overlap = max(tile_overlap, 1)
+    return [min(tile_size, latent_frames - s)
+            for s in _tile_starts(latent_frames, tile_size, tile_size - tile_overlap)]
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def encoder_patchify(x, p: int = 4):
+    """(B, 3, T, H, W) -> (B, 48, T, H/4, W/4); channel order (c, pw, ph)."""
+    b, c, t, h, w = x.shape
+    out = x.reshape(b, c, t, h // p, p, w // p, p)   # (b, c, t, h', ph, w', pw)
+    out = out.permute(0, 1, 6, 4, 2, 3, 5)           # (b, c, pw, ph, t, h', w')
+    return out.reshape(b, c * p * p, t, h // p, w // p)
+
+
+def space_to_depth(x, factor):
+    """NCDHW inverse of depth_to_space, channel order (c, ft, fh, fw); the
+    front of the time axis is padded with the first frame when the temporal
+    factor does not divide it."""
+    ft, fh, fw = factor
+    if x.shape[2] % ft != 0:
+        x = F.pad(x, (0, 0, 0, 0, ft - x.shape[2] % ft, 0), mode="replicate")
+    b, c, t, h, w = x.shape
+    out = x.reshape(b, c, t // ft, ft, h // fh, fh, w // fw, fw)
+    out = out.permute(0, 1, 3, 5, 7, 2, 4, 6)  # (b, c, ft, fh, fw, t', h', w')
+    return out.reshape(b, c * ft * fh * fw, t // ft, h // fh, w // fw)
+
+
+class EncoderResBlock(nn.Module):
+    """PixelNorm -> SiLU -> conv, twice, plus the residual; no conditioning."""
+
+    def __init__(self, c: int, device, dtype):
+        super().__init__()
+        self.conv1 = Conv3d(c, c, device=device, dtype=dtype)
+        self.conv2 = Conv3d(c, c, device=device, dtype=dtype)
+
+    def forward(self, x, causal: bool, mode: str):
+        h = causal_conv3d(self.conv1, silu(vae_pixel_norm(x)), causal, mode)
+        h = causal_conv3d(self.conv2, silu(vae_pixel_norm(h)), causal, mode)
+        return h + x
+
+
+class S2DDownsample(nn.Module):
+    """Conv -> space-to-depth, plus a group-averaged space-to-depth
+    residual of the input."""
+
+    def __init__(self, c_in: int, c_out: int, factor, device, dtype):
+        super().__init__()
+        self.factor, self.c_out = tuple(factor), c_out
+        prod = factor[0] * factor[1] * factor[2]
+        self.conv = Conv3d(c_in, c_out // prod, device=device, dtype=dtype)
+
+    def forward(self, x, causal: bool, mode: str):
+        main = space_to_depth(causal_conv3d(self.conv, x, causal, mode), self.factor)
+        res = space_to_depth(x, self.factor)
+        b, c, t, h, w = res.shape
+        res = res.reshape(b, self.c_out, c // self.c_out, t, h, w).mean(dim=2)
+        return main + res
+
+
+class EncoderStage(nn.Module):
+    """`resnets`, then (but for the mid stage) `downsamplers`."""
+
+    def __init__(self, c: int, blocks: int, device, dtype, c_out=None, factor=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(EncoderResBlock(c, device, dtype)
+                                     for _ in range(blocks))
+        if c_out is not None:
+            self.downsamplers = S2DDownsample(c, c_out, factor, device, dtype)
+
+    def forward(self, x, causal: bool, mode: str):
+        for block in self.resnets:
+            x = block(x, causal, mode)
+        if hasattr(self, "downsamplers"):
+            x = self.downsamplers(x, causal, mode)
+        return x
+
+
+class VideoEncoder(nn.Module):
+    """Parameter names follow ltx_tpu.models.vae.init_encoder_params."""
+
+    def __init__(self, cfg: VAEConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        chans = cfg.encoder_channels
+        self.conv_in = Conv3d(3 * cfg.patch_size**2, chans[0], device=device, dtype=dtype)
+        self.down_blocks = nn.ModuleList(
+            EncoderStage(chans[i], n, device, dtype, chans[i + 1], cfg.encoder_factors[i])
+            for i, n in enumerate(cfg.encoder_resnets))
+        self.mid_block = EncoderStage(chans[-1], 2, device, dtype)
+        self.conv_out = Conv3d(chans[-1], cfg.latent_channels + 1, device=device,
+                               dtype=dtype)
+
+    @property
+    def dtype(self):
+        return self.conv_in.weight.dtype
+
+    def forward(self, pixels):
+        """(B, 3, T, H, W) in [-1, 1] -> the latent mean (B, C, T', H/32,
+        W/32), T' = (T - 1) / 8 + 1, not yet normalized (encoder_forward)."""
+        cfg = self.cfg
+        causal, mode = cfg.encoder_causal, "zeros"
+        x = encoder_patchify(pixels, cfg.patch_size)
+        x = causal_conv3d(self.conv_in, x, causal, mode)
+        for stage in self.down_blocks:
+            x = stage(x, causal, mode)
+        x = self.mid_block(x, causal, mode)
+        x = silu(vae_pixel_norm(x))
+        x = causal_conv3d(self.conv_out, x, causal, mode)
+        return x[:, :cfg.latent_channels]  # the mean; the logvar channel dropped

@@ -20,6 +20,9 @@ DISTILLED_SIGMAS = np.array(
     dtype=np.float32,
 )
 
+# Stage-2 refinement sigmas of the two-stage generation.
+STAGE_2_SIGMAS = np.array([0.909375, 0.725, 0.421875, 0.0], dtype=np.float32)
+
 BASE_SHIFT_ANCHOR = 1024
 MAX_SHIFT_ANCHOR = 4096
 

@@ -2,14 +2,17 @@
 NVIDIA GPU.
 
     python -m ltx_tpu_torch.profile_step [--frames 25 --height 512 --width 768]
+                                         [--rms torch|cuda]
     python -m ltx_tpu_torch.profile_step --train [--frames ... as above]
 
 Builds the full-width, full-depth DiT with random bf16 weights from a seed
 on the card, runs one warm-up denoise step at the given clip size (a random
 1024-token text context with 300 padded keys), then profiles two steps with
 torch.profiler and prints, per step: the host time, the device time by
-kernel group (the flash-attention and int4 kernels of this package, GEMMs,
-everything else) and the device's idle share. Then it quantizes the same
+kernel group (the flash-attention, int4 and RMSNorm kernels of this package,
+GEMMs, everything else) and the device's idle share. --rms picks the norm
+behind ops.normalization.rms_norm for the denoise steps: the plain chain
+("torch", the default) or the hand-written kernel ("cuda"). Then it quantizes the same
 DiT to int4 on the card and does the same again. The last line is one JSON
 object with both breakdowns. Fails without CUDA.
 
@@ -36,6 +39,7 @@ from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
 from ltx_tpu_torch.models.common import init_random_
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
+from ltx_tpu_torch.ops.normalization import RMS_IMPLS, set_rms_impl
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 
 # kernel-name fragments of each group, matched in this order
@@ -44,6 +48,7 @@ GROUPS = (
     ("flash_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("int4_matmul", ("int4_matmul_kernel",)),
     ("dequant_int4", ("dequant_int4_kernel",)),
+    ("rms_norm", ("rms_norm_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")),
 )
 PROFILED_STEPS = 2
@@ -128,6 +133,8 @@ def main() -> int:
     parser.add_argument("--width", type=int, default=768)
     parser.add_argument("--train", action="store_true",
                         help="profile one int4 QLoRA train step instead")
+    parser.add_argument("--rms", choices=RMS_IMPLS, default="torch",
+                        help="the norm behind rms_norm in the denoise steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: CUDA is not available")
@@ -159,6 +166,7 @@ def main() -> int:
         print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "train": res}))
         return 0
 
+    set_rms_impl(args.rms)
     results = {}
     for mode in ("bf16", "int4"):
         if mode == "int4":
@@ -169,11 +177,12 @@ def main() -> int:
         res = profile_steps(step, latent)
         results[mode] = res
         groups = ", ".join(f"{k} {v:.2f}" for k, v in res["device_ms"].items())
-        print(f"[profile] {mode} {args.frames}f@{args.width}x{args.height} "
+        print(f"[profile] {mode} rms={args.rms} {args.frames}f@{args.width}x{args.height} "
               f"({shape.token_count} tokens): host {res['host_ms']:.2f} ms/step, device "
               f"{res['device_busy_ms']:.2f} ms/step ({groups}), idle share "
               f"{res['idle_share']:.3f}", flush=True)
-    print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "steps": results}))
+    print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "rms": args.rms,
+                      "steps": results}))
     return 0
 
 

@@ -16,6 +16,8 @@ autograd Function against jax.grad and torch's gradcheck in float64; the
 card's backward tolerance against the Pallas backward and a bf16 emulation
 of the CUDA kernels' rounding."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,26 @@ def test_card_tolerance_admits_pallas_and_rejects_a_dropped_tile(b, h, tq, tk, d
     dropped[..., 32:64] = -1e30
     skipped = flash_attention_reference(q, k, v, dropped)
     assert ((skipped.float() - want.float()).abs() > tol).any()
+
+
+def test_checks_take_the_plain_version_some_heads_at_a_time(monkeypatch):
+    """The path-shape checks compute the plain version and its tolerance a
+    few heads at a time (the 9216-token score matrix would not fit whole):
+    the same values as whole, with each row's keys masked at its own count,
+    at the head as the tokenizer pads."""
+    case = checks.AttentionCase("rows", 3, 5, 40, 24, 32, pad=(7, 0, 11), pad_left=True)
+    q, k, v, bias = checks.attention_inputs(case, "cpu")
+    assert (bias[0, 0, 0, :7] == -10000).all() and (bias[0, 0, 0, 7:] == 0).all()
+    assert (bias[1] == 0).all() and (bias[2, 0, 0, :11] == -10000).all()
+    tail = checks.attention_inputs(dataclasses.replace(case, pad=4, pad_left=False), "cpu")[3]
+    assert (tail[..., -4:] == -10000).all() and (tail[..., :-4] == 0).all()
+    whole = flash_attention_reference(q, k, v, bias)
+    tol = checks.attention_tolerance(q, k, v, bias, None, whole)
+    monkeypatch.setattr(checks, "PLAIN_SCORE_BYTES", 2 * 4 * 3 * 40 * 24)  # two heads
+    assert [(s.start, s.stop) for s in checks.head_slices(q, k)] == [(0, 2), (2, 4), (4, 5)]
+    assert torch.equal(checks.attention_reference_by_heads(q, k, v, bias, None), whole)
+    torch.testing.assert_close(checks.attention_tolerance(q, k, v, bias, None, whole), tol,
+                               rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("dtype,tol", [(jnp.float32, F32_TOL), (jnp.bfloat16, 2.0**-7)])

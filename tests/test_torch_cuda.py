@@ -14,7 +14,10 @@ bf16 ulps of the plain output; the softmax statistics within 2**-14 (m) and
 rounding of P and dS, checks' docstring) and exactly 0 on -1e30 masked
 keys; the int4 product within one bf16 ulp plus 2**-12 * (|X| @ |W|);
 dequant_int4 and quantize_weight on the card bit for bit; the tiny
-pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative.
+pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative;
+rms_norm within 16 f32 ulps of the plain version's f32 value plus, for a
+bf16 output, half a bf16 ulp; the tiny two-stage I2V pipeline, its norms
+through that kernel, within 2e-2.
 """
 
 import pytest
@@ -24,6 +27,8 @@ import torch.nn.functional as F
 from ltx_tpu_torch import checks
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
+from ltx_tpu_torch.kernels import rms_norm as rk
+from ltx_tpu_torch.ops import normalization
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +131,48 @@ def test_bf16_linear_rounds_once(device):
 
 def test_tiny_pipeline_cuda_matches_cpu(device):
     checks.check_tiny_pipeline(device)
+
+
+@pytest.mark.parametrize("case", checks.RMS_CASES, ids=lambda c: c.name)
+def test_rms_norm_kernel_matches_plain(device, case):
+    res = checks.check_rms(case, device)
+    assert res["tol_share"] <= 1.0
+
+
+def test_rms_norm_dispatch_and_what_the_kernel_does_not_take(device):
+    """With the kernel selected a CUDA tensor on the 128 rule launches it
+    (3-D and non-contiguous inputs too); other shapes and the default keep
+    the plain chain; a tensor that requires grad raises; float16 raises."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(4, 37, 512, generator=gen, device=device).bfloat16()
+    w = torch.randn(256, generator=gen, device=device).bfloat16()
+    strided = x[:, :, ::2]
+    before = rk.rms_norm.launches
+    assert normalization.rms_norm(x).shape == x.shape
+    assert rk.rms_norm.launches == before  # the default is the plain chain
+    normalization.set_rms_impl("cuda")
+    try:
+        got = normalization.rms_norm(strided, w)
+        assert rk.rms_norm.launches == before + 1
+        want = rk.rms_norm_reference(strided, w)
+        assert (got.float() - want.float()).abs().max() <= checks.bf16_ulp(want).max()
+        odd = torch.ones(3, 100, device=device)
+        assert torch.equal(normalization.rms_norm(odd), rk.rms_norm_reference(odd))
+        assert rk.rms_norm.launches == before + 1
+        with pytest.raises(RuntimeError, match="inference only"):
+            normalization.rms_norm(x.float().requires_grad_(True))
+        with torch.no_grad():
+            normalization.rms_norm(x.float().requires_grad_(True))
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            normalization.rms_norm(x.half())
+    finally:
+        normalization.set_rms_impl("torch")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        rk.rms_norm(torch.ones(3, 100, device=device))
+    assert rk.rms_norm(torch.empty(0, 128, device=device)).shape == (0, 128)
+
+
+def test_tiny_two_stage_cuda_matches_cpu(device):
+    res = checks.check_tiny_two_stage(device)
+    assert res["launches"]["rms_norm"] > 0
+    assert normalization.get_rms_impl() == "torch"

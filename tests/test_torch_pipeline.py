@@ -178,12 +178,32 @@ def test_tokenize_and_encode_prompt_match(pipes):
     dict(cross_attention_scale=0.5), dict(enhance_prompt=True),
     dict(two_stage=True), dict(image_path="x.png"),
 ])
-def test_unported_configs_raise(pipes, kw):
+def test_unported_configs_raise(pipes, kw, tmp_path):
+    """Prompt enhancement is the one generation knob still to port (ROADMAP
+    A13) and raises; every other knob of this list now runs (the guided and
+    image-conditioned paths, held against the reference in
+    test_torch_two_stage.py; `two_stage` is a flag for callers, which
+    generate_video ignores as the reference's does)."""
     _, port = pipes
+    if "image_path" in kw:
+        Image = pytest.importorskip("PIL.Image")  # load_image needs Pillow
+
+        kw = dict(image_path=str(tmp_path / "x.png"))
+        Image.fromarray(np.full((40, 56, 3), 90, np.uint8)).save(kw["image_path"])
+    if "stg_scale" in kw:
+        kw = dict(kw, stg_blocks=(1,))  # the default block 29 is past the tiny DiT
     config = dataclasses.replace(CONFIG, **kw)
-    noise = torch.zeros(1, port.tcfg.in_channels, 2, 2, 2)
-    with pytest.raises(NotImplementedError):
-        port.generate_video(PROMPT, config, noise)
+    if config.enhance_prompt:
+        with pytest.raises(NotImplementedError, match="A13"):
+            port.generate_video(PROMPT, config, torch.zeros(1, port.tcfg.in_channels, 2, 2, 2))
+        return
+    noise = torch.from_numpy(_reference_noise(config, port.tcfg.in_channels))
+    port_with_encoder = port
+    if config.image_path is not None:
+        port_with_encoder = LTXPipeline.random_tiny(device="cpu", seed=0)
+    frames = port_with_encoder.generate_video(PROMPT, config, noise).frames
+    assert frames.shape == (9, 64, 64, 3) and np.isfinite(frames).all()
+    assert frames.min() >= 0.0 and frames.max() <= 1.0
 
 
 def test_staged_int4_pipeline_keeps_its_codes_on_the_host():
@@ -206,6 +226,9 @@ def test_staged_int4_pipeline_keeps_its_codes_on_the_host():
 
 
 def test_staged_pipeline_runs_and_tiling_raises():
+    """Staging keeps every component. Tiled decoding now runs (one latent
+    frame a tile cannot overlap by one and raises ValueError, as the
+    reference's does); the yuv420 transfer raises, naming ROADMAP A4b."""
     port = LTXPipeline.random_tiny(device="cpu", seed=1,
                                    memory=MemoryConfig(phase_staging=True))
     noise = torch.randn(1, port.tcfg.in_channels, 2, 2, 2,
@@ -215,5 +238,17 @@ def test_staged_pipeline_runs_and_tiling_raises():
     assert port.gemma is not None  # staging keeps every component
     tiled = LTXPipeline.random_tiny(device="cpu", seed=1,
                                     memory=MemoryConfig(vae_tile_size=1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="vae_tile_overlap"):
         tiled.generate_video("tiled", CONFIG, noise)
+    long = dataclasses.replace(CONFIG, num_frames=25)
+    long_noise = torch.randn(1, port.tcfg.in_channels, 4, 2, 2,
+                             generator=torch.Generator().manual_seed(0))
+    tiled = LTXPipeline.random_tiny(device="cpu", seed=1, memory=MemoryConfig(
+        vae_tile_size=2, phase_staging=True))
+    frames = tiled.generate_video("tiled", long, long_noise).frames
+    assert frames.shape == (25, 64, 64, 3) and np.isfinite(frames).all()
+    assert tiled.decode_tile_frames(4) == [2, 2, 2]
+    yuv = LTXPipeline.random_tiny(device="cpu", seed=1, memory=MemoryConfig(
+        vae_tile_size=2, decode_transfer="yuv420"))
+    with pytest.raises(NotImplementedError, match="A4b"):
+        yuv.generate_video("tiled", long, long_noise)

@@ -83,8 +83,29 @@ def test_memory_config_and_scales_match_reference():
     ref = dataclasses.asdict(jconfig.MemoryConfig())
     for field, default in dataclasses.asdict(config.MemoryConfig()).items():
         assert ref[field] == default, field
-    for name in ("TEMPORAL_SCALE", "SPATIAL_SCALE", "LATENT_CHANNELS"):
+    for name in ("TEMPORAL_SCALE", "SPATIAL_SCALE", "LATENT_CHANNELS",
+                 "DEFAULT_NEGATIVE_PROMPT"):
         assert getattr(config, name) == getattr(jconfig, name)
+
+
+def test_upscaler_and_vae_configs_match_reference():
+    from ltx_tpu.models import upscaler as jup
+    from ltx_tpu.models import vae as jvae
+    from ltx_tpu_torch.models.upscaler import UpscalerConfig
+
+    for port, ref in ((UpscalerConfig(), jup.UpscalerConfig()), (VAEConfig(), jvae.VAEConfig())):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert dataclasses.asdict(port.tiny()) == dataclasses.asdict(ref.tiny())
+
+
+def test_every_kernel_source_is_registered_and_counted():
+    """Each .cu under csrc/ is in build.SOURCES, and each wrapper the smoke
+    script counts starts at zero launches."""
+    from ltx_tpu_torch.kernels import build
+    from ltx_tpu_torch.kernels import rms_norm as rk
+
+    assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == sorted(build.SOURCES)
+    assert rk.rms_norm.launches == 0 and rk.LANES == 128
 
 
 @pytest.mark.parametrize("kw", [
