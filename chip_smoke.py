@@ -64,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -180,6 +181,45 @@ def queued_ms(calls, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def sass_count(name: str, opcode: str):
+    """How many instructions of `opcode` the built library of source `name`
+    holds (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))], check=True,
+                              capture_output=True, text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return sum(opcode in line for line in sass.splitlines())
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and integer or bool template arguments from its
+    mangled name, e.g. flash_fwd_kernel<128,1,0,0>."""
+    for m in re.finditer(r"\d+", mangled):
+        ident = mangled[m.end():m.end() + int(m.group())]
+        if ident.endswith("kernel"):
+            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[m.end() + len(ident):])
+            vals = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+            return ident + (f"<{','.join(vals)}>" if vals else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, stack and spills) of every entry function in an
+    `nvcc -Xptxas -v` log."""
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = _kernel_name(line.split("'")[1]), ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            out.append((name, line.split(":", 1)[1].strip(), spills))
+            name = None
+    return out
+
+
 def phase_environment() -> dict:
     log(f"[env] gpu: {gpu_name_and_power()}")
     log(f"[env] torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -191,9 +231,21 @@ def phase_environment() -> dict:
     for name in build.SOURCES:
         info = (build.BUILD_DIR / f"{name}.log")
         if info.is_file():
-            for line in info.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+            text = info.read_text()
+            for kernel, registers, spills in ptxas_report(text):
+                log(f"[env] ptxas {name} {kernel}: {registers}; {spills}")
+            for line in text.splitlines():
+                if "Potential Performance Loss" in line:
                     log(f"[env] ptxas {name}: {line.strip()}")
+    # the forward flash kernel's consumers run at setmaxnreg 240 (ptxas
+    # reports the launch's 168 a thread): its spill figures above are theirs
+    fwd_log = build.BUILD_DIR / "flash_attention_fwd.log"
+    spilling = [k for k, _, spills in ptxas_report(fwd_log.read_text())
+                if spills and not spills.startswith("0 bytes stack frame, 0 bytes spill")] \
+        if fwd_log.is_file() else ["(no build log)"]
+    log(f"[env] flash_attention_fwd: {sass_count('flash_attention_fwd', 'HGMMA')} HGMMA "
+        f"instructions in its SASS (wgmma), over its 17 kernel instantiations; "
+        f"instantiations that spill: {spilling or 'none'}")
     return seconds
 
 
@@ -210,6 +262,10 @@ def phase_flash_kernel(device) -> dict:
     shapes and the ragged ones (checks.ATTN_CASES, element-wise tolerance);
     returns the kernels-line entry (without launches), timed at the DiT's
     self-attention."""
+    res = checks.check_pv_handoff(device)
+    log(f"[kernel] flash_attention P hand-off (bf16(q k^T) as wgmma's register operand"
+        f" of P V, one 128 x 128 tile): max_abs_err {res['max_abs_err']:.3e} of max"
+        f" {res['max_abs']:.1f}, {res['tol_share']:.3f} of its element's tolerance")
     max_err = 0.0
     timings = {}
     for case in checks.ATTN_CASES:
@@ -231,11 +287,12 @@ def phase_flash_kernel(device) -> dict:
         timings[case.name] = (ms, plain, library, bound_ms, bound_by)
         log(f"[kernel] flash_attention {case.name} q{(case.b, case.h, case.tq, case.d)}"
             f" k{(case.b, case.h, case.tk, case.d)} masked keys={case.pad}"
-            f"{' (head)' if case.pad_left else ''}:"
+            f"{' (head)' if case.pad_left else ''} layout {case.layout}:"
             f" max_abs_err {res['max_abs_err']:.3e}, {res['tol_share']:.3f} of its"
             f" element's tolerance, {res['rel_to_max']:.3e} of max|plain|;"
             f" kernel {ms:.4f} ms, plain {plain:.4f} ms, library (sdpa) {library:.4f} ms,"
-            f" bound {bound_ms:.4f} ms ({bound_by})")
+            f" bound {bound_ms:.4f} ms ({bound_by}); {flops / ms * 1e-9:.1f} TFLOP/s,"
+            f" {bound_ms / ms:.3f} of the bound, {ms / library:.2f}x sdpa")
     ms, plain, library, bound_ms, bound_by = timings["dit_self_attn"]
     return {"name": "flash_attention", "route": "cuda",
             "source": "ltx_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -384,7 +441,8 @@ def phase_flash_training_kernels(device):
             f"bias={case.bias}: max_abs_err {st['max_abs_err']:.3e}, out {st['tol_share']:.3f},"
             f" m {st['m_share']:.3f}, l {st['l_share']:.3f} of their tolerances; kernel"
             f" {s_ms:.4f} ms, plain {s_plain:.4f} ms, library (sdpa fwd) {s_lib:.4f} ms,"
-            f" bound {s_bound[0]:.4f} ms ({s_bound[1]})")
+            f" bound {s_bound[0]:.4f} ms ({s_bound[1]}); {4.0 * work / s_ms * 1e-9:.1f} TFLOP/s,"
+            f" {s_bound[0] / s_ms:.3f} of the bound, {s_ms / s_lib:.2f}x sdpa's forward")
         log(f"[kernel] flash_attention backward {case.name}: dq err "
             f"{bw['dq']['max_abs_err']:.3e} ({bw['dq']['tol_share']:.3f} of its tolerance),"
             f" dk {bw['dk']['max_abs_err']:.3e} ({bw['dk']['tol_share']:.3f}), dv "
@@ -475,11 +533,14 @@ def phase_tiny_agreement(device) -> None:
         f"decode; norms through the rms_norm kernel) on the card vs the CPU: max abs err "
         f"{res['max_abs_err']:.3e}, mean {res['mean_abs_err']:.3e} (tol "
         f"{checks.TINY_FRAME_ATOL:.0e}); launches {json.dumps(res['launches'])}")
-    res = checks.check_tiny_train(device)
-    log(f"[tiny] LoRA train ({checks.TINY_TRAIN_STEPS} steps, bf16) on the card vs the CPU:"
-        f" first-backward LoRA gradients {res['grad_rel']:.3e}, losses {res['loss_rel']:.3e},"
-        f" LoRA leaves after the steps {res['lora_rel']:.3e} (relative, tol "
-        f"{checks.TINY_TRAIN_TOL:.0e}); launches {json.dumps(res['launches'])}")
+    for dtype, how in ((torch.bfloat16, "bf16"),
+                       (torch.float32, "f32 compute, attention cast to bf16 on the card")):
+        res = checks.check_tiny_train(device, dtype)
+        log(f"[tiny] LoRA train ({checks.TINY_TRAIN_STEPS} steps, {how}) on the card vs the "
+            f"CPU: first-backward LoRA gradients {res['grad_rel']:.3e}, losses "
+            f"{res['loss_rel']:.3e}, LoRA leaves after the steps {res['lora_rel']:.3e} "
+            f"(relative, tol {checks.TINY_TRAIN_TOL:.0e}, the bf16 run's); launches "
+            f"{json.dumps(res['launches'])}")
 
 
 KERNELS = {"flash_attention": fa.flash_attention,
@@ -683,6 +744,108 @@ def _batched_and_solo(pipe, config, noise, expected, device) -> None:
         if not diff.max() <= BATCH_FRAME_ATOL:
             raise AssertionError(f"batched sample {i} differs from its solo run by "
                                  f"{diff.max()}")
+    first_differing_sublayer(pipe, config, device)
+
+
+def _recorded(name: str) -> bool:
+    """The sub-layers whose solo outputs `first_difference` keeps: everything
+    outside a model's layer list, every module of its first layer, and each
+    layer's output (a few GB at most)."""
+    parts = name.split(".")
+    index = next((i for i, part in enumerate(parts) if part.isdigit()), None)
+    return index is None or parts[index] == "0" or len(parts) == index + 1
+
+
+def first_difference(models: dict, solo, batched):
+    """Forward hooks on every sub-layer of `models` ({prefix: module}); runs
+    solo() and then batched(), which must give row 0 the same inputs, and
+    returns (the first sub-layer, in the order they finish, whose row-0
+    output is not bit for bit the solo one, as (name, output shape, max abs
+    diff, max abs of the solo output, how many recorded outputs came before
+    it), or None; solo's result; batched's result)."""
+    names = {m: f"{prefix}.{n}" if n else prefix
+             for prefix, model in models.items() for n, m in model.named_modules()}
+    kept, order, first = {}, [], []
+
+    def keep(module, _, out):
+        out = out[0] if isinstance(out, tuple) else out
+        name = names[module]
+        if isinstance(out, torch.Tensor) and _recorded(name):
+            kept[name] = out.detach().clone()
+            order.append(name)
+
+    def compare(module, _, out):
+        out = out[0] if isinstance(out, tuple) else out
+        name = names[module]
+        if first or name not in kept or not isinstance(out, torch.Tensor):
+            return
+        want = kept[name]
+        got = out[:want.shape[0]]  # row 0's part, whether (B, ...) or (B * T, ...)
+        if got.shape == want.shape and not torch.equal(got, want):
+            first.append((name, tuple(out.shape),
+                          (got.float() - want.float()).abs().max().item(),
+                          want.float().abs().max().item(), order.index(name)))
+
+    results = []
+    for hook, run in ((keep, solo), (compare, batched)):
+        handles = [m.register_forward_hook(hook) for m in names]
+        try:
+            with torch.inference_mode():
+                results.append(run())
+        finally:
+            for h in handles:
+                h.remove()
+    return (first[0] if first else None), results[0], results[1]
+
+
+def _log_difference(what: str, first, tail: str) -> None:
+    if first is None:
+        log(f"[batched] {what}: no recorded sub-layer output differs, batched vs solo; {tail}")
+        return
+    name, out_shape, diff, scale, index = first
+    log(f"[batched] {what}: first sub-layer whose row-0 output differs, batched vs solo: "
+        f"{name} (output {out_shape}, max abs diff {diff:.3e} of max {scale:.3e}; the "
+        f"{index} recorded sub-layer outputs before it equal bit for bit); {tail}")
+
+
+def first_differing_sublayer(pipe: LTXPipeline, config: GenerationConfig, device) -> None:
+    """Where batched and solo first part, on one line each: the text pass
+    (Gemma and the connector) on the two prompts against the first alone,
+    and one bf16 DiT call (a denoise step) on two rows, two latents and two
+    text contexts against the first row alone, with forward hooks on every
+    sub-layer."""
+    first, solo, both = first_difference(
+        {"gemma": pipe.gemma, "text_encoder": pipe.text_encoder},
+        lambda: pipe.encode_prompts(BATCH_PROMPTS[:1]),
+        lambda: pipe.encode_prompts(BATCH_PROMPTS))
+    diff = (both[0]["video"].float() - solo[0]["video"].float()).abs().max().item()
+    _log_difference("text pass", first, f"the first prompt's context differs by {diff:.3e}")
+
+    tcfg = pipe.tcfg
+    shape = VideoLatentShape.from_pixels(2, config.num_frames, config.height, config.width,
+                                         channels=tcfg.in_channels)
+    gen = torch.Generator(device=device).manual_seed(5)
+    latent = generate_noise(shape, gen)
+    context = torch.randn(2, 1024, tcfg.caption_channels, generator=gen,
+                          device=device).bfloat16()
+    bias = torch.zeros(2, 1, 1, 1024, device=device)
+    bias[0, ..., :300] = -10000.0
+    bias[1, ..., :500] = -10000.0
+    transformer = pipe._on_device("transformer", GenerationTimings())
+    guidance = GuidanceSpec.from_config(config)
+    try:
+        first, (_, v_solo), (_, v_both) = first_difference(
+            {"dit": transformer},
+            lambda: make_denoise_step(transformer, guidance,
+                                      dataclasses.replace(shape, batch=1), context[:1],
+                                      bias[:1], fps=config.fps)(latent[:1], 1.0, 0.9),
+            lambda: make_denoise_step(transformer, guidance, shape, context, bias,
+                                      fps=config.fps)(latent, 1.0, 0.9))
+        torch.cuda.synchronize(device)
+    finally:
+        pipe._release("transformer")
+    diff = (v_both[:1].float() - v_solo.float()).abs().max().item()
+    _log_difference("one DiT call", first, f"the velocity differs by {diff:.3e}")
 
 
 def phase_norm_choice(pipe: LTXPipeline, device) -> None:

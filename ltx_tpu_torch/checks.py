@@ -110,6 +110,9 @@ class AttentionCase:
     pad: Optional[Union[int, tuple]] = None
     scale: Optional[float] = None
     pad_left: bool = False
+    # "bhtd": contiguous (B, H, T, D) tensors; "bthd": (B, H, T, D) views of
+    # (B, T, H, D) buffers, as the DiT passes its projections
+    layout: str = "bhtd"
 
 
 ATTN_CASES = (
@@ -140,6 +143,15 @@ ATTN_CASES = (
     AttentionCase("ragged_d32", 1, 4, 77, 50, 32, pad=7),
     AttentionCase("ragged_d16", 2, 2, 33, 16, 16),
     AttentionCase("single_row_key", 1, 1, 1, 1, 32),
+    # the forward kernel's tile edges (128 queries a block, 128 keys a
+    # tile): Tq and Tk one past a multiple of 128, with a bias; Tk below one
+    # tile under several query tiles
+    AttentionCase("tile_edges_bias", 1, 4, 257, 129, 128, pad=30),
+    AttentionCase("short_keys_many_q_tiles", 2, 2, 384, 40, 128),
+    # strided views of (B, T, H, D) buffers: the DiT's self-attention, and a
+    # ragged one with a bias
+    AttentionCase("dit_self_attn_view", 1, 32, 1536, 1536, 128, layout="bthd"),
+    AttentionCase("ragged_d128_view", 2, 3, 200, 77, 128, pad=30, layout="bthd"),
 )
 
 
@@ -182,9 +194,14 @@ TINY_FRAME_ATOL = 2e-2
 
 def attention_inputs(case: AttentionCase, device, seed: int = 1234):
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v = (torch.randn(case.b, case.h, t, case.d, generator=gen,
-                           device=device).bfloat16()
-               for t in (case.tq, case.tk, case.tk))
+    if case.layout == "bthd":
+        q, k, v = (torch.randn(case.b, t, case.h, case.d, generator=gen,
+                               device=device).bfloat16().transpose(1, 2)
+                   for t in (case.tq, case.tk, case.tk))
+    else:
+        q, k, v = (torch.randn(case.b, case.h, t, case.d, generator=gen,
+                               device=device).bfloat16()
+                   for t in (case.tq, case.tk, case.tk))
     bias = None
     if case.pad is not None:
         bias = torch.zeros(case.b, 1, 1, case.tk, device=device)
@@ -249,6 +266,34 @@ def check_attention(case: AttentionCase, device) -> dict:
     return out
 
 
+def check_pv_handoff(device, seed: int = 99) -> dict:
+    """The forward kernel's P hand-off alone: bf16(bf16(q k^T) v) over one
+    (1, 1, 128, 128) tile (`fa.flash_attention_pv_check`: the S
+    accumulators of the first wgmma, rounded to bf16 pairs, as the register
+    A operand of the second) against the same in f32 products. Both round
+    every S to bf16 (each off by at most 2**-9 of itself) and the output
+    once, so element by element
+
+        |kernel - plain| <= 2**-8 * (|S| @ |V|) + 2 ulp_bf16(|plain|),
+
+    where a wrong fragment mapping would be off by the size of the output.
+    Raises AssertionError beyond it; returns the max abs error and share."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(1, 1, 128, 128, generator=gen, device=device).bfloat16()
+               for _ in range(3))
+    got = fa.flash_attention_pv_check(q, k, v)[0, 0].float()
+    s = q[0, 0].float() @ k[0, 0].float().t()
+    want = (s.bfloat16().float() @ v[0, 0].float()).bfloat16()
+    err = (got - want.float()).abs()
+    tol = 2.0**-8 * (s.abs() @ v[0, 0].float().abs()) + 2 * bf16_ulp(want)
+    out = {"max_abs_err": err.max().item(), "tol_share": (err / tol).max().item(),
+           "max_abs": want.float().abs().max().item()}
+    if not out["tol_share"] <= 1.0:
+        raise AssertionError(f"P hand-off: error {out['max_abs_err']:.3e} is "
+                             f"{out['tol_share']:.3f} of its element's tolerance")
+    return out
+
+
 # the statistics' tolerances (docstring)
 STATS_M_REL = 2.0**-14
 STATS_L_REL = 2.0**-12
@@ -281,6 +326,9 @@ BWD_CASES = (
     BackwardCase("ragged_d64_rows", 2, 2, 97, 130, 64, bias=("rows", 100, 7)),
     BackwardCase("ragged_d32_masked", 1, 4, 77, 50, 32, bias=("masked", 41)),
     BackwardCase("ragged_d16_masked", 2, 2, 33, 40, 16, bias=("masked", 17)),
+    # the forward kernel's tile edges (ATTN_CASES)
+    BackwardCase("tile_edges_bias", 1, 4, 257, 129, 128, bias=("left", 30)),
+    BackwardCase("short_keys_many_q_tiles", 2, 2, 384, 40, 128),
 )
 
 
@@ -694,13 +742,14 @@ def _rel(got, want) -> float:
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
 
 
-def _tiny_train_case(seed: int = 5):
-    """A tiny bf16 DiT with rank-4 LoRA leaves (lora_b drawn nonzero, so
-    that lora_a gets a gradient from the first step), a 2-row batch with a
-    left-padded context mask, and each step's sigma and noise; on the CPU."""
+def _tiny_train_case(dtype, seed: int = 5):
+    """A tiny DiT in `dtype` with rank-4 LoRA leaves (lora_b drawn nonzero,
+    so that lora_a gets a gradient from the first step), a 2-row batch with
+    a left-padded context mask, and each step's sigma and noise; on the
+    CPU."""
     cfg = TransformerConfig().tiny()
     gen = torch.Generator().manual_seed(seed)
-    model = init_random_(LTXTransformer(cfg, device="cpu", dtype=torch.bfloat16), gen)
+    model = init_random_(LTXTransformer(cfg, device="cpu", dtype=dtype), gen)
     add_lora(model, gen, rank=4)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -720,14 +769,15 @@ def _tiny_train_case(seed: int = 5):
     return model, batch, draws
 
 
-def _tiny_train_run(model, batch, draws, device):
+def _tiny_train_run(model, batch, draws, device, dtype):
     tokens, context, rope, bias = (
         tuple(t.to(device) for t in x) if isinstance(x, tuple) else x.to(device)
         for x in batch)
-    tc = TrainConfig(lora_only=True, learning_rate=1e-3)
+    tc = TrainConfig(lora_only=True, learning_rate=1e-3, compute_dtype=dtype)
     trainable, _, opt_state = init_train_state(model, tc)
     sigma, noise = (t.to(device) for t in draws[0])
-    loss, _ = flow_match_loss(model, tokens, context, rope, sigma, noise, bias)
+    loss, _ = flow_match_loss(model, tokens, context, rope, sigma, noise, bias,
+                              compute_dtype=dtype)
     names = list(trainable)
     grads = dict(zip(names, torch.autograd.grad(loss, [trainable[n] for n in names])))
     step = make_train_step(model, tc)
@@ -739,18 +789,21 @@ def _tiny_train_run(model, batch, draws, device):
     return grads, losses, trainable
 
 
-def check_tiny_train(device) -> dict:
+def check_tiny_train(device, dtype=torch.bfloat16) -> dict:
     """The tiny LoRA train on `device` (the flash statistics forward and
     backward kernels) against the same weights, batch and draws on the CPU
-    (the plain versions, held against the reference by the CPU tests).
+    (the plain versions, held against the reference by the CPU tests), with
+    the model and its compute in `dtype`. In float32 the card runs every
+    attention in bfloat16 (ops.attention casts at the kernel boundary) and
+    the CPU in float32, held to the same TINY_TRAIN_TOL as the bfloat16 run.
     Raises AssertionError beyond TINY_TRAIN_TOL or on a wrong launch count;
     returns the errors and the kernel launches."""
-    model, batch, draws = _tiny_train_case()
-    want = _tiny_train_run(copy.deepcopy(model), batch, draws, "cpu")
+    model, batch, draws = _tiny_train_case(dtype)
+    want = _tiny_train_run(copy.deepcopy(model), batch, draws, "cpu", dtype)
     counters = (fa.flash_attention_stats, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv, fa.flash_attention)
     before = [c.launches for c in counters]
-    got = _tiny_train_run(model.to(device), batch, draws, device)
+    got = _tiny_train_run(model.to(device), batch, draws, device, dtype)
     launches = [c.launches - b for c, b in zip(counters, before)]
     layers = len(model.blocks)
     # one backward alone, then the steps; each a remat forward, the blocks'

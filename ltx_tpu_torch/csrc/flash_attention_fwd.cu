@@ -3,81 +3,296 @@
 // Replaces the TPU kernel ltx_tpu/kernels/flash_attention.py::flash_attention
 // (_flash_kernel / _bias_free_kernel): out = softmax(scale * Q K^T + key_bias) V
 // over q (B, H, Tq, D), k and v (B, H, Tk, D), with an optional f32 key bias
-// (B, Tk) broadcast over heads and queries.
-//
-// Numerics follow the TPU kernel: Q K^T is exact bf16 products accumulated in
-// f32, the scale is applied in f32, the bias is added in f32, the running max,
-// sum and output accumulator are f32, P is rounded to bf16 before the P V
-// product (f32 accumulation), the row sum uses the f32 P, and a row whose sum
-// is 0 writes 0. Keys past Tk get a logit of -1e30, as the TPU's padded keys
-// do; the ragged Tq/Tk tails are masked here, not padded by the caller.
-//
-// What bounds it on an H100: at the DiT's 1536-5280 tokens with D=128 the
-// attention does about T/2 flops per byte of Q, K, V and O, far above the
-// card's ~295 flop/byte balance point, so it is compute-bound: the limit is
-// the tensor cores (989 TFLOP/s bf16 dense through wgmma). This first kernel
-// stays simple: it uses the warp-level mma.sync m16n8k16 bf16 instruction
-// (f32 accumulate) rather than scalar FMA, keeps S and P in registers so the
-// (Tq, Tk) logits never reach device memory, and streams K/V tiles through
-// shared memory with padded rows so the fragment loads are free of bank
-// conflicts. It does not use wgmma, TMA, cp.async pipelining or warp
-// specialisation, so it stays well below the card's peak; those come later.
-//
-// Layout: one thread block of 4 warps owns 64 query rows of one (batch, head);
-// each warp owns 16 rows. The block loops over K/V in tiles of 64 keys: K is
-// staged row-major, V transposed, so both B operands load as 32-bit pairs.
-//
-// With kStats the same kernel also writes each row's final softmax
-// statistics, replacing _stats_kernel / _stats_kernel_bias_free: m, the max
-// of the scaled, biased logits (-1e30 pad logits included, as on the TPU),
-// and l, the sum of exp(logit - m), both f32 (batch_heads, tq). The
+// (B, Tk) broadcast over heads and queries. With kStats it also replaces
+// _stats_kernel / _stats_kernel_bias_free: it writes each row's softmax
+// statistics m (the max of the scaled, biased logits) and l (the sum of
+// exp(logit - m)), both f32 (B, H, Tq) in natural-log units; the
 // differentiable attention takes lse = m + log(l) from them for the backward
 // (csrc/flash_attention_bwd.cu).
+//
+// Numerics follow the TPU kernel: Q K^T is exact bf16 products accumulated in
+// f32, scale and bias are applied in f32, the running max, sum and output
+// accumulator are f32, P is rounded to bf16 before the P V product (f32
+// accumulation), the row sum uses the f32 P, and a row whose sum is 0 writes
+// 0. Keys past Tk get the pad logit -1e30, as the TPU's padded keys do. The
+// softmax runs in log2 units (logits times log2(e), exp2), and m is written
+// back in natural-log units.
+//
+// What bounds it on an H100: at the DiT's 1536-9216 tokens with D = 128 the
+// attention does about T/2 flops per byte of Q, K, V and O, far above the
+// card's ~295 flop/byte balance point, so the bound is the tensor cores (989
+// TFLOP/s bf16 dense), reachable only through wgmma. The design is
+// FlashAttention-3's forward (Shah et al., 2024), simplified:
+//   * warp specialisation: a block of three warpgroups owns 128 query rows of
+//     one (batch, head). Warpgroup 0 is the producer: one thread issues every
+//     TMA load, and the warpgroup gives its registers away (setmaxnreg 24).
+//     Warpgroups 1 and 2 are the consumers, 64 query rows each, with 240
+//     registers a thread for the S and O accumulators;
+//   * TMA loads of Q (once) and of K and V in tiles of 128 keys into a ring of
+//     two stages, each stage with "full" mbarriers for K and for V (the
+//     transaction bytes of the copy) and "empty" mbarriers for K and for V
+//     that the eight consumer warps arrive on when they are done with one, so
+//     loads run ahead of the products and a K stage is refilled as soon as
+//     its Q K^T is done. The tiles are 128-byte swizzled (64 or 32 bytes for
+//     D = 32, 16): a 128-wide bf16 row is two swizzle atoms, so a D = 128
+//     tile is two 64-column boxes. TMA zero-fills rows past Tq and Tk, and
+//     takes any (B, H, T) strides that are multiples of 16 bytes;
+//   * wgmma for both products: S = Q K^T with both operands in shared memory
+//     (m64n128k16, K-major), and O += P V with P in registers: the f32
+//     accumulator fragment of S, rounded to bf16 pairs, is exactly the A
+//     fragment of the next product, and V is read in its natural (keys x D)
+//     layout with wgmma's transpose bit. The blocks of one head run next to
+//     each other, so its K and V stay in L2.
+//   * in each consumer, tile n's softmax overlaps tile n - 1's P V: both
+//     products are issued, the softmax waits only for Q K^T (wgmma's commit
+//     groups), and O is rescaled once P V is done. The key bias of a tile
+//     goes through shared memory, fetched a tile ahead one key a thread, so
+//     that S, O and P (160 registers a thread) leave room under 240.
+// The two consumers also interleave on the tensor cores by themselves; FA3's
+// explicit ping-pong between them is not done.
+//
+// Layouts: q, k, v and o are (B, H, T, D) views with a dense last dim, other
+// strides multiples of 16 bytes and a 16-byte aligned base (the wrapper's
+// rule, kernels/flash_attention.py::kernel_strides). The grid is one block
+// per (query tile, batch * head), query tiles fastest.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per block
-constexpr int kBlockN = 64;   // keys per K/V tile
-constexpr int kWarps = kBlockM / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 row padding: conflict-free fragment loads
-constexpr float kNegInf = -1e30f;  // the TPU kernel's pad logit (not -inf)
+constexpr int kBlockM = 128;  // query rows per block, 64 per consumer warpgroup
+constexpr int kBlockN = 128;  // keys per K/V tile
+constexpr int kStages = 2;    // depth of the K/V ring
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1e30f;              // the TPU kernel's pad logit
+constexpr float kNegInf2 = kNegInf * kLog2e;   // the same in log2 units
 
+// Shared-memory layout of one head dim. Every tile is 128 rows (queries or
+// keys) by D, stored as kBoxes boxes of 128 rows x kRowBytes, each box in
+// TMA's swizzled layout, which is wgmma's canonical one of the same swizzle.
 template <int D>
-struct Smem {
-  static constexpr int kQStride = D + kPad;
-  static constexpr int kKStride = D + kPad;
-  static constexpr int kVtStride = kBlockN + kPad;
-  static constexpr int kQElems = kBlockM * kQStride;
-  static constexpr int kKElems = kBlockN * kKStride;
-  static constexpr int kVtElems = D * kVtStride;
-  static constexpr size_t kBytes =
-      (kQElems + kKElems + kVtElems) * sizeof(__nv_bfloat16) +
-      kBlockN * sizeof(float);
+struct Tile {
+  static constexpr int kRowBytes = D >= 64 ? 128 : 2 * D;  // the swizzle span
+  static constexpr int kBoxCols = kRowBytes / 2;
+  static constexpr int kBoxes = D / kBoxCols;    // 2 at D = 128, else 1
+  static constexpr int kBoxSteps = kBoxCols / 16;  // 16-column k steps in a box
+  static constexpr int kBoxBytes = 128 * kRowBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kGroupBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
+  // wgmma descriptor layout code: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
+  static constexpr uint32_t kLayout = kRowBytes == 128 ? 1u : kRowBytes == 64 ? 2u : 3u;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kBarriers = 1 + 4 * kStages;
+  // the key bias of a tile, log2 units: two slots for each consumer
+  static constexpr int kBias = kBar + 128;
+  // + slack to align the base to 1024 bytes (the 128-byte swizzle's period)
+  static constexpr int kSmemBytes = kBias + 2 * 2 * kBlockN * 4 + 1024;
 };
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+struct Params {
+  const float* bias;  // (batch, tk) f32, or null
+  __nv_bfloat16* o;
+  long long o_sb, o_sh, o_st;  // o's strides, elements
+  float* m;  // (batch * heads, tq) f32, or null
+  float* l;
+  int heads, tq, tk, q_tiles;
+  float scale_log2;  // scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (d, t, h, b) into shared memory, completing
+// its bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+        "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout; base offset 0 (every tile
+// starts on a 1024-byte boundary)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+       | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+       | static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin registers that an asynchronous wgmma writes or reads at this point of
+// the program, so that the compiler neither reads them earlier nor reuses
+// them before it
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+#define ACC8(a, i)                                                                   \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),        \
+      "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// S (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), both K-major in shared
+// memory; accumulate = 0 overwrites S
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24),
+        ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// O (64 x N, f32) += A (64 x 16, bf16 pairs in registers) B (16 x N), B in
+// shared memory in its MN-major (keys x N) layout (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24),
+        ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 16) {
+    wgmma_rs_m64n16k16(d, a, desc_b);
+  } else if constexpr (N == 32) {
+    wgmma_rs_m64n32k16(d, a, desc_b);
+  } else if constexpr (N == 64) {
+    wgmma_rs_m64n64k16(d, a, desc_b);
+  } else {
+    wgmma_rs_m64n128k16(d, a, desc_b);
+  }
+}
+
+#undef ACC8
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // (lo, hi) -> one register holding two bf16, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -90,262 +305,446 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D, bool kHasBias, bool kStats>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const float* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ m_out, float* __restrict__ l_out,
-                 int heads, int tq, int tk, float scale) {
-  using S = Smem<D>;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + S::kQElems;
-  __nv_bfloat16* sVt = sK + S::kKElems;
-  float* sBias = reinterpret_cast<float*>(sVt + S::kVtElems);
+// kRawProbs (the check of the P hand-off alone, `ltx_flash_fwd_pv_check`):
+// no softmax, P = bf16(S) and O = P V, one tile of 128 keys.
+template <int D, bool kHasBias, bool kStats, bool kRawProbs>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base + T::kQ;
+  const uint32_t s_k = base + T::kK;
+  const uint32_t s_v = base + T::kV;
+  // barriers: Q full; for each stage K full, V full, K empty, V empty
+  const uint32_t q_full = base + T::kBar;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockM;
-  const __nv_bfloat16* qg = q + (size_t)bh * tq * D;
-  const __nv_bfloat16* kg = k + (size_t)bh * tk * D;
-  const __nv_bfloat16* vg = v + (size_t)bh * tk * D;
-  __nv_bfloat16* og = o + (size_t)bh * tq * D;
-  const float* bias_row = kHasBias ? bias + (size_t)(bh / heads) * tk : nullptr;
+  const int q_tile = blockIdx.x % p.q_tiles;
+  const int bh = blockIdx.x / p.q_tiles;
+  const int batch = bh / p.heads;
+  const int head = bh % p.heads;
+  const int q0 = q_tile * kBlockM;
+  const int n_tiles = (p.tk + kBlockN - 1) / kBlockN;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t4 = lane & 3;  // thread within the group
-
-  // Q tile -> shared memory; rows past Tq are zero and never stored
-  for (int i = tid; i < kBlockM * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < tq) {
-      val = *reinterpret_cast<const uint4*>(qg + (size_t)(q0 + r) * D + c);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumerWarps);
+      mbar_init(v_empty + 8 * s, kConsumerWarps);
     }
-    *reinterpret_cast<uint4*>(sQ + r * S::kQStride + c) = val;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, held for the whole loop
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* qw = sQ + warp * 16 * S::kQStride;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t4;
-      qf[kk][0] = ld_u32(qw + g * S::kQStride + c);
-      qf[kk][1] = ld_u32(qw + (g + 8) * S::kQStride + c);
-      qf[kk][2] = ld_u32(qw + g * S::kQStride + c + 8);
-      qf[kk][3] = ld_u32(qw + (g + 8) * S::kQStride + c + 8);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kTileBytes);
+      for (int x = 0; x < T::kBoxes; ++x) {
+        tma_load(s_q + x * T::kBoxBytes, &tm_q, q_full, x * T::kBoxCols, q0, head, batch);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages;
+        // the first pass finds every stage empty: parity 1 of a fresh barrier
+        const uint32_t free_parity = ((n / kStages) & 1) ^ 1;
+        mbar_wait(k_empty + 8 * s, free_parity);
+        mbar_expect_tx(k_full + 8 * s, T::kTileBytes);
+        for (int x = 0; x < T::kBoxes; ++x) {
+          tma_load(s_k + s * T::kTileBytes + x * T::kBoxBytes, &tm_k, k_full + 8 * s,
+                   x * T::kBoxCols, n * kBlockN, head, batch);
+        }
+        mbar_wait(v_empty + 8 * s, free_parity);
+        mbar_expect_tx(v_full + 8 * s, T::kTileBytes);
+        for (int x = 0; x < T::kBoxes; ++x) {
+          tma_load(s_v + s * T::kTileBytes + x * T::kBoxBytes, &tm_v, v_full + 8 * s,
+                   x * T::kBoxCols, n * kBlockN, head, batch);
+        }
+      }
     }
+    return;
   }
 
-  float acc[D / 8][4];
+  // ---- consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int consumer = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;   // accumulator row group
+  const int t4 = lane % 4;  // thread within the group
+  // this consumer's 64 rows of the Q tile, in every box
+  const uint32_t q_rows = s_q + consumer * 64 * T::kRowBytes;
+  const float* bias_row = kHasBias ? p.bias + static_cast<size_t>(batch) * p.tk : nullptr;
+  float* const bias_slots = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) +
+                                                     T::kBias) + consumer * 2 * kBlockN;
+
+  // O accumulator, wgmma's f32 fragment of a 64 x D tile: element
+  // [4j + 2i + e] is row g + 8i (of this warp's 16), column 8j + 2 t4 + e
+  float o_acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  // running max and sum of rows g and g + 8
-  float m_run[2] = {kNegInf, kNegInf};
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  // running max (log2 units) of rows g and g + 8; this thread's share of
+  // their sums, reduced over the quad at the end
+  float m_run[2] = {kNegInf2, kNegInf2};
   float l_run[2] = {0.f, 0.f};
 
-  for (int n0 = 0; n0 < tk; n0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBlockN * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < tk) {
-        kv = *reinterpret_cast<const uint4*>(kg + (size_t)(n0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(vg + (size_t)(n0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * S::kKStride + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+  // S = Q K^T of tile n, 64 rows x 128 keys, f32: issued, not waited for
+  auto issue_s = [&](float (&sacc)[64], int n) {
+    const uint32_t k_tile = s_k + (n % kStages) * T::kTileBytes;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sVt[(c + j) * S::kVtStride + r] = ve[j];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / T::kBoxSteps) * T::kBoxBytes + (kk % T::kBoxSteps) * 32;
+      wgmma_ss_m64n128k16(sacc, smem_desc(q_rows + off, 16, T::kGroupBytes, T::kLayout),
+                          smem_desc(k_tile + off, 16, T::kGroupBytes, T::kLayout), kk > 0);
     }
-    if (kHasBias) {
-      for (int i = tid; i < kBlockN; i += kThreads) {
-        sBias[i] = (n0 + i < tk) ? bias_row[n0 + i] : 0.f;
-      }
+    wgmma_commit();
+  };
+  // O += P V of tile n, V read as the K x N operand in its (keys x D)
+  // layout: issued, not waited for
+  auto issue_pv = [&](const uint32_t (&pf)[8][4], int n) {
+    const uint32_t v_tile = s_v + (n % kStages) * T::kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_rs<D>(o_acc, pf[kk], smem_desc(v_tile + kk * 16 * T::kRowBytes, T::kBoxBytes,
+                                           T::kGroupBytes, T::kLayout));
     }
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys, eight 16x8 accumulators
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kp = sK + (j * 8 + g) * S::kKStride + 2 * t4;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_16816(s[j], qf[kk], ld_u32(kp + kk * 16), ld_u32(kp + kk * 16 + 8));
-      }
+    wgmma_commit();
+  };
+  // The key bias goes through shared memory, not 32 registers a thread:
+  // each thread fetches one key of the next tile while this one runs, and
+  // at the top of tile n writes its key of tile n into slot n % 2, then the
+  // warpgroup syncs (a named barrier). Slot n % 2 was last read by tile
+  // n - 2's softmax, which every thread finished before tile n - 1's sync.
+  float bias_next = 0.f;  // this thread's key of the next tile, log2 units
+  auto fetch_bias = [&](int n) {
+    const int col = n * kBlockN + tid;
+    bias_next = n < n_tiles && col < p.tk ? __ldg(bias_row + col) * kLog2e : 0.f;
+  };
+  auto stage_bias = [&](int n) {
+    if constexpr (kHasBias) {
+      bias_slots[(n % 2) * kBlockN + tid] = bias_next;
+      fetch_bias(n + 1);
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + consumer) : "memory");
     }
-
-    // scale and bias in f32, mask the ragged tail, online softmax
-    float tile_max[2] = {kNegInf, kNegInf};
+  };
+  // the online softmax of tile n in place: S -> the unnormalised f32 P,
+  // the running max and sums updated; returns through alpha the factor of
+  // the earlier tiles' O rows. Logits in log2 units: scale and bias in
+  // f32, the ragged tail -1e30.
+  auto softmax = [&](float (&sacc)[64], int n, float (&alpha)[2]) {
+    const int k0 = n * kBlockN;
+    const bool tail = k0 + kBlockN > p.tk;
+    const float* bias_tile = bias_slots + (n % 2) * kBlockN;
+    float tile_max[2] = {kNegInf2, kNegInf2};
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
+    for (int j = 0; j < 16; ++j) {
+      float2 bias2 = make_float2(0.f, 0.f);
+      if constexpr (kHasBias) bias2 = *reinterpret_cast<const float2*>(bias_tile + 8 * j + 2 * t4);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t4 + (e & 1);
-        float x = s[j][e] * scale;
-        if (kHasBias) x += sBias[col];
-        if (n0 + col >= tk) x = kNegInf;
-        s[j][e] = x;
+        float x = sacc[4 * j + e] * p.scale_log2;
+        if constexpr (kHasBias) x += (e & 1) ? bias2.y : bias2.x;
+        if (tail && k0 + 8 * j + 2 * t4 + (e & 1) >= p.tk) x = kNegInf2;
+        sacc[4 * j + e] = x;
         tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
       }
     }
-    float alpha[2], row_sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float m_new = fmaxf(m_run[r], quad_max(tile_max[r]));
-      alpha[r] = expf(m_run[r] - m_new);
+      alpha[r] = fast_exp2(m_run[r] - m_new);
       m_run[r] = m_new;
     }
+    float row_sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
+    for (int i = 0; i < 64; ++i) {
+      sacc[i] = fast_exp2(sacc[i] - m_run[(i >> 1) & 1]);
+      row_sum[(i >> 1) & 1] += sacc[i];
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m_run[e >> 1]);
-        row_sum[e >> 1] += s[j][e];
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + row_sum[r];
+  };
+  // P in bf16 as the A fragments of O += P V: the S accumulators of key
+  // columns [16kk, 16kk + 16) are exactly the A fragment of k step kk
+  auto pack_p = [&](uint32_t (&pf)[8][4], const float (&sacc)[64]) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pf[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
       }
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] = l_run[r] * alpha[r] + quad_sum(row_sum[r]);
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+  };
+  // this warp is done with K (V) of tile n: its stage may be loaded again
+  auto release = [&](uint32_t empty, int n) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (n % kStages));
+  };
+  auto parity = [](int n) { return static_cast<uint32_t>((n / kStages) & 1); };
 
-    // O += P V with P rounded to bf16; the S accumulators of key columns
-    // [16kk, 16kk + 16) are exactly the A fragment of that k step
+  // Tile n's Q K^T runs on the tensor cores while tile n - 1's P V is
+  // queued behind it and tile n's softmax waits only for the first:
+  //   S_0; softmax_0;
+  //   for n >= 1: issue S_n, issue P_{n-1} V_{n-1}; wait S_n; release K_n;
+  //               softmax_n; wait P V; release V_{n-1}; rescale O by alpha_n;
+  //   P_last V_last.
+  // K and V have their own empty barriers, so the producer refills a K
+  // stage as soon as its Q K^T is done.
+  float sacc[64];
+  uint32_t pf[8][4];
+  float alpha[2];
+  if constexpr (kHasBias) fetch_bias(0);
+  stage_bias(0);
+  mbar_wait(q_full, 0);
+  mbar_wait(k_full, parity(0));
+  wgmma_fence();
+  issue_s(sacc, 0);
+  wgmma_wait<0>();
+  pin(sacc);
+  release(k_empty, 0);
+  if constexpr (!kRawProbs) softmax(sacc, 0, alpha);  // O is still 0: no rescale
+  pack_p(pf, sacc);
+  for (int n = 1; n < n_tiles; ++n) {
+    stage_bias(n);
+    mbar_wait(k_full + 8 * (n % kStages), parity(n));
+    mbar_wait(v_full + 8 * ((n - 1) % kStages), parity(n - 1));
+    wgmma_fence();
+    issue_s(sacc, n);
+    issue_pv(pf, n - 1);
+    wgmma_wait<1>();  // S_n done; P_{n-1} V_{n-1} may still run
+    pin(sacc);
+    release(k_empty, n);
+    softmax(sacc, n, alpha);
+    wgmma_wait<0>();
+    pin(o_acc);
+    pin(pf);
+    release(v_empty, n - 1);
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vp =
-            sVt + (n * 8 + g) * S::kVtStride + kk * 16 + 2 * t4;
-        mma_16816(acc[n], pa, ld_u32(vp), ld_u32(vp + 8));
-      }
-    }
+    for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+    pack_p(pf, sacc);
   }
+  mbar_wait(v_full + 8 * ((n_tiles - 1) % kStages), parity(n_tiles - 1));
+  wgmma_fence();
+  issue_pv(pf, n_tiles - 1);
+  wgmma_wait<0>();
+  pin(o_acc);
+  pin(pf);
+  release(v_empty, n_tiles - 1);
 
   // normalise (a row whose sum is 0 writes 0) and store rows below Tq
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const float l0 = l_run[0] == 0.f ? 1.f : l_run[0];
-  const float l1 = l_run[1] == 0.f ? 1.f : l_run[1];
+  float l_row[2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t4;
-    if (row0 < tq) {
-      *reinterpret_cast<uint32_t*>(og + (size_t)row0 * D + col) =
-          pack_bf16(acc[n][0] / l0, acc[n][1] / l0);
-    }
-    if (row1 < tq) {
-      *reinterpret_cast<uint32_t*>(og + (size_t)row1 * D + col) =
-          pack_bf16(acc[n][2] / l1, acc[n][3] / l1);
-    }
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] = kRawProbs ? 1.f : quad_sum(l_run[r]);
   }
-  // the quad's four threads hold the same row statistics: one writes them
-  if (kStats && t4 == 0) {
-    if (row0 < tq) {
-      m_out[(size_t)bh * tq + row0] = m_run[0];
-      l_out[(size_t)bh * tq + row0] = l_run[0];
-    }
-    if (row1 < tq) {
-      m_out[(size_t)bh * tq + row1] = m_run[1];
-      l_out[(size_t)bh * tq + row1] = l_run[1];
+  const int row0 = q0 + consumer * 64 + warp * 16 + g;
+  const float div[2] = {l_row[0] == 0.f ? 1.f : l_row[0], l_row[1] == 0.f ? 1.f : l_row[1]};
+  __nv_bfloat16* ob = p.o + batch * p.o_sb + head * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < p.tq) {
+      __nv_bfloat16* orow = ob + row * p.o_st + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(o_acc[4 * j + 2 * r] / div[r], o_acc[4 * j + 2 * r + 1] / div[r]);
+      }
+      // the quad's four threads hold the same row statistics: one writes them
+      if (kStats && t4 == 0) {
+        p.m[static_cast<size_t>(bh) * p.tq + row] = m_run[r] * kLn2;
+        p.l[static_cast<size_t>(bh) * p.tq + row] = l_row[r];
+      }
     }
   }
 }
 
-template <int D, bool kHasBias, bool kStats>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* o, void* m, void* l,
-                   int batch_heads, int heads, int tq, int tk, float scale,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D, kHasBias, kStats>;
-  const int smem = static_cast<int>(Smem<D>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point query (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Tensor maps, cached by pointer, shape and strides: a clip launches the
+// kernel hundreds of times over the same few buffers, and a map depends on
+// nothing else. One small cache per host thread.
+struct MapKey {
+  const void* ptr;
+  long long shape[4];    // d, t, h, b
+  long long strides[3];  // t, h, b, elements
+  bool operator==(const MapKey& o) const {
+    if (ptr != o.ptr) return false;
+    for (int i = 0; i < 4; ++i) if (shape[i] != o.shape[i]) return false;
+    for (int i = 0; i < 3; ++i) if (strides[i] != o.strides[i]) return false;
+    return true;
+  }
+};
+
+struct MapSlot {
+  MapKey key;
+  CUtensorMap map;
+  bool used;
+};
+
+constexpr int kMapSlots = 32;
+thread_local MapSlot map_cache[kMapSlots];
+thread_local int map_next = 0;
+
+// the (d, t, h, b) map of a (b, h, t, d) bf16 view with element strides
+// (sb, sh, st, 1), boxes of 128 rows x Tile<D>::kBoxCols, zero fill out of
+// bounds
+template <int D>
+cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int t, int heads, int batch,
+                       const long long* strides) {
+  const MapKey key{ptr, {D, t, heads, batch}, {strides[2], strides[1], strides[0]}};
+  for (int i = 0; i < kMapSlots; ++i) {
+    if (map_cache[i].used && map_cache[i].key == key) {
+      *out = map_cache[i].map;
+      return cudaSuccess;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tile<D>::kBoxCols), 128u, 1u, 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  const CUresult res = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              Tile<D>::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  MapSlot& slot = map_cache[map_next];
+  map_next = (map_next + 1) % kMapSlots;
+  slot.key = key;
+  slot.map = *out;
+  slot.used = true;
+  return cudaSuccess;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const void* bias;
+  void* o;
+  void *m, *l;
+  int batch, heads, tq, tk;
+  const long long* strides;  // q, k, v, o: (sb, sh, st) each, elements
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D, bool kHasBias, bool kStats, bool kRawProbs>
+cudaError_t launch(const Args& a) {
+  auto kernel = flash_fwd_kernel<D, kHasBias, kStats, kRawProbs>;
+  const int smem = Tile<D>::kSmemBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((tq + kBlockM - 1) / kBlockM, batch_heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), heads, tq, tk, scale);
+  CUtensorMap tq_map, tk_map, tv_map;
+  if ((err = tensor_map<D>(&tq_map, a.q, a.tq, a.heads, a.batch, a.strides)) != cudaSuccess ||
+      (err = tensor_map<D>(&tk_map, a.k, a.tk, a.heads, a.batch, a.strides + 3)) !=
+          cudaSuccess ||
+      (err = tensor_map<D>(&tv_map, a.v, a.tk, a.heads, a.batch, a.strides + 6)) !=
+          cudaSuccess) {
+    return err;
+  }
+  Params p;
+  p.bias = static_cast<const float*>(a.bias);
+  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.o_sb = a.strides[9];
+  p.o_sh = a.strides[10];
+  p.o_st = a.strides[11];
+  p.m = static_cast<float*>(a.m);
+  p.l = static_cast<float*>(a.l);
+  p.heads = a.heads;
+  p.tq = a.tq;
+  p.tk = a.tk;
+  p.q_tiles = (a.tq + kBlockM - 1) / kBlockM;
+  p.scale_log2 = a.scale * kLog2e;
+  const long long blocks = static_cast<long long>(p.q_tiles) * a.batch * a.heads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(tq_map, tk_map, tv_map,
+                                                                      p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* bias, void* o, void* m, void* l,
-                     int batch_heads, int heads, int tq, int tk, float scale,
-                     cudaStream_t stream) {
-  const bool stats = m != nullptr;
-  if (bias != nullptr) {
-    return stats ? launch<D, true, true>(q, k, v, bias, o, m, l, batch_heads,
-                                         heads, tq, tk, scale, stream)
-                 : launch<D, true, false>(q, k, v, bias, o, m, l, batch_heads,
-                                          heads, tq, tk, scale, stream);
+cudaError_t dispatch(const Args& a) {
+  const bool stats = a.m != nullptr;
+  if (a.bias != nullptr) {
+    return stats ? launch<D, true, true, false>(a) : launch<D, true, false, false>(a);
   }
-  return stats ? launch<D, false, true>(q, k, v, bias, o, m, l, batch_heads,
-                                        heads, tq, tk, scale, stream)
-               : launch<D, false, false>(q, k, v, bias, o, m, l, batch_heads,
-                                         heads, tq, tk, scale, stream);
+  return stats ? launch<D, false, true, false>(a) : launch<D, false, false, false>(a);
 }
 
 }  // namespace
 
-// q, o: (batch_heads, tq, head_dim) bf16; k, v: (batch_heads, tk, head_dim)
-// bf16; bias: NULL or (batch_heads / heads, tk) f32; m, l: both NULL, or
-// both (batch_heads, tq) f32 for the softmax statistics. All contiguous,
-// 16-byte aligned. Returns the CUDA error of the launch (0 on success).
-extern "C" int ltx_flash_attention_fwd(const void* q, const void* k,
-                                       const void* v, const void* bias,
-                                       void* o, void* m, void* l,
-                                       int batch_heads, int heads, int tq,
-                                       int tk, int head_dim, float scale,
-                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((m == nullptr) != (l == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// q, o: (batch, heads, tq, head_dim) bf16; k, v: (batch, heads, tk,
+// head_dim) bf16, each a view with a dense last dim and the element strides
+// (sb, sh, st) in `strides` (q, k, v, o: 12 values), every stride a multiple
+// of 8 elements and every base 16-byte aligned; bias: NULL or (batch, tk)
+// f32, contiguous; m, l: both NULL, or both (batch, heads, tq) f32,
+// contiguous, for the softmax statistics. Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int ltx_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                       const void* bias, void* o, void* m, void* l, int batch,
+                                       int heads, int tq, int tk, int head_dim,
+                                       const long long* strides, float scale, void* stream) {
+  if ((m == nullptr) != (l == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, bias, o, m, l, batch, heads, tq, tk, strides, scale,
+               static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
-    case 16:
-      return dispatch<16>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
-                          scale, s);
-    case 32:
-      return dispatch<32>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
-                          scale, s);
-    case 64:
-      return dispatch<64>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
-                          scale, s);
-    case 128:
-      return dispatch<128>(q, k, v, bias, o, m, l, batch_heads, heads, tq, tk,
-                           scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return static_cast<int>(dispatch<16>(a));
+    case 32: return static_cast<int>(dispatch<32>(a));
+    case 64: return static_cast<int>(dispatch<64>(a));
+    case 128: return static_cast<int>(dispatch<128>(a));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The P hand-off alone, for its check: o = bf16(bf16(q k^T) v) over one
+// (1, 1, 128, 128) tile each of q, k, v (contiguous, bf16): the S
+// accumulators of the first product, rounded to bf16, as the register A
+// operand of the second, with no softmax between.
+extern "C" int ltx_flash_fwd_pv_check(const void* q, const void* k, const void* v, void* o,
+                                      void* stream) {
+  const long long strides[12] = {128 * 128, 128 * 128, 128, 128 * 128, 128 * 128, 128,
+                                 128 * 128, 128 * 128, 128, 128 * 128, 128 * 128, 128};
+  const Args a{q, k, v, nullptr, o, nullptr, nullptr, 1, 1, 128, 128, strides, 1.f,
+               static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch<128, false, false, true>(a));
 }

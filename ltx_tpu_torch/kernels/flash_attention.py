@@ -97,7 +97,35 @@ def _c_function(lib: str, name: str, argtypes):
     return fn
 
 
+def kernel_strides(name: str, t) -> tuple:
+    """The element strides (sb, sh, st) by which the forward kernel reads
+    (or writes) `t`, a (B, H, T, D) view; ValueError, naming `name` and the
+    fault, for a view its TMA loads cannot take. The rule: four dims, the
+    last dense (stride 1), the other strides multiples of 16 bytes, the
+    base 16-byte aligned. A view of a (B, T, H, D) buffer, as the DiT
+    passes it, is one. A dim of size 1 is never stepped over, so its stride
+    is free; the kernel gets the contiguous one there."""
+    if t.ndim != 4:
+        raise ValueError(f"flash_attention: {name} must be a 4-D (B, H, T, D) tensor, "
+                         f"got {t.ndim}-D")
+    if t.shape[3] > 1 and t.stride(3) != 1:
+        raise ValueError(f"flash_attention: {name}'s last dim must be contiguous (stride 1), "
+                         f"got strides {tuple(t.stride())}")
+    size = t.element_size()
+    dense = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3], t.shape[3])
+    strides = tuple(s if n > 1 else c for s, n, c in zip(t.stride()[:3], t.shape[:3], dense))
+    for dim, s in enumerate(strides):
+        if (s * size) % 16:
+            raise ValueError(f"flash_attention: {name}'s stride {s} of dim {dim} is not a "
+                             f"multiple of 16 bytes (strides {tuple(t.stride())})")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+    return strides
+
+
 def _check_cuda_args(q, k, v, bias):
+    """Device, dtype and shapes of the kernels' arguments (the layout is
+    each kernel's own rule)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -105,24 +133,23 @@ def _check_cuda_args(q, k, v, bias):
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"flash_attention: {name} is {t.dtype}, the kernel takes bfloat16")
-        if t.ndim != 4 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous 4-D tensor")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention: {name} must be a 4-D (B, H, T, D) tensor, "
+                             f"got {t.ndim}-D")
     b, h, _, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
     if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: batch*heads {b * h} > 65535")
     if bias is not None and (bias.device != q.device or not bias.is_contiguous()):
         raise ValueError("flash_attention: bias must be contiguous on q's device")
 
 
 def _launch_forward(q, k, v, bias, scale, stats: bool):
-    """One launch of the forward kernel; returns out, or (out, m, l)."""
+    """One launch of the forward kernel; returns out, or (out, m, l). out
+    takes q's layout (`torch.empty_like`): a (B, H, Tq, D) view of a (B, Tq,
+    H, D) buffer when q is one, so that the caller's transpose back is free."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if scale is None:
@@ -130,25 +157,47 @@ def _launch_forward(q, k, v, bias, scale, stats: bool):
     bias = key_bias(bias, b, tk)
     if bias is not None:
         bias = bias.contiguous()
+    strides = [kernel_strides(name, t) for name, t in (("q", q), ("k", k), ("v", v))]
     _check_cuda_args(q, k, v, bias)
     out = torch.empty_like(q)
+    strides.append(kernel_strides("out", out))
     m = l = None
     if stats:
         m = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     fn = _c_function(_FWD_LIB, "ltx_flash_attention_fwd",
                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p])
+                     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                  None if m is None else m.data_ptr(),
                  None if l is None else l.data_ptr(),
-                 b * h, h, tq, tk, d, float(scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 b, h, tq, tk, d, (ctypes.c_longlong * 12)(*sum(strides, ())),
+                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     return (out, m, l) if stats else out
+
+
+def flash_attention_pv_check(q, k, v):
+    """The forward kernel's P hand-off alone, for its check on the card:
+    bf16(bf16(q k^T) v) over one (1, 1, 128, 128) bf16 tile each, the first
+    product's f32 accumulators rounded to bf16 as the register operand of
+    the second, no softmax between (CUDA only, not counted)."""
+    for t in (q, k, v):
+        if t.shape != (1, 1, 128, 128) or t.dtype != torch.bfloat16 \
+                or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("flash_attention_pv_check takes contiguous (1, 1, 128, 128) "
+                             "bfloat16 CUDA tensors")
+    out = torch.empty_like(q)
+    fn = _c_function(_FWD_LIB, "ltx_flash_fwd_pv_check", [ctypes.c_void_p] * 5)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_pv_check launch failed: CUDA error {err}")
+    return out
 
 
 def flash_attention(q, k, v, bias=None, scale: Optional[float] = None,
@@ -229,6 +278,13 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 7
 
 def _check_bwd_args(q, k, v, bias, do, lse, delta):
     _check_cuda_args(q, k, v, bias)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention backward: {name} must be a contiguous, "
+                             "16-byte aligned tensor")
+    if q.shape[0] * q.shape[1] > 65535:
+        raise ValueError(f"flash_attention backward: batch*heads {q.shape[0] * q.shape[1]} "
+                         "> 65535")
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
             or not do.is_contiguous() or do.data_ptr() % 16:
         raise ValueError("flash_attention backward: dO must be a contiguous, 16-byte "

@@ -61,9 +61,12 @@ class Attention(nn.Module):
             cos, sin = rope
             q = apply_rope_split(q, cos, sin)
             k = apply_rope_split(k, cos, sin)
-        q = q.reshape(b, tq, h, d).transpose(1, 2).contiguous()
-        k = k.reshape(b, tk, h, d).transpose(1, 2).contiguous()
-        v = v.reshape(b, tk, h, d).transpose(1, 2).contiguous()
+        # (B, H, T, D) views of the (B, T, H*D) projections: the forward
+        # kernel reads them by their strides and writes its output in q's
+        # layout, so the transpose back is a view too
+        q = q.reshape(b, tq, h, d).transpose(1, 2)
+        k = k.reshape(b, tk, h, d).transpose(1, 2)
+        v = v.reshape(b, tk, h, d).transpose(1, 2)
         out = sdpa(q, k, v, bias=bias)
         out = out.transpose(1, 2).reshape(b, tq, h * d)
         return self.to_out(out)

@@ -10,6 +10,13 @@ kernels, as the reference's `sdpa_impl="pallas"` routes through its
 `flash_attention_vjp`; under `torch.inference_mode` or `no_grad`
 (generation) nothing records and B1 runs. Grouped-query attention with a
 full mask (Gemma) stays plain PyTorch, as it stayed on XLA in the reference.
+
+The card's kernels take bfloat16 only. On CUDA, q, k and v of another
+floating dtype (a float32 compute dtype) are cast to bfloat16 at the kernel
+boundary and the output is cast back to the caller's dtype; gradients flow
+through both casts. The reference's kernel takes float32 inputs, so a
+float32 run on the card differs from it by that rounding (PERF.md holds the
+measured error); on the CPU the plain versions compute in float32.
 """
 
 from __future__ import annotations
@@ -48,12 +55,22 @@ def _gqa_sdpa(q, k, v, bias=None, scale: Optional[float] = None):
 def sdpa(q, k, v, bias=None, scale: Optional[float] = None):
     """q: (B, H, Tq, D); k, v: (B, Hkv, Tk, D) with H % Hkv == 0; bias an
     additive float mask. Hkv < H goes to `_gqa_sdpa`; Hkv == H to the
-    flash-attention kernels, which take no bias or a key bias only."""
+    flash-attention kernels, which take no bias or a key bias only: the
+    forward reads strided (B, H, T, D) views as they are, the
+    differentiable route (whose backward kernels take contiguous tensors)
+    gets contiguous copies. On CUDA a dtype other than bfloat16 is cast to
+    it for the kernels and the output back (the module docstring)."""
     if k.shape[1] != q.shape[1]:
         return _gqa_sdpa(q, k, v, bias=bias, scale=scale)
+    dtype = q.dtype
+    if q.device.type == "cuda" and dtype != torch.bfloat16:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return flash_attention_vjp(q, k, v, bias=bias, scale=scale)
-    return flash_attention(q, k, v, bias=bias, scale=scale)
+        out = flash_attention_vjp(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  bias=bias, scale=scale)
+    else:
+        out = flash_attention(q, k, v, bias=bias, scale=scale)
+    return out.to(dtype)
 
 
 def prepare_additive_mask(mask, dtype=torch.float32):

@@ -1,18 +1,19 @@
 """Training checkpoints: the trainable leaves, the optimizer state, the step.
 
 Port of ltx_tpu/train/checkpoint.py. One .npz, written atomically (a
-pid-unique temporary file, then os.replace). The trainable leaves are stored
-under the reference's key paths and stacked shapes, so that the trainable
-part of a JAX checkpoint loads here and the other way round:
+pid-unique temporary file, then os.replace). Every array is stored under the
+reference's key path (`jax.tree_util.keystr` behind the prefix "t" or "o"),
+with its stacked shape, so that a checkpoint written by either package
+resumes in the other, optimizer moments and all:
 
     "t['blocks']['attn1']['to_q']['lora_a']"   (L, in, r), the L blocks stacked
 
 (a Linear's "weight" is the reference's "w", transposed to (in, out); a
-1-D "bias" is its "b"). The optimizer state keeps the port's own names: each
-moment tree under the same key paths behind its field, as
-"o.mu['blocks']...", "o.count", "o.inner.nu['blocks']...". Restore follows
-a template (the live state) and raises KeyError on a missing key and
-ValueError on a shape that differs.
+1-D "bias" is its "b"). The optimizer state sits where optax's tree puts it
+(`optimizer_keys`): the reference's chain of clip_by_global_norm and adamw,
+inside MultiSteps when gradients accumulate. Restore follows a template (the
+live state) and raises KeyError on a missing key and ValueError on a shape
+that differs.
 """
 
 from __future__ import annotations
@@ -91,33 +92,64 @@ def restore_params(params: Dict[str, torch.Tensor], store: Dict[str, np.ndarray]
     return params
 
 
-def _flatten_state(state: dict, names, prefix: str) -> Dict[str, np.ndarray]:
+def _adamw_keys(state: dict, prefix: str) -> Dict[str, str]:
+    """The reference keys of the adamw chain's state (`train/step.py::_adamw`)
+    behind `prefix`: optax's chain(clip_by_global_norm, adamw) has no leaves
+    at [0] (clip) and [1][1] (the masked decay); adam is at [1][0], and a
+    learning-rate schedule counts at [1][2]."""
+    keys = {"count": f"{prefix}[1][0].count", "mu": f"{prefix}[1][0].mu",
+            "nu": f"{prefix}[1][0].nu"}
+    if "schedule_count" in state:
+        keys["schedule_count"] = f"{prefix}[1][2].count"
+    return keys
+
+
+def optimizer_keys(opt_state: dict) -> Dict[tuple, str]:
+    """{field path in the port's optimizer state: the reference's key path}
+    for `train/step.py::make_optimizer`'s state; a path to a {name: tensor}
+    dict maps to the key prefix of its leaves. MultiSteps (accum_steps > 1)
+    keeps its counters and mean gradient beside the inner chain's state."""
+    if "inner" not in opt_state:
+        return {(field,): key for field, key in _adamw_keys(opt_state, "o").items()}
+    keys = {("mini_step",): "o.mini_step", ("gradient_step",): "o.gradient_step",
+            ("acc_grads",): "o.acc_grads"}
+    keys.update({("inner", field): key for field, key in
+                 _adamw_keys(opt_state["inner"], "o.inner_opt_state").items()})
+    return keys
+
+
+def _field(state: dict, path: tuple):
+    for name in path:
+        state = state[name]
+    return state
+
+
+def _flatten_state(opt_state: dict) -> Dict[str, np.ndarray]:
     out = {}
-    for field, value in state.items():
-        if isinstance(value, dict) and set(value) == names:
-            out.update(flatten_params(value, f"{prefix}.{field}"))
-        elif isinstance(value, dict):
-            out.update(_flatten_state(value, names, f"{prefix}.{field}"))
+    for path, key in optimizer_keys(opt_state).items():
+        value = _field(opt_state, path)
+        if isinstance(value, dict):
+            out.update(flatten_params(value, key))
         else:
-            out[f"{prefix}.{field}"] = value.detach().cpu().numpy()
+            out[key] = value.detach().cpu().numpy()
     return out
 
 
-def _restore_state(state: dict, names, store, prefix: str) -> dict:
-    for field, value in state.items():
-        key = f"{prefix}.{field}"
-        if isinstance(value, dict) and set(value) == names:
+def _restore_state(opt_state: dict, store) -> dict:
+    for path, key in optimizer_keys(opt_state).items():
+        value = _field(opt_state, path)
+        if isinstance(value, dict):
             restore_params(value, store, key)
-        elif isinstance(value, dict):
-            _restore_state(value, names, store, key)
-        else:
-            if key not in store:
-                raise KeyError(f"checkpoint missing {key!r}")
-            if tuple(store[key].shape) != tuple(value.shape):
-                raise ValueError(f"checkpoint {key!r} shape {store[key].shape} != "
-                                 f"template {tuple(value.shape)}")
-            state[field] = torch.as_tensor(store[key], dtype=value.dtype).to(value.device)
-    return state
+            continue
+        if key not in store:
+            raise KeyError(f"checkpoint missing {key!r}: the template does not match the "
+                           "saved run (same TrainConfig: accum_steps, warmup?)")
+        if tuple(store[key].shape) != tuple(value.shape):
+            raise ValueError(f"checkpoint {key!r} shape {store[key].shape} != "
+                             f"template {tuple(value.shape)}")
+        _field(opt_state, path[:-1])[path[-1]] = torch.as_tensor(
+            store[key], dtype=value.dtype).to(value.device)
+    return opt_state
 
 
 def save_train_checkpoint(path, trainable: Dict[str, torch.Tensor], opt_state: dict,
@@ -126,7 +158,7 @@ def save_train_checkpoint(path, trainable: Dict[str, torch.Tensor], opt_state: d
     Returns the number of stored arrays."""
     store = {"__step__": np.asarray(step, np.int64)}
     store.update(flatten_params(trainable, "t"))
-    store.update(_flatten_state(opt_state, set(trainable), "o"))
+    store.update(_flatten_state(opt_state))
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -141,13 +173,13 @@ def save_train_checkpoint(path, trainable: Dict[str, torch.Tensor], opt_state: d
 def load_train_checkpoint(path, trainable: Dict[str, torch.Tensor],
                           opt_state: Optional[dict] = None):
     """-> (trainable, opt_state, step): the stored values copied into the
-    templates (trainable in place). With opt_state None only the trainable
-    leaves and the step load, which is what a JAX checkpoint offers this
-    package (its optimizer state has optax's names)."""
+    templates (trainable in place), from a checkpoint of this package or of
+    the reference. With opt_state None only the trainable leaves and the
+    step load."""
     with np.load(path) as z:
         store = {k: z[k] for k in z.files}
     step = int(store.pop("__step__"))
     restore_params(trainable, store, "t")
     if opt_state is not None:
-        opt_state = _restore_state(opt_state, set(trainable), store, "o")
+        opt_state = _restore_state(opt_state, store)
     return trainable, opt_state, step

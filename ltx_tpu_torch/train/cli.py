@@ -56,7 +56,8 @@ def add_train_arguments(ap) -> None:
     ap.add_argument("--random-init", choices=("tiny", "full"), default=None,
                     help="random base instead of --weights (tiny is not quantized)")
     ap.add_argument("--compute", choices=("bf16", "f32"), default="bf16",
-                    help="f32 runs on the CPU only (the card's kernels take bf16)")
+                    help="compute dtype; on the card f32 attention runs in bf16 "
+                         "(cast at the kernel boundary, ops.attention)")
     ap.add_argument("--ckpt", default=None, help="checkpoint .npz path")
     ap.add_argument("--ckpt-every", type=int, default=200)
     ap.add_argument("--resume", action="store_true")
@@ -89,9 +90,6 @@ def _check_ported(args) -> None:
                                   "parallel training is not ported yet (ROADMAP A18)")
     if args.sdpa == "ring":
         raise NotImplementedError("--sdpa ring is not ported yet (ROADMAP A18)")
-    if args.compute == "f32" and torch.device(args.device).type == "cuda":
-        raise NotImplementedError("--compute f32 runs on the CPU only: the card's "
-                                  "attention kernels take bfloat16 (ROADMAP A17)")
     if not args.random_init:
         raise SystemExit("pass --random-init {tiny,full}")
 

@@ -51,12 +51,10 @@ def flow_match_loss(model, tokens, context, rope, sigma, noise, context_bias=Non
     tokens (B, T, C) clean patchified latents; context (B, S, caption
     channels); rope (cos, sin); sigma (B,) noise levels and noise (B, T, C)
     standard normal, both f32; context_bias (B, 1, 1, S) additive or None.
-    The forward runs in `compute_dtype`; the loss reduces in f32."""
+    The forward runs in `compute_dtype` (on the card the attention kernels
+    run in bf16 whatever it is: ops.attention casts at their boundary); the
+    loss reduces in f32."""
     check_sdpa_impl(sdpa_impl)
-    if tokens.device.type == "cuda" and compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the card's attention kernels take bfloat16: a float32 compute "
-            "dtype runs on the CPU only (ROADMAP A17)")
     x0 = tokens.float()
     x_t = add_noise(x0, noise.float(), sigma.float()[:, None, None])
     target = velocity_target(x0, noise.float())

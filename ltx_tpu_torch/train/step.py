@@ -20,7 +20,10 @@ params) -> (updates, state)`:
     updates in between, the inner optimizer stepped with the mean.
 
 State counters are int32 tensors on the host; moments live beside the
-parameters.
+parameters. The state mirrors optax's tree, so that a checkpoint holds it
+under optax's key paths (`train/checkpoint.py`): adam's count, mu and nu, a
+"schedule_count" where the learning rate is a schedule (warmup), and
+MultiSteps' counters and accumulated gradients around the inner state.
 """
 
 from __future__ import annotations
@@ -106,9 +109,13 @@ def _adamw(tc: TrainConfig) -> GradientTransformation:
     """clip_by_global_norm then adamw with the warmup schedule."""
 
     def init(params: Params) -> dict:
-        return {"count": _i32(0),
-                "mu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
-                "nu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}}
+        state = {"count": _i32(0),
+                 "mu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+                 "nu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}}
+        if tc.warmup_steps > 0:
+            # optax's scale_by_schedule counts its own updates, in step with adam's
+            state["schedule_count"] = _i32(0)
+        return state
 
     def update(grads: Params, state: dict, params: Params):
         g_norm = global_norm(grads)
@@ -130,7 +137,10 @@ def _adamw(tc: TrainConfig) -> GradientTransformation:
             if tc.weight_decay and reference_ndim(n, params[n]) >= 2:
                 u = u + tc.weight_decay * params[n].float()
             updates[n] = u * step
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        new = {"count": count, "mu": mu, "nu": nu}
+        if "schedule_count" in state:
+            new["schedule_count"] = state["schedule_count"] + 1
+        return updates, new
 
     return GradientTransformation(init, update)
 

@@ -9,12 +9,14 @@ only torch (tests/conftest.py imports jax, hence --noconftest):
 
 The cases and tolerances are ltx_tpu_torch.checks', which chip_smoke.py
 runs too: attention element by element within 2**-8 * (P @ |V|) plus two
-bf16 ulps of the plain output; the softmax statistics within 2**-14 (m) and
+bf16 ulps of the plain output; the P hand-off of the forward (bf16(q k^T) v) within 2**-8 * (|S| @ |V|)
+plus two bf16 ulps; the softmax statistics within 2**-14 (m) and
 2**-12 (l) relative; the backward's dQ, dK, dV element by element (the bf16
 rounding of P and dS, checks' docstring) and exactly 0 on -1e30 masked
 keys; the int4 product within one bf16 ulp plus 2**-12 * (|X| @ |W|);
 dequant_int4 and quantize_weight on the card bit for bit; the tiny
-pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative;
+pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative,
+in bf16 and with a float32 compute dtype;
 rms_norm within 16 f32 ulps of the plain version's f32 value plus, for a
 bf16 output, half a bf16 ulp; the tiny two-stage I2V pipeline, its norms
 through that kernel, within 2e-2.
@@ -45,6 +47,28 @@ def test_flash_kernel_matches_plain(device, case):
     before = fa.flash_attention.launches
     checks.check_attention(case, device)
     assert fa.flash_attention.launches == before + 1
+
+
+def test_flash_kernel_p_handoff(device):
+    """The S accumulators of the first wgmma, rounded to bf16, as the
+    register operand of the P V product, with no softmax between."""
+    assert checks.check_pv_handoff(device)["tol_share"] <= 1.0
+
+
+def test_flash_kernel_writes_in_q_layout_and_takes_many_heads(device):
+    """A (B, H, T, D) view of a (B, T, H, D) buffer gives an output of the
+    same layout (the DiT's transpose back is a view); batch * heads past
+    65535 (one block a query tile per head) launches."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v = (torch.randn(1, t, 4, 64, generator=gen, device=device).bfloat16()
+               .transpose(1, 2) for t in (130, 70, 70))
+    out = fa.flash_attention(q, k, v)
+    assert out.stride() == q.stride()
+    want = fa.flash_attention_reference(q, k, v)
+    assert (out.float() - want.float()).abs().max() <= 2e-2
+    q = torch.randn(70000, 1, 3, 16, generator=gen, device=device).bfloat16()
+    out = fa.flash_attention(q, q, q)
+    assert (out.float() - fa.flash_attention_reference(q, q, q).float()).abs().max() <= 2e-2
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(device):
@@ -80,6 +104,14 @@ def test_flash_backward_rejects_what_it_does_not_take(device):
 
 def test_tiny_lora_train_cuda_matches_cpu(device):
     checks.check_tiny_train(device)
+
+
+def test_tiny_lora_train_f32_runs_on_the_card(device):
+    """A float32 compute dtype on the card: the attention kernels get bf16
+    casts (ops.attention), held to the bf16 run's tolerance against the
+    CPU's float32 run."""
+    res = checks.check_tiny_train(device, torch.float32)
+    assert res["launches"]["flash_attention_stats"] > 0
 
 
 @pytest.mark.parametrize("case", checks.INT4_CASES, ids=lambda c: c.name)

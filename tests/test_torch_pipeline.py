@@ -178,7 +178,7 @@ def test_tokenize_and_encode_prompt_match(pipes):
     dict(cross_attention_scale=0.5), dict(enhance_prompt=True),
     dict(two_stage=True), dict(image_path="x.png"),
 ])
-def test_unported_configs_raise(pipes, kw, tmp_path):
+def test_generation_knobs_run_and_enhancement_raises(pipes, kw, tmp_path):
     """Prompt enhancement is the one generation knob still to port (ROADMAP
     A13) and raises; every other knob of this list now runs (the guided and
     image-conditioned paths, held against the reference in
@@ -225,7 +225,7 @@ def test_staged_int4_pipeline_keeps_its_codes_on_the_host():
     assert (layer.w_q4.dtype, layer.scale.dtype) == (torch.uint8, torch.float32)
 
 
-def test_staged_pipeline_runs_and_tiling_raises():
+def test_staged_and_tiled_pipelines_run_and_yuv420_raises():
     """Staging keeps every component. Tiled decoding now runs (one latent
     frame a tile cannot overlap by one and raises ValueError, as the
     reference's does); the yuv420 transfer raises, naming ROADMAP A4b."""
