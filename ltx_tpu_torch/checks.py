@@ -3,14 +3,20 @@ tests/test_torch_cuda.py: each hand kernel against its plain version, and
 the tiny pipeline on the device against the same weights on the CPU.
 
 Attention tolerance, element by element. The kernel and the plain version
-both round every probability to bf16 before the P V product (each term off
-by at most 2**-9 of itself, the kernel relative to the running max, the
-plain version after normalising), then round the output to bf16. So
+both round every probability to bf16 before the P V product (the kernel
+relative to the running max, the plain version after normalising), then
+round the output to bf16. The bound takes each rounding as 2**-9 of its
+term:
 
     |kernel - plain| <= 2**-8 * (P @ |V|) + 2 ulp_bf16(|plain|)
 
 with P the f32 softmax. The bound scales with each output element, unlike
-one absolute limit for every shape.
+one absolute limit for every shape. bf16's unit roundoff is 2**-8, not
+2**-9, so a correct kernel can break this bound where a few keys carry each
+row's weight: at BWD_CASES' "many_heads_masked" (6 live keys a row, 5.6M
+outputs) an exact emulation of the kernel's rounding reaches 1.11 of it
+(tests/test_torch_attention.py). That miss is left standing, with the
+bound, until a change of its own corrects it (STANDING_MISSES).
 
 int4 tolerance, element by element. `dequant_int4` must equal its plain
 version exactly: both round q * scale and then + bias in f32, then round to
@@ -39,7 +45,7 @@ is held to the attention bound above.
 
 Backward, element by element. Both take the same q, k, v, dO, lse and the
 same delta (one torch op). The kernel rounds P and dS to bf16 before the
-dV, dK and dQ products (each off by at most 2**-9 of itself), the plain
+dV, dK and dQ products (each off by at most 2**-8 of itself), the plain
 version keeps them f32; both sum in f32 in other orders and round once to
 bf16. Besides that rounding, P carries its logit's error (eps_P below) and
 dS carries P's error and dO V^T's sum order (eps_S):
@@ -312,6 +318,9 @@ class BackwardCase:
     # (row 1); ("masked", n): keys from n on -1e30 (their dK, dV must be 0)
     bias: Optional[tuple] = None
     scale: Optional[float] = None
+    # "bhtd": contiguous (B, H, T, D) tensors; "bthd": q, k, v and dO as
+    # (B, H, T, D) views of (B, T, H * D) buffers, as the DiT passes them
+    layout: str = "bhtd"
 
 
 BWD_CASES = (
@@ -329,16 +338,35 @@ BWD_CASES = (
     # the forward kernel's tile edges (ATTN_CASES)
     BackwardCase("tile_edges_bias", 1, 4, 257, 129, 128, bias=("left", 30)),
     BackwardCase("short_keys_many_q_tiles", 2, 2, 384, 40, 128),
+    # the DiT's self-attention as it reaches the kernels: views of its
+    # projections, and of its incoming gradient
+    BackwardCase("dit_self_attn_view", 1, 32, 1536, 1536, 128, layout="bthd"),
+    # batch * heads past 65535 at tiny T, a bias per batch row masking -1e30
+    BackwardCase("many_heads_masked", 35000, 2, 5, 9, 16, bias=("masked", 6)),
 )
+# the cases whose gradients must be bitwise equal from run to run (the
+# training path's shapes)
+DETERMINISM_CASES = ("dit_self_attn", "dit_cross_attn")
+# checks that a correct kernel misses because their bound is too tight (the
+# module docstring): case name -> the check. chip_smoke.py prints these
+# misses as standing failures instead of stopping on them;
+# tests/test_torch_cuda.py holds them as it holds every other case.
+STANDING_MISSES = {"many_heads_masked": "flash_attention_stats out"}
 
 
 def backward_inputs(case: BackwardCase, device, seed: int = 2024):
     """q, k, v, dO (bf16) and the (B, 1, 1, Tk) f32 bias or None; o and lse
     from the plain statistics forward, shared by kernel and plain."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v, do = (torch.randn(case.b, case.h, t, case.d, generator=gen,
-                               device=device).bfloat16()
-                   for t in (case.tq, case.tk, case.tk, case.tq))
+    if case.layout == "bthd":
+        q, k, v, do = (torch.randn(case.b, t, case.h * case.d, generator=gen,
+                                   device=device).bfloat16()
+                       .unflatten(2, (case.h, case.d)).transpose(1, 2)
+                       for t in (case.tq, case.tk, case.tk, case.tq))
+    else:
+        q, k, v, do = (torch.randn(case.b, case.h, t, case.d, generator=gen,
+                                   device=device).bfloat16()
+                       for t in (case.tq, case.tk, case.tk, case.tq))
     bias = None
     if case.bias is not None:
         bias = torch.zeros(case.b, 1, 1, case.tk, device=device)
@@ -354,10 +382,12 @@ def backward_inputs(case: BackwardCase, device, seed: int = 2024):
     return q, k, v, do, bias, o, fa.softmax_lse(m, l)
 
 
-def check_stats(case: BackwardCase, device) -> dict:
+def check_stats(case: BackwardCase, device, hold_out: bool = True) -> dict:
     """The forward's statistics variant against the plain version: out
     within the attention bound, m and l within STATS_M_REL / STATS_L_REL.
-    Raises AssertionError beyond them; returns the errors and shares."""
+    Raises AssertionError beyond them; returns the errors and shares. With
+    hold_out False the out share is returned and not held (a standing miss,
+    STANDING_MISSES); m and l are held all the same."""
     q, k, v, _, bias, _, _ = backward_inputs(case, device)
     o, m, l = fa.flash_attention_stats(q, k, v, bias, case.scale)
     o_p, m_p, l_p = fa.flash_attention_reference(q, k, v, bias, case.scale,
@@ -369,7 +399,8 @@ def check_stats(case: BackwardCase, device) -> dict:
         "m_share": ((m - m_p).abs() / (STATS_M_REL * m_p.abs().clamp_min(1.0))).max().item(),
         "l_share": ((l - l_p).abs() / (STATS_L_REL * l_p)).max().item(),
     }
-    if not max(out["tol_share"], out["m_share"], out["l_share"]) <= 1.0:
+    held = (out["tol_share"] if hold_out else 0.0, out["m_share"], out["l_share"])
+    if not max(held) <= 1.0:
         raise AssertionError(f"flash_attention_stats {case.name}: shares of the tolerance "
                              f"out {out['tol_share']:.3f}, m {out['m_share']:.3f}, "
                              f"l {out['l_share']:.3f}")
@@ -411,9 +442,11 @@ def backward_tolerance(q, k, v, bias, do, lse, scale, want):
 def check_backward(case: BackwardCase, device) -> dict:
     """flash_attention_backward (the dq and dkv kernels) against
     flash_attention_backward_reference; raises AssertionError beyond the
-    element-wise bounds, or when a -1e30 masked key gets a nonzero dK or
-    dV. Returns per gradient the max abs error and the largest share of an
-    element's tolerance, and the launches of each kernel."""
+    element-wise bounds, when a -1e30 masked key gets a nonzero dK or dV,
+    or when the kernels' dQ, dK or dV is not in the layout of q, k or v
+    (the plain version's are contiguous). Returns per gradient the max abs
+    error and the largest share of an element's tolerance, and the launches
+    of each kernel."""
     q, k, v, do, bias, o, lse = backward_inputs(case, device)
     before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
     got = fa.flash_attention_backward(q, k, v, bias, o, lse, do, case.scale)
@@ -422,9 +455,12 @@ def check_backward(case: BackwardCase, device) -> dict:
     want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, case.scale)
     tols = backward_tolerance(q, k, v, bias, do, lse, case.scale, want)
     out = {"dq_launches": launches[0], "dkv_launches": launches[1]}
-    for name, g, w, tol in zip(("dq", "dk", "dv"), got, want, tols):
+    for name, g, w, tol, t in zip(("dq", "dk", "dv"), got, want, tols, (q, k, v)):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"backward {case.name} {name}: {tuple(g.shape)} {g.dtype}")
+        if g.device.type == "cuda" and g.stride() != t.stride():
+            raise AssertionError(f"backward {case.name} {name}: strides {g.stride()}, its "
+                                 f"input's {t.stride()}")
         out[name] = {"max_abs_err": (g.float() - w.float()).abs().max().item(),
                      "tol_share": tolerance_share(g, w, tol)}
     if case.bias is not None and case.bias[0] == "masked":
@@ -439,6 +475,21 @@ def check_backward(case: BackwardCase, device) -> dict:
         raise AssertionError(f"backward {case.name}: shares of the tolerance "
                              + ", ".join(f"{n} {out[n]['tol_share']:.3f}"
                                          for n in ("dq", "dk", "dv")))
+    return out
+
+
+def check_backward_deterministic(case: BackwardCase, device) -> dict:
+    """Two runs of flash_attention_backward on the same inputs: dQ, dK and
+    dV must be bitwise equal (no atomics: each gradient element is summed
+    by one block in a fixed order). Raises AssertionError otherwise;
+    returns the count of differing values per gradient."""
+    q, k, v, do, bias, o, lse = backward_inputs(case, device)
+    first = fa.flash_attention_backward(q, k, v, bias, o, lse, do, case.scale)
+    second = fa.flash_attention_backward(q, k, v, bias, o, lse, do, case.scale)
+    out = {name: int((a.view(torch.int16) != b.view(torch.int16)).sum())
+           for name, a, b in zip(("dq", "dk", "dv"), first, second)}
+    if any(out.values()):
+        raise AssertionError(f"backward {case.name}: two runs differ {out}")
     return out
 
 

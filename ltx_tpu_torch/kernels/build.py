@@ -3,9 +3,10 @@
 Each source under `ltx_tpu_torch/csrc/` is compiled on first use into a
 shared library with a plain C interface, for `sm_90a` (Hopper), into
 `build/ltx_tpu_torch/` at the repository root. The library's file name
-carries a digest of the source and the flags, so an edited source builds
-anew. Nothing here runs at import time: the CPU tests import the kernel
-modules on machines without nvcc or a GPU.
+carries a digest of the source, the headers of `csrc/` it includes and the
+flags, so an edited source or header builds anew. Nothing here runs at
+import time: the CPU tests import the kernel modules on machines without
+nvcc or a GPU.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,10 +52,30 @@ def nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen=None) -> list:
+    """`path` and every header of `CSRC_DIR` it includes with quotes,
+    transitively, each once, in the order first met."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = CSRC_DIR / name.decode()
+            if header.is_file():
+                _sources(header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of source `name`: its file name carries a digest of the
+    source, the headers it includes from `CSRC_DIR` and the flags."""
+    digest = hashlib.sha256()
+    for path in _sources(CSRC_DIR / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:

@@ -98,13 +98,14 @@ def _c_function(lib: str, name: str, argtypes):
 
 
 def kernel_strides(name: str, t) -> tuple:
-    """The element strides (sb, sh, st) by which the forward kernel reads
-    (or writes) `t`, a (B, H, T, D) view; ValueError, naming `name` and the
-    fault, for a view its TMA loads cannot take. The rule: four dims, the
-    last dense (stride 1), the other strides multiples of 16 bytes, the
-    base 16-byte aligned. A view of a (B, T, H, D) buffer, as the DiT
-    passes it, is one. A dim of size 1 is never stepped over, so its stride
-    is free; the kernel gets the contiguous one there."""
+    """The element strides (sb, sh, st) by which the flash kernels (forward
+    and backward) read or write `t`, a (B, H, T, D) view; ValueError, naming
+    `name` and the fault, for a view their TMA loads cannot take. The rule:
+    four dims, the last dense (stride 1), the other strides nonzero
+    multiples of 16 bytes, the base 16-byte aligned. A view of a (B, T, H,
+    D) buffer, as the DiT passes it, is one. A dim of size 1 is never
+    stepped over, so its stride is free; the kernel gets the contiguous one
+    there."""
     if t.ndim != 4:
         raise ValueError(f"flash_attention: {name} must be a 4-D (B, H, T, D) tensor, "
                          f"got {t.ndim}-D")
@@ -115,6 +116,9 @@ def kernel_strides(name: str, t) -> tuple:
     dense = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3], t.shape[3])
     strides = tuple(s if n > 1 else c for s, n, c in zip(t.stride()[:3], t.shape[:3], dense))
     for dim, s in enumerate(strides):
+        if s == 0:
+            raise ValueError(f"flash_attention: {name}'s dim {dim} is broadcast (stride 0, "
+                             f"strides {tuple(t.stride())})")
         if (s * size) % 16:
             raise ValueError(f"flash_attention: {name}'s stride {s} of dim {dim} is not a "
                              f"multiple of 16 bytes (strides {tuple(t.stride())})")
@@ -273,36 +277,39 @@ def flash_attention_backward_reference(q, k, v, bias, o, lse, do,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7
+def backward_strides(q, k, v, do) -> list:
+    """The element strides (sb, sh, st) by which the backward kernels read
+    q, k, v and dO: `kernel_strides`' rule for each, named in its refusal,
+    and dO of q's shape and dtype. The kernels write dQ, dK and dV in the
+    layouts of q, k and v."""
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash_attention backward: dO must be a {q.dtype} tensor of q's "
+                         f"shape {tuple(q.shape)} on {q.device}, got {do.dtype} "
+                         f"{tuple(do.shape)} on {do.device}")
+    return [kernel_strides(name, t) for name, t in (("q", q), ("k", k), ("v", v), ("dO", do))]
 
 
-def _check_bwd_args(q, k, v, bias, do, lse, delta):
+def _bwd_call(name, q, k, v, bias, do, lse, delta, outs, scale):
+    """One launch of the backward kernel `name` (its C entry point), writing
+    `outs` (allocated in the layouts of q, or of k and v), after checking
+    the arguments' devices, dtypes, shapes and layouts."""
     _check_cuda_args(q, k, v, bias)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention backward: {name} must be a contiguous, "
-                             "16-byte aligned tensor")
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError(f"flash_attention backward: batch*heads {q.shape[0] * q.shape[1]} "
-                         "> 65535")
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
-            or not do.is_contiguous() or do.data_ptr() % 16:
-        raise ValueError("flash_attention backward: dO must be a contiguous, 16-byte "
-                         f"aligned bfloat16 tensor of q's shape {tuple(q.shape)}")
-    for name, t in (("lse", lse), ("delta", delta)):
+    strides = backward_strides(q, k, v, do)
+    for arg, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:3] or t.dtype != torch.float32 \
                 or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash_attention backward: {name} must be a contiguous "
+            raise ValueError(f"flash_attention backward: {arg} must be a contiguous "
                              f"float32 {tuple(q.shape[:3])} tensor on {q.device}")
-
-
-def _bwd_call(fn, q, k, v, bias, do, lse, delta, outs, scale):
+    strides += [kernel_strides(f"out{i}", t) for i, t in enumerate(outs)]
+    fn = _c_function(_BWD_LIB, name, [ctypes.c_void_p] * (7 + len(outs)) + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     b, h, tq, d = q.shape
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  None if bias is None else bias.data_ptr(),
-                 *(t.data_ptr() for t in outs), b * h, h, tq, k.shape[2], d,
+                 *(t.data_ptr() for t in outs), b, h, tq, k.shape[2], d,
+                 (ctypes.c_longlong * (3 * len(strides)))(*sum(strides, ())),
                  float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
@@ -311,13 +318,10 @@ def _bwd_call(fn, q, k, v, bias, do, lse, delta, outs, scale):
 def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, scale: float):
     """dQ by the dq kernel (CUDA only; the arguments as prepared by
     `flash_attention_backward`: bias None or (B, Tk) f32, delta = rowsum(dO *
-    O) f32). Counted in `flash_attention_bwd_dq.launches`."""
-    _check_bwd_args(q, k, v, bias, do, lse, delta)
+    O) f32; q, k, v and dO views under `backward_strides`' rule), in q's
+    layout. Counted in `flash_attention_bwd_dq.launches`."""
     dq = torch.empty_like(q)
-    fn = _c_function(_BWD_LIB, "ltx_flash_attention_bwd_dq",
-                     _BWD_ARGTYPES + [ctypes.c_void_p] + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p])
-    _bwd_call(fn, q, k, v, bias, do, lse, delta, (dq,), scale)
+    _bwd_call("ltx_flash_attention_bwd_dq", q, k, v, bias, do, lse, delta, (dq,), scale)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -326,14 +330,11 @@ flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, scale: float):
-    """(dK, dV) by the dkv kernel (CUDA only; arguments as
-    `flash_attention_bwd_dq`). Counted in `flash_attention_bwd_dkv.launches`."""
-    _check_bwd_args(q, k, v, bias, do, lse, delta)
+    """(dK, dV) by the dkv kernel, in the layouts of k and v (CUDA only;
+    arguments as `flash_attention_bwd_dq`). Counted in
+    `flash_attention_bwd_dkv.launches`."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _c_function(_BWD_LIB, "ltx_flash_attention_bwd_dkv",
-                     _BWD_ARGTYPES + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_void_p])
-    _bwd_call(fn, q, k, v, bias, do, lse, delta, (dk, dv), scale)
+    _bwd_call("ltx_flash_attention_bwd_dkv", q, k, v, bias, do, lse, delta, (dk, dv), scale)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -348,7 +349,8 @@ def flash_attention_backward(q, k, v, bias, o, lse, do, scale: Optional[float] =
 
     CPU tensors go to `flash_attention_backward_reference`; CUDA tensors
     compute delta = rowsum(dO * O) in f32 (plain torch, as XLA did in the
-    reference) and launch the dq and the dkv kernels."""
+    reference) and launch the dq and the dkv kernels on q, k, v and dO as
+    they are laid out (`backward_strides`' rule)."""
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, bias, o, lse, do, scale)
     b, _, _, d = q.shape
@@ -357,9 +359,8 @@ def flash_attention_backward(q, k, v, bias, o, lse, do, scale: Optional[float] =
     bias = key_bias(bias, b, k.shape[2])
     if bias is not None:
         bias = bias.contiguous()
-    do = do.contiguous()
     lse = lse.float().contiguous()
-    delta = (do.float() * o.float()).sum(dim=-1)
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
     dq = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
     return dq, dk, dv
@@ -379,9 +380,16 @@ class _FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        # the gradient arrives as a transposed view of (B, Tq, H, D)
-        dq, dk, dv = flash_attention_backward(q, k, v, bias, o, lse,
-                                              do.contiguous(), ctx.scale)
+        # The DiT's gradient arrives as a transposed view of (B, Tq, H, D),
+        # which the kernels read as it is. Autograd may hand over a layout
+        # that no TMA load can read (an expanded gradient, from a sum): that
+        # one alone is made contiguous.
+        if do.device.type == "cuda":
+            try:
+                kernel_strides("dO", do)
+            except ValueError:
+                do = do.contiguous()
+        dq, dk, dv = flash_attention_backward(q, k, v, bias, o, lse, do, ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -55,19 +55,18 @@ def _gqa_sdpa(q, k, v, bias=None, scale: Optional[float] = None):
 def sdpa(q, k, v, bias=None, scale: Optional[float] = None):
     """q: (B, H, Tq, D); k, v: (B, Hkv, Tk, D) with H % Hkv == 0; bias an
     additive float mask. Hkv < H goes to `_gqa_sdpa`; Hkv == H to the
-    flash-attention kernels, which take no bias or a key bias only: the
-    forward reads strided (B, H, T, D) views as they are, the
-    differentiable route (whose backward kernels take contiguous tensors)
-    gets contiguous copies. On CUDA a dtype other than bfloat16 is cast to
-    it for the kernels and the output back (the module docstring)."""
+    flash-attention kernels, which take no bias or a key bias only. Both
+    routes hand the kernels strided (B, H, T, D) views as they are (the
+    DiT's views of its (B, T, H * D) projections): no copy. On CUDA a dtype
+    other than bfloat16 is cast to it for the kernels and the output back
+    (the module docstring)."""
     if k.shape[1] != q.shape[1]:
         return _gqa_sdpa(q, k, v, bias=bias, scale=scale)
     dtype = q.dtype
     if q.device.type == "cuda" and dtype != torch.bfloat16:
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = flash_attention_vjp(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  bias=bias, scale=scale)
+        out = flash_attention_vjp(q, k, v, bias=bias, scale=scale)
     else:
         out = flash_attention(q, k, v, bias=bias, scale=scale)
     return out.to(dtype)

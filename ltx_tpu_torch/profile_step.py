@@ -52,6 +52,7 @@ GROUPS = (
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")),
 )
 PROFILED_STEPS = 2
+WALL_STEPS = 5
 
 
 def group_of(name: str) -> str:
@@ -65,8 +66,11 @@ def profile_steps(step, latent=None) -> dict:
     """One warm-up step, then PROFILED_STEPS steps under the profiler;
     returns per-step host ms, device ms by group, and the idle share
     (1 - device ms / host ms, not floored: a negative share is a
-    measurement error to look into). With `latent`, `step` is a denoise
-    step run in inference mode; without, a train step taking no arguments."""
+    measurement error to look into), then the median wall ms of WALL_STEPS
+    more steps without the profiler (which slows the host's launches), each
+    synchronised.
+    With `latent`, `step` is a denoise step run in inference mode; without,
+    a train step taking no arguments."""
     def run():
         if latent is None:
             step()
@@ -90,8 +94,15 @@ def profile_steps(step, latent=None) -> dict:
     busy = sum(device_ms.values())
     if busy <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
+    walls = []
+    for _ in range(WALL_STEPS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     return {"host_ms": host_ms, "device_ms": device_ms, "device_busy_ms": busy,
-            "idle_share": 1.0 - busy / host_ms}
+            "idle_share": 1.0 - busy / host_ms, "wall_ms": sorted(walls)[WALL_STEPS // 2],
+            "wall_steps_ms": walls}
 
 
 def profile_train(transformer, shape, context, bias, gen) -> dict:
@@ -162,7 +173,8 @@ def main() -> int:
         print(f"[profile] train int4 QLoRA {args.frames}f@{args.width}x{args.height} "
               f"({shape.token_count} tokens): host {res['host_ms']:.2f} ms/step, device "
               f"{res['device_busy_ms']:.2f} ms/step ({groups}), idle share "
-              f"{res['idle_share']:.3f}, peak {res['peak_gib']:.2f} GiB", flush=True)
+              f"{res['idle_share']:.3f}, peak {res['peak_gib']:.2f} GiB; unprofiled wall "
+              f"{res['wall_ms']:.2f} ms/step", flush=True)
         print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "train": res}))
         return 0
 
@@ -180,7 +192,8 @@ def main() -> int:
         print(f"[profile] {mode} rms={args.rms} {args.frames}f@{args.width}x{args.height} "
               f"({shape.token_count} tokens): host {res['host_ms']:.2f} ms/step, device "
               f"{res['device_busy_ms']:.2f} ms/step ({groups}), idle share "
-              f"{res['idle_share']:.3f}", flush=True)
+              f"{res['idle_share']:.3f}; unprofiled wall {res['wall_ms']:.2f} ms/step",
+              flush=True)
     print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "rms": args.rms,
                       "steps": results}))
     return 0

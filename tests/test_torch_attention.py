@@ -127,6 +127,65 @@ def test_card_tolerance_admits_pallas_and_rejects_a_dropped_tile(b, h, tq, tk, d
     assert ((skipped.float() - want.float()).abs() > tol).any()
 
 
+def _kernel_forward_emulation(q, k, v, bias, scale, p_dtype=torch.bfloat16, tile=128):
+    """The card kernel's forward numerics on the CPU: f32 logits, per
+    128-key tile P = exp(logit - running max) rounded to `p_dtype`, the f32
+    accumulator rescaled as the max moves, divided by the f32 row sum of the
+    unrounded P, one output rounding."""
+    logits = fa_logits(q, k, bias, scale)
+    acc = torch.zeros(*logits.shape[:-1], v.shape[-1])
+    m = torch.full(logits.shape[:-1], -torch.inf)
+    l = torch.zeros(logits.shape[:-1])
+    for start in range(0, logits.shape[-1], tile):
+        s = logits[..., start:start + tile]
+        m_new = torch.maximum(m, s.amax(-1))
+        e = torch.exp(s - m_new[..., None])
+        keep = torch.exp(m - m_new)
+        acc = acc * keep[..., None] + e.to(p_dtype).float() @ v[..., start:start + tile, :].float()
+        l = l * keep + e.sum(-1)
+        m = m_new
+    return (acc / l[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("name,heads", [("many_heads_masked", 2), ("dit_self_attn", 2)])
+def test_card_tolerance_against_the_kernels_rounding(name, heads):
+    """checks.attention_tolerance against an emulation of the card kernel's
+    forward numerics. Both sides round every probability to bf16, each by
+    up to bf16's unit roundoff 2**-8 of itself; the bound allows 2**-8 in
+    all (2**-9 a side). At the path's self-attention (2 of its 32 heads)
+    the emulation keeps inside it, and a control with P rounded to fp8
+    (e4m3) breaks it; with 2**-7 the bound would admit that control there
+    (the shares are printed). At "many_heads_masked" (6 live keys a row,
+    5.6M outputs) the emulation breaks the bound: the standing miss of
+    checks.STANDING_MISSES, which 2**-7 would admit. A kernel that skipped
+    a key breaks the bound at both."""
+    case = dataclasses.replace(next(c for c in checks.BWD_CASES if c.name == name), h=heads)
+    q, k, v, _, bias, _, _ = checks.backward_inputs(case, "cpu")
+    scale = case.scale if case.scale is not None else case.d**-0.5
+    want = flash_attention_reference(q, k, v, bias, case.scale)
+    tol = checks.attention_tolerance(q, k, v, bias, case.scale, want)
+    ulps = 2 * checks.bf16_ulp(want)
+    # the same bound with 2**-7 * (P @ |V|)
+    wide = 2 * (tol - ulps) + ulps
+    shares = {}
+    for label, p_dtype in (("bf16", torch.bfloat16), ("fp8", torch.float8_e4m3fn)):
+        got = _kernel_forward_emulation(q, k, v, bias, scale, p_dtype)
+        err = (got.float() - want.float()).abs()
+        shares[label] = ((err / tol).max().item(), (err / wide).max().item())
+    print(f"[parity] {name}: kernel emulation at {shares['bf16'][0]:.3f} of the card's "
+          f"tolerance (2**-8), {shares['bf16'][1]:.3f} of it with 2**-7; fp8 P at "
+          f"{shares['fp8'][0]:.3f} / {shares['fp8'][1]:.3f}")
+    if name in checks.STANDING_MISSES:
+        assert 1.0 < shares["bf16"][0] and shares["bf16"][1] <= 1.0
+    else:
+        assert shares["bf16"][0] <= 1.0
+    assert shares["fp8"][0] > 1.0
+    dropped = torch.zeros(case.b, 1, 1, case.tk) if bias is None else bias.clone()
+    dropped[..., 0] = -1e30
+    skipped = flash_attention_reference(q, k, v, dropped, case.scale)
+    assert ((skipped.float() - want.float()).abs() > tol).any()
+
+
 def test_checks_take_the_plain_version_some_heads_at_a_time(monkeypatch):
     """The path-shape checks compute the plain version and its tolerance a
     few heads at a time (the 9216-token score matrix would not fit whole):

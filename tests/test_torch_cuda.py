@@ -12,8 +12,11 @@ runs too: attention element by element within 2**-8 * (P @ |V|) plus two
 bf16 ulps of the plain output; the P hand-off of the forward (bf16(q k^T) v) within 2**-8 * (|S| @ |V|)
 plus two bf16 ulps; the softmax statistics within 2**-14 (m) and
 2**-12 (l) relative; the backward's dQ, dK, dV element by element (the bf16
-rounding of P and dS, checks' docstring) and exactly 0 on -1e30 masked
-keys; the int4 product within one bf16 ulp plus 2**-12 * (|X| @ |W|);
+rounding of P and dS, checks' docstring), exactly 0 on -1e30 masked keys,
+in the layouts of q, k and v, and bitwise equal from run to run (one
+standing failure: the statistics output at BWD_CASES' many_heads_masked,
+checks.STANDING_MISSES); the int4
+product within one bf16 ulp plus 2**-12 * (|X| @ |W|);
 dequant_int4 and quantize_weight on the card bit for bit; the tiny
 pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative,
 in bf16 and with a float32 compute dtype;
@@ -93,6 +96,15 @@ def test_flash_stats_and_backward_kernels_match_plain(device, case):
     assert (res["dq_launches"], res["dkv_launches"]) == (1, 1)
 
 
+@pytest.mark.parametrize("name", checks.DETERMINISM_CASES)
+def test_flash_backward_is_bitwise_deterministic(device, name):
+    """No atomics: two runs of the dq and dkv kernels give equal dQ, dK and
+    dV, bit for bit (check_backward also holds each gradient to its input's
+    layout)."""
+    case = next(c for c in checks.BWD_CASES if c.name == name)
+    assert not any(checks.check_backward_deterministic(case, device).values())
+
+
 def test_flash_backward_rejects_what_it_does_not_take(device):
     case = checks.BackwardCase("reject", 1, 2, 40, 40, 32)
     q, k, v, do, bias, o, lse = checks.backward_inputs(case, device)
@@ -100,6 +112,10 @@ def test_flash_backward_rejects_what_it_does_not_take(device):
         fa.flash_attention_backward(q, k, v, bias, o, lse, do.float())
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd_dq(q, k, v, None, do, lse[:, :, :8], lse, 0.1)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match="dO's last dim"):
+        fa.flash_attention_bwd_dkv(q, k, v, None, do.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), lse, delta, 0.1)
 
 
 def test_tiny_lora_train_cuda_matches_cpu(device):
