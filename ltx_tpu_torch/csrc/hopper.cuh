@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): shared-memory addresses,
-// mbarriers, TMA tile loads, wgmma descriptors and products, and the host's
-// cached TMA tensor maps of (B, H, T, D) bf16 views.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and the int4 product
+// (int4_matmul.cu): shared-memory addresses, mbarriers, TMA tile loads,
+// wgmma descriptors and products, and the host's cached TMA tensor maps of
+// (B, H, T, D) bf16 views.
 //
 // Tiles are rows (queries or keys) by D bf16 values, stored as Swizzle<D>
 // boxes of kRowBytes-wide rows in TMA's swizzled layout, which is wgmma's
@@ -72,6 +73,33 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
         "r"(bar)
       : "memory");
+}
+
+// one box of a 2-D tensor map (c0 the inner, contiguous coordinate) into
+// shared memory, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global memory into
+// shared memory (both 16-byte aligned), completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride

@@ -161,14 +161,35 @@ def int4_matmul_reference(x, w_q4, scale, bias):
 # ---------------------------------------------------------------------------
 
 
-def _c_function(name: str, argtypes):
+_ARGTYPES = {
+    "ltx_int4_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "ltx_dequant_int4": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+
+def _c_function(name: str):
+    """The library's C function `name`, bound once a process."""
     fn = _C_FNS.get(name)
     if fn is None:
         fn = getattr(build.load(_LIB_NAME), name)
-        fn.argtypes = argtypes
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _C_FNS[name] = fn
     return fn
+
+
+def _launch(who: str, device, name: str, *args) -> None:
+    """Call the C launcher `name` with `args` and the device's current
+    stream, on that device (entering its context only when it is not the
+    current one); raises on a CUDA error."""
+    fn = _c_function(name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {err}")
 
 
 def _check_codes(who: str, w_q4, scale, bias):
@@ -208,14 +229,9 @@ def dequant_int4(w_q4, scale, bias):
         return dequant_int4_reference(w_q4, scale, bias)
     k, n, group = _check_codes("dequant_int4", w_q4, scale, bias)
     out = torch.empty(k, n, dtype=torch.bfloat16, device=w_q4.device)
-    fn = _c_function("ltx_dequant_int4",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    with torch.cuda.device(w_q4.device):
-        err = fn(w_q4.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 k, n, group, _effective_pack_block(k) // 2,
-                 torch.cuda.current_stream(w_q4.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dequant_int4 kernel launch failed: CUDA error {err}")
+    _launch("dequant_int4", w_q4.device, "ltx_dequant_int4", w_q4.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), k, n, group,
+            _effective_pack_block(k) // 2)
     dequant_int4.launches += 1
     return out
 
@@ -229,7 +245,8 @@ def int4_matmul(x, w_q4, scale, bias):
     accumulation, one rounding to bf16).
 
     CPU tensors go to `int4_matmul_reference`; CUDA tensors launch the fused
-    kernel (K % 256 == 0, N % 128 == 0), counted in `int4_matmul.launches`."""
+    kernel (K % 256 == 0, N % 128 == 0, an even group), counted in
+    `int4_matmul.launches`."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, w_q4, scale, bias)
     k, n, group = _check_codes("int4_matmul", w_q4, scale, bias)
@@ -245,14 +262,8 @@ def int4_matmul(x, w_q4, scale, bias):
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out
-    fn = _c_function("ltx_int4_matmul",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_q4.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), m, k, n, group,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int4_matmul kernel launch failed: CUDA error {err}")
+    _launch("int4_matmul", x.device, "ltx_int4_matmul", x.data_ptr(), w_q4.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, k, n, group)
     int4_matmul.launches += 1
     return out
 

@@ -16,12 +16,14 @@ def test_library_path_covers_the_shared_header(tmp_path, monkeypatch):
     before = {name: build.library_path(name) for name in names}
     assert [p.name for p in build._sources(csrc / "flash_attention_bwd.cu")] == [
         "flash_attention_bwd.cu", "hopper.cuh"]
+    assert [p.name for p in build._sources(csrc / "int4_matmul.cu")] == [
+        "int4_matmul.cu", "hopper.cuh"]
     header = csrc / "hopper.cuh"
     header.write_text(header.read_text() + "\n// an edit\n")
     after = {name: build.library_path(name) for name in names}
     assert after["flash_attention_fwd"] != before["flash_attention_fwd"]
     assert after["flash_attention_bwd"] != before["flash_attention_bwd"]
-    assert after["int4_matmul"] == before["int4_matmul"]
+    assert after["int4_matmul"] != before["int4_matmul"]
     assert after["rms_norm"] == before["rms_norm"]
     # the digest is the content's: the same files give the same names
     assert {name: build.library_path(name) for name in names} == after

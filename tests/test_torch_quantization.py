@@ -399,3 +399,92 @@ def test_linear_any_lora_forward_and_grads(monkeypatch, route):
     assert_rel(got, want, 2.0**-7, f"linear_any LoRA {route} forward")
     for n, gg, ww in zip(("x",) + names, got_grads, want_grads):
         assert_rel(gg, ww, 2.0**-7, f"linear_any LoRA {route} d{n}")
+
+
+# ---------------------------------------------------------------------------
+# The card kernel's schedule, emulated (csrc/int4_matmul.cu)
+# ---------------------------------------------------------------------------
+
+
+def _dequant_plane_emulation(w_q4, scale, bias, stage, plane):
+    """One half-stage of the kernel's dequant: packed byte rows [64 stage,
+    64 stage + 64), nibble `plane`, as K rows k0 + 128 plane + r with k0 =
+    256 (stage // 2) + 64 (stage % 2); each weight through the kernel's
+    `dequant8` arithmetic: fma(2**23 + q, scale, -2**23 scale) (exact in
+    f64, one rounding to f32), then + bias in f32, then bf16."""
+    codes = w_q4[64 * stage:64 * stage + 64].to(torch.int64)
+    q = (codes >> (4 * plane)) & 0xF
+    k0 = 256 * (stage // 2) + 64 * (stage % 2) + 128 * plane
+    group = w_q4.shape[0] * 2 // scale.shape[0]
+    rows = (k0 + torch.arange(64)) // group
+    s, b = scale[rows].double(), bias[rows]
+    f = (2.0**23 + q).double()
+    prod = (f * s + (-2.0**23) * s).float()
+    return (prod + b).bfloat16(), k0
+
+
+def _int4_schedule_emulation(x, w_q4, scale, bias, fault=None):
+    """The fused kernel's arithmetic in its order: rows padded to the
+    256-row tile with zeros (TMA's fill), 128-column tiles; per stage the low plane's four k steps, then the high plane's, each the
+    X box at that plane's K rows; each k step 16 exact products added to
+    the f32 accumulator with one rounding; one rounding to bf16; rows past
+    M dropped. `fault`: "swapped_boxes" pairs each plane with the other
+    plane's X box, "skipped_stage" leaves stage 1 out."""
+    m, k = x.shape
+    n = w_q4.shape[1]
+    assert n % 128 == 0 and k % 256 == 0
+    rows = -(-m // 256) * 256
+    xp = torch.zeros(rows, k, dtype=torch.bfloat16)
+    xp[:m] = x
+    acc = torch.zeros(rows, n)
+    for stage in range(k // 128):
+        if fault == "skipped_stage" and stage == 1:
+            continue
+        for plane in (0, 1):
+            w, k0 = _dequant_plane_emulation(w_q4, scale, bias, stage, plane)
+            xk0 = k0 + (128 if plane == 0 else -128) if fault == "swapped_boxes" else k0
+            box = xp[:, xk0:xk0 + 64].double()
+            for kk in range(4):
+                step = box[:, 16 * kk:16 * kk + 16] @ w[16 * kk:16 * kk + 16].double()
+                acc = (acc.double() + step).float()
+    return acc[:m].bfloat16()
+
+
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 512, 256, 64), (77, 512, 384, 64), (1000, 256, 256, 64), (77, 768, 384, 96),
+    (300, 512, 512, 32)])
+def test_int4_kernel_schedule_emulation_within_the_bound(m, k, n, group):
+    """The card kernel's schedule (stages of 64 packed rows, each plane's
+    X box, k steps of 16, ragged rows past the 256-row tile) within the
+    int4 tolerance of int4_matmul_reference; its dequant bit for bit
+    dequant_int4_reference (the fma form of q * scale is exact)."""
+    case = checks.Int4Case("emulation", m, k, n, group)
+    x, qp = checks.int4_inputs(case, "cpu")
+    args = (qp["w_q4"], qp["scale"], qp["bias"])
+    dense = tq.dequant_int4_reference(*args)
+    for stage in range(k // 128):
+        for plane in (0, 1):
+            w, k0 = _dequant_plane_emulation(*args, stage, plane)
+            assert torch.equal(w.view(torch.int16), dense[k0:k0 + 64].view(torch.int16))
+    want = tq.int4_matmul_reference(x, *args)
+    got = _int4_schedule_emulation(x, *args)
+    share = ((got.float() - want.float()).abs()
+             / checks.int4_tolerance(x, qp, got, want)).max().item()
+    print(f"[parity] int4 kernel schedule {m}x{k}x{n} group {group}: {share:.3f} of the "
+          f"element bound")
+    assert share <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["swapped_boxes", "skipped_stage"])
+def test_int4_kernel_schedule_faults_break_the_bound(fault):
+    """A schedule that paired each plane's weights with the other plane's X
+    box, or left a stage out, breaks the int4 element bound."""
+    case = checks.Int4Case(fault, 64, 512, 256)
+    x, qp = checks.int4_inputs(case, "cpu")
+    args = (qp["w_q4"], qp["scale"], qp["bias"])
+    want = tq.int4_matmul_reference(x, *args)
+    got = _int4_schedule_emulation(x, *args, fault=fault)
+    share = ((got.float() - want.float()).abs()
+             / checks.int4_tolerance(x, qp, got, want)).max().item()
+    print(f"[parity] int4 kernel schedule with {fault}: {share:.1f} of the element bound")
+    assert share > 1.0
