@@ -11,21 +11,24 @@ Phases, each printing its own lines:
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and at ragged ones, each output element
      within its stated tolerance (ltx_tpu_torch.checks; attention against
-     the exact product, dequant_int4 with 0 error), with kernel, plain and library times and the card's bound
-     (the int4 product and its library call also by `queued_ms` at the
-     path's four shapes, dequant_int4 at its three);
-     the backward pair also bit for bit equal from run to run, its
-     gradients in the inputs' layouts, and timed queued beside sdpa's
-     backward;
-     then the tiny pipeline, the tiny two-stage I2V pipeline (its norms
-     through the rms_norm kernel) and the tiny LoRA train on the card
-     against the same weights and draws on the CPU;
+     the exact product, dequant_int4 with 0 error), with kernel, plain and
+     library times and the card's bound (the kernels and their library
+     calls by `queued_ms` at the paths' shapes, each idle-card time
+     beside); the backward pair and rms_norm also bit for bit equal from
+     run to run, rms_norm row by row alone or in other batches, with the
+     host's microseconds a call of its wrapper and of the plain chain;
+     then the tiny pipeline, the tiny two-stage I2V pipeline and the tiny
+     LoRA train on the card against the same weights and draws on the
+     CPU, the norms as the default route gives them;
   3. the bf16 main path: LTXPipeline.generate_video at full width and depth
      (Gemma-3-12B, the text connector, the 48-block DiT, the VAE decoder;
      random bf16 weights from a seeded generator) at 25 frames, 768x512,
-     8 distilled steps, with the kernel launch counts read around it;
-  3b. the two-stage path, every model norm through the rms_norm kernel:
-     LTXPipeline.generate_video_two_stage at full width and depth, I2V from
+     8 distilled steps, with the kernel launch counts read around it.
+     On every inference path below as here, nothing overrides the norm
+     route: every norm of the DiT and the connector launches rms_norm and
+     none takes the plain chain (`ops.normalization.rms_chain_on_cuda` read
+     beside the launch counts);
+  3b. the two-stage path: LTXPipeline.generate_video_two_stage at full width and depth, I2V from
      a seeded pixel array through encode_image at half and at full
      resolution (the full-width VAE encoder), 121 frames at 1024x576: a
      guided stage 1 at 512x288 (CFG 4, STG on block 29, rescale 0.7: three
@@ -35,8 +38,10 @@ Phases, each printing its own lines:
      step, and a temporally tiled decode (8 latent frames a tile, overlap
      2, uint8 tiles) to exactly 121 frames;
   3c. the batched path: generate_videos with two prompts at 25f@768x512,
-     each sample against its solo generate_video on the same noise; then
-     one denoise step timed under both norm choices;
+     each sample against its solo generate_video on the same noise, and one
+     DiT call on two rows bit for bit its solo call; then one denoise step
+     timed under the default dispatch and under `forced_rms_chain()`, in
+     turns;
   4. the int4 main path: the same DiT quantized to int4 in place on the
      card, the same generate_video and noise; every block linear through
      int4_matmul (8 steps x 48 blocks x 10);
@@ -51,12 +56,13 @@ Phases, each printing its own lines:
      to step 6; every attention through the statistics forward and the two
      backward kernels, the int4 base through int4_matmul forward and
      dequant_int4 in its straight-through backward, with the launch counts
-     read around every step; the checkpoint and the exported adapter read
-     back. (Phase 2 also holds the tiny LoRA train on the card against the
+     read around every step (the norms as the route gives them under
+     autograd: checks.rms_train_counts); the checkpoint and the exported
+     adapter read back. (Phase 2 also holds the tiny LoRA train on the card against the
      CPU, and the statistics and backward kernels against their plain
      versions.)
-  7. a JSON line of the seven kernels: launches (each from the path that runs
-     it), max error, kernel, plain and library ms, the bound and what sets
+  7. a JSON line of the seven kernels: launches (each from the first path
+     that runs it), max error, kernel, plain and library ms, the bound and what sets
      it, and `timing`, the clock that read the times ("idle": CUDA events
      around each call on an idle card; "queued": the launches queued behind
      other work, over buffers rotated past the L2's size);
@@ -68,6 +74,7 @@ or agree, the script raises and exits non-zero before the last line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -89,9 +96,9 @@ from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
 from ltx_tpu_torch.models.common import QuantizedLinear
 from ltx_tpu_torch.models.dit import quantize_transformer
-from ltx_tpu_torch.ops import schedule
+from ltx_tpu_torch.ops import normalization, schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
-from ltx_tpu_torch.ops.normalization import set_rms_impl
+from ltx_tpu_torch.ops.normalization import forced_rms_chain
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 from ltx_tpu_torch.pipeline.generate import GenerationTimings, LTXPipeline
 from ltx_tpu_torch.train import cli as train_cli
@@ -217,16 +224,24 @@ def sass_count(name: str, opcode: str):
     return sum(opcode in line for line in sass.splitlines())
 
 
+# template type arguments as the kernels' mangled names spell them (S1_: the
+# repeated __nv_bfloat16 of rms_norm_kernel<bf16, bf16, ...>)
+MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "S1_": "bf16"}
+
+
 def _kernel_name(mangled: str) -> str:
-    """A kernel's name and integer or bool template arguments from its
-    mangled name, e.g. flash_fwd_kernel<128,1,0,0>."""
+    """A kernel's name and template arguments from its mangled name, e.g.
+    flash_fwd_kernel<128,1,0,0> or rms_norm_kernel<bf16,f32,1>."""
     for m in re.finditer(r"\d+", mangled):
         # the length prefix may follow other digits (a hash in the namespace)
         idents = (mangled[m.end():m.end() + int(m.group()[i:])] for i in range(len(m.group())))
         ident = next((s for s in idents if s.endswith("kernel")), "")
         if ident:
-            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[m.end() + len(ident):])
-            vals = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+            args = re.match(r"I((?:L[ib]\d+E|13__nv_bfloat16|f|S1_)+)E",
+                            mangled[m.end() + len(ident):])
+            vals = [MANGLED_TYPES.get(a) or re.sub(r"L[ib](\d+)E", r"\1", a) for a in
+                    re.findall(r"L[ib]\d+E|13__nv_bfloat16|f|S1_", args.group(1))] \
+                if args else []
             return ident + (f"<{','.join(vals)}>" if vals else "")
     return mangled
 
@@ -290,12 +305,22 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def flash_calls(fn, q, k, v, bias, scale) -> list:
+    """Closures of fn(q, k, v, bias, scale) over copies of the inputs rotated
+    past the L2's size (`rotated_sets`), for `queued_ms`."""
+    ins = (q, k, v) if bias is None else (q, k, v, bias)
+    sets = rotated_sets(ins, q.numel() * q.element_size())
+    return [lambda s=s: fn(s[0], s[1], s[2], None if bias is None else s[3], scale)
+            for s in sets]
+
+
 def phase_flash_kernel(device) -> dict:
     """flash_attention against the exact product (checks.attention_exact)
     at the path's shapes and the ragged ones (checks.ATTN_CASES,
-    element-wise tolerance);
-    returns the kernels-line entry (without launches), timed at the DiT's
-    self-attention."""
+    element-wise tolerance); at the path's shapes (1024 queries and more)
+    the kernel and sdpa timed by `queued_ms` too; returns the kernels-line
+    entry (without launches), timed at the DiT's self-attention by
+    `queued_ms`, its idle-card `cuda_ms` beside it."""
     res = checks.check_pv_handoff(device)
     log(f"[kernel] flash_attention P hand-off (bf16(q k^T) as wgmma's register operand"
         f" of P V, one 128 x 128 tile): max_abs_err {res['max_abs_err']:.3e} of max"
@@ -318,21 +343,32 @@ def phase_flash_kernel(device) -> dict:
         nbytes = 2.0 * case.b * case.h * case.d * (2 * case.tq + 2 * case.tk) \
             + (0 if bias is None else 4.0 * case.b * case.tk)
         bound_ms, bound_by = bound(flops, nbytes)
-        timings[case.name] = (ms, plain, library, bound_ms, bound_by)
+        queued = ""
+        if case.tq >= 1024:
+            q_ms = queued_ms(flash_calls(fa.flash_attention, q, k, v, bias, case.scale))
+            q_lib = queued_ms(flash_calls(
+                lambda *a: F.scaled_dot_product_attention(
+                    *a[:3], attn_mask=None if a[3] is None else a[3].to(q.dtype), scale=a[4]),
+                q, k, v, bias, case.scale))
+            timings[case.name] = (q_ms, plain, q_lib, bound_ms, bound_by, ms, library)
+            queued = (f"; queued: kernel {q_ms:.4f} ms ({bound_ms / q_ms:.3f} of the bound, "
+                      f"{flops / q_ms * 1e-9:.1f} TFLOP/s), sdpa {q_lib:.4f} ms, kernel "
+                      f"{q_ms / q_lib:.2f}x sdpa")
         log(f"[kernel] flash_attention {case.name} q{(case.b, case.h, case.tq, case.d)}"
             f" k{(case.b, case.h, case.tk, case.d)} masked keys={case.pad}"
             f"{' (head)' if case.pad_left else ''} layout {case.layout}:"
             f" max_abs_err {res['max_abs_err']:.3e}, {res['tol_share']:.3f} of its"
             f" element's tolerance, {res['rel_to_max']:.3e} of max|exact|;"
-            f" kernel {ms:.4f} ms, plain {plain:.4f} ms, library (sdpa) {library:.4f} ms,"
+            f" idle: kernel {ms:.4f} ms, plain {plain:.4f} ms, library (sdpa) {library:.4f} ms,"
             f" bound {bound_ms:.4f} ms ({bound_by}); {flops / ms * 1e-9:.1f} TFLOP/s,"
-            f" {bound_ms / ms:.3f} of the bound, {ms / library:.2f}x sdpa")
-    ms, plain, library, bound_ms, bound_by = timings["dit_self_attn"]
+            f" {bound_ms / ms:.3f} of the bound, {ms / library:.2f}x sdpa" + queued)
+    ms, plain, library, bound_ms, bound_by, idle_ms, idle_lib = timings["dit_self_attn"]
     return {"name": "flash_attention", "route": "cuda",
             "source": "ltx_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "ltx_tpu/kernels/flash_attention.py:124",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+            "timing": "queued", "idle_ms": idle_ms, "idle_library_ms": idle_lib}
 
 
 def int4_bytes(m: int, k: int, n: int, group: int) -> float:
@@ -478,11 +514,13 @@ def phase_flash_training_kernels(device):
         work = b * h * tq * tk * d
         io = 2.0 * b * h * d * (tq + tk) + (0 if bias is None else 4.0 * b * tk)
         # the forward: read q, k, v, write o; the statistics 8 bytes a row
-        s_ms = cuda_ms(lambda: fa.flash_attention_stats(q, k, v, bias, case.scale))
+        s_idle = cuda_ms(lambda: fa.flash_attention_stats(q, k, v, bias, case.scale))
+        s_ms = queued_ms(flash_calls(fa.flash_attention_stats, q, k, v, bias, case.scale))
         s_plain = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, bias, case.scale,
                                                                return_stats=True))
-        s_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                               scale=case.scale))
+        s_lib = queued_ms(flash_calls(
+            lambda *a: F.scaled_dot_product_attention(*a[:3], attn_mask=mask, scale=a[4]),
+            q, k, v, bias, case.scale))
         s_bound = bound(4.0 * work, io + 2.0 * b * h * tq * d + 8.0 * b * h * tq)
         # the backward: delta as the wrapper computes it, then each kernel;
         # dq reads q, k, v, dO, lse, delta and writes dQ (S, dP, dQ: 6 flops
@@ -508,13 +546,14 @@ def phase_flash_training_kernels(device):
         dkv_bound = bound(8.0 * work, io + rows + 4.0 * b * h * tk * d)
         pair_bound = bound(10.0 * work, io + rows + 2.0 * b * h * d * (tq + 2 * tk))
         timings[case.name] = (s_ms, s_plain, s_lib, s_bound, dq_ms, dkv_ms, b_plain, b_lib,
-                              dq_bound, dkv_bound, dq_idle, dkv_idle)
+                              dq_bound, dkv_bound, dq_idle, dkv_idle, s_idle)
         pair = dq_ms + dkv_ms
         log(f"[kernel] flash_attention_stats {case.name} q{(b, h, tq, d)} k{(b, h, tk, d)} "
             f"bias={case.bias} layout {case.layout}: max_abs_err {st['max_abs_err']:.3e}, out "
             f"{st['tol_share']:.3f}, m {st['m_share']:.3f}, l {st['l_share']:.3f} of their "
-            f"tolerances; kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms, library (sdpa fwd) "
-            f"{s_lib:.4f} ms, bound {s_bound[0]:.4f} ms ({s_bound[1]});"
+            f"tolerances; queued: kernel {s_ms:.4f} ms ({s_idle:.4f} from an idle card), "
+            f"library (sdpa fwd) {s_lib:.4f} ms; plain {s_plain:.4f} ms (idle), bound "
+            f"{s_bound[0]:.4f} ms ({s_bound[1]});"
             f" {4.0 * work / s_ms * 1e-9:.1f} TFLOP/s, {s_bound[0] / s_ms:.3f} of the bound,"
             f" {s_ms / s_lib:.2f}x sdpa's forward")
         log(f"[kernel] flash_attention backward {case.name} layout {case.layout}: dq err "
@@ -539,14 +578,14 @@ def phase_flash_training_kernels(device):
         log(f"[kernel] flash_attention backward {name}: two runs, differing values "
             f"{json.dumps(res)} (bitwise equal)")
     (s_ms, s_plain, s_lib, s_bound, dq_ms, dkv_ms, b_plain, b_lib, dq_bound,
-     dkv_bound, dq_idle, dkv_idle) = timings["dit_self_attn"]
+     dkv_bound, dq_idle, dkv_idle, s_idle) = timings["dit_self_attn"]
     src = "ltx_tpu_torch/csrc/flash_attention_bwd.cu"
     return [
         {"name": "flash_attention_stats", "route": "cuda",
          "source": "ltx_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "ltx_tpu/kernels/flash_attention.py:124", "max_abs_err": errs["stats"],
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0], "bound_by": s_bound[1],
-         "library_ms": s_lib},
+         "library_ms": s_lib, "timing": "queued", "idle_ms": s_idle},
         {"name": "flash_attention_bwd_dq", "route": "cuda", "source": src,
          "replaces": "ltx_tpu/kernels/flash_attention.py:347", "max_abs_err": errs["dq"],
          "ms": dq_ms, "plain_ms": b_plain, "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
@@ -560,17 +599,42 @@ def phase_flash_training_kernels(device):
 
 
 RMS_LINE_CASE = "dit_stage1_qk"  # the kernels line's shape: three rows of 2304 tokens
+RMS_HOST_CASE = "north_star_qk"  # the host's microseconds a call, at (1536, 4096)
+HOST_CALLS = 100  # calls a timed run of `host_us`
+
+
+def host_us(fn) -> float:
+    """Host microseconds a call of fn() while the card is busy with earlier
+    work (LEAD_PRODUCTS matrix products queued ahead, longer than the host
+    takes for HOST_CALLS calls), so that the host never waits for the card:
+    the median of five runs of HOST_CALLS calls."""
+    fn()
+    blocker = torch.zeros(8192, 8192, dtype=torch.bfloat16, device="cuda")
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        for _ in range(LEAD_PRODUCTS):
+            torch.matmul(blocker, blocker)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        runs.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+    torch.cuda.synchronize()
+    return sorted(runs)[2]
 
 
 def phase_rms_kernel(device) -> dict:
-    """rms_norm against rms_norm_reference at the two-stage and north-star
-    paths' shapes and at ragged ones (checks.RMS_CASES, element-wise
+    """rms_norm against rms_norm_reference at the inference paths' shapes
+    and at ragged, wide and chunked ones (checks.RMS_CASES, element-wise
     tolerance), each with kernel, plain and library (F.rms_norm, timed and
     never called by the port) times and the bound by bytes: x read once, the
     output written once. The times are `queued_ms`'s (the device's, the
     launches queued as in a DiT step, over buffers rotated past the L2's
     size); the kernel's `cuda_ms` on an idle card, which adds the host's
-    launch time, is printed beside them and kept as `idle_ms`.
+    launch time, is printed beside them and kept as `idle_ms`. Then the
+    kernel twice and row by row (checks.RMS_BITWISE_CASES, bit for bit), and
+    the host's microseconds a call at (1536, 4096): the wrapper, the routed
+    `ops.normalization.rms_norm`, and the plain chain it replaces.
     Returns the kernels-line entry (without launches), timed at stage 1's
     weighted norm."""
     max_err = 0.0
@@ -591,19 +655,41 @@ def phase_rms_kernel(device) -> dict:
         # a square and an add, then one or two products a value, all f32
         bound_ms, bound_by = bound(4.0 * x.numel(), nbytes, PEAK_F32_FLOPS)
         timings[case.name] = (ms, plain, library, bound_ms, bound_by, idle_ms)
+        g = rk.geometry(case.rows, case.d, x.element_size(),
+                        0 if w is None else w.element_size(),
+                        torch.cuda.get_device_properties(device).multi_processor_count)
         log(f"[kernel] rms_norm {case.name} ({case.rows}, {case.d}) {case.dtype} "
             f"weight={case.weight}: max_abs_err {res['max_abs_err']:.3e}, "
             f"{res['tol_share']:.3f} of its element's tolerance, "
             f"{res['differ_share']:.3e} of the elements differ from plain; kernel "
             f"{ms:.4f} ms ({idle_ms:.4f} ms from an idle card), plain {plain:.4f} ms, "
-            f"library (F.rms_norm) {library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"library (F.rms_norm) {library:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{bound_ms / ms:.3f} of the bound, {ms / library:.2f}x F.rms_norm, "
+            f"{nbytes / ms * 1e-6:.0f} GB/s; grid {g.grid} x {g.warps} warps, "
+            f"{g.stages} stages of {g.stage_bytes} B, {g.chunks} chunk(s) a row")
+    for name in checks.RMS_BITWISE_CASES:
+        case = next(c for c in checks.RMS_CASES if c.name == name)
+        res = checks.check_rms_bitwise(case, device)
+        log(f"[kernel] rms_norm {name}: two runs and rows alone or in other batches, "
+            f"differing values {json.dumps(res)} (bitwise equal)")
+    case = next(c for c in checks.RMS_CASES if c.name == RMS_HOST_CASE)
+    x, w = checks.rms_inputs(case, device)
+    with torch.inference_mode():
+        wrapper = host_us(lambda: rk.rms_norm(x, w))
+        routed = host_us(lambda: normalization.rms_norm(x, w))
+        with forced_rms_chain():
+            chain = host_us(lambda: normalization.rms_norm(x, w))
+    log(f"[kernel] rms_norm host time a call at ({case.rows}, {case.d}), the card busy: "
+        f"wrapper {wrapper:.1f} us, routed ops.normalization.rms_norm {routed:.1f} us, "
+        f"forced plain chain {chain:.1f} us")
     ms, plain, library, bound_ms, bound_by, idle_ms = timings[RMS_LINE_CASE]
     return {"name": "rms_norm", "route": "cuda",
             "source": "ltx_tpu_torch/csrc/rms_norm.cu",
             "replaces": "ltx_tpu/kernels/rms_norm.py:48",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
-            "timing": "queued", "idle_ms": idle_ms}
+            "timing": "queued", "idle_ms": idle_ms, "host_us": wrapper,
+            "chain_host_us": chain}
 
 
 def phase_tiny_agreement(device) -> None:
@@ -636,21 +722,35 @@ KERNELS = {"flash_attention": fa.flash_attention,
            "rms_norm": rk.rms_norm}
 
 
-NO_LAUNCHES = {name: 0 for name in KERNELS}
+# the kernels' launches and, beside them, the CUDA calls of rms_norm that
+# took the plain chain (ops.normalization.rms_chain_on_cuda)
+CHAIN = "rms_chain_on_cuda"
+NO_LAUNCHES = {**{name: 0 for name in KERNELS}, CHAIN: 0}
 
 
 def reset_counts() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+    normalization.rms_chain_on_cuda = 0
 
 
 def read_counts() -> dict:
-    return {name: kernel.launches for name, kernel in KERNELS.items()}
+    return {**{name: kernel.launches for name, kernel in KERNELS.items()},
+            CHAIN: normalization.rms_chain_on_cuda}
+
+
+def norm_launches(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
+    """The rms_norm launches of a full-width inference path on the card:
+    every norm of the DiT and the connector through the kernel, none
+    through the chain."""
+    return {"rms_norm": checks.rms_inference_counts(tcfg, tecfg, dit_calls, text_passes)[0],
+            CHAIN: 0}
 
 
 def run_counted(fn):
-    """fn() with every kernel's launch count set to 0 just before it and
-    read just after; returns (fn's result, {kernel: launches})."""
+    """fn() with every kernel's launch count (and the chain count) set to 0
+    just before it and read just after; returns (fn's result, {kernel:
+    launches})."""
     reset_counts()
     out = fn()
     return out, read_counts()
@@ -708,15 +808,17 @@ def phase_main_path(device):
     noise = generate_noise(shape, torch.Generator(device=device).manual_seed(0))
     steps = len(pipe._sigmas(NORTH_STAR, shape)) - 1
     expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
-                + pipe.tecfg.connector_layers}
+                + pipe.tecfg.connector_layers,
+                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
     return pipe, noise, steps, north_star_run("main", pipe, noise, expected, device)
 
 
 def phase_two_stage(pipe: LTXPipeline, device) -> dict:
     """generate_video_two_stage at full width and depth, I2V, guided stage
-    1, tiled decode, with every model norm through the rms_norm kernel.
-    Checks the launches of flash_attention and rms_norm against the counts
-    the code implies, and the frames. Returns the launches."""
+    1, tiled decode; every model norm through the rms_norm kernel by the
+    default route. Checks the launches of flash_attention and rms_norm (and
+    no norm through the chain) against the counts the code implies, and the
+    frames. Returns the launches."""
     config = TWO_STAGE
     tcfg, tecfg = pipe.tcfg, pipe.tecfg
     c = tcfg.in_channels
@@ -730,8 +832,7 @@ def phase_two_stage(pipe: LTXPipeline, device) -> dict:
     dit_calls = n1 + n2
     expected = {**NO_LAUNCHES,
                 "flash_attention": dit_calls * tcfg.num_layers * 2 + tecfg.connector_layers,
-                "rms_norm": dit_calls * checks.rms_launches_per_dit_call(tcfg)
-                + checks.rms_launches_per_encode(tecfg)}
+                **norm_launches(tcfg, tecfg, dit_calls, 1)}
     gen = torch.Generator(device=device).manual_seed(7)
     image = torch.rand(1, 3, 1, config.height, config.width, generator=gen,
                        device=device) * 2 - 1
@@ -746,7 +847,6 @@ def phase_two_stage(pipe: LTXPipeline, device) -> dict:
         f"{GuidanceSpec.from_config(config, use_cfg=False).num_rows} rows (no CFG, STG "
         f"kept), {n2} steps; decode tiles of "
         f"{tiles} latent frames; expected launches {json.dumps(expected)}")
-    set_rms_impl("cuda")
     try:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -763,7 +863,6 @@ def phase_two_stage(pipe: LTXPipeline, device) -> dict:
             PROMPT, config, image_latent=half, full_res_image_latent=full, **draws))
         peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     finally:
-        set_rms_impl("torch")
         pipe.memory = memory
     tm = result.timings
     log(f"[two-stage] image latents {tuple(half.shape)} and {tuple(full.shape)}: encoder "
@@ -786,7 +885,7 @@ def phase_batched(pipe: LTXPipeline, device) -> None:
     """generate_videos with two prompts at the north star, then each prompt
     alone through generate_video on the same noise: each batched sample
     within BATCH_FRAME_ATOL of its solo run; the norms through the rms_norm
-    kernel in all three."""
+    kernel in all three, by the default route."""
     config = NORTH_STAR
     shape = VideoLatentShape.from_pixels(len(BATCH_PROMPTS), config.num_frames,
                                          config.height, config.width,
@@ -795,16 +894,7 @@ def phase_batched(pipe: LTXPipeline, device) -> None:
     steps = len(pipe._sigmas(config, shape)) - 1
     expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
                 + pipe.tecfg.connector_layers,
-                "rms_norm": steps * checks.rms_launches_per_dit_call(pipe.tcfg)
-                + checks.rms_launches_per_encode(pipe.tecfg)}
-    set_rms_impl("cuda")
-    try:
-        _batched_and_solo(pipe, config, noise, expected, device)
-    finally:
-        set_rms_impl("torch")
-
-
-def _batched_and_solo(pipe, config, noise, expected, device) -> None:
+                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -898,7 +988,8 @@ def first_differing_sublayer(pipe: LTXPipeline, config: GenerationConfig, device
     (Gemma and the connector) on the two prompts against the first alone,
     and one bf16 DiT call (a denoise step) on two rows, two latents and two
     text contexts against the first row alone, with forward hooks on every
-    sub-layer."""
+    sub-layer. The DiT call, its norms through the rms_norm kernel, must be
+    bit for bit its solo call."""
     first, solo, both = first_difference(
         {"gemma": pipe.gemma, "text_encoder": pipe.text_encoder},
         lambda: pipe.encode_prompts(BATCH_PROMPTS[:1]),
@@ -931,12 +1022,18 @@ def first_differing_sublayer(pipe: LTXPipeline, config: GenerationConfig, device
         pipe._release("transformer")
     diff = (v_both[:1].float() - v_solo.float()).abs().max().item()
     _log_difference("one DiT call", first, f"the velocity differs by {diff:.3e}")
+    if first is not None or diff != 0.0:
+        raise AssertionError(f"batched: one DiT call on two rows is not bit for bit its "
+                             f"solo call ({first}, velocity {diff})")
 
 
-def phase_norm_choice(pipe: LTXPipeline, device) -> None:
-    """One bf16 north-star denoise step under both norm choices: the plain
-    chain, the kernel, the kernel, the plain chain; three synchronised
-    steps each after one warm-up, with the rms_norm launches of a step."""
+def phase_norm_choice(pipe: LTXPipeline, device) -> dict:
+    """One bf16 north-star denoise step under the default dispatch (every
+    norm through the rms_norm kernel) and under `forced_rms_chain()`, in
+    turns: the chain, the default, the default, the chain; three
+    synchronised steps each after one warm-up, with each step's kernel
+    launches and chain calls checked. The two velocities within 5e-2 of the
+    largest. Returns the medians in ms."""
     config = NORTH_STAR
     shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
                                          config.width, channels=pipe.tcfg.in_channels)
@@ -949,37 +1046,39 @@ def phase_norm_choice(pipe: LTXPipeline, device) -> None:
     transformer = pipe._on_device("transformer", GenerationTimings())
     step = make_denoise_step(transformer, GuidanceSpec.from_config(config), shape,
                              context, bias, fps=config.fps)
-    times = {"torch": [], "cuda": []}
+    norms = checks.rms_launches_per_dit_call(pipe.tcfg)
+    want = {"chain": {"rms_norm": 0, CHAIN: norms}, "default": {"rms_norm": norms, CHAIN: 0}}
+    times = {"chain": [], "default": []}
     outs = {}
     try:
-        for impl in ("torch", "cuda", "cuda", "torch"):
-            set_rms_impl(impl)
-            with torch.inference_mode():
+        for choice in ("chain", "default", "default", "chain"):
+            with forced_rms_chain() if choice == "chain" else contextlib.nullcontext(), \
+                    torch.inference_mode():
                 step(latent, 1.0, 0.9)
                 torch.cuda.synchronize(device)
                 for _ in range(3):
                     t0 = time.perf_counter()
                     (_, velocity), launches = run_counted(lambda: step(latent, 1.0, 0.9))
                     torch.cuda.synchronize(device)
-                    times[impl].append(time.perf_counter() - t0)
-            outs[impl] = velocity
-            want = checks.rms_launches_per_dit_call(pipe.tcfg) if impl == "cuda" else 0
-            if launches["rms_norm"] != want:
-                raise AssertionError(f"norm choice {impl}: {launches['rms_norm']} rms_norm "
-                                     f"launches in a step, expected {want}")
+                    times[choice].append(time.perf_counter() - t0)
+                    got = {k: launches[k] for k in want[choice]}
+                    if got != want[choice]:
+                        raise AssertionError(f"norm choice {choice}: {got} in a step, expected "
+                                             f"{want[choice]}")
+            outs[choice] = velocity
     finally:
-        set_rms_impl("torch")
         pipe._release("transformer")
-    diff = (outs["cuda"] - outs["torch"]).abs().max().item()
-    scale = outs["torch"].abs().max().item()
-    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
-    log(f"[norm] one bf16 denoise step at {shape.token_count} tokens: plain chain "
-        f"{med['torch'] * 1e3:.2f} ms, rms_norm kernel {med['cuda'] * 1e3:.2f} ms (medians "
-        f"of 6 synchronised steps each; all: "
+    diff = (outs["default"] - outs["chain"]).abs().max().item()
+    scale = outs["chain"].abs().max().item()
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+    log(f"[norm] one bf16 denoise step at {shape.token_count} tokens: forced chain "
+        f"{med['chain']:.2f} ms, default (rms_norm kernel, {norms} launches) "
+        f"{med['default']:.2f} ms (medians of 6 synchronised steps each; all: "
         + json.dumps({k: [round(t * 1e3, 2) for t in v] for k, v in times.items()})
         + f"); velocity differs by {diff:.3e} of max {scale:.3e}")
     if not (np.isfinite(diff) and diff <= 5e-2 * scale):
         raise AssertionError(f"norm choice: velocities differ by {diff} (max {scale})")
+    return med
 
 
 def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device) -> dict:
@@ -995,7 +1094,8 @@ def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device)
         f"{time.perf_counter() - t0:.2f} s; DiT now {nbytes / 1e9:.2f} GB")
     layers = pipe.tcfg.num_layers
     expected = {**NO_LAUNCHES, "flash_attention": steps * layers * 2
-                + pipe.tecfg.connector_layers, "int4_matmul": steps * layers * 10}
+                + pipe.tecfg.connector_layers, "int4_matmul": steps * layers * 10,
+                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
     launches, int4_run = north_star_run("int4", pipe, noise, expected, device)
     for name, (result, peak) in (("bf16", bf16_run), ("int4", int4_run)):
         tm, frames = result.timings, result.frames
@@ -1036,7 +1136,8 @@ def phase_big_m(pipe: LTXPipeline, device) -> dict:
         f"mean {velocity.mean().item():.4f}, std {velocity.std().item():.4f}")
     check_launches("bigm", launches, {**NO_LAUNCHES, "flash_attention": layers * 2,
                                       "int4_matmul": layers * 2,
-                                      "dequant_int4": layers * 8})
+                                      "dequant_int4": layers * 8,
+                                      **norm_launches(pipe.tcfg, pipe.tecfg, 1, 0)})
     if shape.token_count < qz.BIG_M_DEQUANT_THRESHOLD or \
             not (torch.isfinite(out).all() and torch.isfinite(velocity).all()):
         raise AssertionError("bigm: not a big-M shape, or non-finite output")
@@ -1058,11 +1159,15 @@ def train_step_launches(cfg: TransformerConfig) -> dict:
     attention's dq and dkv kernels once, and the straight-through backward
     dequantizes once per int4 linear whose input needs a gradient: not
     block 0's attn1 q/k/v (their input is the frozen patchify projection's)
-    nor any attn2 to_k/to_v (the frozen caption projection's)."""
+    nor any attn2 to_k/to_v (the frozen caption projection's). The norms go
+    as the route gives them in a LoRA step (checks.rms_train_counts): the
+    kernel for block 0's first adaln in both forwards, the chain for the
+    rest."""
     layers = cfg.num_layers
     return {**NO_LAUNCHES, "flash_attention_stats": 2 * 2 * layers,
             "flash_attention_bwd_dq": 2 * layers, "flash_attention_bwd_dkv": 2 * layers,
-            "int4_matmul": 2 * 10 * layers, "dequant_int4": 10 * layers - 3 - 2 * layers}
+            "int4_matmul": 2 * 10 * layers, "dequant_int4": 10 * layers - 3 - 2 * layers,
+            **checks.rms_train_counts(cfg, forwards=2)}
 
 
 def write_train_shard(directory) -> None:
@@ -1175,7 +1280,8 @@ def main() -> int:
     phase_tiny_agreement(device)
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
     flash["launches"] = launches["flash_attention"]
-    rms["launches"] = phase_two_stage(pipe, device)["rms_norm"]
+    rms["launches"] = launches["rms_norm"]
+    phase_two_stage(pipe, device)
     phase_batched(pipe, device)
     phase_norm_choice(pipe, device)
     matmul["launches"] = phase_int4_main_path(pipe, noise, steps, bf16_run,

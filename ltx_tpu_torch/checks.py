@@ -110,7 +110,7 @@ from ltx_tpu_torch.models.dit import LTXTransformer
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from ltx_tpu_torch.ops import schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape
-from ltx_tpu_torch.ops.normalization import get_rms_impl, set_rms_impl
+from ltx_tpu_torch.ops import normalization
 from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
 from ltx_tpu_torch.train.flow_match import flow_match_loss
@@ -582,7 +582,13 @@ RMS_CASES = (
     RmsCase("ragged_d4096_f32", 1537, 4096, "float32"),
     RmsCase("wide_d16384", 5, 16384, weight="bfloat16"),
     RmsCase("wide_d16384_f32", 3, 16384, "float32", "bfloat16"),
+    # rows too wide for two stages of a warp's ring: streamed in chunks, twice
+    RmsCase("chunked_d32768_f32", 2, 32768, "float32", "float32"),
+    RmsCase("chunked_d65536", 3, 65536, weight="bfloat16"),
 )
+# the cases whose rows are also run alone and in other batches, and twice
+RMS_BITWISE_CASES = ("north_star_qk", "connector_two_rows_out", "ragged_d4096_f32",
+                     "chunked_d32768_f32")
 RMS_F32_ULPS = 16  # the f32 term of the RMSNorm tolerance (docstring)
 
 
@@ -631,6 +637,24 @@ def check_rms(case: RmsCase, device, eps: float = 1e-6) -> dict:
     if not (out["tol_share"] <= 1.0 and torch.isfinite(got.float()).all()):
         raise AssertionError(f"rms_norm {case.name}: error {out['max_abs_err']:.3e} is "
                              f"{out['tol_share']:.3f} of its element's tolerance")
+    return out
+
+
+def check_rms_bitwise(case: RmsCase, device, eps: float = 1e-6) -> dict:
+    """The kernel twice on the case's rows, then some rows (the first, one
+    in the middle, the last) alone and a run of rows from the middle as a
+    batch of its own: every output row bit for bit the same. Raises
+    AssertionError otherwise; returns the counts of differing values."""
+    x, weight = rms_inputs(case, device)
+    full = rk.rms_norm(x, weight, eps)
+    out = {"run_to_run": int((rk.rms_norm(x, weight, eps) != full).sum())}
+    mid = case.rows // 2
+    for name, rows in (("first_alone", slice(0, 1)), ("middle_alone", slice(mid, mid + 1)),
+                       ("last_alone", slice(case.rows - 1, case.rows)),
+                       ("middle_run", slice(mid // 2, mid // 2 + max(1, case.rows // 3)))):
+        out[name] = int((rk.rms_norm(x[rows], weight, eps) != full[rows]).sum())
+    if any(out.values()):
+        raise AssertionError(f"rms_norm {case.name}: not bitwise the same {out}")
     return out
 
 
@@ -718,9 +742,11 @@ def _move(pipe: LTXPipeline, device) -> LTXPipeline:
 
 
 def check_tiny_pipeline(device) -> dict:
-    """The tiny pipeline on `device` (its kernels) against the same weights
-    on the CPU (the plain versions, held against the reference by the CPU
-    tests). Raises AssertionError on a disagreement or a wrong launch count.
+    """The tiny pipeline on `device` (its kernels; the norms through the
+    rms_norm kernel by the default route where the width allows: the DiT's
+    128, not the tiny connector's 64) against the same weights on the CPU
+    (the plain versions, held against the reference by the CPU tests).
+    Raises AssertionError on a disagreement or a wrong launch count.
     Returns the max abs error on the frames and the kernel launches."""
     config = GenerationConfig(width=64, height=64, num_frames=9, num_steps=8, seed=3)
     cpu = LTXPipeline.random_tiny(device="cpu", seed=2)
@@ -731,11 +757,13 @@ def check_tiny_pipeline(device) -> dict:
 
     dev = LTXPipeline.random_tiny(device="cpu", seed=2)
     _move(dev, device)
-    before = fa.flash_attention.launches
+    before = _tiny_counts()
     got = dev.generate_video("a tiny prompt", config, noise).frames
-    launches = fa.flash_attention.launches - before
-    # steps x blocks x (self + cross) + one per connector layer
-    expected = config.num_steps * dev.tcfg.num_layers * 2 + dev.tecfg.connector_layers
+    launches = [a - b for a, b in zip(_tiny_counts(), before)]
+    # flash: steps x blocks x (self + cross) + one per connector layer; the
+    # norms through the rms_norm kernel where their width allows it
+    expected = [config.num_steps * dev.tcfg.num_layers * 2 + dev.tecfg.connector_layers,
+                *rms_inference_counts(dev.tcfg, dev.tecfg, config.num_steps, 1)]
     err = float(np.abs(got - want).max())
     if got.shape != want.shape or not np.isfinite(got).all():
         raise AssertionError(f"tiny pipeline: frames {got.shape}, finite "
@@ -745,13 +773,23 @@ def check_tiny_pipeline(device) -> dict:
     if launches != expected:
         raise AssertionError(f"tiny pipeline: {launches} kernel launches, "
                              f"expected {expected}")
-    return {"max_abs_err": err, "launches": launches}
+    return {"max_abs_err": err, "launches": dict(zip(_TINY_COUNTS, launches))}
+
+
+_TINY_COUNTS = ("flash_attention", "rms_norm", "rms_chain_on_cuda")
+
+
+def _tiny_counts() -> list:
+    """The flash and rms_norm kernels' launches and the chain-on-CUDA count."""
+    return [fa.flash_attention.launches, rk.rms_norm.launches,
+            normalization.rms_chain_on_cuda]
 
 
 def rms_launches_per_encode(tecfg) -> int:
     """rms_norm kernel launches of one connector pass (any batch): per block
     two weightless norms and the q and k norms, and the final norm; none
-    when the connector's width is not a multiple of 128."""
+    when the connector's width is not a multiple of 128 (they take the
+    chain)."""
     if tecfg.inner_dim % rk.LANES:
         return 0
     return tecfg.connector_layers * 4 + 1
@@ -759,14 +797,46 @@ def rms_launches_per_encode(tecfg) -> int:
 
 def rms_launches_per_dit_call(tcfg) -> int:
     """rms_norm kernel launches of one DiT call, whatever its rows: per
-    block attn1's and attn2's q and k norms and the two adaln norms."""
+    block attn1's and attn2's q and k norms and the two adaln norms; none
+    when the width is not a multiple of 128 (they take the chain)."""
     return 0 if tcfg.inner_dim % rk.LANES else 6 * tcfg.num_layers
 
 
+def rms_inference_counts(tcfg, tecfg, dit_calls: int, text_passes: int) -> list:
+    """[rms_norm kernel launches, chain calls on the card] of an inference
+    run (nothing recorded by autograd): every norm of a width that is a
+    multiple of 128 through the kernel, the rest through the chain."""
+    launches = (dit_calls * rms_launches_per_dit_call(tcfg)
+                + text_passes * rms_launches_per_encode(tecfg))
+    calls = dit_calls * 6 * tcfg.num_layers + text_passes * (tecfg.connector_layers * 4 + 1)
+    return [launches, calls - launches]
+
+
+def rms_train_counts(tcfg, forwards: int = 2) -> dict:
+    """{"rms_norm": kernel launches, "rms_chain_on_cuda": plain-chain calls}
+    of the DiT's norms in one LoRA train step on the card, with LoRA on every
+    block linear (attention q/k/v/out, both FF linears) and everything else
+    frozen; `forwards` is the DiT forwards the step runs while autograd
+    records: 2 with per-block remat (the step's forward, then each block's
+    recompute in the backward), 1 without, 3 with segmented remat.
+
+    `ops.normalization.rms_route` gives a norm the kernel wherever nothing
+    upstream of it requires grad. Every q and k norm reads the output of a
+    linear with LoRA, and every adaln after block 0's first reads a hidden
+    state that a LoRA branch has fed, so one norm a forward qualifies:
+    block 0's pre-attention adaln, on the frozen patchify projection of the
+    noised latents. The other 6 * num_layers - 1 take the chain (all of them
+    where the width is not a multiple of 128)."""
+    calls = 6 * tcfg.num_layers * forwards
+    kernel = 0 if tcfg.inner_dim % rk.LANES else forwards
+    return {"rms_norm": kernel, "rms_chain_on_cuda": calls - kernel}
+
+
 def check_tiny_two_stage(device) -> dict:
-    """The tiny two-stage I2V pipeline on `device`, its norms through the
-    rms_norm kernel, against the same weights and draws on the CPU (the
-    plain versions, held against the reference by the CPU tests): both
+    """The tiny two-stage I2V pipeline on `device`, its DiT's norms through
+    the rms_norm kernel by the default route, against the same weights and
+    draws on the CPU (the plain versions, held against the reference by the
+    CPU tests): both
     image encodes, a CFG + STG + rescale stage 1 with re-noised
     conditioning, the upscaler and AdaIN, the refine, and a tiled uint8
     decode that blends. Raises AssertionError on a disagreement or a wrong
@@ -801,18 +871,11 @@ def check_tiny_two_stage(device) -> dict:
     cpu = LTXPipeline.random_tiny(device="cpu", seed=2, memory=memory)
     want, dit_steps = run(cpu)
     dev = _move(LTXPipeline.random_tiny(device="cpu", seed=2, memory=memory), device)
-    counters = (fa.flash_attention, rk.rms_norm)
-    before = [c.launches for c in counters]
-    previous = get_rms_impl()
-    set_rms_impl("cuda")
-    try:
-        got, _ = run(dev)
-    finally:
-        set_rms_impl(previous)
-    launches = [c.launches - b for c, b in zip(counters, before)]
+    before = _tiny_counts()
+    got, _ = run(dev)
+    launches = [a - b for a, b in zip(_tiny_counts(), before)]
     expected = [dit_steps * dev.tcfg.num_layers * 2 + dev.tecfg.connector_layers,
-                dit_steps * rms_launches_per_dit_call(dev.tcfg)
-                + rms_launches_per_encode(dev.tecfg)]
+                *rms_inference_counts(dev.tcfg, dev.tecfg, dit_steps, 1)]
     err = float(np.abs(got - want).max())
     if got.shape != want.shape or got.shape[0] != config.num_frames \
             or not np.isfinite(got).all():
@@ -822,7 +885,7 @@ def check_tiny_two_stage(device) -> dict:
     if launches != expected:
         raise AssertionError(f"tiny two-stage: launches {launches}, expected {expected}")
     return {"max_abs_err": err, "mean_abs_err": float(np.abs(got - want).mean()),
-            "launches": dict(zip(("flash_attention", "rms_norm"), launches))}
+            "launches": dict(zip(_TINY_COUNTS, launches))}
 
 
 # the tiny LoRA train, device against CPU, bf16 compute: the flow-matching
@@ -897,24 +960,32 @@ def check_tiny_train(device, dtype=torch.bfloat16) -> dict:
     returns the errors and the kernel launches."""
     model, batch, draws = _tiny_train_case(dtype)
     want = _tiny_train_run(copy.deepcopy(model), batch, draws, "cpu", dtype)
-    counters = (fa.flash_attention_stats, fa.flash_attention_bwd_dq,
-                fa.flash_attention_bwd_dkv, fa.flash_attention)
-    before = [c.launches for c in counters]
+    names = ("flash_attention_stats", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+             "flash_attention", "rms_norm", "rms_chain_on_cuda")
+
+    def counts():
+        return [fa.flash_attention_stats.launches, fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches, fa.flash_attention.launches,
+                rk.rms_norm.launches, normalization.rms_chain_on_cuda]
+
+    before = counts()
     got = _tiny_train_run(model.to(device), batch, draws, device, dtype)
-    launches = [c.launches - b for c, b in zip(counters, before)]
+    launches = [a - b for a, b in zip(counts(), before)]
     layers = len(model.blocks)
     # one backward alone, then the steps; each a remat forward, the blocks'
-    # recompute (stats), and one backward (dq, dkv) per attention
+    # recompute (stats), and one backward (dq, dkv) per attention; the norms
+    # as the route gives them in a LoRA step (rms_train_counts)
     calls = 1 + TINY_TRAIN_STEPS
-    expected = [calls * 2 * 2 * layers, calls * 2 * layers, calls * 2 * layers, 0]
+    norms = rms_train_counts(model.cfg, forwards=2)
+    expected = [calls * 2 * 2 * layers, calls * 2 * layers, calls * 2 * layers, 0,
+                calls * norms["rms_norm"], calls * norms["rms_chain_on_cuda"]]
     out = {
         "grad_rel": _rel(torch.cat([g.flatten() for g in got[0].values()]),
                          torch.cat([g.flatten() for g in want[0].values()])),
         "loss_rel": max(_rel(g, w) for g, w in zip(got[1], want[1])),
         "lora_rel": _rel(torch.cat([p.flatten() for p in got[2].values()]),
                          torch.cat([p.flatten() for p in want[2].values()])),
-        "launches": dict(zip(("flash_attention_stats", "flash_attention_bwd_dq",
-                              "flash_attention_bwd_dkv", "flash_attention"), launches)),
+        "launches": dict(zip(names, launches)),
     }
     if launches != expected:
         raise AssertionError(f"tiny train: launches {launches}, expected {expected}")

@@ -1,47 +1,68 @@
 """Normalization with float32 statistics, cast back to the input dtype.
 
 Port of ltx_tpu/ops/normalization.py: `rms_norm`, `layer_norm_no_affine`,
-`adaln`, `pixel_norm`, `group_norm_f32` and `set_rms_impl`. The default
-`rms_norm` is the plain PyTorch chain (the reference's default is XLA's
-fusion of the same chain); `set_rms_impl("cuda")` routes it through the
-hand-written kernel of kernels/rms_norm.py, as `set_rms_impl("pallas")`
-routes the reference's through its TPU kernel: inference only.
+`adaln`, `pixel_norm` and `group_norm_f32`. `rms_norm` takes the hand-written
+kernel of kernels/rms_norm.py whenever the call allows it (`rms_route`) and
+the plain PyTorch chain otherwise: on the CPU, where autograd records (the
+kernel has no backward, as the reference's Pallas kernel has none), and for
+a shape or dtype the kernel does not take. Nothing is set globally; only
+`forced_rms_chain()` sends every call to the chain, for measurement and
+tests.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from ltx_tpu_torch.kernels import rms_norm as rms_kernel
 
-RMS_IMPLS = ("torch", "cuda")
-_RMS_IMPL = "torch"
+# CUDA calls of `rms_norm` that took the plain chain (set to 0, run, read)
+rms_chain_on_cuda = 0
+_FORCED_CHAIN = False
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def set_rms_impl(impl: str) -> None:
-    """Route rms_norm through "torch" (the plain chain, the default) or
-    "cuda" (the hand-written kernel). The kernel needs a last dim that is a
-    multiple of 128 and has no backward: inference only."""
-    global _RMS_IMPL
-    if impl not in RMS_IMPLS:
-        raise ValueError(f"unknown rms impl {impl!r}")
-    _RMS_IMPL = impl
+def rms_route(device_type: str, d: int, weight_ndim, dtype, records_grad: bool) -> str:
+    """"kernel" or "chain" for a call of `rms_norm` on a tensor of `dtype`
+    on `device_type` with last dim d; weight_ndim None for the weightless
+    form; records_grad: autograd records the call. The kernel's conditions
+    are the reference's (last dim % 128, weight None or 1-D) and the card's
+    (a CUDA tensor of bf16 or f32, nothing for autograd to record)."""
+    if (device_type == "cuda" and d % rms_kernel.LANES == 0 and weight_ndim in (None, 1)
+            and dtype in _KERNEL_DTYPES and not records_grad):
+        return "kernel"
+    return "chain"
 
 
-def get_rms_impl() -> str:
-    return _RMS_IMPL
+@contextlib.contextmanager
+def forced_rms_chain():
+    """Every `rms_norm` inside takes the plain chain: to measure the kernel
+    against it, never on a default path."""
+    global _FORCED_CHAIN
+    previous, _FORCED_CHAIN = _FORCED_CHAIN, True
+    try:
+        yield
+    finally:
+        _FORCED_CHAIN = previous
 
 
 def rms_norm(x, weight=None, eps: float = 1e-6):
     """RMSNorm with float32 statistics; weight=None is the weightless form.
 
-    With the kernel selected, a CUDA tensor whose last dim is a multiple of
-    128 (weight None or 1-D) launches it, or raises if it cannot: nothing
-    gives way to the plain chain. CPU tensors and other shapes keep the
-    chain, as the reference keeps XLA off a TPU."""
-    if _RMS_IMPL == "cuda" and x.shape[-1] % rms_kernel.LANES == 0 and (
-            weight is None or weight.ndim == 1) and x.is_cuda:
+    Where `rms_route` says "kernel", the call launches it, or raises if it
+    cannot: nothing gives way to the plain chain. Every CUDA call that takes
+    the chain counts in `rms_chain_on_cuda`."""
+    global rms_chain_on_cuda
+    records = torch.is_grad_enabled() and (
+        x.requires_grad or (weight is not None and weight.requires_grad))
+    if not _FORCED_CHAIN and rms_route("cuda" if x.is_cuda else x.device.type, x.shape[-1],
+                                       None if weight is None else weight.ndim, x.dtype,
+                                       records) == "kernel":
         return rms_kernel.rms_norm(x, weight, eps=eps)
+    if x.is_cuda:
+        rms_chain_on_cuda += 1
     return rms_kernel.rms_norm_reference(x, weight, eps=eps)
 
 

@@ -2,7 +2,7 @@
 NVIDIA GPU.
 
     python -m ltx_tpu_torch.profile_step [--frames 25 --height 512 --width 768]
-                                         [--rms torch|cuda]
+                                         [--norm auto|chain]
     python -m ltx_tpu_torch.profile_step --train [--frames ... as above]
 
 Builds the full-width, full-depth DiT with random bf16 weights from a seed
@@ -10,9 +10,11 @@ on the card, runs one warm-up denoise step at the given clip size (a random
 1024-token text context with 300 padded keys), then profiles two steps with
 torch.profiler and prints, per step: the host time, the device time by
 kernel group (the flash-attention, int4 and RMSNorm kernels of this package,
-GEMMs, everything else) and the device's idle share. --rms picks the norm
-behind ops.normalization.rms_norm for the denoise steps: the plain chain
-("torch", the default) or the hand-written kernel ("cuda"). Then it quantizes the same
+GEMMs, everything else) and the device's idle share. --norm picks how
+ops.normalization.rms_norm is served in the denoise steps: "auto" (the
+default) routes each call as the library does, which on the card is the
+hand-written kernel; "chain" forces the plain chain (`forced_rms_chain`), to
+measure the kernel against it. Then it quantizes the same
 DiT to int4 on the card and does the same again. The last line is one JSON
 object with both breakdowns. Fails without CUDA.
 
@@ -27,6 +29,7 @@ with the step's peak device memory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -39,7 +42,7 @@ from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
 from ltx_tpu_torch.models.common import init_random_
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
-from ltx_tpu_torch.ops.normalization import RMS_IMPLS, set_rms_impl
+from ltx_tpu_torch.ops.normalization import forced_rms_chain
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 
 # kernel-name fragments of each group, matched in this order
@@ -144,8 +147,9 @@ def main() -> int:
     parser.add_argument("--width", type=int, default=768)
     parser.add_argument("--train", action="store_true",
                         help="profile one int4 QLoRA train step instead")
-    parser.add_argument("--rms", choices=RMS_IMPLS, default="torch",
-                        help="the norm behind rms_norm in the denoise steps")
+    parser.add_argument("--norm", choices=("auto", "chain"), default="auto",
+                        help="rms_norm in the denoise steps: routed as the library "
+                             "routes it, or forced onto the plain chain")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: CUDA is not available")
@@ -178,23 +182,24 @@ def main() -> int:
         print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "train": res}))
         return 0
 
-    set_rms_impl(args.rms)
     results = {}
-    for mode in ("bf16", "int4"):
-        if mode == "int4":
-            quantize_transformer(transformer, bits=4, group_size=64)
-            torch.cuda.empty_cache()
-        step = make_denoise_step(transformer, GuidanceSpec.from_config(config), shape,
-                                 context, bias, fps=config.fps)
-        res = profile_steps(step, latent)
-        results[mode] = res
-        groups = ", ".join(f"{k} {v:.2f}" for k, v in res["device_ms"].items())
-        print(f"[profile] {mode} rms={args.rms} {args.frames}f@{args.width}x{args.height} "
-              f"({shape.token_count} tokens): host {res['host_ms']:.2f} ms/step, device "
-              f"{res['device_busy_ms']:.2f} ms/step ({groups}), idle share "
-              f"{res['idle_share']:.3f}; unprofiled wall {res['wall_ms']:.2f} ms/step",
-              flush=True)
-    print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "rms": args.rms,
+    norm = forced_rms_chain() if args.norm == "chain" else contextlib.nullcontext()
+    with norm:
+        for mode in ("bf16", "int4"):
+            if mode == "int4":
+                quantize_transformer(transformer, bits=4, group_size=64)
+                torch.cuda.empty_cache()
+            step = make_denoise_step(transformer, GuidanceSpec.from_config(config), shape,
+                                     context, bias, fps=config.fps)
+            res = profile_steps(step, latent)
+            results[mode] = res
+            groups = ", ".join(f"{k} {v:.2f}" for k, v in res["device_ms"].items())
+            print(f"[profile] {mode} norm={args.norm} {args.frames}f@{args.width}x{args.height} "
+                  f"({shape.token_count} tokens): host {res['host_ms']:.2f} ms/step, device "
+                  f"{res['device_busy_ms']:.2f} ms/step ({groups}), idle share "
+                  f"{res['idle_share']:.3f}; unprofiled wall {res['wall_ms']:.2f} ms/step",
+                  flush=True)
+    print(json.dumps({"gpu": gpu, "tokens": shape.token_count, "norm": args.norm,
                       "steps": results}))
     return 0
 

@@ -20,8 +20,9 @@ dequant_int4 and quantize_weight on the card bit for bit; the tiny
 pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative,
 in bf16 and with a float32 compute dtype;
 rms_norm within 16 f32 ulps of the plain version's f32 value plus, for a
-bf16 output, half a bf16 ulp; the tiny two-stage I2V pipeline, its norms
-through that kernel, within 2e-2.
+bf16 output, half a bf16 ulp, bitwise equal from run to run and row by row;
+the tiny two-stage I2V pipeline, its norms through that kernel by the
+default route, within 2e-2.
 """
 
 import pytest
@@ -33,6 +34,7 @@ from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
 from ltx_tpu_torch.ops import normalization
+from ltx_tpu_torch.pipeline.generate import LTXPipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -187,39 +189,58 @@ def test_rms_norm_kernel_matches_plain(device, case):
 
 
 def test_rms_norm_dispatch_and_what_the_kernel_does_not_take(device):
-    """With the kernel selected a CUDA tensor on the 128 rule launches it
-    (3-D and non-contiguous inputs too); other shapes and the default keep
-    the plain chain; a tensor that requires grad raises; float16 raises."""
+    """By default a CUDA tensor on the 128 rule launches the kernel (3-D and
+    non-contiguous inputs too, f32 as well as bf16); a last dim off the rule,
+    float16, a call that autograd records and `forced_rms_chain()` take the
+    plain chain, each counted in `rms_chain_on_cuda`; under no_grad a tensor
+    that requires grad launches the kernel. The kernel's wrapper itself
+    raises on what it does not take."""
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(4, 37, 512, generator=gen, device=device).bfloat16()
     w = torch.randn(256, generator=gen, device=device).bfloat16()
     strided = x[:, :, ::2]
-    before = rk.rms_norm.launches
+    launches, chain = rk.rms_norm.launches, normalization.rms_chain_on_cuda
     assert normalization.rms_norm(x).shape == x.shape
-    assert rk.rms_norm.launches == before  # the default is the plain chain
-    normalization.set_rms_impl("cuda")
-    try:
-        got = normalization.rms_norm(strided, w)
-        assert rk.rms_norm.launches == before + 1
-        want = rk.rms_norm_reference(strided, w)
-        assert (got.float() - want.float()).abs().max() <= checks.bf16_ulp(want).max()
-        odd = torch.ones(3, 100, device=device)
-        assert torch.equal(normalization.rms_norm(odd), rk.rms_norm_reference(odd))
-        assert rk.rms_norm.launches == before + 1
-        with pytest.raises(RuntimeError, match="inference only"):
-            normalization.rms_norm(x.float().requires_grad_(True))
-        with torch.no_grad():
-            normalization.rms_norm(x.float().requires_grad_(True))
-        with pytest.raises(ValueError, match="bfloat16 or float32"):
-            normalization.rms_norm(x.half())
-    finally:
-        normalization.set_rms_impl("torch")
+    got = normalization.rms_norm(strided, w)
+    normalization.rms_norm(x.float())
+    assert rk.rms_norm.launches == launches + 3
+    want = rk.rms_norm_reference(strided, w)
+    assert (got.float() - want.float()).abs().max() <= checks.bf16_ulp(want).max()
+    odd = torch.ones(3, 100, device=device)
+    assert torch.equal(normalization.rms_norm(odd), rk.rms_norm_reference(odd))
+    normalization.rms_norm(x.half())
+    grad_x = x.float().requires_grad_(True)
+    out = normalization.rms_norm(grad_x)
+    assert out.requires_grad
+    out.sum().backward()
+    assert grad_x.grad is not None
+    with normalization.forced_rms_chain():
+        assert torch.equal(normalization.rms_norm(x), rk.rms_norm_reference(x))
+    assert rk.rms_norm.launches == launches + 3
+    assert normalization.rms_chain_on_cuda == chain + 4
+    with torch.no_grad():
+        normalization.rms_norm(grad_x)
+    assert rk.rms_norm.launches == launches + 4
+    with pytest.raises(RuntimeError, match="inference only"):
+        rk.rms_norm(grad_x)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        rk.rms_norm(x.half())
     with pytest.raises(ValueError, match="multiple of 128"):
         rk.rms_norm(torch.ones(3, 100, device=device))
     assert rk.rms_norm(torch.empty(0, 128, device=device)).shape == (0, 128)
 
 
+@pytest.mark.parametrize("name", checks.RMS_BITWISE_CASES)
+def test_rms_norm_kernel_bitwise_run_to_run_and_row_independent(device, name):
+    """Two runs equal, and each row alone or in another batch equal to its
+    row of the whole batch, bit for bit."""
+    case = next(c for c in checks.RMS_CASES if c.name == name)
+    assert not any(checks.check_rms_bitwise(case, device).values())
+
+
 def test_tiny_two_stage_cuda_matches_cpu(device):
     res = checks.check_tiny_two_stage(device)
     assert res["launches"]["rms_norm"] > 0
-    assert normalization.get_rms_impl() == "torch"
+    # the chain only for the tiny connector's norms (64 wide), once a text pass
+    tecfg = LTXPipeline.random_tiny(device="cpu").tecfg
+    assert res["launches"]["rms_chain_on_cuda"] == tecfg.connector_layers * 4 + 1

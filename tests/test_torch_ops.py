@@ -19,6 +19,7 @@ from ltx_tpu.ops import normalization as jnorm
 from ltx_tpu.ops import rope as jrope
 from ltx_tpu.ops import schedule as jsched
 from ltx_tpu.ops.attention import prepare_additive_mask as j_prepare_mask
+from ltx_tpu_torch.kernels import rms_norm as rms_kernel
 from ltx_tpu_torch.ops import embeddings, latents, normalization, rope, schedule
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from torch_parity import as_np, as_torch, assert_rel
@@ -199,27 +200,32 @@ def test_rms_norm_wrapper_contract_on_the_cpu():
 
 
 def test_set_rms_impl_keeps_the_plain_chain_on_the_cpu():
-    """The reference's toggle contract: with the kernel selected a CPU
-    tensor keeps the plain chain (there: a non-TPU backend keeps XLA); an
-    unknown value raises ValueError; a last dim off the 128 rule keeps it
-    too."""
+    """Named for the process-global toggle that `rms_route` replaced. The
+    reference's contract holds without it: a CPU tensor keeps the plain
+    chain (there: a non-TPU backend keeps XLA), with or without
+    `forced_rms_chain()`, and so does a last dim off the 128 rule; the chain
+    on the CPU counts nothing in `rms_chain_on_cuda`; `forced_rms_chain()`
+    nests and restores the route after an exception. The reference's own
+    toggle still knows no "cuda"."""
     x = as_torch(np.random.default_rng(4).standard_normal((2, 7, 256)), torch.bfloat16)
     odd = torch.ones(3, 100)
-    want = normalization.rms_norm(x)
-    assert normalization.get_rms_impl() == "torch"
-    normalization.set_rms_impl("cuda")
-    try:
-        assert normalization.get_rms_impl() == "cuda"
-        got = normalization.rms_norm(x)
-        normalization.rms_norm(odd)
-    finally:
-        normalization.set_rms_impl("torch")
+    want = rms_kernel.rms_norm_reference(x)
+    before = normalization.rms_chain_on_cuda
+    assert normalization.rms_route("cpu", 256, None, torch.bfloat16, False) == "chain"
+    assert torch.equal(normalization.rms_norm(x), want)
+    with pytest.raises(KeyError):
+        with normalization.forced_rms_chain():
+            with normalization.forced_rms_chain():
+                got = normalization.rms_norm(x)
+            assert normalization._FORCED_CHAIN
+            raise KeyError("leave the context by an exception")
+    assert not normalization._FORCED_CHAIN
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="unknown rms impl"):
-        normalization.set_rms_impl("pallas")
+    assert torch.equal(normalization.rms_norm(odd), rms_kernel.rms_norm_reference(odd))
+    assert normalization.rms_chain_on_cuda == before
+    assert not hasattr(normalization, "set_rms_impl")
     with pytest.raises(ValueError):
         jnorm.set_rms_impl("cuda")
-    assert normalization.get_rms_impl() == "torch"
 
 
 @pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
