@@ -48,6 +48,27 @@ Phases, each printing its own lines:
   5. the big-M route: one int4 DiT call at 121 frames, 1024x576 (9216
      tokens), where the 9216-row linears go through dequant_int4 and a
      plain product and the 1024-row text K/V through int4_matmul;
+  5b. files to frames: a models directory written under build/ in the
+     layout weights.download resolves, from seeded generators on the card
+     by the port's own safetensors writer: the unified file (the video DiT
+     at full width with 8 of its 48 blocks, the one cut; the connector in
+     format 2; the VAE decoder), the standalone VAE file with the encoder,
+     the Gemma-3-12B snapshot at full width and depth in MLX 4-bit with the
+     `language_model.` prefix (four shards, config.json, a byte-fallback
+     BPE tokenizer.json), the upscaler in f32 and a rank-384 LoRA over the
+     8 blocks' linears; its bytes and seconds printed. load_pipeline in
+     bf16, its seconds by part and the host's resident memory printed, then
+     the north star from it (launches checked); one Gemma linear's MLX
+     dequantization against numpy from the file's arrays, bit for bit;
+     every loaded component's values and bytes against its files'. The
+     LoRA fused on the card against the CPU's fusion of blocks 0 and 7
+     (checks.check_fused_leaves) and the fused DiT against the adapter as
+     a side path (checks.lora_side_path_check). load_pipeline in int4 with
+     the LoRA: the quantized cache misses, the DiT is fused and quantized
+     on the card, the north star runs (8 x 8 x 10 int4_matmul launches);
+     loaded again, the cache hits with no quantize_weight call and a DiT
+     bit for bit the first's. train.cli --weights on the unified file (int4,
+     rank 16, one step, its launches checked). The directory is deleted;
   6. the training path: `python -m ltx_tpu_torch.train.cli`'s `run` at full
      width and depth (the 48-block DiT, random and seeded, quantized to
      int4 and frozen, rank-16 LoRA on its 480 block linears) on a latent
@@ -79,17 +100,19 @@ import dataclasses
 import gc
 import json
 import re
+import resource
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ltx_tpu_torch import checks
-from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
+from ltx_tpu_torch.config import GenerationConfig, QuantizationConfig, TransformerConfig
 from ltx_tpu_torch.kernels import build
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
@@ -1144,6 +1167,444 @@ def phase_big_m(pipe: LTXPipeline, device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Files to frames: a models directory written here, loaded by load_pipeline
+# ---------------------------------------------------------------------------
+
+# the one cut of the checkpoint written below: the video DiT keeps 8 of its
+# 48 blocks (about 4.6 GB of bf16 instead of 26 GB, for disk and time on a
+# machine whose free disk is unknown); every other component is full size
+FILES_DIT_BLOCKS = 8
+FILES_LORA_RANK = 384
+FILES_GEMMA_SHARD_LAYERS = 12
+# the DiT linears a distilled-style LoRA adapts, as the checkpoint spells them
+FILES_LORA_LINEARS = ("attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out.0",
+                      "attn2.to_q", "attn2.to_k", "attn2.to_v", "attn2.to_out.0",
+                      "ff.net.0.proj", "ff.net.2")
+GEMMA_CONFIG = {"model_type": "gemma3", "quantization": {"group_size": 64, "bits": 4},
+                "text_config": {"hidden_size": 3840, "num_hidden_layers": 48,
+                                "intermediate_size": 15360, "num_attention_heads": 16,
+                                "head_dim": 256, "num_key_value_heads": 8,
+                                "vocab_size": 262208, "rms_norm_eps": 1e-6,
+                                "rope_theta": 1_000_000.0, "rope_local_base_freq": 10_000.0,
+                                "query_pre_attn_scalar": 256, "sliding_window": 1024,
+                                "sliding_window_pattern": 6}}
+# the f32 tensors of the files (the dtypes the loaders keep): everything else
+# of the DiT, connector, VAE and LoRA is bf16, the upscaler f32
+_F32_KEYS = ("scale_shift_table", "time_embedder", "per_channel_statistics",
+             "timestep_scale_multiplier", "weight_scale", "input_scale", ".alpha")
+
+
+def _smoke_tensor(key: str, shape, gen, device, dtype=None) -> torch.Tensor:
+    """A seeded tensor for checkpoint `key`, drawn on the card, on the host:
+    linear and conv weights normal * fan_in**-0.5, norm weights 1, biases
+    and tables small, the VAE's latent statistics (0, 1)."""
+    if dtype is None:
+        dtype = torch.float32 if any(k in key for k in _F32_KEYS) else torch.bfloat16
+    if key.endswith("mean-of-means"):
+        t = torch.zeros(shape, device=device)
+    elif key.endswith(("std-of-means", "norm_q.weight", "norm_k.weight")):
+        t = torch.ones(shape, device=device)
+    elif key.endswith("timestep_scale_multiplier"):
+        t = torch.full(shape, 1000.0, device=device)
+    elif key.endswith(".weight") and len(shape) >= 2:
+        t = torch.randn(shape, generator=gen, device=device) * (
+            float(np.prod(shape[1:])) ** -0.5)
+    else:
+        t = torch.randn(shape, generator=gen, device=device) * 0.02
+    return t.to(dtype).cpu()
+
+
+def _materialize(spec: dict, prefix: str, gen, device, dtype=None) -> dict:
+    return {prefix + k: _smoke_tensor(k, shape, gen, device, dtype)
+            for k, shape in spec.items()}
+
+
+def _mlx_gemma(spec: dict, layers, gen, device) -> dict:
+    """The MLX 4-bit tensors of `spec` whose layer is in `layers` (None: the
+    tensors outside the layers): packed codes as uint32 words, bf16 scales
+    around 0.0027 and biases -7.5 * scale (weights within +-0.02), bf16 norms."""
+    out = {}
+    for key, shape in spec.items():
+        m = re.search(r"\.layers\.(\d+)\.", key)
+        if (m is None) != (layers is None) or (m is not None and int(m.group(1)) not in layers):
+            continue
+        if key.endswith(".scales") or key.endswith(".biases"):
+            continue
+        if f"{key[:-len('.weight')]}.scales" in spec:
+            base = key[:-len(".weight")]
+            out[key] = torch.randint(-2**31, 2**31, shape, generator=gen, device=device,
+                                     dtype=torch.int32).cpu().view(torch.uint32)
+            scale = 0.02 / 7.5 * (1.0 + 0.25 * torch.rand(spec[f"{base}.scales"],
+                                                          generator=gen, device=device))
+            out[f"{base}.scales"] = scale.to(torch.bfloat16).cpu()
+            out[f"{base}.biases"] = (-7.5 * scale).to(torch.bfloat16).cpu()
+        else:
+            out[key] = (torch.randn(shape, generator=gen, device=device) * 0.05).to(
+                torch.bfloat16).cpu()
+    return out
+
+
+def smoke_tokenizer() -> dict:
+    """A Gemma-style tokenizer.json, written without the tokenizers package:
+    BPE with byte fallback, spaces as "▁", the prompt's words as merges,
+    special tokens and a BOS template."""
+    specials = ["<pad>", "<eos>", "<bos>", "<unk>", "<start_of_turn>", "<end_of_turn>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for ch in "▁" + "".join(chr(c) for c in range(33, 127)):
+        vocab.setdefault(ch, len(vocab))
+    merges = []
+    for word in set((PROMPT + " " + " ".join(BATCH_PROMPTS)).split()):
+        pieces = list("▁" + word)
+        while len(pieces) > 1:
+            merges.append(f"{pieces[0]} {pieces[1]}")
+            pieces[:2] = [pieces[0] + pieces[1]]
+            vocab.setdefault(pieces[0], len(vocab))
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
+                              "lstrip": False, "rstrip": False, "normalized": False,
+                              "special": True} for t in specials],
+            "normalizer": {"type": "Replace", "pattern": {"String": " "}, "content": "▁"},
+            "pre_tokenizer": None,
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                                          {"Sequence": {"id": "A", "type_id": 0}}],
+                               "pair": [{"Sequence": {"id": "A", "type_id": 0}}],
+                               "special_tokens": {"<bos>": {"id": "<bos>", "ids": [2],
+                                                            "tokens": ["<bos>"]}}},
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+def weight_fixtures():
+    """tests/weight_fixtures.py, the checkpoints' key sets and shapes as the
+    reference's sources define them (transcribed independently of the
+    loaders), loaded by its path: another installed package may be named
+    `tests`."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "weight_fixtures.py"
+    spec = importlib.util.spec_from_file_location("weight_fixtures", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_models_dir(base, device) -> dict:
+    """The layout `weights.download.download_all_components` resolves, with
+    seeded full-width checkpoints (the DiT cut to FILES_DIT_BLOCKS blocks),
+    written by the port's safetensors writer. Returns {name: path}."""
+    from ltx_tpu_torch.config import LTXModel
+    from ltx_tpu_torch.weights import download as dl
+    from ltx_tpu_torch.weights import safetensors_io
+
+    wf = weight_fixtures()
+    gen = torch.Generator(device=device).manual_seed(2026)
+    files = {}
+
+    def save(name, tensors, path):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        safetensors_io.save(tensors, path)
+        files[name] = path
+
+    dit_spec = wf.video_transformer_spec(num_layers=FILES_DIT_BLOCKS)
+    unified = _materialize(dit_spec, "model.diffusion_model.", gen, device)
+    for suffix in ("weight_scale", "input_scale"):  # fp8 checkpoints' scalars: dropped
+        unified[f"model.diffusion_model.transformer_blocks.0.attn1.to_q.{suffix}"] = \
+            torch.ones((), dtype=torch.float32)
+    unified.update(_materialize(wf.connector_spec(fmt=2), "model.diffusion_model.", gen,
+                                device))
+    unified.update(_materialize(wf.vae_decoder_spec(layout="unified"), "vae.", gen, device))
+    save("unified", unified, base / f"ltx-{LTXModel.DISTILLED.value}" /
+         LTXModel.DISTILLED.unified_weights_filename)
+    del unified
+    save("vae", _materialize(wf.vae_encoder_spec(), "", gen, device),
+         base / "ltx-vae" / Path(dl.VAE_FILE).name)
+    (base / "ltx-vae" / Path(dl.VAE_CONFIG).name).write_text(
+        json.dumps({"timestep_conditioning": False}))
+    save("connector", {"placeholder": torch.zeros(1)},
+         base / "ltx-connector" / Path(dl.CONNECTOR_FILE).name)
+    save("upscaler", _materialize(wf.upscaler_spec(), "", gen, device, torch.float32),
+         base / "ltx-upscaler" / Path(dl.UPSCALER_FILE).name)
+    lora = {}
+    for i in range(FILES_DIT_BLOCKS):
+        for linear in FILES_LORA_LINEARS:
+            out_dim, in_dim = dit_spec[f"transformer_blocks.{i}.{linear}.weight"]
+            key = f"diffusion_model.transformer_blocks.{i}.{linear}"
+            lora[f"{key}.lora_down.weight"] = (torch.randn(
+                FILES_LORA_RANK, in_dim, generator=gen, device=device) * in_dim**-0.5).to(
+                torch.bfloat16).cpu()
+            lora[f"{key}.lora_up.weight"] = (torch.randn(
+                out_dim, FILES_LORA_RANK, generator=gen, device=device)
+                * (0.1 / FILES_LORA_RANK**0.5)).to(torch.bfloat16).cpu()
+            lora[f"{key}.alpha"] = torch.tensor(float(FILES_LORA_RANK))
+    save("lora", lora, base / "ltx-lora" / Path(dl.DISTILLED_LORA_FILE).name)
+    del lora
+    gdir = base / "vlm-gemma"
+    spec = wf.gemma_spec(mlx_4bit=True, vlm_prefix=True)
+    layers = GEMMA_CONFIG["text_config"]["num_hidden_layers"]
+    shards = [None] + [range(s, min(s + FILES_GEMMA_SHARD_LAYERS, layers))
+                       for s in range(0, layers, FILES_GEMMA_SHARD_LAYERS)]
+    for n, shard in enumerate(shards):
+        save(f"gemma{n}", _mlx_gemma(spec, shard, gen, device),
+             gdir / f"model-{n + 1:05d}-of-{len(shards):05d}.safetensors")
+    (gdir / "config.json").write_text(json.dumps(GEMMA_CONFIG))
+    (gdir / "tokenizer.json").write_text(json.dumps(smoke_tokenizer()))
+    return files
+
+
+_DROPPED = (".weight_scale", ".input_scale", "timestep_scale_multiplier")
+
+
+def file_sizes(paths, mlx: bool = False, prefixes=None) -> tuple:
+    """(values, bytes) the loaders keep from files: the keys the reference
+    drops left out (lm_head, fp8 scales, the VAE's timestep multiplier, the
+    upscaler's blur kernel); an MLX 4-bit weight counts its 8 codes a word
+    and 2 bytes a value (bf16 once dequantized), its scales and biases
+    nothing."""
+    from ltx_tpu_torch.weights import safetensors_io
+
+    values = nbytes = 0
+    for path in paths:
+        header, _ = safetensors_io.read_header(path)
+        for key, info in header.items():
+            if key == "__metadata__" or key.endswith(_DROPPED) or "lm_head" in key or \
+                    key.startswith("blur_down") or (
+                    prefixes is not None and not key.startswith(prefixes)):
+                continue
+            n = int(np.prod(info["shape"], dtype=np.int64))
+            if mlx and key.endswith((".scales", ".biases")):
+                continue
+            if mlx and info["dtype"] == "U32":
+                n *= 8
+            values += n
+            nbytes += 2 * n if mlx else info["data_offsets"][1] - info["data_offsets"][0]
+    return values, nbytes
+
+
+def module_sizes(module) -> tuple:
+    return (sum(p.numel() for p in module.parameters()),
+            sum(p.numel() * p.element_size() for p in module.parameters()))
+
+
+def host_rss_gib() -> float:
+    """This process's resident set now (VmRSS), in GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def host_rss_peak(every: float = 0.02):
+    """The largest resident set this process reaches while the block runs,
+    sampled every `every` s on a thread: yields a dict whose "peak" (GiB)
+    is set when the block ends (the kernel's own high-water mark is not
+    readable or resettable on every machine)."""
+    import threading
+
+    out = {"peak": host_rss_gib()}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(every):
+            out["peak"] = max(out["peak"], host_rss_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+        out["peak"] = max(out["peak"], host_rss_gib())
+
+
+@contextlib.contextmanager
+def counted_quantize_weight():
+    """Count the calls of quantize_weight made through the modules that call
+    it (QuantizedLinear.from_linear, LoRA fusion) while the block runs."""
+    from ltx_tpu_torch.lora import fuse as lora_fuse
+    from ltx_tpu_torch.models import common
+
+    calls = [0]
+    original = qz.quantize_weight
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    common.quantize_weight = lora_fuse.quantize_weight = counting
+    try:
+        yield calls
+    finally:
+        common.quantize_weight = lora_fuse.quantize_weight = original
+
+
+def _load(tag: str, base, device, **kw):
+    """load_pipeline from `base` with the DiT cut to FILES_DIT_BLOCKS and
+    phase staging; prints the load's parts and the host's memory."""
+    from ltx_tpu_torch.config import MemoryConfig
+    from ltx_tpu_torch.pipeline.loader import LoadTimings, load_pipeline
+
+    timings = LoadTimings()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = host_rss_gib()
+    with host_rss_peak() as rss:
+        pipe = load_pipeline(models_dir=str(base), device=device,
+                             memory=MemoryConfig(phase_staging=True),
+                             transformer_config=dataclasses.replace(
+                                 TransformerConfig(), num_layers=FILES_DIT_BLOCKS),
+                             timings=timings, **kw)
+    log(f"[files] {tag}: load (s) read {timings.read:.3f}, key map {timings.key_map:.3f}, "
+        f"build {timings.build:.3f}, gemma dequant {timings.gemma_dequant:.3f}, fuse "
+        f"{timings.fuse:.3f}, quantize {timings.quantize:.3f}, cache {timings.cache:.3f} "
+        f"({'hit' if timings.cache_hit else 'miss'}), total {timings.total:.3f}; host RSS "
+        f"{before:.2f} GiB before the load, peak {rss['peak']:.2f} during it (sampled), "
+        f"{host_rss_gib():.2f} after, "
+        f"process peak (getrusage) {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}; "
+        f"device peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    return pipe, timings
+
+
+def phase_files_to_frames(device) -> None:
+    """Write a models directory, load it with load_pipeline (bf16; then int4
+    with the LoRA fused, the quantized cache missed then hit), run the north
+    star from each, check the MLX dequantization bit for bit, the loaded
+    sizes against the files', the LoRA fusion on the card against the CPU's
+    and against the adapter as a side path, and train one step from the
+    unified file with train.cli --weights."""
+    from ltx_tpu_torch.lora.fuse import fuse_lora, parse_lora
+    from ltx_tpu_torch.weights import download as dl
+    from ltx_tpu_torch.weights import safetensors_io
+
+    t_phase = time.perf_counter()
+    base = build.BUILD_DIR.parent / "chip_smoke_models"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    free = shutil.disk_usage(base).free
+    t0 = time.perf_counter()
+    files = write_models_dir(base, device)
+    seconds = time.perf_counter() - t0
+    written = sum(p.stat().st_size for p in files.values())
+    log(f"[files] models directory written: {written / 1e9:.3f} GB in {seconds:.2f} s "
+        f"({written / 1e9 / seconds:.3f} GB/s; {free / 1e9:.1f} GB free before); "
+        + ", ".join(f"{k} {p.stat().st_size / 1e9:.3f}" for k, p in files.items()))
+
+    # --- bf16 from the files (the upscaler too), the north star
+    pipe, _ = _load("bf16", base, device, include_upscaler=True)
+    shape = VideoLatentShape.from_pixels(1, NORTH_STAR.num_frames, NORTH_STAR.height,
+                                         NORTH_STAR.width, channels=pipe.tcfg.in_channels)
+    noise = generate_noise(shape, torch.Generator(device=device).manual_seed(0))
+    steps = len(pipe._sigmas(NORTH_STAR, shape)) - 1
+    log(f"[files] prompt tokens: {len(pipe.tokenizer.encode(PROMPT).ids)}")
+    flash = steps * FILES_DIT_BLOCKS * 2 + pipe.tecfg.connector_layers
+    norms = norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)
+    north_star_run("files bf16", pipe, noise,
+                   {**NO_LAUNCHES, "flash_attention": flash, **norms}, device)
+    gemma_files = sorted((base / "vlm-gemma").glob("*.safetensors"))
+    key = "language_model.model.layers.0.self_attn.q_proj"
+    first = next(p for p in gemma_files if f"{key}.weight" in safetensors_io.read_header(p)[0])
+    raw = safetensors_io.load(first)
+    res = checks.check_mlx_dequant(raw[f"{key}.weight"], raw[f"{key}.scales"],
+                                   raw[f"{key}.biases"], pipe.gemma.layers[0].q_proj.weight)
+    del raw
+    log(f"[files] MLX dequant of layers.0.q_proj against numpy from the file's arrays: "
+        f"{res['differing']} of {res['values']} values differ")
+    unified, vae_file = files["unified"], files["vae"]
+    for name, module, (paths, mlx, prefixes) in (
+            ("DiT", pipe.transformer, ([unified], False, (
+                "model.diffusion_model.transformer_blocks", "model.diffusion_model.proj",
+                "model.diffusion_model.time_embed", "model.diffusion_model.caption",
+                "model.diffusion_model.scale_shift_table"))),
+            ("connector", pipe.text_encoder, ([unified], False, (
+                "model.diffusion_model.video_embeddings_connector",
+                "model.diffusion_model.text_embedding_projection"))),
+            ("VAE decoder", pipe.vae_decoder, ([unified], False, ("vae.",))),
+            ("VAE encoder", pipe.vae_encoder, ([vae_file], False, None)),
+            ("Gemma", pipe.gemma, (gemma_files, True, ("language_model.",))),
+            ("upscaler", pipe.upscaler, ([files["upscaler"]], False, None))):
+        want = file_sizes(paths, mlx, prefixes)
+        got = module_sizes(module)
+        log(f"[files] {name}: {got[0]} values, {got[1]} bytes loaded; the files' "
+            f"{want[0]} / {want[1]}")
+        if got != want:
+            raise AssertionError(f"{name}: loaded {got}, files {want}")
+
+    # --- the rank-384 LoRA at full width: the card's fusion against the
+    # CPU's, and the fused DiT against the adapter as a side path
+    layers = parse_lora(dl.load_safetensors(files["lora"]))
+    t0 = time.perf_counter()
+    side = checks.lora_side_path_check(pipe.transformer, layers, 1.0, device=device)
+    torch.cuda.synchronize(device)
+    log(f"[files] LoRA rank {FILES_LORA_RANK} ({len(layers)} linears) fused on the card "
+        f"and run beside its side path: {time.perf_counter() - t0:.2f} s; velocity max abs "
+        f"err {side['rel_err']:.3e} of its max (tol {checks.LORA_SIDE_PATH_TOL:.0e})")
+    if not side["finite"] or side["rel_err"] > checks.LORA_SIDE_PATH_TOL:
+        raise AssertionError(f"LoRA side path: {side['rel_err']}, finite {side['finite']}")
+    ends = (0, FILES_DIT_BLOCKS - 1)
+    picked = [la for la in layers if any(
+        la.original_key.startswith(f"transformer_blocks.{b}.") for b in ends)]
+    t0 = time.perf_counter()
+    cpu = fuse_lora(pipe.transformer, picked, 1.0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    paths = {f"blocks.{b}.{p}" for b in ends for p in (
+        "attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out", "attn2.to_q", "attn2.to_k",
+        "attn2.to_v", "attn2.to_out", "ff.project_in", "ff.project_out")}
+    leaves = checks.check_fused_leaves(side["fused"], cpu, picked, 1.0, paths)
+    log(f"[files] fused weights of blocks {ends}, card vs CPU ({cpu_s:.2f} s on the host): "
+        f"{leaves['values']} values, {leaves['differing']:.3e} of them differ, worst "
+        f"{leaves['share']:.3f} of the bound")
+    del side, cpu, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- int4 with the LoRA fused: the cache misses, then hits
+    q = QuantizationConfig(mode="int4")
+    lora_path = str(files["lora"])
+    pipe, timings = _load("int4 + LoRA", base, device, quantization=q, lora_path=lora_path)
+    if timings.cache_hit:
+        raise AssertionError("int4: a quantized cache hit on the first load")
+    expected = {**NO_LAUNCHES, "flash_attention": flash, **norms,
+                "int4_matmul": steps * FILES_DIT_BLOCKS * 10}
+    north_star_run("files int4", pipe, noise, expected, device)
+    first_dit = {n: p.detach().clone() for n, p in pipe.transformer.named_parameters()}
+    del pipe
+    gc.collect()
+    with counted_quantize_weight() as calls:
+        pipe, timings = _load("int4 + LoRA, again", base, device, quantization=q,
+                              lora_path=lora_path)
+    same = all(torch.equal(p.detach(), first_dit[n])
+               for n, p in pipe.transformer.named_parameters()) and \
+        len(first_dit) == len(list(pipe.transformer.parameters()))
+    log(f"[files] second int4 load: cache {'hit' if timings.cache_hit else 'miss'}, "
+        f"{calls[0]} quantize_weight calls, DiT bit for bit the first load's: {same}")
+    if not timings.cache_hit or calls[0] or not same:
+        raise AssertionError("int4: the quantized cache did not serve the second load")
+    del pipe, first_dit
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- train.cli --weights on the unified file: int4, rank 16, one step
+    work = base / "train"
+    (work / "data").mkdir(parents=True)
+    write_train_shard(work / "data")
+    cfg = dataclasses.replace(TransformerConfig(), num_layers=FILES_DIT_BLOCKS)
+    train_leg("files train", [
+        "--data", str(work / "data"), "--out", str(work / "adapter.safetensors"),
+        "--weights", str(unified), "--quant", "int4", "--rank", "16", "--sdpa", "pallas",
+        "--steps", "1", "--log-every", "1", "--device", str(device)],
+        train_step_launches(cfg))
+    shutil.rmtree(base, ignore_errors=True)
+    log(f"[files] phase: {time.perf_counter() - t_phase:.2f} s")
+
+
 TRAIN_GRID = (4, 16, 24)   # 25f@768x512: 1536 latent tokens
 TRAIN_TEXT = 1024
 TRAIN_PADS = (300, 500)    # left padding of each row's text context
@@ -1288,6 +1749,9 @@ def main() -> int:
                                               device)["int4_matmul"]
     dequant["launches"] = phase_big_m(pipe, device)["dequant_int4"]
     del pipe, noise, bf16_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_files_to_frames(device)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(device)

@@ -993,3 +993,140 @@ def check_tiny_train(device, dtype=torch.bfloat16) -> dict:
     if not worst <= TINY_TRAIN_TOL:
         raise AssertionError(f"tiny train: device vs CPU {out}")
     return out
+
+
+# --------------------------------------------------------------------------
+# Weights from files: the MLX dequantization, LoRA fusion
+# --------------------------------------------------------------------------
+
+
+def _bf16_payload_to_f32(payload: np.ndarray) -> np.ndarray:
+    return (payload.astype(np.uint32) << 16).view(np.float32)
+
+
+def mlx_dequant_bits(packed, scales, biases, group: int = 64, bits: int = 4) -> np.ndarray:
+    """An MLX 4-bit linear dequantized by numpy, independently of the port:
+    (out, in / 8) uint32 words (code n of a word in bits 4n..4n+3), (out,
+    in / group) bf16 scales and biases -> the (out, in) bf16 weight's
+    payload (uint16): q * scale + bias in float32 (two roundings), then
+    round to nearest even. Arguments are CPU tensors as read from the file."""
+    words = packed.view(torch.int32).numpy().view(np.uint32)
+    s = _bf16_payload_to_f32(scales.view(torch.int16).numpy().view(np.uint16))
+    b = _bf16_payload_to_f32(biases.view(torch.int16).numpy().view(np.uint16))
+    per_word = 32 // bits
+    o, iw = words.shape
+    q = np.zeros((o, iw * per_word), np.float32)
+    for n in range(per_word):
+        q[:, n::per_word] = ((words >> np.uint32(n * bits)) & np.uint32((1 << bits) - 1))
+    w = q.reshape(o, -1, group) * s[:, :, None]
+    w = (w + b[:, :, None]).reshape(o, -1)
+    u = w.view(np.uint32)
+    return ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
+            >> np.uint32(16)).astype(np.uint16)
+
+
+def check_mlx_dequant(packed, scales, biases, loaded) -> dict:
+    """The loaded bf16 Gemma weight against `mlx_dequant_bits` of its file
+    arrays: the number of differing values (must be 0)."""
+    want = mlx_dequant_bits(packed, scales, biases)
+    got = loaded.detach().cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+    differing = int(np.count_nonzero(got != want))
+    if got.shape != want.shape or differing:
+        raise AssertionError(f"MLX dequant: {differing} values differ from numpy's "
+                             f"(shapes {got.shape} / {want.shape})")
+    return {"values": int(want.size), "differing": differing}
+
+
+def device_copy(model: torch.nn.Module, device) -> torch.nn.Module:
+    """A copy of `model` whose parameters are new tensors on `device`
+    (Module.to would move the shared parameters of a structure copy)."""
+    memo = {id(p): torch.nn.Parameter(p.detach().to(device), requires_grad=p.requires_grad)
+            for p in model.parameters()}
+    return copy.deepcopy(model, memo)
+
+
+def lora_fuse_bound(layer, scale: float, device):
+    """How far two float32 deltas scale * (alpha / rank) * (up @ down)
+    computed in different summation orders can be apart, element by element:
+    each is within rank * 2**-24 * (|up| @ |down|) * |scale * alpha / rank|
+    of the exact one."""
+    up = layer.up.to(device, torch.float32).abs()
+    down = layer.down.to(device, torch.float32).abs()
+    return (up @ down) * (layer.rank * 2.0**-23 * abs(scale * layer.effective_scale))
+
+
+def check_fused_leaves(got: torch.nn.Module, want: torch.nn.Module, layers, scale: float,
+                       paths) -> dict:
+    """Fused bf16 Linear weights of two fusions of the same LoRA (e.g. the
+    card's and the CPU's) at the module `paths`, element by element, on
+    `got`'s device:
+
+        |a - b| <= ulp_bf16(max(|a|, |b|)) + 2**-23 max(|a|, |b|) + lora_fuse_bound
+
+    (the two f32 sums W + delta, each rounded once in f32, then to bf16: one
+    bf16 ulp where the f32 values straddle a rounding boundary). Returns the
+    worst share of the bound (<= 1) and the share of differing values."""
+    from ltx_tpu_torch.lora.fuse import module_path
+
+    worst, differing, total = 0.0, 0, 0
+    blocks = len(got.blocks)
+    for layer in layers:
+        path = module_path(layer.original_key, blocks)
+        if path not in paths:
+            continue
+        a = got.get_submodule(path).weight.detach().float()
+        b = want.get_submodule(path).weight.detach().to(a.device, torch.float32)
+        big = torch.maximum(a.abs(), b.abs())
+        bound = bf16_ulp(big) + 2.0**-23 * big + lora_fuse_bound(layer, scale, a.device)
+        worst = max(worst, ((a - b).abs() / bound).max().item())
+        differing += int((a != b).sum())
+        total += a.numel()
+    if not total or worst > 1.0:
+        raise AssertionError(f"fused leaves: worst share of the bound {worst} over "
+                             f"{total} values")
+    return {"share": worst, "differing": differing / total, "values": total}
+
+
+# a DiT call with the LoRA fused into bf16 weights against the same call with
+# the adapter as a float32 side path: the fused weight's bf16 rounding and
+# the bf16 product against the side path's float32 one, through every block
+# (the port's bf16 DiT tolerance, test_torch_dit)
+LORA_SIDE_PATH_TOL = 5e-2
+
+
+@torch.inference_mode()
+def lora_side_path_check(model: torch.nn.Module, layers, scale: float, tokens=(4, 16, 24),
+                         text_tokens: int = 1024, device="cuda", seed: int = 11) -> dict:
+    """One DiT call of `model` (an unfused bf16 LTXTransformer, anywhere)
+    with `layers` fused on `device`, against the same call of the unfused
+    model carrying each layer as a LoRA side path (lora_a = down^T, lora_b
+    = up^T, lora_s = scale * alpha / rank: train/lora.py's slots), on a
+    seeded latent of `tokens` (F', H', W') and a text context. Returns the
+    velocity's max abs error relative to its max magnitude, and the fused
+    model on `device` (for `check_fused_leaves`)."""
+    from ltx_tpu_torch.lora.fuse import fuse_lora, module_path
+
+    base = device_copy(model, device)
+    fused = fuse_lora(base, layers, scale)
+    side = fuse_lora(base, [], scale)  # a structure copy: slots go on it only
+    for layer in layers:
+        path = module_path(layer.original_key, len(side.blocks))
+        if path is None:
+            continue
+        linear = side.get_submodule(path)
+        linear.add_lora_params(layer.rank, torch.float32)
+        linear.lora_a.copy_(layer.down.t())
+        linear.lora_b.copy_(layer.up.t())
+        linear.lora_s.fill_(scale * layer.effective_scale)
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(seed)
+    f, h, w = tokens
+    latent = torch.randn(1, f * h * w, cfg.in_channels, generator=gen)
+    context = torch.randn(1, text_tokens, cfg.caption_channels, generator=gen)
+    cos, sin = video_rope(f, h, w, cfg.inner_dim, cfg.num_heads)
+    args = (latent.to(device, torch.bfloat16), context.to(device, torch.bfloat16),
+            torch.full((1,), 0.5, device=device),
+            (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)))
+    got, want = fused(*args).float(), side(*args).float()
+    return {"rel_err": _rel(got, want), "fused": fused,
+            "finite": bool(torch.isfinite(got).all() and torch.isfinite(want).all())}

@@ -2,7 +2,8 @@
 
 Port of the parts of ltx_tpu/core/config.py that the generation paths
 read, field for field and with the same defaults (tests/test_torch_static.py
-holds them against the reference's classes): the DiT's `TransformerConfig`,
+holds them against the reference's classes): the model variants
+(`LTXModel`), the DiT's `TransformerConfig`,
 the pixel/latent scale factors, `GenerationConfig`, `QuantizationConfig` and
 the memory knobs the port honours.
 """
@@ -10,7 +11,31 @@ the memory knobs the port honours.
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional, Tuple
+
+
+class LTXModel(str, enum.Enum):
+    """LTX-2 model variants: the same DiT, distilled or not."""
+
+    DEV = "dev"
+    DISTILLED = "distilled"
+
+    @property
+    def is_distilled(self) -> bool:
+        return self is LTXModel.DISTILLED
+
+    @property
+    def default_steps(self) -> int:
+        return 8 if self.is_distilled else 40
+
+    @property
+    def default_guidance(self) -> float:
+        return 1.0 if self.is_distilled else 4.0
+
+    @property
+    def unified_weights_filename(self) -> str:
+        return f"ltx-2-19b-{self.value}.safetensors"
 
 
 @dataclasses.dataclass(frozen=True)

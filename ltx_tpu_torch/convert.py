@@ -215,12 +215,72 @@ def transformer(tree, cfg, device=None):
 
 
 def vae_decoder(tree, cfg, device=None):
-    """vae.init_decoder_params tree -> VideoDecoder (cfg: a VAEConfig)."""
-    from ltx_tpu_torch.models.vae import VAEConfig, VideoDecoder
+    """vae.init_decoder_params or keymaps.load_vae_decoder_params tree ->
+    VideoDecoder (cfg: a VAEConfig); a tree without a group's time embedder
+    (the diffusers layout) gives a decoder without it."""
+    from ltx_tpu_torch.models.vae import VAEConfig, VideoDecoder, without_time_embedders
 
     dtype = tree_dtype(tree["conv_in"]["w"])
-    return load_tree(VideoDecoder(port_config(cfg, VAEConfig), device=device,
-                                  dtype=dtype), tree)
+    model = VideoDecoder(port_config(cfg, VAEConfig), device=device, dtype=dtype)
+
+    def present(name):
+        node = tree
+        for part in name.split("."):
+            if part not in node:
+                return False
+            node = node[part]
+        return True
+
+    return load_tree(without_time_embedders(model, present), tree)
+
+
+def _layout(tensor: torch.Tensor, owner: nn.Module, leaf: str):
+    """A DiT leaf between the JAX layout and the module's, either way: a
+    Linear weight transposes (a view), everything else stays."""
+    return tensor.t() if leaf == "weight" and isinstance(owner, Linear) else tensor
+
+
+def transformer_tree(model: nn.Module) -> dict:
+    """The JAX package's tree of an LTXTransformer, plain or quantized: the
+    blocks stacked along a leading axis, Linear weights (in, out), "w" / "b"
+    for Linear and NormWeight parameters, QuantizedLinear leaves as they
+    are; CPU tensors (the inverse of `transformer`)."""
+    tree: dict = {}
+    stacked: Dict[Tuple[str, ...], list] = {}
+    for name, p in model.named_parameters():
+        owner, leaf = _owner(model, name), name.rsplit(".", 1)[-1]
+        key = {"weight": "w", "bias": "b"}.get(leaf, leaf) if isinstance(
+            owner, _RENAMED) else leaf
+        value = _layout(p.detach(), owner, leaf).cpu().contiguous()
+        parts = name.split(".")[:-1] + [key]
+        if parts[0] == "blocks":
+            stacked.setdefault(("blocks",) + tuple(parts[2:]), []).append(value)
+        else:
+            _set_path(tree, tuple(parts), value)
+    for path, values in stacked.items():
+        _set_path(tree, path, torch.stack(values))
+    return tree
+
+
+def _set_path(tree: dict, path: Tuple[str, ...], value) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def transformer_from_tree(tree, cfg) -> nn.Module:
+    """A JAX-layout DiT tree of torch tensors (e.g. a quantized-weight
+    cache) -> LTXTransformer whose parameters are the tree's tensors (a
+    stacked leaf's entries are views; only plain Linear weights are copied,
+    transposed), checked by `models.common.assign_`."""
+    from ltx_tpu_torch.models.common import assign_
+    from ltx_tpu_torch.models.dit import LTXTransformer
+
+    model = LTXTransformer(cfg, device="meta", dtype=tree["patchify_proj"]["w"].dtype)
+    _swap_quantized(model, tree)
+    return assign_(model, {
+        name: _layout(leaf, _owner(model, name), name.rsplit(".", 1)[-1]).contiguous()
+        for name, leaf in _leaves(tree, model, "")})
 
 
 def vae_encoder(tree, cfg, device=None):

@@ -250,6 +250,29 @@ def uniform_(t, gen: torch.Generator, low: float, high: float):
     t.copy_(draw.mul_(high - low).add_(low))
 
 
+def assign_(module: nn.Module, state: dict) -> nn.Module:
+    """Make the tensors of `state` ({parameter name: tensor}) the parameters
+    of `module` (typically built on the "meta" device), strictly: every
+    parameter once, no other name, each of the parameter's shape and dtype.
+    No copy: a parameter becomes its tensor (a view of a mapped file
+    stays one). Returns `module`."""
+    params = dict(module.named_parameters())
+    unknown = sorted(set(state) - set(params))
+    missing = sorted(set(params) - set(state))
+    if unknown or missing:
+        raise ValueError(f"state dict does not fit {type(module).__name__}: no such "
+                         f"parameter {unknown[:8]}, no tensor for {missing[:8]}")
+    for name, target in params.items():
+        tensor = state[name]
+        if tuple(tensor.shape) != tuple(target.shape) or tensor.dtype != target.dtype:
+            raise ValueError(f"{name}: {tensor.dtype}{tuple(tensor.shape)}, the parameter is "
+                             f"{target.dtype}{tuple(target.shape)}")
+        owner = module.get_submodule(name.rpartition(".")[0])
+        setattr(owner, name.rpartition(".")[2],
+                nn.Parameter(tensor, requires_grad=target.requires_grad))
+    return module
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Draw every parameter of `module` from `gen`, with the JAX package's

@@ -282,20 +282,30 @@ def stg_skip_masks(cfg: TransformerConfig, batch: int, stg_blocks, perturbed_row
 @torch.no_grad()
 def quantize_transformer(module: nn.Module, bits: int, group_size: int = 64,
                          device=None, w8a8: bool = False) -> nn.Module:
-    """Quantize, in place, every large linear under `module.blocks`: each
-    Linear named in QUANTIZABLE_LEAVES with d_in * d_out >= _MIN_QUANT_SIZE
-    and d_in % group_size == 0 becomes a QuantizedLinear, one layer at a
-    time, quantized on `device` (default: where the layer lives) and kept
-    where the layer lived. Everything outside the blocks, norms and tables
-    stay as they are. Returns `module`."""
+    """Quantize, in place, every large linear under `module.blocks`
+    (`quantize_linears`), as the reference's quantize_transformer_params
+    quantizes the tree. Everything outside the blocks stays. Returns
+    `module`."""
     if w8a8:
         raise NotImplementedError("W8A8 quantization is not ported yet (ROADMAP A10)")
+    quantize_linears(module.blocks, bits, group_size, device)
+    return module
+
+
+@torch.no_grad()
+def quantize_linears(root: nn.Module, bits: int, group_size: int = 64,
+                     device=None) -> nn.Module:
+    """Each Linear under `root` named in QUANTIZABLE_LEAVES with d_in *
+    d_out >= _MIN_QUANT_SIZE and d_in % group_size == 0 becomes a
+    QuantizedLinear, in place, one layer at a time, quantized on `device`
+    (default: where the layer lives) and kept where the layer lived; norms
+    and tables stay. Returns `root`."""
     targets = [(parent, name, child)
-               for parent in module.blocks.modules()
+               for parent in root.modules()
                for name, child in parent.named_children()
                if name in QUANTIZABLE_LEAVES and isinstance(child, Linear)
                and child.weight.numel() >= _MIN_QUANT_SIZE
                and child.weight.shape[1] % group_size == 0]
     for parent, name, child in targets:
         setattr(parent, name, QuantizedLinear.from_linear(child, bits, group_size, device))
-    return module
+    return root

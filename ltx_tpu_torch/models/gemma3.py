@@ -47,6 +47,29 @@ class Gemma3Config:
     sliding_window_pattern: int = 6
     max_position_embeddings: int = 131072
 
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "Gemma3Config":
+        """A Hugging Face config.json (its nested `text_config` for a VLM
+        export), with the reference's defaults for absent keys."""
+        if "text_config" in d:
+            d = d["text_config"]
+        return cls(
+            hidden_size=d.get("hidden_size", 3840),
+            hidden_layers=d.get("num_hidden_layers", 48),
+            intermediate_size=d.get("intermediate_size", 15360),
+            attention_heads=d.get("num_attention_heads", 16),
+            head_dim=d.get("head_dim", 256),
+            rms_norm_eps=d.get("rms_norm_eps", 1e-6),
+            vocab_size=d.get("vocab_size", 262208),
+            kv_heads=d.get("num_key_value_heads", 8),
+            rope_theta=d.get("rope_theta", 1_000_000.0),
+            rope_local_base_freq=d.get("rope_local_base_freq", 10_000.0),
+            query_pre_attn_scalar=d.get("query_pre_attn_scalar", 256.0),
+            sliding_window=d.get("sliding_window", 1024),
+            sliding_window_pattern=d.get("sliding_window_pattern", 6),
+            max_position_embeddings=d.get("max_position_embeddings", 131072),
+        )
+
     def tiny(self) -> "Gemma3Config":
         return dataclasses.replace(
             self, hidden_size=64, hidden_layers=7, intermediate_size=128,

@@ -116,6 +116,14 @@ class LatentUpscaler(nn.Module):
         return _conv(self.final_conv, x)
 
 
+def load_params(tensors: dict) -> dict:
+    """Checkpoint tensors -> the LatentUpscaler state dict: the checkpoint's
+    names and torch layouts are the module's, every tensor float32; the
+    fixed `blur_down` kernel is skipped (the reference does not read it)."""
+    return {k: v.to(torch.float32) for k, v in tensors.items()
+            if not k.startswith("blur_down")}
+
+
 def upsample_latents(upscaler: LatentUpscaler, latent, mean, std):
     """Denormalize with the VAE's (C,) per-channel statistics, upscale, and
     normalize again; f32 in and out."""

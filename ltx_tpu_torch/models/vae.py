@@ -281,6 +281,19 @@ class VideoDecoder(nn.Module):
         return decoder_unpatchify(x, cfg.patch_size)
 
 
+def without_time_embedders(decoder: "VideoDecoder", present) -> "VideoDecoder":
+    """Remove each time embedder of `decoder` (the four groups' and the
+    last one) whose module name `present(name)` denies: a checkpoint in the
+    diffusers layout carries none for the groups. A decoder without them
+    cannot decode with timestep conditioning. Returns `decoder`."""
+    for name in ("up_blocks_0", "up_blocks_2", "up_blocks_4", "up_blocks_6"):
+        if not present(f"{name}.time_embedder"):
+            getattr(decoder, name).time_embedder = None
+    if not present("last_time_embedder"):
+        decoder.last_time_embedder = None
+    return decoder
+
+
 def _tile_starts(frames: int, tile_size: int, stride: int):
     starts, s = [], 0
     while s < frames:

@@ -41,6 +41,7 @@ from ltx_tpu_torch.config import (
     QuantizationConfig,
     TransformerConfig,
 )
+from ltx_tpu_torch.errors import ModelNotLoadedError
 from ltx_tpu_torch.models.common import init_random_
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
 from ltx_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
@@ -62,14 +63,6 @@ from ltx_tpu_torch.pipeline.denoise import (
     make_denoise_step,
     run_denoise_loop,
 )
-
-
-class ModelNotLoadedError(RuntimeError):
-    """A component the phase needs was never loaded, or was offloaded."""
-
-    def __init__(self, component: str):
-        super().__init__(f"Model component not loaded: {component}")
-        self.component = component
 
 
 @dataclasses.dataclass

@@ -1,0 +1,318 @@
+"""Assemble an LTXPipeline from checkpoint files on the local disk.
+
+Port of ltx_tpu/pipeline/loader.py, in the reference's order: resolve the
+models directory's files (nothing is downloaded) -> split the unified file
+-> key-map each component -> fuse the LoRA into the DiT (the distilled
+LoRA, or a user's) -> quantize the DiT -> cache the quantized DiT -> the
+tokenizer.
+
+Every component is built on the host from the mapped files
+(`models.common.assign_`: a tensor whose dtype needs no change is a view
+of the file, not a copy); the pipeline then places each on the device for
+its phase (`memory.phase_staging`) or for good. Work on the weights that
+would take minutes on the host runs on `device`, layer by layer, and lands
+back on the host: the MLX 4-bit Gemma dequantization, and the DiT's LoRA
+fusion and quantization (both bit for bit the CPU's arithmetic).
+
+Not ported: the audio components (`include_audio`, ROADMAP A14), Gemma's
+quantized modes and int8 embedding (`gemma_quant` other than "bf16",
+`gemma_embed_int8`: A10; the reference defaults to "w8a8"), and the
+SigLIP vision tower (A13), which is not read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ltx_tpu_torch import convert
+from ltx_tpu_torch.config import LTXModel, MemoryConfig, QuantizationConfig, TransformerConfig
+from ltx_tpu_torch.errors import FileNotFoundLTXError
+from ltx_tpu_torch.models import vae
+from ltx_tpu_torch.models.common import assign_
+from ltx_tpu_torch.models.dit import LTXTransformer, quantize_linears
+from ltx_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
+from ltx_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+from ltx_tpu_torch.pipeline.generate import LTXPipeline
+from ltx_tpu_torch.weights import keymaps, qcache
+from ltx_tpu_torch.weights.download import (
+    download_all_components,
+    load_safetensors,
+    load_safetensors_dir,
+)
+
+log = logging.getLogger("ltx_tpu_torch")
+
+
+@dataclasses.dataclass
+class LoadTimings:
+    """Seconds of each part of `load_pipeline` (device work synchronised):
+    mapping the files, the key maps (with their dtype changes), building
+    the modules, the Gemma dequantization, the DiT's LoRA fusion and
+    quantization, the quantized cache (read or written), and the whole."""
+
+    read: float = 0.0
+    key_map: float = 0.0
+    build: float = 0.0
+    gemma_dequant: float = 0.0
+    fuse: float = 0.0
+    quantize: float = 0.0
+    cache: float = 0.0
+    total: float = 0.0
+    cache_hit: bool = False
+
+
+def load_tokenizer(gemma_dir):
+    """The Gemma snapshot's tokenizer.json, read by the port's reader."""
+    from ltx_tpu_torch.tokenizer import Tokenizer
+
+    path = Path(gemma_dir) / "tokenizer.json"
+    if not path.exists():
+        raise FileNotFoundLTXError(f"tokenizer.json in {gemma_dir}")
+    return Tokenizer.from_file(path)
+
+
+def _quant_signature(component: str, quantization, layers: int, audio: bool = False,
+                     lora_path=None, lora_scale: float = 1.0) -> dict:
+    """Staleness key of a quantized-weight cache entry: what changes the
+    quantized tree besides the source file itself (which qcache records)."""
+    sig = {"component": component, "mode": quantization.mode,
+           "group": quantization.group_size, "layers": layers, "audio": audio}
+    if lora_path is not None:
+        st = os.stat(lora_path)
+        sig["lora"] = (f"{os.path.basename(str(lora_path))}:"
+                       f"{st.st_size}:{st.st_mtime_ns}:{lora_scale}")
+    return sig
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def _fuse_and_quantize(model: LTXTransformer, lora_layers, lora_scale: float,
+                       quantization: QuantizationConfig, device, timings: LoadTimings):
+    """The DiT's LoRA fusion, then its quantization, each block in turn on
+    `device` and back to the host; the top-level linears fuse on `device`
+    too (they are not quantized)."""
+    from ltx_tpu_torch.lora.fuse import _BLOCK_KEY, fuse_lora
+
+    per_block = {}
+    top = []
+    for layer in lora_layers:
+        m = _BLOCK_KEY.match(layer.original_key)
+        (per_block.setdefault(int(m.group(1)), []) if m else top).append(layer)
+    t0 = time.perf_counter()
+    if top:
+        fuse_lora(model, top, lora_scale, device=device, inplace=True)
+        timings.fuse += time.perf_counter() - t0
+    for i, block in enumerate(model.blocks):
+        layers = per_block.get(i, [])
+        if not layers and quantization.bits is None:
+            continue
+        block.to(device)
+        if layers:
+            t1 = time.perf_counter()
+            fuse_lora(model, layers, lora_scale, inplace=True)
+            _sync(device)
+            timings.fuse += time.perf_counter() - t1
+        if quantization.bits is not None:
+            t1 = time.perf_counter()
+            quantize_linears(block, quantization.bits, quantization.group_size)
+            _sync(device)
+            timings.quantize += time.perf_counter() - t1
+        block.to("cpu")
+    log.info("DiT prepared on %s in %.2f s", device, time.perf_counter() - t0)
+
+
+def load_pipeline(
+    model: LTXModel = LTXModel.DISTILLED,
+    models_dir: Optional[str] = None,
+    hf_token: Optional[str] = None,
+    gemma_path: Optional[str] = None,
+    unified_weights_path: Optional[str] = None,
+    quantization: QuantizationConfig = QuantizationConfig(),
+    memory: MemoryConfig = MemoryConfig(),
+    lora_path: Optional[str] = None,
+    lora_scale: float = 1.0,
+    distilled_lora: bool = False,
+    include_audio: bool = False,
+    include_upscaler: bool = False,
+    gemma_quant: str = "bf16",
+    gemma_embed_int8: bool = False,
+    quant_cache: bool = True,
+    transformer_config: Optional[TransformerConfig] = None,
+    vae_config=None,
+    text_encoder_config=None,
+    device="cuda",
+    timings: Optional[LoadTimings] = None,
+) -> LTXPipeline:
+    """Load and assemble every component from a local models directory
+    (the reference's layout, `weights.download.download_all_components`).
+
+    The reference's arguments, in its order; `hf_token` is accepted and
+    unused (nothing is downloaded). `gemma_quant` defaults to "bf16" here:
+    the reference's default "w8a8" is not ported yet (ROADMAP A10), nor is
+    `include_audio` (A14). quant_cache=True keeps a quantized DiT next to
+    the unified file the first time (weights/qcache.py, in the JAX
+    package's format) and maps it back on later loads; its staleness key is
+    the source file's size and mtime and the quantization and LoRA
+    signature. `device` is where the pipeline runs and where the heavy
+    load-time work runs (default: the card). The *_config overrides exist
+    for checkpoints cut to size (tests, the smoke run). `timings`, when
+    given, receives the seconds of each part."""
+    if include_audio:
+        raise NotImplementedError("include_audio: the audio components are not ported "
+                                  "yet (ROADMAP A14)")
+    if quantization.mode == "w8a8":
+        raise NotImplementedError("W8A8 quantization is not ported yet (ROADMAP A10)")
+    t_start = time.perf_counter()
+    timings = timings if timings is not None else LoadTimings()
+    device = torch.device(device)
+    tcfg = transformer_config or TransformerConfig()
+
+    t0 = time.perf_counter()
+    paths = download_all_components(model, models_dir=models_dir, hf_token=hf_token,
+                                    include_audio=include_audio,
+                                    include_upscaler=include_upscaler)
+    unified_path = unified_weights_path or paths["unified"]
+    gemma_dir = gemma_path or paths["gemma"]
+    log.info("Loading unified weights: %s", unified_path)
+    tensors = load_safetensors(unified_path)
+    tr_raw, vae_raw, conn_raw = keymaps.split_unified(tensors)
+    del tensors
+    # the standalone files stand in when the unified split lacks a component
+    if not any("conv_in" in k for k in vae_raw) and paths.get("vae"):
+        vae_raw = load_safetensors(paths["vae"])
+    if not conn_raw and paths.get("connector"):
+        conn_raw = load_safetensors(paths["connector"])
+    timings.read += time.perf_counter() - t0
+
+    # --- transformer: a quantized load checks the cache first (a hit skips
+    # the key map, the fusion and the quantization)
+    fuse_path = (lora_path or paths.get("distilled_lora")
+                 if (distilled_lora or lora_path) else None)
+    transformer = None
+    dit_sig = None
+    if quantization.bits is not None:
+        dit_sig = _quant_signature("dit", quantization, tcfg.num_layers, audio=False,
+                                   lora_path=fuse_path, lora_scale=lora_scale)
+        if quant_cache:
+            t0 = time.perf_counter()
+            tree = qcache.load_quantized_tree(unified_path, f"dit-{quantization.mode}",
+                                              dit_sig)
+            if tree is not None:
+                transformer = convert.transformer_from_tree(tree, tcfg)
+                timings.cache_hit = True
+            timings.cache += time.perf_counter() - t0
+    if transformer is None:
+        t0 = time.perf_counter()
+        state = keymaps.load_transformer_params(tr_raw, tcfg.num_layers)
+        timings.key_map += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        transformer = assign_(LTXTransformer(tcfg, "meta", state["patchify_proj.weight"].dtype),
+                              state)
+        timings.build += time.perf_counter() - t0
+        del state
+        lora_layers = []
+        if fuse_path is not None:
+            from ltx_tpu_torch.lora.fuse import parse_lora
+
+            log.info("Fusing LoRA: %s (scale %.2f)", fuse_path, lora_scale)
+            t0 = time.perf_counter()
+            lora_layers = parse_lora(load_safetensors(fuse_path))
+            timings.read += time.perf_counter() - t0
+        if lora_layers or quantization.bits is not None:
+            _fuse_and_quantize(transformer, lora_layers, lora_scale, quantization, device,
+                               timings)
+        if quantization.bits is not None and quant_cache:
+            t0 = time.perf_counter()
+            qcache.save_quantized_tree(convert.transformer_tree(transformer), unified_path,
+                                       f"dit-{quantization.mode}", dit_sig)
+            timings.cache += time.perf_counter() - t0
+    del tr_raw
+
+    # --- VAE decoder (and its config flag), encoder
+    vcfg = vae_config or vae.VAEConfig()
+    cfg_path = paths.get("vae_config")
+    if cfg_path and Path(cfg_path).exists():
+        with open(cfg_path) as f:
+            if json.load(f).get("timestep_conditioning"):
+                vcfg = dataclasses.replace(vcfg, timestep_conditioning=True)
+    t0 = time.perf_counter()
+    dec_state = keymaps.load_vae_decoder_params(vae_raw)
+    enc_state = None
+    if any(k.startswith("encoder.") for k in vae_raw):
+        enc_state = keymaps.load_vae_encoder_params(vae_raw)
+    elif paths.get("vae") and Path(paths["vae"]).exists():
+        # the encoder ships only in the standalone VAE file
+        standalone = load_safetensors(paths["vae"])
+        if any(k.startswith("encoder.") for k in standalone):
+            enc_state = keymaps.load_vae_encoder_params(standalone)
+        del standalone
+    del vae_raw
+    te_state = keymaps.load_text_encoder_params(conn_raw)
+    del conn_raw
+    timings.key_map += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vae_dtype = dec_state["conv_in.weight"].dtype
+    decoder = assign_(vae.without_time_embedders(
+        vae.VideoDecoder(vcfg, "meta", vae_dtype),
+        lambda name: f"{name}.timestep_embedder.linear_1.weight" in dec_state), dec_state)
+    encoder = None if enc_state is None else assign_(
+        vae.VideoEncoder(vcfg, "meta", enc_state["conv_in.weight"].dtype), enc_state)
+    tecfg = text_encoder_config or TextEncoderConfig()
+    text_encoder = assign_(TextEncoder(
+        tecfg, "meta", te_state["feature_extractor.aggregate_embed.weight"].dtype), te_state)
+    timings.build += time.perf_counter() - t0
+    del dec_state, enc_state, te_state
+
+    # --- Gemma
+    with open(Path(gemma_dir) / "config.json") as f:
+        gcfg = Gemma3Config.from_hf_dict(json.load(f))
+    t0 = time.perf_counter()
+    gemma_tensors = load_safetensors_dir(gemma_dir)
+    timings.read += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_state = keymaps.load_gemma_params(gemma_tensors, gcfg.hidden_layers, mode=gemma_quant,
+                                        embed_int8=gemma_embed_int8, device=device)
+    _sync(device)
+    timings.gemma_dequant += time.perf_counter() - t0
+    del gemma_tensors
+    t0 = time.perf_counter()
+    gemma = assign_(Gemma3Model(gcfg, "meta", g_state["embed_tokens.weight"].dtype), g_state)
+    timings.build += time.perf_counter() - t0
+    del g_state
+    log.info("no vision tower read from %s (ROADMAP A13)", gemma_dir)
+    tokenizer = load_tokenizer(gemma_dir)
+
+    upscaler = None
+    if include_upscaler and "upscaler" in paths:
+        from ltx_tpu_torch.models import upscaler as upscaler_mod
+
+        t0 = time.perf_counter()
+        u_state = upscaler_mod.load_params(load_safetensors(paths["upscaler"]))
+        # the reference's UpscalerConfig, its widths and depth read from the file
+        mid, in_channels = u_state["initial_conv.weight"].shape[:2]
+        ucfg = dataclasses.replace(
+            upscaler_mod.UpscalerConfig(), in_channels=in_channels, mid_channels=mid,
+            blocks_per_stage=sum(k.endswith(".conv1.weight") and k.startswith("res_blocks.")
+                                 for k in u_state))
+        upscaler = assign_(upscaler_mod.LatentUpscaler(ucfg, "meta", torch.float32), u_state)
+        timings.build += time.perf_counter() - t0
+
+    pipe = LTXPipeline(transformer=transformer, vae_decoder=decoder, gemma=gemma,
+                       text_encoder=text_encoder, tokenizer=tokenizer, memory=memory,
+                       is_distilled=model.is_distilled or distilled_lora, device=device,
+                       vae_encoder=encoder, upscaler=upscaler)
+    timings.total = time.perf_counter() - t_start
+    return pipe

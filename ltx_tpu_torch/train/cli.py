@@ -8,9 +8,13 @@ dataset (train/data.py shards) -> QLoRA/LoRA flow-matching steps on one
 device -> periodic checkpoints with the dataset cursor -> the adapter in
 the ComfyUI LoRA schema (the EMA adapter when --ema is on). The flags and
 defaults are the reference's, plus --device (default cuda; the CPU runs the
-kernels' plain versions). Not ported yet, each raising NotImplementedError:
---quant w8a8 (the reference's default; ROADMAP A10), --weights (A9),
---mesh / --coordinator / --num-processes and --sdpa ring (A18).
+kernels' plain versions). The base is random (--random-init) or the DiT of
+a unified checkpoint (--weights: `keymaps.split_unified`, then
+`keymaps.load_transformer_params`, as the reference; the depth and widths
+come from the file's tensors, so a checkpoint cut to fewer blocks trains
+too). Not ported yet, each raising NotImplementedError: --quant w8a8 (the
+reference's default; ROADMAP A10), --mesh / --coordinator /
+--num-processes and --sdpa ring (A18).
 
 Each step's noise levels and noise come from a torch.Generator seeded with
 (seed + 2, step), and the checkpoint's dataset cursor is that of the last
@@ -52,7 +56,7 @@ def add_train_arguments(ap) -> None:
                     default="w8a8", help="frozen-base quantization (w8a8 is "
                                          "not ported yet: pass int4 or none)")
     ap.add_argument("--weights", default=None,
-                    help="unified checkpoint (.safetensors); not ported yet")
+                    help="unified checkpoint (.safetensors) whose DiT is the base")
     ap.add_argument("--random-init", choices=("tiny", "full"), default=None,
                     help="random base instead of --weights (tiny is not quantized)")
     ap.add_argument("--compute", choices=("bf16", "f32"), default="bf16",
@@ -82,16 +86,13 @@ def _check_ported(args) -> None:
     if args.quant == "w8a8":
         raise NotImplementedError("--quant w8a8 is not ported yet (ROADMAP A10): "
                                   "pass --quant int4 or --quant none")
-    if args.weights:
-        raise NotImplementedError("--weights: the weight loader is not ported yet "
-                                  "(ROADMAP A9); pass --random-init")
     if args.mesh or args.coordinator or args.num_processes:
         raise NotImplementedError("--mesh / --coordinator / --num-processes: "
                                   "parallel training is not ported yet (ROADMAP A18)")
     if args.sdpa == "ring":
         raise NotImplementedError("--sdpa ring is not ported yet (ROADMAP A18)")
-    if not args.random_init:
-        raise SystemExit("pass --random-init {tiny,full}")
+    if not args.random_init and not args.weights:
+        raise SystemExit("pass --weights UNIFIED.safetensors or --random-init {tiny,full}")
 
 
 def _step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -114,13 +115,27 @@ def _atomic_np_save(path, obj) -> None:
             os.remove(tmp)
 
 
+def _load_base(path):
+    """(the LTXTransformer state dict of a unified checkpoint's DiT, its
+    config, seconds): split_unified, then the DiT key map, depth and widths
+    read from the tensors."""
+    from ltx_tpu_torch.weights import keymaps
+    from ltx_tpu_torch.weights.download import load_safetensors
+
+    t0 = time.perf_counter()
+    tr_raw, _, _ = keymaps.split_unified(load_safetensors(path))
+    layers = len({k.split(".")[1] for k in tr_raw if k.startswith("transformer_blocks.")})
+    state = keymaps.load_transformer_params(tr_raw, layers)
+    return state, keymaps.transformer_config_from_state_dict(state), time.perf_counter() - t0
+
+
 def run(args, report=None) -> int:
     """Train per `args` (the flags of add_train_arguments). With `report`
     (a callable), it is called after every step with a dict of that step's
     number, loss, grad_norm, synchronised seconds and peak device memory,
     and once before the first step with the set-up seconds."""
     from ltx_tpu_torch.config import TransformerConfig
-    from ltx_tpu_torch.models.common import init_random_
+    from ltx_tpu_torch.models.common import assign_, init_random_
     from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
     from ltx_tpu_torch.ops.rope import video_rope
     from ltx_tpu_torch.train.checkpoint import load_train_checkpoint, save_train_checkpoint
@@ -141,10 +156,17 @@ def run(args, report=None) -> int:
 
     _check_ported(args)
     device = torch.device(args.device)
-    cfg = TransformerConfig()
-    if args.random_init == "tiny":
-        cfg = cfg.tiny()
     compute_dtype = torch.float32 if args.compute == "f32" else torch.bfloat16
+    setup = {}
+    base_state = None
+    if args.random_init:
+        cfg = TransformerConfig()
+        if args.random_init == "tiny":
+            cfg = cfg.tiny()
+    else:
+        base_state, cfg, setup["load_s"] = _load_base(args.weights)
+        log(f"base DiT from {args.weights}: {cfg.num_layers} blocks, inner "
+            f"{cfg.inner_dim}, {setup['load_s']:.2f} s")
 
     ds = LatentShardDataset(args.data, args.batch, seed=args.seed)
     f, h, w = ds.grid
@@ -152,13 +174,25 @@ def run(args, report=None) -> int:
         raise SystemExit("empty dataset")
     log(f"dataset: {ds.num_rows} rows, grid {ds.grid}, batch {args.batch}")
 
-    setup = {}
     t0 = time.perf_counter()
-    model = LTXTransformer(cfg, device=device, dtype=compute_dtype)
-    init_random_(model, torch.Generator(device=device).manual_seed(args.seed))
-    _sync(device)
-    setup["random_init_s"] = time.perf_counter() - t0
-    log(f"random {args.random_init} base on {device}: {setup['random_init_s']:.2f} s")
+    if base_state is None:
+        model = LTXTransformer(cfg, device=device, dtype=compute_dtype)
+        init_random_(model, torch.Generator(device=device).manual_seed(args.seed))
+        _sync(device)
+        setup["random_init_s"] = time.perf_counter() - t0
+        log(f"random {args.random_init} base on {device}: {setup['random_init_s']:.2f} s")
+    else:
+        # the file's weight dtype (bf16) stands for the compute dtype, as a
+        # random base is drawn in it; the f32 tables stay f32
+        file_dtype = base_state["patchify_proj.weight"].dtype
+        model = assign_(LTXTransformer(cfg, device="meta", dtype=file_dtype),
+                        base_state).to(device)
+        for p in model.parameters():
+            if p.dtype == file_dtype:
+                p.data = p.data.to(compute_dtype)
+        _sync(device)
+        setup["to_device_s"] = time.perf_counter() - t0
+    del base_state
     if args.quant != "none" and args.random_init != "tiny":
         t0 = time.perf_counter()
         quantize_transformer(model, bits=4, group_size=64)

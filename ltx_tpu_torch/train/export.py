@@ -8,21 +8,18 @@ fusion path parses (ltx_tpu/lora/fuse.py::parse_lora), one entry per block:
     diffusion_model.transformer_blocks.{i}.attn1.to_q.alpha             ()
 
 in torch's layout ((r, in), (out, r): the (in, r) / (r, out) leaves
-transpose), alpha = lora_s * rank, all float32. The file is written by hand
-(an 8-byte little-endian header length, a JSON header padded with spaces to
-8 bytes, then the raw little-endian data), so no safetensors package is
-needed.
+transpose), alpha = lora_s * rank, all float32, in a file written by the
+port's own safetensors writer (weights/safetensors_io.py).
 """
 
 from __future__ import annotations
 
-import json
-import os
-import struct
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from ltx_tpu_torch.weights import safetensors_io
 
 # the block-relative path of a LoRA leaf -> the exported key's suffix
 _EXPORT_SUFFIX = {
@@ -39,8 +36,6 @@ _EXPORT_SUFFIX = {
 }
 
 _PREFIX = "diffusion_model.transformer_blocks"
-
-_F32 = "F32"  # every tensor of an adapter is float32
 
 
 def _np(t) -> np.ndarray:
@@ -72,45 +67,19 @@ def lora_state_dict(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
 
 def write_safetensors(tensors: Mapping[str, np.ndarray], path) -> None:
     """float32 arrays in the safetensors file format, written atomically."""
-    header, chunks, offset = {}, [], 0
     for key, arr in tensors.items():
         if arr.dtype != np.float32:
             raise ValueError(f"{key}: {arr.dtype}, the adapter format here is float32")
-        data = np.asarray(arr, "<f4").tobytes()
-        header[key] = {"dtype": _F32, "shape": list(arr.shape),
-                       "data_offsets": [offset, offset + len(data)]}
-        chunks.append(data)
-        offset += len(data)
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            f.write(struct.pack("<Q", len(raw)))
-            f.write(raw)
-            for data in chunks:
-                f.write(data)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    safetensors_io.save(tensors, path)
 
 
 def read_safetensors(path) -> Dict[str, np.ndarray]:
-    """The float32 tensors of a safetensors file (what `write_safetensors`
-    writes; an adapter reads back without the safetensors package)."""
-    with open(path, "rb") as f:
-        (size,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(size))
-        data = f.read()
+    """The float32 tensors of an adapter file, as numpy arrays."""
     out = {}
-    for key, info in header.items():
-        if key == "__metadata__":
-            continue
-        if info["dtype"] != _F32:
-            raise ValueError(f"{key}: dtype {info['dtype']}, not an adapter's float32")
-        start, end = info["data_offsets"]
-        out[key] = np.frombuffer(data[start:end], "<f4").reshape(info["shape"]).astype(np.float32)
+    for key, tensor in safetensors_io.load(path).items():
+        if tensor.dtype != torch.float32:
+            raise ValueError(f"{key}: dtype {tensor.dtype}, not an adapter's float32")
+        out[key] = tensor.numpy().copy()
     return out
 
 

@@ -22,7 +22,10 @@ in bf16 and with a float32 compute dtype;
 rms_norm within 16 f32 ulps of the plain version's f32 value plus, for a
 bf16 output, half a bf16 ulp, bitwise equal from run to run and row by row;
 the tiny two-stage I2V pipeline, its norms through that kernel by the
-default route, within 2e-2.
+default route, within 2e-2; the MLX 4-bit dequantization of the loader on
+the card bit for bit; LoRA fusion on the card against the CPU's within
+checks.check_fused_leaves' bound, and the fused DiT against the adapter as
+a side path within 5e-2.
 """
 
 import pytest
@@ -244,3 +247,51 @@ def test_tiny_two_stage_cuda_matches_cpu(device):
     # the chain only for the tiny connector's norms (64 wide), once a text pass
     tecfg = LTXPipeline.random_tiny(device="cpu").tecfg
     assert res["launches"]["rms_chain_on_cuda"] == tecfg.connector_layers * 4 + 1
+
+
+def test_mlx_dequant_on_the_card_is_bit_for_bit(device):
+    """keymaps' MLX 4-bit dequantization run on the card equals numpy's
+    (checks.mlx_dequant_bits), bit for bit."""
+    from ltx_tpu_torch.weights import keymaps
+
+    gen = torch.Generator().manual_seed(3)
+    packed = torch.randint(-2**31, 2**31, (256, 512 // 8), generator=gen,
+                           dtype=torch.int32).view(torch.uint32)
+    scales = (torch.rand(256, 512 // 64, generator=gen) * 0.01).to(torch.bfloat16)
+    biases = (-7.5 * scales.float()).to(torch.bfloat16)
+    tensors = {"w.weight": packed, "w.scales": scales, "w.biases": biases}
+    got = keymaps._maybe_dequant_mlx_4bit(tensors, "w", device=device)
+    assert got.device.type == "cuda"
+    assert checks.check_mlx_dequant(packed, scales, biases,
+                                    got.to(torch.bfloat16))["differing"] == 0
+
+
+def test_lora_fusion_on_the_card_matches_the_cpu(device):
+    """A rank-64 LoRA over every block linear of the tiny bf16 DiT, fused on
+    the card and on the CPU (checks.check_fused_leaves), and the fused DiT
+    on the card against the adapter as a side path (LORA_SIDE_PATH_TOL)."""
+    from ltx_tpu_torch.config import TransformerConfig
+    from ltx_tpu_torch.lora.fuse import LoRALayer, fuse_lora
+    from ltx_tpu_torch.models.common import init_random_
+    from ltx_tpu_torch.models.dit import LTXTransformer
+
+    cfg = TransformerConfig().tiny()
+    gen = torch.Generator().manual_seed(4)
+    model = init_random_(LTXTransformer(cfg, device="cpu", dtype=torch.bfloat16), gen)
+    layers, paths = [], set()
+    for i in range(cfg.num_layers):
+        for name in ("attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out", "attn2.to_q",
+                     "attn2.to_k", "attn2.to_v", "attn2.to_out", "ff.project_in",
+                     "ff.project_out"):
+            d_out, d_in = model.blocks[i].get_submodule(name).weight.shape
+            key = name.replace("ff.project_in", "ff.project_in.proj")
+            layers.append(LoRALayer(f"transformer_blocks.{i}.{key}",
+                                    torch.randn(64, d_in, generator=gen) * d_in**-0.5,
+                                    torch.randn(d_out, 64, generator=gen) * 0.0125, 64.0))
+            paths.add(f"blocks.{i}.{name}")
+    card = fuse_lora(model, layers, 0.8, device=device)
+    cpu = fuse_lora(model, layers, 0.8, device="cpu")
+    assert checks.check_fused_leaves(card, cpu, layers, 0.8, paths)["share"] <= 1.0
+    res = checks.lora_side_path_check(model, layers, 0.8, tokens=(2, 4, 4), text_tokens=16,
+                                      device=device)
+    assert res["finite"] and res["rel_err"] <= checks.LORA_SIDE_PATH_TOL

@@ -411,7 +411,8 @@ def test_sample_sigmas_ranges():
 def test_train_cli_cpu_and_resume(tmp_path):
     """The trainer on the CPU: 4 steps with checkpoints, then a resume leg
     to 6 steps, exports what an uninterrupted 6-step run exports, bit for
-    bit; the unported options raise, naming their ROADMAP item."""
+    bit; the unported options raise, naming their ROADMAP item, and
+    --weights reads the file it names."""
     shards = tmp_path / "shards"
     shards.mkdir()
     _write_shards(shards, n_shards=1, rows=3)
@@ -430,8 +431,13 @@ def test_train_cli_cpu_and_resume(tmp_path):
     assert len(full) == 3 * 10 * CFG.num_layers and sorted(full) == sorted(resumed)
     for k in full:
         np.testing.assert_array_equal(full[k], resumed[k])
-    for extra, item in ((["--quant", "w8a8"], "A10"), (["--weights", "x.safetensors"], "A9"),
-                        (["--mesh", "1,1"], "A18"), (["--sdpa", "ring"], "A18")):
+    for extra, item in ((["--quant", "w8a8"], "A10"), (["--mesh", "1,1"], "A18"),
+                        (["--sdpa", "ring"], "A18")):
         argv = common + ["--out", str(tmp_path / "x.safetensors"), "--steps", "1"] + extra
         with pytest.raises(NotImplementedError, match=item):
             cli.main(argv)
+    # --weights is ported (tests/test_torch_loader.py trains from a file)
+    argv = [a for a in common if a not in ("--random-init", "tiny")]
+    with pytest.raises(FileNotFoundError):
+        cli.main(argv + ["--out", str(tmp_path / "x.safetensors"), "--steps", "1",
+                         "--weights", str(tmp_path / "absent.safetensors")])

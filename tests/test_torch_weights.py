@@ -1,0 +1,353 @@
+"""The port's checkpoint readers against the reference's.
+
+* Every key map (ltx_tpu_torch.weights.keymaps) on the independently
+  transcribed checkpoint specs of tests/weight_fixtures.py at small widths:
+  the port's state dict equals, bit for bit and dtype for dtype, the
+  parameters `convert` builds from the reference loader's tree on the same
+  tensors (video DiT; VAE decoder in both layouts; encoder; connector in
+  both formats; Gemma from f32, bf16, MLX 4-bit and a VLM export;
+  upscaler).
+  One extra key raises WeightLoadingFailedError on both sides.
+* `split_unified` gives the same buckets.
+* The port's safetensors reader and writer against the safetensors
+  package, both ways, for every dtype and the metadata.
+* `download_all_components` (local paths only) and the registry against
+  the reference's skip-if-exists layout.
+"""
+
+import dataclasses
+import json
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import tests.weight_fixtures as wf
+from ltx_tpu.core import config as jconfig
+from ltx_tpu.core import errors as jerrors
+from ltx_tpu.models import upscaler as jupscaler
+from ltx_tpu.weights import download as jdl
+from ltx_tpu.weights import keymaps as jk
+from ltx_tpu.weights import registry as jreg
+from ltx_tpu_torch import convert, errors
+from ltx_tpu_torch.config import LTXModel, TransformerConfig
+from ltx_tpu_torch.models.gemma3 import Gemma3Config
+from ltx_tpu_torch.models.text_encoder import TextEncoderConfig
+from ltx_tpu_torch.models.upscaler import UpscalerConfig, load_params
+from ltx_tpu_torch.models.vae import VAEConfig
+from ltx_tpu_torch.weights import download, keymaps, registry, safetensors_io
+
+TCFG = TransformerConfig().tiny()
+VCFG = dataclasses.replace(VAEConfig().tiny(), encoder_resnets=(4, 6, 6, 2))
+TECFG = TextEncoderConfig().tiny()
+GCFG = dataclasses.replace(Gemma3Config().tiny(), hidden_layers=2)
+UCFG = UpscalerConfig().tiny()
+
+
+def _torch(tensors: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in tensors.items()}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bits, comparable with torch.equal whatever its dtype."""
+    t = t.detach().contiguous()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()]) if t.is_floating_point() else t
+
+
+def assert_state_equal(got: dict, module: torch.nn.Module):
+    want = dict(module.named_parameters())
+    assert sorted(got) == sorted(want)
+    for name, p in want.items():
+        assert got[name].dtype == p.dtype and got[name].shape == p.shape, name
+        assert torch.equal(_bits(got[name]), _bits(p)), name
+
+
+def _dit_spec():
+    return wf.video_transformer_spec(
+        num_layers=TCFG.num_layers, inner=TCFG.inner_dim, in_channels=TCFG.in_channels,
+        out_channels=TCFG.out_channels, cross_dim=TCFG.cross_attention_dim,
+        caption_dim=TCFG.caption_channels)
+
+
+def _gemma_spec(**kw):
+    return wf.gemma_spec(layers=GCFG.hidden_layers, hidden=GCFG.hidden_size,
+                         heads=GCFG.attention_heads, kv_heads=GCFG.kv_heads,
+                         head_dim=GCFG.head_dim, intermediate=GCFG.intermediate_size,
+                         vocab=GCFG.vocab_size, **kw)
+
+
+def _decoder_spec(layout):
+    return wf.vae_decoder_spec(base=VCFG.base_channels, latent=VCFG.latent_channels,
+                               blocks_per_group=VCFG.blocks_per_group, layout=layout)
+
+
+def _connector_spec(fmt):
+    return wf.connector_spec(fmt=fmt, dim=TECFG.hidden_dim,
+                             gemma_layers=TECFG.num_gemma_layers,
+                             layers=TECFG.connector_layers, registers=TECFG.num_registers)
+
+
+# component: (spec, reference loader -> tree, port loader, convert of the tree)
+CASES = {
+    "dit": (_dit_spec, lambda t: jk.load_transformer_params(t, TCFG.num_layers),
+            lambda t: keymaps.load_transformer_params(t, TCFG.num_layers),
+            lambda tree: convert.transformer(tree, TCFG)),
+    "vae_decoder_unified": (lambda: _decoder_spec("unified"), jk.load_vae_decoder_params,
+                            keymaps.load_vae_decoder_params,
+                            lambda tree: convert.vae_decoder(tree, VCFG)),
+    "vae_decoder_diffusers": (lambda: _decoder_spec("diffusers"), jk.load_vae_decoder_params,
+                              keymaps.load_vae_decoder_params,
+                              lambda tree: convert.vae_decoder(tree, VCFG)),
+    "vae_encoder": (lambda: wf.vae_encoder_spec(base=VCFG.encoder_channels[0]),
+                    jk.load_vae_encoder_params, keymaps.load_vae_encoder_params,
+                    lambda tree: convert.vae_encoder(tree, VCFG)),
+    "connector_fmt1": (lambda: _connector_spec(1), jk.load_text_encoder_params,
+                       keymaps.load_text_encoder_params,
+                       lambda tree: convert.text_encoder(tree, TECFG)),
+    "connector_fmt2": (lambda: _connector_spec(2), jk.load_text_encoder_params,
+                       keymaps.load_text_encoder_params,
+                       lambda tree: convert.text_encoder(tree, TECFG)),
+    "gemma_f32": (_gemma_spec,
+                  lambda t: jk.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
+                  lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers),
+                  lambda tree: convert.gemma(tree, GCFG)),
+    "gemma_mlx4": (lambda: _gemma_spec(mlx_4bit=True),
+                   lambda t: jk.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
+                   lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers),
+                   lambda tree: convert.gemma(tree, GCFG)),
+    "gemma_vlm_mlx4": (lambda: {**_gemma_spec(mlx_4bit=True, vlm_prefix=True),
+                                "vision_tower.encoder.w.weight": (4, 4)},
+                       lambda t: jk.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
+                       lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers),
+                       lambda tree: convert.gemma(tree, GCFG)),
+    "upscaler": (lambda: wf.upscaler_spec(in_ch=UCFG.in_channels, mid=UCFG.mid_channels,
+                                          blocks_per_stage=UCFG.blocks_per_stage),
+                 jupscaler.load_params, load_params,
+                 lambda tree: convert.upscaler(tree, UCFG)),
+}
+
+
+@pytest.mark.parametrize("component", sorted(CASES) + ["gemma_bf16"])
+def test_key_map_equals_convert_of_reference(component):
+    spec, ref_load, port_load, build = CASES[component.replace("_bf16", "_f32")]
+    tensors = wf.materialize(spec(), seed=7)
+    if component == "gemma_bf16":  # a bf16 snapshot: both packages keep its values
+        import ml_dtypes
+
+        port_in = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in tensors.items()}
+        tensors = {k: v.astype(ml_dtypes.bfloat16) for k, v in tensors.items()}
+        got = port_load(port_in)
+    else:
+        got = port_load(_torch(tensors))
+    assert_state_equal(got, build(ref_load(dict(tensors))))
+    if component == "dit":  # the config the trainer reads from the tensors
+        other = dataclasses.replace(TCFG, num_layers=48, num_heads=32, in_channels=128,
+                                    out_channels=128, cross_attention_dim=4096,
+                                    caption_channels=3840, ffn_mult=2)
+        assert keymaps.transformer_config_from_state_dict(got, other) == TCFG
+
+
+def test_gemma_from_bf16_file_tensors_is_the_tensors_themselves():
+    """A bf16 checkpoint maps without a copy: the state dict holds views of
+    the loaded tensors (what makes a mapped file's load free)."""
+    t = _torch(wf.materialize(_gemma_spec(), seed=1))
+    t = {k: v.to(torch.bfloat16) for k, v in t.items()}
+    got = keymaps.load_gemma_params(dict(t), GCFG.hidden_layers)
+    assert got["layers.0.q_proj.weight"].data_ptr() == \
+        t["model.layers.0.self_attn.q_proj.weight"].data_ptr()
+
+
+@pytest.mark.parametrize("component,extra", [
+    ("dit", "bogus.weight"), ("vae_decoder_unified", "decoder.bogus.weight"),
+    ("vae_encoder", "encoder.bogus.weight"),
+    ("connector_fmt2", "text_embedding_projection.bogus"),
+    ("gemma_f32", "model.bogus.weight"),
+])
+def test_extra_key_raises_on_both_sides(component, extra):
+    spec, ref_load, port_load, _ = CASES[component]
+    tensors = wf.materialize(spec(), seed=3)
+    tensors[extra] = np.zeros((2,), np.float32)
+    with pytest.raises(jerrors.WeightLoadingFailedError, match="bogus"):
+        ref_load(dict(tensors))
+    with pytest.raises(errors.WeightLoadingFailedError, match="bogus"):
+        port_load(_torch(tensors))
+
+
+def test_unported_gemma_modes_and_audio_raise():
+    t = _torch(wf.materialize(_gemma_spec(), seed=1))
+    for kw in (dict(mode="int4"), dict(mode="w8a8"), dict(embed_int8=True)):
+        with pytest.raises(NotImplementedError, match="A10"):
+            keymaps.load_gemma_params(dict(t), GCFG.hidden_layers, **kw)
+    with pytest.raises(NotImplementedError, match="A14"):
+        keymaps.load_transformer_params({}, 1, include_audio=True)
+    conn = _torch(wf.materialize(wf.connector_spec(
+        fmt=2, include_audio=True, dim=TECFG.hidden_dim,
+        gemma_layers=TECFG.num_gemma_layers, layers=2, registers=TECFG.num_registers)))
+    with pytest.raises(NotImplementedError, match="A14"):
+        keymaps.load_text_encoder_params(conn)
+
+
+def test_split_unified_buckets_match_reference():
+    unified = {}
+    for k, v in wf.materialize(_dit_spec(), seed=1).items():
+        unified[f"model.diffusion_model.{k}"] = v
+    for k, v in wf.materialize(_connector_spec(2), seed=2).items():
+        unified[f"model.diffusion_model.{k}"] = v
+    for k, v in wf.materialize(_decoder_spec("unified"), seed=3).items():
+        unified[f"vae.{k}"] = np.asarray(v)
+    unified["model.diffusion_model.audio_proj_in.weight"] = np.zeros((2, 2), np.float32)
+    unified["model.diffusion_model.transformer_blocks.0.attn1.to_q.weight_scale"] = \
+        np.ones((), np.float32)
+    unified["vocoder.conv_in.weight"] = np.zeros((2,), np.float32)
+    port = _torch(unified)
+    source = {id(v): k for k, v in unified.items()}
+    for ref, got in zip(jk.split_unified(unified), keymaps.split_unified(port)):
+        assert sorted(ref) == sorted(got)
+        for k, v in ref.items():
+            assert got[k] is port[source[id(v)]], k
+
+
+# --------------------------------------------------------------------------
+# safetensors
+# --------------------------------------------------------------------------
+
+_DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.uint8, torch.int8,
+           torch.uint16, torch.int32, torch.uint32, torch.int64, torch.bool]
+
+
+def _sample(dtype, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=g).to(dtype)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=g).bool()
+    hi = {torch.uint8: 256, torch.int8: 127, torch.uint16: 65535, torch.int32: 2**31 - 1,
+          torch.uint32: 2**32 - 1, torch.int64: 2**62}[dtype]
+    return torch.randint(0, hi, shape, generator=g, dtype=torch.int64).to(dtype)
+
+
+def _tensors():
+    out = {}
+    for i, dtype in enumerate(_DTYPES):
+        out[f"t{i}.{str(dtype)[6:]}"] = _sample(dtype, (3, 5), i)
+        out[f"s{i}"] = _sample(dtype, (), i + 100)
+    out["empty"] = torch.zeros((0, 4))
+    return out
+
+
+def test_safetensors_reader_reads_the_package_and_the_package_reads_the_writer(tmp_path):
+    from safetensors import safe_open
+    from safetensors.torch import load_file, save_file
+
+    tensors, meta = _tensors(), {"format": "pt", "note": "ünïcode"}
+    theirs = tmp_path / "theirs.safetensors"
+    save_file(tensors, str(theirs), metadata=meta)
+    got = safetensors_io.load(theirs)
+    assert safetensors_io.metadata(theirs) == meta and sorted(got) == sorted(tensors)
+    for k, t in tensors.items():
+        assert got[k].dtype == t.dtype and torch.equal(got[k], t), k
+
+    ours = tmp_path / "ours.safetensors"
+    safetensors_io.save(tensors, ours, metadata=meta)
+    back = load_file(str(ours))
+    with safe_open(str(ours), framework="pt") as f:
+        assert f.metadata() == meta
+    for k, t in tensors.items():
+        assert back[k].dtype == t.dtype and torch.equal(back[k], t), k
+    # numpy arrays (the reference's trees) write as their dtype
+    safetensors_io.save({"a": np.arange(6, dtype=np.uint32).reshape(2, 3)}, ours)
+    assert torch.equal(load_file(str(ours))["a"], torch.arange(6).reshape(2, 3).to(
+        torch.uint32))
+
+
+def test_safetensors_reader_rejects_what_it_cannot_read(tmp_path):
+    from safetensors.torch import save_file
+
+    path = tmp_path / "f64.safetensors"
+    save_file({"x": torch.zeros(2, dtype=torch.float64)}, str(path))
+    with pytest.raises(errors.WeightLoadingFailedError, match="F64"):
+        safetensors_io.load(path)
+    bad = tmp_path / "bad.safetensors"
+    bad.write_bytes(b"\x10\x00\x00\x00\x00\x00\x00\x00{\"x\": 1}")
+    with pytest.raises(errors.WeightLoadingFailedError):
+        safetensors_io.load(bad)
+    # a tensor changed after loading does not write through to the file
+    ok = tmp_path / "ok.safetensors"
+    safetensors_io.save({"x": torch.ones(4)}, ok)
+    safetensors_io.load(ok)["x"].zero_()
+    assert torch.equal(safetensors_io.load(ok)["x"], torch.ones(4))
+
+
+# --------------------------------------------------------------------------
+# local layout and registry
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_hub(monkeypatch):
+    """The reference's downloader with a hub that must not be asked."""
+    def refuse(*a, **kw):
+        raise AssertionError("the hub was asked although every file is present")
+
+    mod = types.ModuleType("huggingface_hub")
+    mod.hf_hub_download = mod.snapshot_download = refuse
+    monkeypatch.setitem(sys.modules, "huggingface_hub", mod)
+
+
+def _layout(base, model, audio=True):
+    for comp, (subdir, files) in jreg.component_inventory(
+            jconfig.LTXModel(model.value)).items():
+        if comp in ("audio_vae", "vocoder") and not audio:
+            continue
+        (base / subdir).mkdir(parents=True, exist_ok=True)
+        for f in files:
+            (base / subdir / f).write_bytes(b"x")
+    (base / "vlm-gemma" / "model.safetensors").write_bytes(b"x")
+
+
+@pytest.mark.parametrize("model", list(LTXModel))
+def test_download_all_components_resolves_the_reference_layout(tmp_path, no_hub, model):
+    _layout(tmp_path, model)
+    jmodel = jconfig.LTXModel(model.value)
+    for kw in (dict(include_audio=True), dict(include_upscaler=False)):
+        want = jdl.download_all_components(jmodel, models_dir=str(tmp_path), **kw)
+        got = download.download_all_components(model, models_dir=str(tmp_path), **kw)
+        assert got == want
+    for comp in jreg.component_inventory(jmodel):
+        assert registry.is_downloaded(comp, str(tmp_path), model) == \
+            jreg.is_downloaded(comp, str(tmp_path), jmodel)
+    assert registry.component_inventory(model) == jreg.component_inventory(jmodel)
+
+    (tmp_path / "ltx-vae" / "config.json").unlink()
+    assert registry.missing_files("vae", str(tmp_path), model) == \
+        jreg.missing_files("vae", str(tmp_path), jmodel) == ["config.json"]
+    with pytest.raises(errors.DownloadFailedError, match=r"Lightricks/LTX-2/vae/config.json"):
+        download.download_all_components(model, models_dir=str(tmp_path))
+    with pytest.raises(errors.DownloadFailedError, match="gemma-3-12b"):
+        download.download_all_components(model, models_dir=str(tmp_path / "empty"))
+
+
+def test_constants_and_errors_match_reference():
+    for name in ("LTX_REPO", "GEMMA_REPO", "CONNECTOR_FILE", "VAE_FILE", "VAE_CONFIG",
+                 "UPSCALER_FILE", "DISTILLED_LORA_FILE", "AUDIO_VAE_FILE", "VOCODER_FILE"):
+        assert getattr(download, name) == getattr(jdl, name), name
+    for name, cls in vars(jerrors).items():
+        if isinstance(cls, type) and issubclass(cls, Exception):
+            ours = getattr(errors, name)
+            assert [b.__name__ for b in ours.__mro__] == [b.__name__ for b in cls.__mro__]
+    for args in (("x",), (9,)):
+        for name in ("WeightLoadingFailedError", "DownloadFailedError", "InvalidLoRAError",
+                     "FileNotFoundLTXError", "ModelNotLoadedError"):
+            assert str(getattr(errors, name)(*args)) == str(getattr(jerrors, name)(*args))
+    assert str(errors.InvalidFrameCountError(10)) == str(jerrors.InvalidFrameCountError(10))
+    # the Gemma config of an HF export, flat and nested (a VLM's text_config)
+    from ltx_tpu.models import gemma3 as jgemma
+
+    flat = {"hidden_size": 64, "num_hidden_layers": 3, "num_key_value_heads": 2,
+            "rope_theta": 5.0, "sliding_window_pattern": 3}
+    for d in (flat, {"text_config": flat, "vision_config": {}}, {}):
+        assert dataclasses.asdict(Gemma3Config.from_hf_dict(json.loads(json.dumps(d)))) == \
+            dataclasses.asdict(jgemma.Gemma3Config.from_hf_dict(d))
