@@ -9,7 +9,8 @@ Phases, each printing its own lines:
      and spills per kernel and the wgmma libraries' HGMMA counts (the
      int4 library must show HGMMA, no HMMA.16816 and no spills);
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes the paths give it and at ragged ones, each output element
+     shapes the paths give it (int4_matmul at Gemma-3-12B's projections
+     too) and at ragged ones, each output element
      within its stated tolerance (ltx_tpu_torch.checks; attention against
      the exact product, dequant_int4 with 0 error), with kernel, plain and
      library times and the card's bound (the kernels and their library
@@ -17,6 +18,9 @@ Phases, each printing its own lines:
      beside); the backward pair and rms_norm also bit for bit equal from
      run to run, rms_norm row by row alone or in other batches, with the
      host's microseconds a call of its wrapper and of the plain chain;
+     the W8A8 product (activation codes, the library's int32 accumulator,
+     the bf16 output) bit for bit the CPU's at the DiT's and Gemma's
+     shapes, timed beside F.linear in bf16 and the int8 bound;
      then the tiny pipeline, the tiny two-stage I2V pipeline and the tiny
      LoRA train on the card against the same weights and draws on the
      CPU, the norms as the default route gives them;
@@ -42,6 +46,12 @@ Phases, each printing its own lines:
      DiT call on two rows bit for bit its solo call; then one denoise step
      timed under the default dispatch and under `forced_rms_chain()`, in
      turns;
+  3d. the W8A8 main path: the same bf16 DiT requantized per channel to
+     W8A8 on the card into a copy (quantize_transformer(w8a8=True)), the
+     same generate_video and noise; every block linear through the
+     library's int8 product (8 steps x 48 blocks x 10 `int8_mm` calls),
+     its frames held against the bf16 run's no further than the int4 run's
+     are, its steady step and peak memory printed;
   4. the int4 main path: the same DiT quantized to int4 in place on the
      card, the same generate_video and noise; every block linear through
      int4_matmul (8 steps x 48 blocks x 10);
@@ -67,8 +77,17 @@ Phases, each printing its own lines:
      the LoRA: the quantized cache misses, the DiT is fused and quantized
      on the card, the north star runs (8 x 8 x 10 int4_matmul launches);
      loaded again, the cache hits with no quantize_weight call and a DiT
-     bit for bit the first's. train.cli --weights on the unified file (int4,
-     rank 16, one step, its launches checked). The directory is deleted;
+     bit for bit the first's. Gemma comes in "int4" with the int4 loads
+     (repacked on the card, only its quantized leaves brought to the host
+     for phase staging; 48 x 7 int4_matmul launches a text pass), and its
+     49 hidden states are held against the bf16 load's. Then the
+     reference's defaults, W8A8 Gemma and a W8A8 DiT, without phase
+     staging: Gemma prepared and kept on the card, staging copies nothing
+     for it, the caches of both written; its hidden states against the
+     bf16 load's (correlation, the reference's check); loaded again, both
+     caches hit with no requantization. train.cli --weights on the unified
+     file (W8A8, the reference's default, rank 16, one step, its launches
+     checked). The directory is deleted;
   6. the training path: `python -m ltx_tpu_torch.train.cli`'s `run` at full
      width and depth (the 48-block DiT, random and seeded, quantized to
      int4 and frozen, rank-16 LoRA on its 480 block linears) on a latent
@@ -96,6 +115,7 @@ or agree, the script raises and exits non-zero before the last line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -117,7 +137,7 @@ from ltx_tpu_torch.kernels import build
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
-from ltx_tpu_torch.models.common import QuantizedLinear
+from ltx_tpu_torch.models.common import QuantizedLinear, W8A8Linear
 from ltx_tpu_torch.models.dit import quantize_transformer
 from ltx_tpu_torch.ops import normalization, schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
@@ -142,8 +162,9 @@ BATCH_PROMPTS = (PROMPT, "A paper boat drifts down a rain-soaked street at dusk"
 # those of 1536
 BATCH_FRAME_ATOL = 5e-2
 
-# the published peaks of one H100 SXM (dense bf16 tensor cores, HBM3)
+# the published peaks of one H100 SXM (dense bf16 and int8 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -399,8 +420,10 @@ def int4_bytes(m: int, k: int, n: int, group: int) -> float:
     return 2.0 * m * k + k * n / 2 + 2 * 4.0 * (k // group) * n + 2.0 * m * n
 
 
-# the int4 product's path shapes (checks.INT4_CASES), timed on both clocks
-INT4_PATH_CASES = ("dit_attn_proj", "dit_ff_in", "dit_ff_out", "dit_text_kv")
+# the int4 product's path shapes (checks.INT4_CASES), timed on both clocks:
+# the DiT's and Gemma's
+INT4_PATH_CASES = ("dit_attn_proj", "dit_ff_in", "dit_ff_out", "dit_text_kv") \
+    + checks.GEMMA_INT4_CASES
 INT4_LINE_CASE = "dit_ff_in"  # the kernels line's shape
 
 
@@ -493,6 +516,47 @@ def phase_int4_kernels(device):
                "timing": "queued", "idle_ms": idle_ms}
 
     return matmul, dequant
+
+
+def phase_w8a8_products(device) -> None:
+    """The W8A8 product at the DiT's and Gemma's path shapes
+    (checks.W8A8_CASES): activation codes, the library's int32 accumulator
+    and the bf16 output bit for bit the CPU's (checks.check_w8a8); then by
+    `queued_ms` the whole W8A8 linear (`int8_matmul`: the activation
+    quantization, the int8 product, the rescale), the library's int8
+    product alone (`int8_mm`, torch._int_mm) and F.linear on the bf16
+    weight w8 * sw, beside the int8 product's bound (operations at 1979
+    TOPS, or its bytes) and the whole linear's."""
+    for case in checks.W8A8_CASES:
+        t0 = time.perf_counter()
+        res = checks.check_w8a8(case, device)
+        check_s = time.perf_counter() - t0
+        x, p = checks.w8a8_inputs(case, device)
+        x8, _ = qz.quantize_act_int8(x)
+        w = (p["w8"].float() * p["sw"]).bfloat16()
+        m, k, n = case.m, case.k, case.n
+        sets = rotated_sets((x, p["w8"], p["sw"]), 2 * m * n)
+        linear_ms = queued_ms([lambda s=s: qz.int8_matmul({"w8": s[1], "sw": s[2]}, s[0])
+                               for s in sets])
+        del sets
+        sets = rotated_sets((x8, p["w8"]), 4 * m * n)
+        product_ms = queued_ms([lambda s=s: qz.int8_mm(*s) for s in sets])
+        del sets
+        sets = rotated_sets((x, w), 2 * m * n)
+        library_ms = queued_ms([lambda s=s: F.linear(s[0], s[1].t()) for s in sets])
+        del sets
+        ops = 2.0 * m * k * n
+        product_bound, product_by = bound(ops, m * k + k * n + 4.0 * m * n, PEAK_INT8_OPS)
+        linear_bound, linear_by = bound(ops, 2.0 * m * k + k * n + 4.0 * n + 2.0 * m * n,
+                                        PEAK_INT8_OPS)
+        log(f"[w8a8] {case.name} ({m}, {k}) x ({k}, {n}): card vs CPU differing values "
+            f"{json.dumps(res)} ({check_s:.2f} s); queued: int8_matmul {linear_ms:.4f} ms "
+            f"({linear_bound / linear_ms:.3f} of its bound {linear_bound:.4f} ms, {linear_by}), "
+            f"the library's int8 product (torch._int_mm) {product_ms:.4f} ms "
+            f"({product_bound / product_ms:.3f} of its bound {product_bound:.4f} ms, "
+            f"{product_by}; {ops / product_ms * 1e-9:.1f} TOPS), F.linear bf16 "
+            f"{library_ms:.4f} ms; int8_matmul {linear_ms / library_ms:.2f}x F.linear")
+        del x, p, x8, w
 
 
 def sdpa_backward_calls(sets, mask, scale) -> list:
@@ -746,20 +810,23 @@ KERNELS = {"flash_attention": fa.flash_attention,
 
 
 # the kernels' launches and, beside them, the CUDA calls of rms_norm that
-# took the plain chain (ops.normalization.rms_chain_on_cuda)
+# took the plain chain (ops.normalization.rms_chain_on_cuda) and the calls of
+# the library's int8 product, the W8A8 linears' (kernels.quantization.int8_mm)
 CHAIN = "rms_chain_on_cuda"
-NO_LAUNCHES = {**{name: 0 for name in KERNELS}, CHAIN: 0}
+INT8 = "int8_mm"
+NO_LAUNCHES = {**{name: 0 for name in KERNELS}, CHAIN: 0, INT8: 0}
 
 
 def reset_counts() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
     normalization.rms_chain_on_cuda = 0
+    qz.int8_mm.calls = 0
 
 
 def read_counts() -> dict:
     return {**{name: kernel.launches for name, kernel in KERNELS.items()},
-            CHAIN: normalization.rms_chain_on_cuda}
+            CHAIN: normalization.rms_chain_on_cuda, INT8: qz.int8_mm.calls}
 
 
 def norm_launches(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
@@ -1104,11 +1171,65 @@ def phase_norm_choice(pipe: LTXPipeline, device) -> dict:
     return med
 
 
-def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device) -> dict:
+def structure_copy(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of the module tree sharing every parameter and buffer, so
+    that swapping a submodule of the copy leaves the original as it is."""
+    memo = {id(t): t for t in list(model.parameters()) + list(model.buffers())}
+    return copy.deepcopy(model, memo)
+
+
+def steady_steps(result) -> str:
+    """The denoise steps after the first (the first pays first calls)."""
+    steps = result.timings.denoise_steps[1:]
+    return f"{min(steps):.4f}-{max(steps):.4f} s" if steps else "n/a"
+
+
+def phase_w8a8_main_path(pipe: LTXPipeline, noise, steps: int, device):
+    """The same seeded bf16 DiT requantized per channel to W8A8 on the card
+    (quantize_transformer(w8a8=True), layer by layer) into a copy that
+    shares the norms and tables, then the same generate_video: every block
+    linear through the library's int8 product. The bf16 DiT is put back
+    after. Returns the run (result, peak GiB)."""
+    bf16 = pipe.transformer
+    t0 = time.perf_counter()
+    pipe.transformer = quantize_transformer(structure_copy(bf16), bits=8, device=device,
+                                            w8a8=True)
+    quantized = sum(isinstance(m, W8A8Linear) for m in pipe.transformer.modules())
+    nbytes = sum(p.numel() * p.element_size() for p in pipe.transformer.parameters())
+    log(f"[w8a8] DiT requantized on the card, kept on the host: {quantized} linears, "
+        f"{time.perf_counter() - t0:.2f} s; DiT now {nbytes / 1e9:.2f} GB")
+    layers = pipe.tcfg.num_layers
+    expected = {**NO_LAUNCHES, "flash_attention": steps * layers * 2
+                + pipe.tecfg.connector_layers, INT8: steps * layers * 10,
+                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
+    try:
+        _, run = north_star_run("w8a8", pipe, noise, expected, device)
+    finally:
+        pipe.transformer = bf16
+    log(f"[w8a8] steady denoise step {steady_steps(run[0])}, peak {run[1]:.2f} GiB")
+    return run
+
+
+def frames_beside_bf16(tag: str, frames, bf16_frames) -> tuple:
+    """(mean abs difference, correlation) of a quantized run's frames with
+    the bf16 run's, printed."""
+    diff = np.abs(frames - bf16_frames)
+    corr = float(np.corrcoef(frames.ravel(), bf16_frames.ravel())[0, 1])
+    log(f"[{tag}] frames - bf16: max abs {diff.max():.4f}, mean abs {diff.mean():.5f}, "
+        f"correlation {corr:.6f}")
+    return float(diff.mean()), corr
+
+
+def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device,
+                         w8a8_run) -> dict:
     """The same seeded DiT quantized to int4 (group 64) in place, layer by
     layer on the card, then the same generate_video: every block linear
     (attn1 and attn2 q/k/v/out, ff in/out) through int4_matmul. Prints the
-    phases beside the bf16 run's; returns the launches."""
+    phases beside the bf16 and W8A8 runs'; the W8A8 frames must be no
+    further from the bf16 frames than the int4 frames are (mean abs
+    difference and correlation): a W8A8 weight is within half a step of
+    1/127 of its channel's largest, an int4 one within half a step of 1/15
+    of its group's range. Returns the launches."""
     t0 = time.perf_counter()
     quantize_transformer(pipe.transformer, bits=4, group_size=64, device=device)
     quantized = sum(isinstance(m, QuantizedLinear) for m in pipe.transformer.modules())
@@ -1120,13 +1241,18 @@ def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device)
                 + pipe.tecfg.connector_layers, "int4_matmul": steps * layers * 10,
                 **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
     launches, int4_run = north_star_run("int4", pipe, noise, expected, device)
-    for name, (result, peak) in (("bf16", bf16_run), ("int4", int4_run)):
+    for name, (result, peak) in (("bf16", bf16_run), ("w8a8", w8a8_run), ("int4", int4_run)):
         tm, frames = result.timings, result.frames
-        log(f"[int4] beside bf16: {name} staging {tm.staging:.3f} s, denoise "
-            f"{sum(tm.denoise_steps):.3f} s, total {tm.total:.3f} s, peak {peak:.2f} GiB, "
-            f"frames mean {frames.mean():.4f} std {frames.std():.4f}")
-    diff = np.abs(int4_run[0].frames - bf16_run[0].frames)
-    log(f"[int4] frames int4 - bf16: max abs {diff.max():.4f}, mean abs {diff.mean():.4f}")
+        log(f"[int4] beside bf16 and w8a8: {name} staging {tm.staging:.3f} s, denoise "
+            f"{sum(tm.denoise_steps):.3f} s (steady step {steady_steps(result)}), total "
+            f"{tm.total:.3f} s, peak {peak:.2f} GiB, frames mean {frames.mean():.4f} std "
+            f"{frames.std():.4f}")
+    bf16_frames = bf16_run[0].frames
+    int4_mean, int4_corr = frames_beside_bf16("int4", int4_run[0].frames, bf16_frames)
+    w8a8_mean, w8a8_corr = frames_beside_bf16("w8a8", w8a8_run[0].frames, bf16_frames)
+    if not (w8a8_mean <= int4_mean and w8a8_corr >= int4_corr):
+        raise AssertionError(f"w8a8 frames further from bf16 ({w8a8_mean}, {w8a8_corr}) than "
+                             f"int4's ({int4_mean}, {int4_corr})")
     return launches
 
 
@@ -1447,9 +1573,30 @@ def counted_quantize_weight():
         common.quantize_weight = lora_fuse.quantize_weight = original
 
 
-def _load(tag: str, base, device, **kw):
-    """load_pipeline from `base` with the DiT cut to FILES_DIT_BLOCKS and
-    phase staging; prints the load's parts and the host's memory."""
+@contextlib.contextmanager
+def counted_requant():
+    """Count the calls of requant_int8_channel (W8A8Linear.from_linear,
+    Gemma's key map) while the block runs."""
+    from ltx_tpu_torch.weights import keymaps
+
+    calls = [0]
+    original = qz.requant_int8_channel
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    qz.requant_int8_channel = keymaps.requant_int8_channel = counting
+    try:
+        yield calls
+    finally:
+        qz.requant_int8_channel = keymaps.requant_int8_channel = original
+
+
+def _load(tag: str, base, device, staging: bool = True, **kw):
+    """load_pipeline from `base` with the DiT cut to FILES_DIT_BLOCKS, with
+    phase staging or without (the default MemoryConfig); prints the load's
+    parts, the host's memory and where Gemma's leaves are."""
     from ltx_tpu_torch.config import MemoryConfig
     from ltx_tpu_torch.pipeline.loader import LoadTimings, load_pipeline
 
@@ -1458,14 +1605,21 @@ def _load(tag: str, base, device, **kw):
     before = host_rss_gib()
     with host_rss_peak() as rss:
         pipe = load_pipeline(models_dir=str(base), device=device,
-                             memory=MemoryConfig(phase_staging=True),
+                             memory=MemoryConfig(phase_staging=True) if staging
+                             else MemoryConfig(),
                              transformer_config=dataclasses.replace(
                                  TransformerConfig(), num_layers=FILES_DIT_BLOCKS),
                              timings=timings, **kw)
+    places = {p.device.type for p in pipe.gemma.parameters()}
+    log(f"[files] {tag}: Gemma's leaves on {sorted(places)}, {module_sizes(pipe.gemma)[1] / 1e9:.3f}"
+        f" GB ({'phase staging' if staging else 'no phase staging'})")
+    if places != {"cpu" if staging else "cuda"}:
+        raise AssertionError(f"{tag}: Gemma's leaves on {places}")
     log(f"[files] {tag}: load (s) read {timings.read:.3f}, key map {timings.key_map:.3f}, "
-        f"build {timings.build:.3f}, gemma dequant {timings.gemma_dequant:.3f}, fuse "
-        f"{timings.fuse:.3f}, quantize {timings.quantize:.3f}, cache {timings.cache:.3f} "
-        f"({'hit' if timings.cache_hit else 'miss'}), total {timings.total:.3f}; host RSS "
+        f"build {timings.build:.3f}, gemma {timings.gemma:.3f}"
+        f" (cache {'hit' if timings.gemma_cache_hit else 'miss'}), fuse "
+        f"{timings.fuse:.3f}, quantize {timings.quantize:.3f}, caches {timings.cache:.3f} "
+        f"(DiT {'hit' if timings.cache_hit else 'miss'}), total {timings.total:.3f}; host RSS "
         f"{before:.2f} GiB before the load, peak {rss['peak']:.2f} during it (sampled), "
         f"{host_rss_gib():.2f} after, "
         f"process peak (getrusage) {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}; "
@@ -1473,13 +1627,63 @@ def _load(tag: str, base, device, **kw):
     return pipe, timings
 
 
-def phase_files_to_frames(device) -> None:
-    """Write a models directory, load it with load_pipeline (bf16; then int4
-    with the LoRA fused, the quantized cache missed then hit), run the north
-    star from each, check the MLX dequantization bit for bit, the loaded
-    sizes against the files', the LoRA fusion on the card against the CPU's
-    and against the adapter as a side path, and train one step from the
-    unified file with train.cli --weights."""
+def gemma_states(tag: str, pipe: LTXPipeline, expected: dict) -> torch.Tensor:
+    """Gemma's 49 hidden states of PROMPT on the card (to the host), the
+    launch counts read around the pass and checked against `expected`
+    (Gemma's own norms are plain PyTorch: no rms_norm launch)."""
+    ids, mask = pipe.tokenize(PROMPT)
+    gemma = pipe._on_device("gemma", GenerationTimings())
+    with torch.inference_mode():
+        states, launches = run_counted(lambda: gemma.forward_hidden_states(ids, mask))
+        states = states.cpu()
+    pipe._release("gemma")
+    check_launches(f"files gemma {tag}", launches, expected)
+    return states
+
+
+# the reference's own check of a quantized Gemma against bf16
+# (tests/test_gemma_quant.py): the final states' correlation
+GEMMA_STATES_CORR = 0.99
+
+
+def states_beside_bf16(tag: str, states, bf16_states) -> None:
+    """A quantized Gemma's hidden states against the bf16 load's: the
+    largest error of each state relative to its largest value, and the
+    final state's correlation, which must exceed GEMMA_STATES_CORR."""
+    a, b = states.float(), bf16_states.float()
+    rel = [((x - y).abs().max() / y.abs().max()).item() for x, y in zip(a, b)]
+    corr = float(np.corrcoef(a[-1].numpy().ravel(), b[-1].numpy().ravel())[0, 1])
+    log(f"[files] Gemma {tag} - bf16, {len(rel)} hidden states: largest relative error "
+        f"{max(rel):.4e} (state {int(np.argmax(rel))}), final state {rel[-1]:.4e}, its "
+        f"correlation {corr:.6f} (must exceed {GEMMA_STATES_CORR})")
+    if not (np.isfinite(rel).all() and corr > GEMMA_STATES_CORR):
+        raise AssertionError(f"Gemma {tag}: states off bf16 by {max(rel)}, correlation {corr}")
+
+
+def same_dit(pipe: LTXPipeline, first: dict, timings, calls, tag: str, what: str) -> None:
+    """A second load must hit both caches, prepare nothing again and give
+    the first load's DiT bit for bit."""
+    same = all(torch.equal(p.detach().cpu(), first[n])
+               for n, p in pipe.transformer.named_parameters()) and \
+        len(first) == len(list(pipe.transformer.parameters()))
+    log(f"[files] second {tag} load: DiT cache {'hit' if timings.cache_hit else 'miss'}, "
+        f"Gemma cache {'hit' if timings.gemma_cache_hit else 'miss'}, {calls[0]} {what}, "
+        f"DiT bit for bit the first's: {same}")
+    if not (timings.cache_hit and timings.gemma_cache_hit) or calls[0] or not same:
+        raise AssertionError(f"{tag}: the quantized caches did not serve the second load")
+
+
+def phase_files_to_frames(device) -> int:
+    """Write a models directory, load it with load_pipeline (bf16; int4
+    with the LoRA fused and Gemma in "int4", the quantized caches missed
+    then hit; the defaults, W8A8 Gemma, with a W8A8 DiT and no phase
+    staging, missed then hit), run the north star from each but the second
+    loads, check the MLX dequantization bit for bit, the loaded sizes
+    against the files', the LoRA fusion on the card against the CPU's and
+    against the adapter as a side path, each quantized Gemma's hidden
+    states against the bf16 one's, and train one step from the unified
+    file with train.cli --weights --quant w8a8. Returns the int4_matmul
+    launches of the int4 Gemma's text pass."""
     from ltx_tpu_torch.lora.fuse import fuse_lora, parse_lora
     from ltx_tpu_torch.weights import download as dl
     from ltx_tpu_torch.weights import safetensors_io
@@ -1498,7 +1702,7 @@ def phase_files_to_frames(device) -> None:
         + ", ".join(f"{k} {p.stat().st_size / 1e9:.3f}" for k, p in files.items()))
 
     # --- bf16 from the files (the upscaler too), the north star
-    pipe, _ = _load("bf16", base, device, include_upscaler=True)
+    pipe, _ = _load("bf16", base, device, include_upscaler=True, gemma_quant="bf16")
     shape = VideoLatentShape.from_pixels(1, NORTH_STAR.num_frames, NORTH_STAR.height,
                                          NORTH_STAR.width, channels=pipe.tcfg.in_channels)
     noise = generate_noise(shape, torch.Generator(device=device).manual_seed(0))
@@ -1561,48 +1765,73 @@ def phase_files_to_frames(device) -> None:
     log(f"[files] fused weights of blocks {ends}, card vs CPU ({cpu_s:.2f} s on the host): "
         f"{leaves['values']} values, {leaves['differing']:.3e} of them differ, worst "
         f"{leaves['share']:.3f} of the bound")
+    bf16_states = gemma_states("bf16", pipe, NO_LAUNCHES)
     del side, cpu, pipe
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --- int4 with the LoRA fused: the cache misses, then hits
+    # --- int4 with the LoRA fused, Gemma in "int4": the caches miss, then hit
     q = QuantizationConfig(mode="int4")
     lora_path = str(files["lora"])
-    pipe, timings = _load("int4 + LoRA", base, device, quantization=q, lora_path=lora_path)
-    if timings.cache_hit:
+    pipe, timings = _load("int4 + LoRA, Gemma int4", base, device, quantization=q,
+                          lora_path=lora_path, gemma_quant="int4")
+    if timings.cache_hit or timings.gemma_cache_hit:
         raise AssertionError("int4: a quantized cache hit on the first load")
+    gemma_linears = pipe.gcfg.hidden_layers * 7
+    states = gemma_states("int4", pipe, {**NO_LAUNCHES, "int4_matmul": gemma_linears})
+    states_beside_bf16("int4", states, bf16_states)
     expected = {**NO_LAUNCHES, "flash_attention": flash, **norms,
-                "int4_matmul": steps * FILES_DIT_BLOCKS * 10}
+                "int4_matmul": steps * FILES_DIT_BLOCKS * 10 + gemma_linears}
     north_star_run("files int4", pipe, noise, expected, device)
-    first_dit = {n: p.detach().clone() for n, p in pipe.transformer.named_parameters()}
-    del pipe
+    first_dit = {n: p.detach().cpu().clone() for n, p in pipe.transformer.named_parameters()}
+    del pipe, states
     gc.collect()
     with counted_quantize_weight() as calls:
-        pipe, timings = _load("int4 + LoRA, again", base, device, quantization=q,
-                              lora_path=lora_path)
-    same = all(torch.equal(p.detach(), first_dit[n])
-               for n, p in pipe.transformer.named_parameters()) and \
-        len(first_dit) == len(list(pipe.transformer.parameters()))
-    log(f"[files] second int4 load: cache {'hit' if timings.cache_hit else 'miss'}, "
-        f"{calls[0]} quantize_weight calls, DiT bit for bit the first load's: {same}")
-    if not timings.cache_hit or calls[0] or not same:
-        raise AssertionError("int4: the quantized cache did not serve the second load")
+        pipe, timings = _load("int4 + LoRA, Gemma int4, again", base, device, quantization=q,
+                              lora_path=lora_path, gemma_quant="int4")
+    same_dit(pipe, first_dit, timings, calls, "int4", "quantize_weight calls")
     del pipe, first_dit
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --- train.cli --weights on the unified file: int4, rank 16, one step
+    # --- the reference's defaults (W8A8 Gemma) with a W8A8 DiT, no phase
+    # staging: Gemma prepared and kept on the card; the caches miss, then hit
+    q = QuantizationConfig(mode="w8a8")
+    pipe, timings = _load("W8A8 DiT, Gemma w8a8 (the defaults)", base, device, staging=False,
+                          quantization=q)
+    if timings.cache_hit or timings.gemma_cache_hit:
+        raise AssertionError("w8a8: a quantized cache hit on the first load")
+    states = gemma_states("w8a8", pipe, {**NO_LAUNCHES, INT8: gemma_linears})
+    states_beside_bf16("w8a8", states, bf16_states)
+    expected = {**NO_LAUNCHES, "flash_attention": flash, **norms,
+                INT8: steps * FILES_DIT_BLOCKS * 10 + gemma_linears}
+    north_star_run("files w8a8", pipe, noise, expected, device)
+    first_dit = {n: p.detach().cpu().clone() for n, p in pipe.transformer.named_parameters()}
+    del pipe, states, bf16_states
+    gc.collect()
+    torch.cuda.empty_cache()
+    with counted_requant() as calls:
+        pipe, timings = _load("W8A8 DiT, Gemma w8a8, again", base, device, staging=False,
+                              quantization=q)
+    same_dit(pipe, first_dit, timings, calls, "w8a8", "requantizations")
+    del pipe, first_dit
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- train.cli --weights on the unified file: W8A8 (the reference's
+    # default), rank 16, one step
     work = base / "train"
     (work / "data").mkdir(parents=True)
     write_train_shard(work / "data")
     cfg = dataclasses.replace(TransformerConfig(), num_layers=FILES_DIT_BLOCKS)
     train_leg("files train", [
         "--data", str(work / "data"), "--out", str(work / "adapter.safetensors"),
-        "--weights", str(unified), "--quant", "int4", "--rank", "16", "--sdpa", "pallas",
+        "--weights", str(unified), "--quant", "w8a8", "--rank", "16", "--sdpa", "pallas",
         "--steps", "1", "--log-every", "1", "--device", str(device)],
-        train_step_launches(cfg))
+        train_step_launches(cfg, "w8a8"))
     shutil.rmtree(base, ignore_errors=True)
     log(f"[files] phase: {time.perf_counter() - t_phase:.2f} s")
+    return gemma_linears
 
 
 TRAIN_GRID = (4, 16, 24)   # 25f@768x512: 1536 latent tokens
@@ -1611,24 +1840,27 @@ TRAIN_PADS = (300, 500)    # left padding of each row's text context
 TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY, TRAIN_RANK = 4, 6, 2, 16
 
 
-def train_step_launches(cfg: TransformerConfig) -> dict:
+def train_step_launches(cfg: TransformerConfig, quant: str = "int4") -> dict:
     """Launches in one QLoRA train step, from the code: per-block remat runs
     each block forward twice (the step's forward, then its recompute in the
     backward), each with two statistics launches (self- and
-    cross-attention) and its 10 int4 block linears through int4_matmul (1536
-    latent and 1024 text rows, both under 8192); the backward runs each
-    attention's dq and dkv kernels once, and the straight-through backward
-    dequantizes once per int4 linear whose input needs a gradient: not
-    block 0's attn1 q/k/v (their input is the frozen patchify projection's)
-    nor any attn2 to_k/to_v (the frozen caption projection's). The norms go
+    cross-attention) and its 10 quantized block linears: int4 through
+    int4_matmul (1536 latent and 1024 text rows, both under 8192), W8A8
+    through the library's int8 product; the backward runs each attention's
+    dq and dkv kernels once, and the int4 straight-through backward
+    dequantizes once per linear whose input needs a gradient: not block 0's
+    attn1 q/k/v (their input is the frozen patchify projection's) nor any
+    attn2 to_k/to_v (the frozen caption projection's); the W8A8 one
+    multiplies by the int8 weight in bf16 (no launch of ours). The norms go
     as the route gives them in a LoRA step (checks.rms_train_counts): the
     kernel for block 0's first adaln in both forwards, the chain for the
     rest."""
     layers = cfg.num_layers
+    quantized = ({"int4_matmul": 2 * 10 * layers, "dequant_int4": 10 * layers - 3 - 2 * layers}
+                 if quant == "int4" else {INT8: 2 * 10 * layers})
     return {**NO_LAUNCHES, "flash_attention_stats": 2 * 2 * layers,
             "flash_attention_bwd_dq": 2 * layers, "flash_attention_bwd_dkv": 2 * layers,
-            "int4_matmul": 2 * 10 * layers, "dequant_int4": 10 * layers - 3 - 2 * layers,
-            **checks.rms_train_counts(cfg, forwards=2)}
+            **quantized, **checks.rms_train_counts(cfg, forwards=2)}
 
 
 def write_train_shard(directory) -> None:
@@ -1738,6 +1970,7 @@ def main() -> int:
     stats, dq, dkv = phase_flash_training_kernels(device)
     matmul, dequant = phase_int4_kernels(device)
     rms = phase_rms_kernel(device)
+    phase_w8a8_products(device)
     phase_tiny_agreement(device)
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
     flash["launches"] = launches["flash_attention"]
@@ -1745,13 +1978,18 @@ def main() -> int:
     phase_two_stage(pipe, device)
     phase_batched(pipe, device)
     phase_norm_choice(pipe, device)
-    matmul["launches"] = phase_int4_main_path(pipe, noise, steps, bf16_run,
-                                              device)["int4_matmul"]
+    w8a8_run = phase_w8a8_main_path(pipe, noise, steps, device)
+    north_star = phase_int4_main_path(pipe, noise, steps, bf16_run, device,
+                                      w8a8_run)["int4_matmul"]
     dequant["launches"] = phase_big_m(pipe, device)["dequant_int4"]
-    del pipe, noise, bf16_run
+    del pipe, noise, bf16_run, w8a8_run
     gc.collect()
     torch.cuda.empty_cache()
-    phase_files_to_frames(device)
+    gemma_pass = phase_files_to_frames(device)
+    # B4's paths: the int4 north star and the int4 Gemma's text pass
+    matmul["launches"] = north_star + gemma_pass
+    matmul["launches_by_path"] = {"int4 north star": north_star,
+                                  "int4 Gemma text pass": gemma_pass}
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(device)

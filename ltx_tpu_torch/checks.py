@@ -207,7 +207,19 @@ INT4_CASES = (
     Int4Case("big_m_attn_proj", 9216, 4096, 4096),
     Int4Case("big_m_ff_in", 9216, 4096, 16384),
     Int4Case("big_m_ff_out", 9216, 16384, 4096),
+    # Gemma-3-12B's projections in its "int4" mode (hidden 3840, 16 query
+    # and 8 key/value heads of 256, MLP 15360): one prompt of 1024 tokens,
+    # and the MLP's input at two prompts
+    Int4Case("gemma_q", 1024, 3840, 4096),
+    Int4Case("gemma_kv", 1024, 3840, 2048),
+    Int4Case("gemma_o", 1024, 4096, 3840),
+    Int4Case("gemma_gate_up", 1024, 3840, 15360),
+    Int4Case("gemma_down", 1024, 15360, 3840),
+    Int4Case("gemma_gate_up_two_prompts", 2048, 3840, 15360),
 )
+GEMMA_INT4_CASES = tuple(c.name for c in INT4_CASES if c.name.startswith("gemma_"))
+# the W8A8 product's cases: the DiT's path shapes and Gemma's (INT4_CASES)
+W8A8_CASES = tuple(c for c in INT4_CASES if c.name.startswith(("dit_", "gemma_")))
 INT4_C = 2.0**-12  # the sum-order term of the int4 tolerance (docstring)
 # (K, N) of every weight the path dequantizes: the attention projections,
 # FF in, FF out
@@ -730,6 +742,51 @@ def check_quantize_on_device(device, shape=FF_IN_SHAPE, group: int = 64) -> dict
     if any(mismatches.values()) or any(dev[k].dtype != cpu[k].dtype for k in cpu):
         raise AssertionError(f"quantize_weight {shape} on {device} vs the CPU: {mismatches}")
     return mismatches
+
+
+def w8a8_inputs(case: Int4Case, device, seed: int = 1234):
+    """x (m, k) bf16 and a (k, n) weight at the linear init scale,
+    requantized per channel on `device`: {"w8", "sw"}."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(case.m, case.k, generator=gen, device=device).bfloat16()
+    w = torch.randn(case.k, case.n, generator=gen, device=device) * case.k**-0.5
+    return x, qz.requant_int8_channel(w)
+
+
+# rows of a W8A8 case recomputed on the host: the CPU's int8 product is a
+# plain loop, seconds for a few rows at these widths
+W8A8_CPU_ROWS = 4
+
+
+def check_w8a8(case: Int4Case, device) -> dict:
+    """W8A8 on `device` against exact arithmetic: the activation codes and
+    scales of `quantize_act_int8` and the int32 accumulator of `int8_mm`
+    (the library's int8 product) must equal, bit for bit, the CPU's on
+    W8A8_CPU_ROWS rows spread over the matrix and, on every row, the int8
+    codes' product in f64 on the device (exact: |sum| < 2**53); the bf16
+    output of `int8_matmul` must equal the CPU's on those rows. Raises
+    AssertionError otherwise; returns the counts of differing values."""
+    x, p = w8a8_inputs(case, device)
+    x8, sx = qz.quantize_act_int8(x)
+    acc = qz.int8_mm(x8, p["w8"])
+    exact = (x8.double() @ p["w8"].double()).to(torch.int32)
+    rows = torch.linspace(0, case.m - 1, W8A8_CPU_ROWS).long()
+    cpu_x = x[rows.to(x.device)].cpu()
+    cpu_p = {k: v.cpu() for k, v in p.items()}
+    cpu_x8, cpu_sx = qz.quantize_act_int8(cpu_x)
+    cpu_acc = qz.int8_mm(cpu_x8, cpu_p["w8"])
+    out = qz.int8_matmul(p, x)
+    cpu_out = qz.int8_matmul(cpu_p, cpu_x)
+    dev_rows = rows.to(x.device)
+    res = {"accumulator_vs_exact": int((acc != exact).sum()),
+           "codes_vs_cpu": int((x8[dev_rows].cpu() != cpu_x8).sum())
+           + int((sx[dev_rows].cpu() != cpu_sx).sum()),
+           "accumulator_vs_cpu": int((acc[dev_rows].cpu() != cpu_acc).sum()),
+           "output_vs_cpu": int((out[dev_rows].cpu().view(torch.int16)
+                                 != cpu_out.view(torch.int16)).sum())}
+    if acc.dtype != torch.int32 or out.dtype != torch.bfloat16 or any(res.values()):
+        raise AssertionError(f"w8a8 {case.name}: {res}")
+    return res
 
 
 def _move(pipe: LTXPipeline, device) -> LTXPipeline:

@@ -154,8 +154,9 @@ class GenerationConfig:
 
 @dataclasses.dataclass(frozen=True)
 class QuantizationConfig:
-    """Weight-only quantization of the transformer. The port runs "bf16",
-    "qint8" and "int4"; "w8a8" (int8 activations too) is not ported yet."""
+    """Quantization of the transformer: "bf16" (none), weight-only "qint8"
+    and "int4" (group-wise), and "w8a8" (int8 weights per output channel,
+    int8 activations per row; `bits` 8, the group size unused)."""
 
     mode: str = "bf16"  # "bf16" | "qint8" | "int4" | "w8a8"
     group_size: int = 64

@@ -11,15 +11,17 @@ build them. The rules:
   * Linear weights transpose (in, out) -> (out, in); Conv3d weights permute
     DHWIO (kt, kh, kw, I, O) -> (O, I, kt, kh, kw), Conv2d weights HWIO ->
     (O, I, kh, kw); everything else copies;
-  * a quantized linear leaf ({"w_q4"|"w_q", "scale", "bias", "b"?}) meeting
-    a Linear turns it into a QuantizedLinear shaped from the leaf, whose
-    parameters keep the JAX keys and layout (`transformer` only); a W8A8
-    leaf ({"w8", "sw"}) raises NotImplementedError;
+  * a quantized linear leaf ({"w_q4"|"w_q", "scale", "bias", "b"?}, or
+    W8A8's {"w8", "sw", "b"?}) meeting a Linear turns it into a
+    QuantizedLinear (a W8A8Linear) shaped from the leaf, whose parameters
+    keep the JAX keys and layout; an int8 token table ({"w8r", "sr"})
+    meeting an Embedding turns it into an Int8Embedding (`transformer`,
+    `gemma`);
   * a linear leaf carrying a LoRA side path ({"lora_a" (in, r), "lora_b"
     (r, out), "lora_s" ()}, stacked (L, in, r), (L, r, out), (L,) in the
-    blocks, as train.lora.add_lora inserts them) gives its Linear or
-    QuantizedLinear the three parameters, of the leaf's rank and dtype, in
-    the same layout (`transformer` only);
+    blocks, as train.lora.add_lora inserts them) gives its linear the three
+    parameters, of the leaf's rank and dtype, in the same layout
+    (`transformer` only);
   * strict: a leaf with no parameter, a parameter with no leaf, or a shape or
     dtype that differs raises ValueError. Integer codes cast through float32
     and back, which is exact for uint8.
@@ -34,7 +36,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ltx_tpu_torch.kernels.quantization import is_quantized
 from ltx_tpu_torch.models.common import (
     Conv2d,
     Conv3d,
@@ -43,6 +44,8 @@ from ltx_tpu_torch.models.common import (
     NormAffine,
     NormWeight,
     QuantizedLinear,
+    W8A8Linear,
+    for_leaves,
 )
 
 _RENAMED = (Linear, Conv3d, Conv2d, NormWeight, NormAffine, Embedding)
@@ -75,9 +78,10 @@ def _leaves(tree, module: nn.Module, prefix: str) -> Iterator[Tuple[str, object]
 
 
 def _swap_quantized(module: nn.Module, tree) -> None:
-    """Replace each Linear that meets a quantized leaf in `tree` by an empty
-    QuantizedLinear of the leaf's bits and group size, for load_tree to
-    fill (a stacked leaf's group count is its second-to-last dim too)."""
+    """Replace each Linear or Embedding that meets a quantized leaf in
+    `tree` by an empty module of the leaf's format (`models.common.
+    for_leaves`; a stacked leaf's group count is its second-to-last dim
+    too), for load_tree to fill."""
     if isinstance(module, nn.ModuleList):
         items = [tree] * len(module) if isinstance(tree, dict) else tree
         for item, sub in zip(items, module):
@@ -87,18 +91,9 @@ def _swap_quantized(module: nn.Module, tree) -> None:
         child = getattr(module, key, None)
         if not isinstance(value, (dict, list)) or not isinstance(child, nn.Module):
             continue
-        if isinstance(child, Linear) and is_quantized(value):
-            if "w8" in value:
-                raise NotImplementedError(f"{key}: W8A8 linears are not ported yet "
-                                          "(ROADMAP A10)")
-            if "scale" not in value:
-                raise ValueError(f"quantized leaf {key} has no scale")
-            d_out, d_in = child.weight.shape
-            groups = np.shape(value["scale"])[-2]
-            setattr(module, key, QuantizedLinear(
-                d_in, d_out, 4 if "w_q4" in value else 8, d_in // groups,
-                bias="b" in value, device=child.weight.device,
-                dtype=child.weight.dtype))
+        new = for_leaves(child, value) if isinstance(value, dict) else child
+        if new is not child:
+            setattr(module, key, new)
         else:
             _swap_quantized(child, value)
 
@@ -115,7 +110,7 @@ def _add_lora_slots(module: nn.Module, tree) -> None:
         child = getattr(module, key, None)
         if not isinstance(value, (dict, list)) or not isinstance(child, nn.Module):
             continue
-        if isinstance(child, (Linear, QuantizedLinear)) and "lora_a" in value:
+        if isinstance(child, (Linear, QuantizedLinear, W8A8Linear)) and "lora_a" in value:
             a = np.asarray(value["lora_a"])
             child.add_lora_params(a.shape[-1], getattr(torch, str(a.dtype)))
         else:
@@ -197,6 +192,8 @@ def tree_dtype(tree) -> torch.dtype:
     """The torch dtype of a tree's first leaf."""
     while isinstance(tree, (dict, list, tuple)):
         tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    if isinstance(tree, torch.Tensor):
+        return tree.dtype
     return getattr(torch, str(np.asarray(tree).dtype))
 
 
@@ -243,22 +240,33 @@ def _layout(tensor: torch.Tensor, owner: nn.Module, leaf: str):
 def transformer_tree(model: nn.Module) -> dict:
     """The JAX package's tree of an LTXTransformer, plain or quantized: the
     blocks stacked along a leading axis, Linear weights (in, out), "w" / "b"
-    for Linear and NormWeight parameters, QuantizedLinear leaves as they
-    are; CPU tensors (the inverse of `transformer`)."""
+    for Linear and NormWeight parameters, QuantizedLinear and W8A8Linear
+    leaves as they are; contiguous tensors where the parameters are (the
+    inverse of `transformer`)."""
+    return _module_tree(model, "blocks")
+
+
+def gemma_tree(model: nn.Module) -> dict:
+    """The JAX package's tree of a Gemma3Model in any of its formats (the
+    layers stacked along a leading axis), as `transformer_tree`."""
+    return _module_tree(model, "layers")
+
+
+def _module_tree(model: nn.Module, stacked_name: str) -> dict:
     tree: dict = {}
     stacked: Dict[Tuple[str, ...], list] = {}
     for name, p in model.named_parameters():
         owner, leaf = _owner(model, name), name.rsplit(".", 1)[-1]
         key = {"weight": "w", "bias": "b"}.get(leaf, leaf) if isinstance(
             owner, _RENAMED) else leaf
-        value = _layout(p.detach(), owner, leaf).cpu().contiguous()
+        value = _layout(p.detach(), owner, leaf).contiguous()
         parts = name.split(".")[:-1] + [key]
-        if parts[0] == "blocks":
-            stacked.setdefault(("blocks",) + tuple(parts[2:]), []).append(value)
+        if parts[0] == stacked_name:
+            stacked.setdefault((stacked_name,) + tuple(parts[2:]), []).append(value)
         else:
             _set_path(tree, tuple(parts), value)
-    for path, values in stacked.items():
-        _set_path(tree, path, torch.stack(values))
+    for path in list(stacked):
+        _set_path(tree, path, torch.stack(stacked.pop(path)))
     return tree
 
 
@@ -271,16 +279,36 @@ def _set_path(tree: dict, path: Tuple[str, ...], value) -> None:
 def transformer_from_tree(tree, cfg) -> nn.Module:
     """A JAX-layout DiT tree of torch tensors (e.g. a quantized-weight
     cache) -> LTXTransformer whose parameters are the tree's tensors (a
-    stacked leaf's entries are views; only plain Linear weights are copied,
-    transposed), checked by `models.common.assign_`."""
-    from ltx_tpu_torch.models.common import assign_
+    stacked leaf's entries are views; plain Linear weights are copied,
+    transposed, and so is a W8A8 weight not stored column-major), checked
+    by `models.common.assign_`."""
     from ltx_tpu_torch.models.dit import LTXTransformer
 
-    model = LTXTransformer(cfg, device="meta", dtype=tree["patchify_proj"]["w"].dtype)
+    return _from_tree(LTXTransformer(cfg, device="meta",
+                                     dtype=tree["patchify_proj"]["w"].dtype), tree)
+
+
+def gemma_from_tree(tree, cfg) -> nn.Module:
+    """A JAX-layout Gemma tree of torch tensors in any of its formats (a
+    quantized-weight cache) -> Gemma3Model, as `transformer_from_tree`."""
+    from ltx_tpu_torch.models.gemma3 import Gemma3Model
+
+    return _from_tree(Gemma3Model(cfg, device="meta", dtype=_gemma_dtype(tree)), tree)
+
+
+def _from_tree(model: nn.Module, tree) -> nn.Module:
+    from ltx_tpu_torch.models.common import assign_
+
     _swap_quantized(model, tree)
-    return assign_(model, {
-        name: _layout(leaf, _owner(model, name), name.rsplit(".", 1)[-1]).contiguous()
-        for name, leaf in _leaves(tree, model, "")})
+    return assign_(model, {name: _layout(leaf, _owner(model, name), name.rsplit(".", 1)[-1])
+                           for name, leaf in _leaves(tree, model, "")})
+
+
+def _gemma_dtype(tree) -> torch.dtype:
+    """The reference's `embed_dtype`: the token table's, bf16 for an int8
+    table."""
+    emb = tree["embed_tokens"]
+    return tree_dtype(emb["w"]) if "w" in emb else torch.bfloat16
 
 
 def vae_encoder(tree, cfg, device=None):
@@ -303,12 +331,16 @@ def upscaler(tree, cfg, device=None):
 
 
 def gemma(tree, cfg, device=None):
-    """gemma3.init_params tree -> Gemma3Model (cfg: a Gemma3Config)."""
+    """gemma3.init_params or keymaps.load_gemma_params tree, in any of its
+    modes (bf16, int4 or W8A8 layers, an int8 token table) -> Gemma3Model
+    (cfg: a Gemma3Config)."""
     from ltx_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
 
-    dtype = tree_dtype(tree["embed_tokens"]["w"])
-    return load_tree(Gemma3Model(port_config(cfg, Gemma3Config), device=device,
-                                 dtype=dtype), tree)
+    tree = _to_numpy(tree)
+    model = Gemma3Model(port_config(cfg, Gemma3Config), device=device,
+                        dtype=_gemma_dtype(tree))
+    _swap_quantized(model, tree)
+    return load_tree(model, tree)
 
 
 def text_encoder(tree, cfg, device=None):

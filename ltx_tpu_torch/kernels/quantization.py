@@ -1,10 +1,12 @@
-"""Weight-only group-wise affine quantization (int8 / int4): the formats, the
-two int4 kernels with their plain versions, and the linear that routes
-between them, with the trainable LoRA side path.
+"""Quantized linears: the weight-only group-wise affine formats (int8 /
+int4) with the two int4 kernels and their plain versions, W8A8 (int8
+weights per output channel, int8 activations per row), and the linear that
+routes between them, with the trainable LoRA side path.
 
 Port of ltx_tpu/kernels/quantization.py (formats, `int4_matmul` with its
-straight-through backward, `dequant_int4_pallas`, `_lora_delta`,
-`linear_any`; W8A8 is not ported yet). Same scheme:
+straight-through backward, `dequant_int4_pallas`, `requant_int8_channel_np`,
+`quantize_act_int8`, `int8_matmul` with its straight-through backward,
+`linear_many`, `_lora_delta`, `linear_any`). The weight-only scheme:
 groups of `group_size` rows along the INPUT dimension, asymmetric affine,
 
     w ~= q * scale[g] + bias[g],   q in [0, 2**bits - 1],
@@ -15,6 +17,11 @@ int4 codes are "w_q4" (K/2, N) uint8 in BLOCK-PLANE packing: within each
 PACK_BLOCK = 256 input rows, byte row r holds q[r] in the low nibble and
 q[r + 128] in the high nibble (one plane of the whole K when 256 does not
 divide K). scale and bias are (K/g, N) float32.
+
+W8A8 leaves are "w8" (K, N) int8 and "sw" (N,) f32: w ~= w8 * sw. The
+reference runs their product in XLA, not in a Pallas kernel; here it is
+the library's int8 product `torch._int_mm` (`int8_mm`), exact in int32,
+with the activation quantization and the rescale in plain PyTorch.
 
 The kernels are `ltx_tpu_torch/csrc/int4_matmul.cu` (both in one source,
 sharing one dequant function), built with nvcc for sm_90a on first use and
@@ -136,6 +143,136 @@ def quantize_linear_params(p: dict, bits: int, group_size: int = 64) -> dict:
     if "b" in p:
         out["b"] = p["b"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# W8A8: per-channel int8 weights, dynamic per-row int8 activations
+# ---------------------------------------------------------------------------
+
+
+def _int8_codes(a, dim: int):
+    """(clip(round(a / s), -127, 127) as int8, s) with s = max |a| along
+    `dim` (kept) / 127 in f32, 0 -> 1: the division in f32 whatever a's
+    dtype (its max |a| read in that dtype, exact), rounding half to even.
+    s is divided by a tensor: torch's CUDA kernels multiply by the
+    reciprocal of a Python scalar divisor, which is not IEEE division."""
+    s = torch.linalg.vector_norm(a, float("inf"), dim=dim, keepdim=True,
+                                 dtype=torch.float32)
+    s = s / torch.full_like(s, 127.0)
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return torch.div(a, s).round_().clamp_(-127, 127).to(torch.int8), s
+
+
+def requant_int8_channel(qp_or_w) -> dict:
+    """A raw (in, out) weight, or an int8/int4 leaf (dequantized in f32 as
+    `dequantize_weight` does) -> {"w8": (in, out) int8, "sw": (out,) f32},
+    on the tensor's device: sw = max |w| over the input / 127 (0 -> 1),
+    w8 = clip(rint(w / sw), -127, 127). The arithmetic of the reference's
+    numpy twin `_requant_int8_channel_np_numpy`. w8 comes back stored
+    column-major (`w8_layout`)."""
+    w = dequantize_weight(qp_or_w, torch.float32) if isinstance(qp_or_w, dict) else qp_or_w
+    w8, sw = _int8_codes(w, 0)
+    return {"w8": w8_layout(w8), "sw": sw[0].contiguous()}
+
+
+def w8_layout(w8):
+    """An (in, out) int8 weight stored column-major: the transposed view of
+    a contiguous (out, in) tensor (the same tensor when it already is).
+    cuBLASLt's int8 product takes its second operand so; row-major, it runs
+    5-7x slower on an H100 and refuses some row counts."""
+    return w8 if w8.t().is_contiguous() else w8.t().contiguous().t()
+
+
+def quantize_act_int8(x):
+    """Per-row dynamic activation quantization: (..., K) -> (int8 of the
+    same shape, f32 scale (..., 1)), absmax / 127 per row."""
+    return _int8_codes(x, -1)
+
+
+# cuBLASLt's int8 product on CUDA (torch._int_mm's checks): more than 16
+# rows, K and N multiples of 8
+_INT8_MIN_ROWS = 17
+_INT8_ALIGN = 8
+
+
+def int8_mm(x8, w8):
+    """x8 (M, K) int8 @ w8 (K, N) int8 -> (M, N) int32, exact: the
+    library's int8 product `torch._int_mm` (cuBLASLt on CUDA; w8 best
+    column-major, `w8_layout`). On CUDA the rows are padded with zero rows
+    up to the 17 the library needs; K and N must be multiples of 8 there,
+    else it raises. Each CUDA call counts in `int8_mm.calls`."""
+    m = x8.shape[0]
+    if x8.device.type != "cuda":
+        return torch._int_mm(x8, w8)
+    k, n = w8.shape
+    if k % _INT8_ALIGN or n % _INT8_ALIGN:
+        raise ValueError(f"int8_mm: K={k}, N={n}: the card's int8 product takes multiples "
+                         f"of {_INT8_ALIGN}")
+    if m < _INT8_MIN_ROWS:
+        x8 = torch.cat([x8, x8.new_zeros(_INT8_MIN_ROWS - m, k)])
+    out = torch._int_mm(x8.contiguous(), w8)
+    int8_mm.calls += 1
+    return out[:m]
+
+
+int8_mm.calls = 0
+
+
+def _int8_dot(p: dict, x8, sx, out_dtype):
+    """The int32 product of x8 (..., K) and p["w8"], rescaled in f32 by
+    (sx * sw) (one product first, then the scaling), cast to out_dtype."""
+    lead, k = x8.shape[:-1], x8.shape[-1]
+    acc = int8_mm(x8.reshape(-1, k), p["w8"]).reshape(*lead, -1)
+    # int32 * f32 promotes to f32: acc converted as acc.float() would be
+    return torch.mul(acc, sx * p["sw"]).to(out_dtype)
+
+
+class _Int8MatmulSTE(torch.autograd.Function):
+    """The reference's `_int8_mm_ste`: the W8A8 product forward; backward
+    straight through the activation's rounding, gx = g @ (w8 * sw)^T for x
+    only (the frozen int8 weight and its scale get none): gw = g * sw in
+    f32 rounded to bf16, times w8 in bf16, accumulated in f32, the result
+    in g's dtype (a bf16 product when g is bf16; an f32 product of the same
+    bf16 values, exact products and f32 sums, when it is not)."""
+
+    @staticmethod
+    def forward(ctx, x, w8, sw):
+        ctx.save_for_backward(w8, sw)
+        x8, sx = quantize_act_int8(x)
+        return _int8_dot({"w8": w8, "sw": sw}, x8, sx, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        w8, sw = ctx.saved_tensors
+        gw = (g.float() * sw).to(torch.bfloat16)
+        compute = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
+        gx = torch.matmul(gw.to(compute), w8.to(compute).t())
+        return gx.to(g.dtype), None, None
+
+
+def int8_matmul(p: dict, x):
+    """x (..., K) @ {"w8" (K, N), "sw" (N,)} -> (..., N) in x's dtype: x
+    quantized per row (absmax / 127), the int8 product exact in int32
+    (`int8_mm`), rescaled by sx * sw. Differentiable in x by the
+    straight-through `_Int8MatmulSTE` (QLoRA over a frozen W8A8 base)."""
+    return _Int8MatmulSTE.apply(x, p["w8"], p["sw"])
+
+
+def linear_many(ps, x) -> tuple:
+    """Several linears' leaves applied to the same x (q/k/v; gate/up): when
+    all are W8A8, x is quantized once and shared, each output rescaled and
+    its bias added in x's dtype (no LoRA on this route, as the reference);
+    otherwise `linear_any` one by one."""
+    if all("w8" in p for p in ps):
+        x8, sx = quantize_act_int8(x)
+        outs = []
+        for p in ps:
+            out = _int8_dot(p, x8, sx, x.dtype)
+            outs.append(out if p.get("b") is None else out + p["b"].to(x.dtype))
+        return tuple(outs)
+    return tuple(linear_any(p, x) for p in ps)
 
 
 # ---------------------------------------------------------------------------
@@ -363,22 +500,25 @@ def f32_linear(x, w_t, b=None, lora=None):
 
 
 def linear_any(p: dict, x):
-    """A quantized linear's leaves ({"w_q"|"w_q4", "scale", "bias", "b"?},
-    the JAX package's keys, and "lora_a"/"lora_b"/"lora_s" when a LoRA side
-    path is present) applied to x (..., K). Plain linears are
-    `models.common.Linear`; W8A8 leaves are refused where a tree is loaded.
+    """A quantized linear's leaves ({"w_q"|"w_q4", "scale", "bias", "b"?} or
+    {"w8", "sw", "b"?}, the JAX package's keys, and "lora_a"/"lora_b"/
+    "lora_s" when a LoRA side path is present) applied to x (..., K). Plain
+    linears are `models.common.Linear`.
 
-    int4 leaves that pass `use_int4_kernel` go through `int4_mm` (x cast to
-    bf16, a bf16 product), then add the LoRA delta and then the bias, each
-    in x's dtype, as the reference's kernel route does: three roundings.
-    Every other leaf dequantizes to bf16, then `f32_linear`: the LoRA delta
-    and the bias added in f32 and one rounding to x's dtype (the reference's
-    XLA route).
+    W8A8 leaves go through `int8_matmul`, and int4 leaves that pass
+    `use_int4_kernel` through `int4_mm` (x cast to bf16, a bf16 product);
+    then each adds the LoRA delta and then the bias, each in x's dtype, as
+    the reference's routes do: three roundings. Every other leaf
+    dequantizes to bf16, then `f32_linear`: the LoRA delta and the bias
+    added in f32 and one rounding to x's dtype (the reference's XLA route).
     """
     b = p.get("b")
     lora = lora_delta(p, x) if "lora_a" in p else None
-    if use_int4_kernel(p, x):
-        out = int4_mm(x, p["w_q4"], p["scale"], p["bias"]).to(x.dtype)
+    if "w8" in p or use_int4_kernel(p, x):
+        if "w8" in p:
+            out = int8_matmul(p, x)
+        else:
+            out = int4_mm(x, p["w_q4"], p["scale"], p["bias"]).to(x.dtype)
         if lora is not None:
             out = out + lora
         return out if b is None else out + b.to(x.dtype)

@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from ltx_tpu_torch.kernels.quantization import dequantize_weight, quantize_weight
-from ltx_tpu_torch.models.common import Linear, QuantizedLinear
+from ltx_tpu_torch.models.common import Linear, QuantizedLinear, W8A8Linear
 
 log = logging.getLogger("ltx_tpu_torch")
 
@@ -171,6 +171,9 @@ def fuse_lora(model: nn.Module, layers: List[LoRALayer], scale: float = 1.0,
     for layer in layers:
         path = module_path(layer.original_key, blocks)
         linear = out.get_submodule(path) if path is not None else None
+        if isinstance(linear, W8A8Linear):
+            raise TypeError(f"{path}: a W8A8 linear takes no fused LoRA; fuse before "
+                            "quantizing, as load_pipeline does")
         if not isinstance(linear, (Linear, QuantizedLinear)):
             skipped += 1
             log.debug("LoRA fuse: no model weight for %s", layer.original_key)

@@ -2,9 +2,11 @@
 
 Port of ltx_tpu/models/common.py and of the linears of
 ltx_tpu/kernels/quantization.py::linear_any: `Linear` for plain weights,
-`QuantizedLinear` for int8 / int4 ones. Either may carry a trainable LoRA
-side path (`add_lora_params`): `lora_a` (d_in, r), `lora_b` (r, d_out) and
-`lora_s` (), the JAX tree's leaf names and layout, f32 by default.
+`QuantizedLinear` for int8 / int4 ones, `W8A8Linear` for per-channel int8
+weights with int8 activations. Each may carry a trainable LoRA side path
+(`add_lora_params`): `lora_a` (d_in, r), `lora_b` (r, d_out) and `lora_s`
+(), the JAX tree's leaf names and layout, f32 by default. `Int8Embedding`
+is the int8 token table of ltx_tpu/models/gemma3.py::_embed_lookup.
 
 Parameters are created empty on an explicit device and dtype; nothing is
 initialised at construction. `convert.py` fills them from a JAX parameter
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels.quantization import f32_linear, linear_any, lora_delta, quantize_weight
 
 LORA_KEYS = ("lora_a", "lora_b", "lora_s")
@@ -93,16 +96,36 @@ class Linear(_LoRAHost):
             self.bias.zero_()
 
 
-class QuantizedLinear(_LoRAHost):
+class _LeafLinear(_LoRAHost):
+    """A linear whose parameters are the JAX package's leaf dict, by name
+    and layout: `forward` is `linear_any` on them. Frozen parameters, so
+    that phase staging moves them; a dtype cast of the module raises, since
+    it would change the format. A LoRA side path's leaves join the dict
+    under their JAX names."""
+
+    def forward(self, x):
+        return linear_any(self.leaves(), x)
+
+    def leaves(self) -> dict:
+        return dict(self.named_parameters(recurse=False))
+
+    def _f32_leaf(self) -> nn.Parameter:
+        """A float32 parameter of the format, which a dtype cast would change."""
+        raise NotImplementedError
+
+    def _apply(self, fn, recurse=True):
+        if fn(torch.empty(0, device=self._f32_leaf().device)).dtype != torch.float32:
+            raise TypeError(f"{type(self).__name__} keeps its format: cast the "
+                            "activations, not the module")
+        return super()._apply(fn, recurse)
+
+
+class QuantizedLinear(_LeafLinear):
     """A weight-only quantized linear, in the JAX package's layout and with
     its leaf names, not transposed (the int4 packing runs along d_in):
     codes `w_q4` (d_in/2, d_out) uint8 for 4 bits or `w_q` (d_in, d_out)
     uint8 for 8, `scale` and `bias` (d_in/group, d_out) f32 (the per-group
-    affine), and the linear's own bias `b` (d_out,) or None. `forward` is
-    `linear_any` on the parameters by name, which are the JAX leaf dict.
-    Frozen parameters, so that phase staging moves them; a dtype cast of the
-    module raises, since it would change the format. A LoRA side path's
-    leaves join the dict under their JAX names."""
+    affine), and the linear's own bias `b` (d_out,) or None."""
 
     def __init__(self, d_in: int, d_out: int, bits: int, group_size: int = 64,
                  bias: bool = True, device=None, dtype=torch.bfloat16):
@@ -122,14 +145,8 @@ class QuantizedLinear(_LoRAHost):
         d_in = self.w_q4.shape[0] * 2 if hasattr(self, "w_q4") else self.w_q.shape[0]
         return d_in, self.scale.shape[1]
 
-    def forward(self, x):
-        return linear_any(dict(self.named_parameters(recurse=False)), x)
-
-    def _apply(self, fn, recurse=True):
-        if fn(torch.empty(0, device=self.scale.device)).dtype != torch.float32:
-            raise TypeError("QuantizedLinear keeps its format: cast the "
-                            "activations, not the module")
-        return super()._apply(fn, recurse)
+    def _f32_leaf(self):
+        return self.scale
 
     @classmethod
     @torch.no_grad()
@@ -148,6 +165,56 @@ class QuantizedLinear(_LoRAHost):
         if linear.bias is not None:
             out.b.copy_(linear.bias)
         return out
+
+
+class W8A8Linear(_LeafLinear):
+    """A W8A8 linear in the JAX package's layout and with its leaf names:
+    `w8` (d_in, d_out) int8, per output channel `sw` (d_out,) f32, and the
+    linear's own bias `b` (d_out,) or None; activations are quantized per
+    row at every call (`linear_any` -> `int8_matmul`). `w8` is stored
+    column-major (`kernels.quantization.w8_layout`), as the card's int8
+    product wants it."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.w8 = nn.Parameter(torch.empty(d_out, d_in, device=device, dtype=torch.int8).t(),
+                               requires_grad=False)
+        self.sw = param(d_out, device=device)
+        self.b = param(d_out, device=device, dtype=dtype) if bias else None
+
+    @property
+    def dims(self):
+        return tuple(self.w8.shape)
+
+    def _f32_leaf(self):
+        return self.sw
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, linear: Linear, device=None) -> "W8A8Linear":
+        """`linear` requantized per output channel on `device` (default:
+        where it lives; `requant_int8_channel` of its (d_in, d_out) weight);
+        the result lives where `linear` lived."""
+        d_out, d_in = linear.weight.shape
+        home = linear.weight.device
+        qp = qz.requant_int8_channel(linear.weight.to(device or home).t())
+        out = cls(d_in, d_out, bias=linear.bias is not None, device=home,
+                  dtype=linear.weight.dtype)
+        out.w8.copy_(qp["w8"])
+        out.sw.copy_(qp["sw"])
+        if linear.bias is not None:
+            out.b.copy_(linear.bias)
+        return out
+
+
+def linear_many(linears, x) -> tuple:
+    """Several linears applied to the same x (q/k/v; gate/up), as the
+    reference's `linear_many`: W8A8 linears share one quantization of x;
+    any other mix runs each linear on its own."""
+    if all(isinstance(m, W8A8Linear) and not m.has_lora for m in linears):
+        return qz.linear_many([m.leaves() for m in linears], x)
+    return tuple(m(x) for m in linears)
 
 
 class Conv3d(nn.Module):
@@ -230,6 +297,59 @@ class Embedding(nn.Module):
         _normal_(self.weight, gen, 0.02)
 
 
+class Int8Embedding(nn.Module):
+    """An int8 token table with per-row scales: `w8r` (vocab, dim) int8 and
+    `sr` (vocab,) f32 (the reference's `embed_int8` leaves). A lookup
+    dequantizes the rows in f32 and rounds them to bf16 once."""
+
+    def __init__(self, vocab: int, dim: int, device=None):
+        super().__init__()
+        self.w8r = param(vocab, dim, device=device, dtype=torch.int8)
+        self.sr = param(vocab, device=device)
+
+    def forward(self, ids):
+        ids = ids.long()
+        return (self.w8r[ids].float() * self.sr[ids][..., None]).to(torch.bfloat16)
+
+
+def for_leaves(module: nn.Module, leaves: dict) -> nn.Module:
+    """An empty module of the format that `leaves` (a JAX leaf dict, or its
+    shapes: arrays, tensors, stacked or not) hold, of `module`'s widths,
+    device and dtype: a QuantizedLinear, W8A8Linear or Int8Embedding where
+    `module` is a Linear or Embedding and the leaves are quantized; else
+    `module` itself."""
+    if isinstance(module, Embedding) and "w8r" in leaves:
+        vocab, dim = module.weight.shape
+        return Int8Embedding(vocab, dim, device=module.weight.device)
+    if not isinstance(module, Linear) or not qz.is_quantized(leaves):
+        return module
+    d_out, d_in = module.weight.shape
+    kw = dict(bias="b" in leaves, device=module.weight.device, dtype=module.weight.dtype)
+    if "w8" in leaves:
+        return W8A8Linear(d_in, d_out, **kw)
+    if "scale" not in leaves:
+        raise ValueError(f"quantized leaves with no scale: {sorted(leaves)}")
+    groups = tuple(leaves["scale"].shape)[-2]
+    return QuantizedLinear(d_in, d_out, 4 if "w_q4" in leaves else 8, d_in // groups, **kw)
+
+
+def swap_for_state(root: nn.Module, state: dict) -> nn.Module:
+    """Replace, in place, each Linear or Embedding under `root` whose
+    parameters in the flat `state` ({name: tensor}) are of another format by
+    an empty module of that format (`for_leaves`), for `assign_` to fill.
+    Returns `root`."""
+    groups: dict = {}
+    for key, value in state.items():
+        owner, _, leaf = key.rpartition(".")
+        groups.setdefault(owner, {})[leaf] = value
+    for name, module in list(root.named_modules()):
+        new = for_leaves(module, groups.get(name, {}))
+        if new is not module:
+            parent, _, child = name.rpartition(".")
+            setattr(root.get_submodule(parent), child, new)
+    return root
+
+
 def param(*shape, device=None, dtype=torch.float32) -> nn.Parameter:
     """An empty, frozen parameter for a module's own tables."""
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
@@ -255,7 +375,9 @@ def assign_(module: nn.Module, state: dict) -> nn.Module:
     of `module` (typically built on the "meta" device), strictly: every
     parameter once, no other name, each of the parameter's shape and dtype.
     No copy: a parameter becomes its tensor (a view of a mapped file
-    stays one). Returns `module`."""
+    stays one), unless the tensor is not in the parameter's order
+    (contiguous, or W8A8Linear's column-major `w8`): then a copy in that
+    order. Returns `module`."""
     params = dict(module.named_parameters())
     unknown = sorted(set(state) - set(params))
     missing = sorted(set(params) - set(state))
@@ -267,6 +389,12 @@ def assign_(module: nn.Module, state: dict) -> nn.Module:
         if tuple(tensor.shape) != tuple(target.shape) or tensor.dtype != target.dtype:
             raise ValueError(f"{name}: {tensor.dtype}{tuple(tensor.shape)}, the parameter is "
                              f"{target.dtype}{tuple(target.shape)}")
+        if not (tensor.is_contiguous() if target.is_contiguous()
+                else tensor.stride() == target.stride()):
+            # stored in the parameter's order: contiguous, or column-major
+            # (W8A8Linear.w8)
+            tensor = torch.empty_strided(target.shape, target.stride(), dtype=tensor.dtype,
+                                         device=tensor.device).copy_(tensor)
         owner = module.get_submodule(name.rpartition(".")[0])
         setattr(owner, name.rpartition(".")[2],
                 nn.Parameter(tensor, requires_grad=target.requires_grad))

@@ -7,7 +7,7 @@ flat tensor, then the head split; AdaLN-single with a per-block (6, D) f32
 scale_shift_table; affine-free LayerNorm and a (2, D) table at the output.
 Every attention goes through ops.attention.sdpa, so on CUDA through the
 flash-attention kernel. `quantize_transformer` swaps the blocks' large
-linears for int8 / int4 `QuantizedLinear`s, as the reference's
+linears for int8 / int4 `QuantizedLinear`s or `W8A8Linear`s, as the reference's
 `quantize_transformer_params` quantizes the tree. For training, `remat`
 and `remat_segments` rematerialise the blocks with
 torch.utils.checkpoint, as the reference's jax.checkpoint over its scan.
@@ -26,6 +26,7 @@ from ltx_tpu_torch.models.common import (
     Linear,
     NormWeight,
     QuantizedLinear,
+    W8A8Linear,
     gelu_tanh,
     param,
     silu,
@@ -284,22 +285,21 @@ def quantize_transformer(module: nn.Module, bits: int, group_size: int = 64,
                          device=None, w8a8: bool = False) -> nn.Module:
     """Quantize, in place, every large linear under `module.blocks`
     (`quantize_linears`), as the reference's quantize_transformer_params
-    quantizes the tree. Everything outside the blocks stays. Returns
-    `module`."""
-    if w8a8:
-        raise NotImplementedError("W8A8 quantization is not ported yet (ROADMAP A10)")
-    quantize_linears(module.blocks, bits, group_size, device)
+    quantizes the tree: group-wise to `bits`, or with w8a8 per output
+    channel to W8A8 (bits unused). Everything outside the blocks stays.
+    Returns `module`."""
+    quantize_linears(module.blocks, bits, group_size, device, w8a8=w8a8)
     return module
 
 
 @torch.no_grad()
 def quantize_linears(root: nn.Module, bits: int, group_size: int = 64,
-                     device=None) -> nn.Module:
+                     device=None, w8a8: bool = False) -> nn.Module:
     """Each Linear under `root` named in QUANTIZABLE_LEAVES with d_in *
     d_out >= _MIN_QUANT_SIZE and d_in % group_size == 0 becomes a
-    QuantizedLinear, in place, one layer at a time, quantized on `device`
-    (default: where the layer lives) and kept where the layer lived; norms
-    and tables stay. Returns `root`."""
+    QuantizedLinear (a W8A8Linear with w8a8), in place, one layer at a time,
+    quantized on `device` (default: where the layer lives) and kept where
+    the layer lived; norms and tables stay. Returns `root`."""
     targets = [(parent, name, child)
                for parent in root.modules()
                for name, child in parent.named_children()
@@ -307,5 +307,6 @@ def quantize_linears(root: nn.Module, bits: int, group_size: int = 64,
                and child.weight.numel() >= _MIN_QUANT_SIZE
                and child.weight.shape[1] % group_size == 0]
     for parent, name, child in targets:
-        setattr(parent, name, QuantizedLinear.from_linear(child, bits, group_size, device))
+        setattr(parent, name, W8A8Linear.from_linear(child, device) if w8a8 else
+                QuantizedLinear.from_linear(child, bits, group_size, device))
     return root

@@ -1,7 +1,14 @@
 """Gemma-3 text backbone, run as a hidden-state extractor.
 
 Port of ltx_tpu/models/gemma3.py::forward_hidden_states (no KV cache, no
-generation). Semantics kept:
+generation), with the reference's quantized modes: each projection is a
+`Linear`, an int4 `QuantizedLinear` or a `W8A8Linear` (q/k/v and gate/up
+through `linear_many`, so W8A8 quantizes their shared input once), and the
+token table is bf16 or an `Int8Embedding` (its lookup is the reference's
+`_embed_lookup`; `embed_dtype`; `lm_head` is the tied head of the
+reference's generation, ROADMAP A13).
+`Gemma3Model.from_state_dict` builds the model in the format of a loaded
+state dict. Semantics kept:
   * embeddings scaled by sqrt(hidden_size) in the embedding dtype;
   * RMSNorm with the (1 + weight) convention, f32 statistics;
   * q/k RMSNorm per head AFTER the head split; attention scale
@@ -24,7 +31,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ltx_tpu_torch.models.common import Embedding, Linear, NormWeight, gelu_tanh
+from ltx_tpu_torch.kernels.quantization import int8_mm, quantize_act_int8
+from ltx_tpu_torch.models.common import (
+    Embedding,
+    Linear,
+    NormWeight,
+    assign_,
+    gelu_tanh,
+    linear_many,
+    swap_for_state,
+)
 from ltx_tpu_torch.ops.attention import sdpa
 
 
@@ -152,9 +168,10 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         nh, nkv, hd = cfg.attention_heads, cfg.kv_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(b, t, nh, hd).transpose(1, 2)
-        k = self.k_proj(x).reshape(b, t, nkv, hd).transpose(1, 2)
-        v = self.v_proj(x).reshape(b, t, nkv, hd).transpose(1, 2)
+        q, k, v = linear_many((self.q_proj, self.k_proj, self.v_proj), x)
+        q = q.reshape(b, t, nh, hd).transpose(1, 2)
+        k = k.reshape(b, t, nkv, hd).transpose(1, 2)
+        v = v.reshape(b, t, nkv, hd).transpose(1, 2)
         q = gemma_rms_norm(q, self.q_norm.weight, cfg.rms_norm_eps)
         k = gemma_rms_norm(k, self.k_norm.weight, cfg.rms_norm_eps)
         q = apply_gemma_rope(q, cos, sin)
@@ -165,7 +182,8 @@ class DecoderLayer(nn.Module):
 
     def mlp(self, x):
         """down(gelu_tanh(gate) * up)."""
-        return self.down_proj(gelu_tanh(self.gate_proj(x)) * self.up_proj(x))
+        gate, up = linear_many((self.gate_proj, self.up_proj), x)
+        return self.down_proj(gelu_tanh(gate) * up)
 
     def forward(self, x, bias, cos, sin):
         eps = self.cfg.rms_norm_eps
@@ -189,13 +207,22 @@ class Gemma3Model(nn.Module):
             DecoderLayer(cfg, device, dtype) for _ in range(cfg.hidden_layers))
         self.norm = NormWeight(cfg.hidden_size, 0.0, device=device, dtype=dtype)
 
+    @classmethod
+    def from_state_dict(cls, cfg: Gemma3Config, state: dict) -> "Gemma3Model":
+        """The model whose parameters are `state`'s tensors (`assign_`), its
+        linears and token table of the formats the state holds
+        (`keymaps.load_gemma_params` in any mode)."""
+        dtype = state["embed_tokens.weight"].dtype if "embed_tokens.weight" in state \
+            else torch.bfloat16
+        return assign_(swap_for_state(cls(cfg, "meta", dtype), state), state)
+
     def forward_hidden_states(self, input_ids, attention_mask):
         """Token ids (B, T) + pad mask (B, T) -> (49, B, T, D) hidden states:
         [0] the scaled embedding, [1..47] layers 0..46 raw, [48] the final
         norm of layer 47 (for the 48-layer model)."""
         cfg = self.cfg
         t = input_ids.shape[1]
-        dtype = self.embed_tokens.weight.dtype
+        dtype = embed_dtype(self)
         device = input_ids.device
         h = self.embed_tokens(input_ids) * torch.tensor(
             math.sqrt(cfg.hidden_size), dtype=dtype, device=device)
@@ -216,3 +243,24 @@ class Gemma3Model(nn.Module):
             states.append(x)
         states[-1] = gemma_rms_norm(x, self.norm.weight, cfg.rms_norm_eps)
         return torch.stack(states)
+
+
+def embed_dtype(model: Gemma3Model) -> torch.dtype:
+    """The activation dtype the token table implies: its own, bf16 for an
+    int8 table."""
+    weight = getattr(model.embed_tokens, "weight", None)
+    return torch.bfloat16 if weight is None else weight.dtype
+
+
+def lm_head(model: Gemma3Model, h):
+    """The tied head, logits in f32 (the reference's `_lm_head`): h @ W^T
+    with f32 accumulation for a dense table; for an int8 table, h quantized
+    per row, the exact int32 product with the rows, then acc * sx * sr,
+    left to right in f32."""
+    e = model.embed_tokens
+    if hasattr(e, "w8r"):
+        h8, sx = quantize_act_int8(h)
+        lead, d = h8.shape[:-1], h8.shape[-1]
+        acc = int8_mm(h8.reshape(-1, d), e.w8r.t()).reshape(*lead, -1)
+        return acc.float() * sx * e.sr
+    return torch.matmul(h.float(), e.weight.float().t())

@@ -145,8 +145,8 @@ class LTXPipeline:
                ucfg: Optional[UpscalerConfig] = None):
         """Random weights at the given configs, drawn on `device` from one
         seeded torch.Generator per component with the reference's init
-        scales. With `quantization.mode` "int4" or "qint8" the DiT's block
-        linears are then quantized there, layer by layer; Gemma, the
+        scales. With `quantization.mode` "int4", "qint8" or "w8a8" the DiT's
+        block linears are then quantized there, layer by layer; Gemma, the
         connector, the VAE and the upscaler stay unquantized. The VAE
         encoder takes the decoder's dtype, the upscaler (built when `ucfg`
         is given) float32. With phase staging each component then moves to

@@ -10,13 +10,16 @@ Every component is built on the host from the mapped files
 (`models.common.assign_`: a tensor whose dtype needs no change is a view
 of the file, not a copy); the pipeline then places each on the device for
 its phase (`memory.phase_staging`) or for good. Work on the weights that
-would take minutes on the host runs on `device`, layer by layer, and lands
-back on the host: the MLX 4-bit Gemma dequantization, and the DiT's LoRA
-fusion and quantization (both bit for bit the CPU's arithmetic).
+would take minutes on the host runs on `device`, bit for bit the CPU's
+arithmetic: the DiT's LoRA fusion and quantization, layer by layer, landing
+back on the host; and Gemma's preparation in its mode (`gemma_quant`, the
+reference's default "w8a8": MLX 4-bit linears requantized per channel;
+"int4": repacked; "bf16": dequantized), which stays on the device unless
+phase staging keeps components on the host, where then only the prepared
+(quantized) leaves go. A quantized Gemma is cached beside its snapshot, as
+the reference does (`gemma-{mode}` entries).
 
-Not ported: the audio components (`include_audio`, ROADMAP A14), Gemma's
-quantized modes and int8 embedding (`gemma_quant` other than "bf16",
-`gemma_embed_int8`: A10; the reference defaults to "w8a8"), and the
+Not ported: the audio components (`include_audio`, ROADMAP A14) and the
 SigLIP vision tower (A13), which is not read.
 """
 
@@ -55,18 +58,20 @@ log = logging.getLogger("ltx_tpu_torch")
 class LoadTimings:
     """Seconds of each part of `load_pipeline` (device work synchronised):
     mapping the files, the key maps (with their dtype changes), building
-    the modules, the Gemma dequantization, the DiT's LoRA fusion and
-    quantization, the quantized cache (read or written), and the whole."""
+    the modules, Gemma's preparation in its mode and its placement, the
+    DiT's LoRA fusion and quantization, the quantized caches (read or
+    written), and the whole; whether the DiT's and Gemma's caches hit."""
 
     read: float = 0.0
     key_map: float = 0.0
     build: float = 0.0
-    gemma_dequant: float = 0.0
+    gemma: float = 0.0
     fuse: float = 0.0
     quantize: float = 0.0
     cache: float = 0.0
     total: float = 0.0
     cache_hit: bool = False
+    gemma_cache_hit: bool = False
 
 
 def load_tokenizer(gemma_dir):
@@ -90,6 +95,27 @@ def _quant_signature(component: str, quantization, layers: int, audio: bool = Fa
         sig["lora"] = (f"{os.path.basename(str(lora_path))}:"
                        f"{st.st_size}:{st.st_mtime_ns}:{lora_scale}")
     return sig
+
+
+def gemma_signature(mode: str, layers: int, embed_int8: bool) -> dict:
+    """Staleness key of a quantized Gemma's cache entry, the reference's."""
+    return {"component": "gemma", "mode": mode, "layers": layers, "embed_int8": embed_int8}
+
+
+def _cached_leaves(tree, device, home):
+    """A cached tree's leaves on `home`, each W8A8 weight ("w8", row-major
+    in the JAX layout) made column-major as W8A8Linear keeps it, on
+    `device`: the card transposes an int8 matrix in a fraction of the
+    host's time."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = _cached_leaves(value, device, home)
+        elif key == "w8":
+            out[key] = value.to(device).transpose(-1, -2).contiguous().transpose(-1, -2).to(home)
+        else:
+            out[key] = value.to(home)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -126,7 +152,8 @@ def _fuse_and_quantize(model: LTXTransformer, lora_layers, lora_scale: float,
             timings.fuse += time.perf_counter() - t1
         if quantization.bits is not None:
             t1 = time.perf_counter()
-            quantize_linears(block, quantization.bits, quantization.group_size)
+            quantize_linears(block, quantization.bits, quantization.group_size,
+                             w8a8=quantization.mode == "w8a8")
             _sync(device)
             timings.quantize += time.perf_counter() - t1
         block.to("cpu")
@@ -146,7 +173,7 @@ def load_pipeline(
     distilled_lora: bool = False,
     include_audio: bool = False,
     include_upscaler: bool = False,
-    gemma_quant: str = "bf16",
+    gemma_quant: str = "w8a8",
     gemma_embed_int8: bool = False,
     quant_cache: bool = True,
     transformer_config: Optional[TransformerConfig] = None,
@@ -158,22 +185,20 @@ def load_pipeline(
     """Load and assemble every component from a local models directory
     (the reference's layout, `weights.download.download_all_components`).
 
-    The reference's arguments, in its order; `hf_token` is accepted and
-    unused (nothing is downloaded). `gemma_quant` defaults to "bf16" here:
-    the reference's default "w8a8" is not ported yet (ROADMAP A10), nor is
-    `include_audio` (A14). quant_cache=True keeps a quantized DiT next to
-    the unified file the first time (weights/qcache.py, in the JAX
-    package's format) and maps it back on later loads; its staleness key is
-    the source file's size and mtime and the quantization and LoRA
-    signature. `device` is where the pipeline runs and where the heavy
-    load-time work runs (default: the card). The *_config overrides exist
-    for checkpoints cut to size (tests, the smoke run). `timings`, when
-    given, receives the seconds of each part."""
+    The reference's arguments, in its order and with its defaults;
+    `hf_token` is accepted and unused (nothing is downloaded);
+    `include_audio` is not ported (A14). quant_cache=True keeps a quantized
+    DiT next to the unified file, and a quantized Gemma (gemma_quant other
+    than "bf16") inside its snapshot, the first time (weights/qcache.py, in
+    the JAX package's format) and maps them back on later loads; the
+    staleness key is the source's size and mtime and the quantization (and
+    LoRA) signature. `device` is where the pipeline runs and where the
+    heavy load-time work runs (default: the card). The *_config overrides
+    exist for checkpoints cut to size (tests, the smoke run). `timings`,
+    when given, receives the seconds of each part."""
     if include_audio:
         raise NotImplementedError("include_audio: the audio components are not ported "
                                   "yet (ROADMAP A14)")
-    if quantization.mode == "w8a8":
-        raise NotImplementedError("W8A8 quantization is not ported yet (ROADMAP A10)")
     t_start = time.perf_counter()
     timings = timings if timings is not None else LoadTimings()
     device = torch.device(device)
@@ -210,7 +235,8 @@ def load_pipeline(
             tree = qcache.load_quantized_tree(unified_path, f"dit-{quantization.mode}",
                                               dit_sig)
             if tree is not None:
-                transformer = convert.transformer_from_tree(tree, tcfg)
+                transformer = convert.transformer_from_tree(
+                    _cached_leaves(tree, device, torch.device("cpu")), tcfg)
                 timings.cache_hit = True
             timings.cache += time.perf_counter() - t0
     if transformer is None:
@@ -276,22 +302,44 @@ def load_pipeline(
     timings.build += time.perf_counter() - t0
     del dec_state, enc_state, te_state
 
-    # --- Gemma
+    # --- Gemma: prepared on the device in its mode (or mapped from its
+    # cache), then kept there, or on the host under phase staging
     with open(Path(gemma_dir) / "config.json") as f:
         gcfg = Gemma3Config.from_hf_dict(json.load(f))
+    gemma_home = torch.device("cpu") if memory.phase_staging else device
+    gemma_sig = gemma_signature(gemma_quant, gcfg.hidden_layers, gemma_embed_int8)
+    cached = quant_cache and gemma_quant != "bf16"
+    gemma = None
+    if cached:
+        t0 = time.perf_counter()
+        tree = qcache.load_quantized_tree(gemma_dir, f"gemma-{gemma_quant}", gemma_sig)
+        if tree is not None:
+            gemma = convert.gemma_from_tree(_cached_leaves(tree, device, gemma_home), gcfg)
+            timings.gemma_cache_hit = True
+        del tree
+        timings.cache += time.perf_counter() - t0
+    if gemma is None:
+        t0 = time.perf_counter()
+        gemma_tensors = load_safetensors_dir(gemma_dir)
+        timings.read += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g_state = keymaps.load_gemma_params(gemma_tensors, gcfg.hidden_layers,
+                                            mode=gemma_quant, embed_int8=gemma_embed_int8,
+                                            device=device)
+        del gemma_tensors
+        gemma = Gemma3Model.from_state_dict(gcfg, g_state)
+        del g_state
+        _sync(device)
+        timings.gemma += time.perf_counter() - t0
+        if cached:
+            t0 = time.perf_counter()
+            qcache.save_quantized_tree(convert.gemma_tree(gemma), gemma_dir,
+                                       f"gemma-{gemma_quant}", gemma_sig)
+            timings.cache += time.perf_counter() - t0
     t0 = time.perf_counter()
-    gemma_tensors = load_safetensors_dir(gemma_dir)
-    timings.read += time.perf_counter() - t0
-    t0 = time.perf_counter()
-    g_state = keymaps.load_gemma_params(gemma_tensors, gcfg.hidden_layers, mode=gemma_quant,
-                                        embed_int8=gemma_embed_int8, device=device)
+    gemma.to(gemma_home)
     _sync(device)
-    timings.gemma_dequant += time.perf_counter() - t0
-    del gemma_tensors
-    t0 = time.perf_counter()
-    gemma = assign_(Gemma3Model(gcfg, "meta", g_state["embed_tokens.weight"].dtype), g_state)
-    timings.build += time.perf_counter() - t0
-    del g_state
+    timings.gemma += time.perf_counter() - t0
     log.info("no vision tower read from %s (ROADMAP A13)", gemma_dir)
     tokenizer = load_tokenizer(gemma_dir)
 

@@ -12,9 +12,10 @@ kernels' plain versions). The base is random (--random-init) or the DiT of
 a unified checkpoint (--weights: `keymaps.split_unified`, then
 `keymaps.load_transformer_params`, as the reference; the depth and widths
 come from the file's tensors, so a checkpoint cut to fewer blocks trains
-too). Not ported yet, each raising NotImplementedError: --quant w8a8 (the
-reference's default; ROADMAP A10), --mesh / --coordinator /
---num-processes and --sdpa ring (A18).
+too). The frozen base is quantized unless --quant none or --random-init
+tiny: W8A8 (the reference's default) or int4. Not ported yet, each raising
+NotImplementedError: --mesh / --coordinator / --num-processes and --sdpa
+ring (ROADMAP A18).
 
 Each step's noise levels and noise come from a torch.Generator seeded with
 (seed + 2, step), and the checkpoint's dataset cursor is that of the last
@@ -53,8 +54,7 @@ def add_train_arguments(ap) -> None:
     ap.add_argument("--ema", type=float, default=0.0,
                     help="EMA decay (0 = off); exports the EMA adapter")
     ap.add_argument("--quant", choices=("none", "w8a8", "int4"),
-                    default="w8a8", help="frozen-base quantization (w8a8 is "
-                                         "not ported yet: pass int4 or none)")
+                    default="w8a8", help="frozen-base quantization")
     ap.add_argument("--weights", default=None,
                     help="unified checkpoint (.safetensors) whose DiT is the base")
     ap.add_argument("--random-init", choices=("tiny", "full"), default=None,
@@ -83,9 +83,6 @@ def add_train_arguments(ap) -> None:
 
 
 def _check_ported(args) -> None:
-    if args.quant == "w8a8":
-        raise NotImplementedError("--quant w8a8 is not ported yet (ROADMAP A10): "
-                                  "pass --quant int4 or --quant none")
     if args.mesh or args.coordinator or args.num_processes:
         raise NotImplementedError("--mesh / --coordinator / --num-processes: "
                                   "parallel training is not ported yet (ROADMAP A18)")
@@ -195,7 +192,8 @@ def run(args, report=None) -> int:
     del base_state
     if args.quant != "none" and args.random_init != "tiny":
         t0 = time.perf_counter()
-        quantize_transformer(model, bits=4, group_size=64)
+        quantize_transformer(model, bits=8 if args.quant == "w8a8" else 4, group_size=64,
+                             w8a8=args.quant == "w8a8")
         if device.type == "cuda":
             torch.cuda.empty_cache()
         _sync(device)

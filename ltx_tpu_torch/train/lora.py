@@ -1,13 +1,13 @@
 """Trainable LoRA adapters on the DiT's linears.
 
 Port of ltx_tpu/train/lora.py on the module instead of the tree: each
-targeted `Linear` or `QuantizedLinear` gets `lora_a` (d_in, r), `lora_b`
-(r, d_out) and `lora_s` () beside its base weight, the JAX leaves' names and
+targeted `Linear`, `QuantizedLinear` or `W8A8Linear` gets `lora_a` (d_in,
+r), `lora_b` (r, d_out) and `lora_s` () beside its base weight, the JAX leaves' names and
 layout (the reference stacks them over the blocks, (L, in, r) ...; here
 each block's module holds its own). `lora_b` starts at zero, so the adapted
 model is the base model at step 0. The side path is read by the linears
 themselves (models/common.py, kernels/quantization.py::linear_any), on the
-bf16, int8 and int4 bases alike: QLoRA needs no requantization.
+bf16, int8, int4 and W8A8 bases alike: QLoRA needs no requantization.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ltx_tpu_torch.models.common import LORA_KEYS, Linear, QuantizedLinear
+from ltx_tpu_torch.models.common import LORA_KEYS, Linear, QuantizedLinear, W8A8Linear
+
+_LINEARS = (Linear, QuantizedLinear, W8A8Linear)
 
 # every linear the distilled-LoRA checkpoint itself targets: the attention
 # projections and both FFN linears inside the blocks
@@ -28,10 +30,10 @@ DEFAULT_TARGETS = (
 
 def lora_targets(model: nn.Module, targets: Sequence[str] = DEFAULT_TARGETS
                  ) -> Iterator[Tuple[str, nn.Module]]:
-    """(name, linear) of every Linear or QuantizedLinear whose own name is in
+    """(name, linear) of every Linear, QuantizedLinear or W8A8Linear whose own name is in
     `targets`, in module order."""
     for name, module in model.named_modules():
-        if name.rsplit(".", 1)[-1] in targets and isinstance(module, (Linear, QuantizedLinear)):
+        if name.rsplit(".", 1)[-1] in targets and isinstance(module, _LINEARS):
             yield name, module
 
 
@@ -67,7 +69,7 @@ def lora_param_mask(model: nn.Module) -> Dict[str, bool]:
 def strip_lora(model: nn.Module) -> nn.Module:
     """Remove every LoRA side path (recover the frozen base), in place."""
     for module in model.modules():
-        if isinstance(module, (Linear, QuantizedLinear)) and module.has_lora:
+        if isinstance(module, _LINEARS) and module.has_lora:
             module.remove_lora_params()
     return model
 

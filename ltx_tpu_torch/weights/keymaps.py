@@ -15,11 +15,15 @@ loaded tensor itself (a view of the mapped file, see safetensors_io).
 Dtypes follow the reference: float32 weights round to bfloat16 (nearest
 even) and other dtypes pass as they are; every scale_shift_table, the VAE
 decoder's time embedders and its latent statistics are float32.
-MLX 4-bit Gemma linears dequantize in float32 (q * scale + bias, one
-rounding to bfloat16), on the device the caller names.
+Gemma's linears and token table follow the reference's modes, computed on
+the device the caller names and left there: an MLX 4-bit linear repacks
+losslessly to int4 ("int4"), requantizes per output channel to int8
+("w8a8") or dequantizes in float32 (q * scale + bias, one rounding to
+bfloat16; "bf16"); `embed_int8` gives an int8 token table with per-row
+scales.
 
-Not ported here: the dual audio-video DiT, the audio connector (ROADMAP
-A14), and Gemma's int4 / w8a8 modes and int8 embedding (A10).
+Not ported here: the dual audio-video DiT and the audio connector (ROADMAP
+A14).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from ltx_tpu_torch.config import TransformerConfig
 from ltx_tpu_torch.errors import WeightLoadingFailedError
+from ltx_tpu_torch.kernels.quantization import pack_int4, requant_int8_channel
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -392,47 +397,71 @@ def load_text_encoder_params(tensors: Tensors, strict: bool = True) -> Tensors:
 # ---------------------------------------------------------------------------
 
 
-def _maybe_dequant_mlx_4bit(tensors: Tensors, key: str, group_size: int = 64,
-                            bits: int = 4, device=None) -> torch.Tensor:
-    """An MLX-quantized linear: {key}.weight packs 32/bits codes per uint32
-    (little-endian: code n of a word in bits n*bits...), {key}.scales and
-    {key}.biases per group along the input; w[o, i] = q * scale + bias in
-    float32 (a product, then a sum: two roundings, no fused multiply-add).
-    Pops the three keys; computes on `device` (default: the CPU) and
-    returns the (out, in) float32 weight there."""
+def _mlx_codes(tensors: Tensors, key: str, bits: int, device) -> torch.Tensor:
+    """Pops {key}.weight, whose uint32 words pack 32/bits codes each
+    (little-endian: code n of a word in bits n*bits...), and returns the
+    (out, in) codes as int32 on `device` (default: the tensor's)."""
     packed = tensors.pop(f"{key}.weight")
     device = packed.device if device is None else device
     packed = packed.view(torch.int32).to(device)  # the same bits; int32 shifts and masks
-    scales = tensors.pop(f"{key}.scales").to(device, torch.float32)
-    biases = tensors.pop(f"{key}.biases").to(device, torch.float32)
-    per_word = 32 // bits
     o, iw = packed.shape
-    shifts = torch.arange(0, 32, bits, dtype=torch.int32, device=packed.device)
-    q = ((packed[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(o, iw * per_word)
-    d_in = q.shape[1]
+    shifts = torch.arange(0, 32, bits, dtype=torch.int32, device=device)
+    return ((packed[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(o, iw * (32 // bits))
+
+
+def _maybe_dequant_mlx_4bit(tensors: Tensors, key: str, group_size: int = 64,
+                            bits: int = 4, device=None) -> torch.Tensor:
+    """An MLX-quantized linear: {key}.weight packs the codes (`_mlx_codes`),
+    {key}.scales and {key}.biases hold each group's affine along the input;
+    w[o, i] = q * scale + bias in float32 (a product, then a sum: two
+    roundings, no fused multiply-add). Pops the three keys; computes on
+    `device` (default: the weight's) and returns the (out, in) float32
+    weight there."""
+    q = _mlx_codes(tensors, key, bits, device)
+    scales = tensors.pop(f"{key}.scales").to(q.device, torch.float32)
+    biases = tensors.pop(f"{key}.biases").to(q.device, torch.float32)
+    o, d_in = q.shape
     w = q.float().reshape(o, d_in // group_size, group_size) * scales[:, :, None]
     w = w + biases[:, :, None]
     return w.reshape(o, d_in)
 
 
-_GEMMA_MODES = ("bf16",)
+def _repack_mlx_4bit(tensors: Tensors, key: str, bits: int = 4, device=None) -> Tensors:
+    """An MLX-quantized (out, in) linear -> the int4 leaves {"w_q4" (in/2,
+    out) block-plane packed, "scale", "bias" (in/g, out) float32}, exactly:
+    the same codes and groups, transposed (no dequantization). Pops the
+    three keys; computes on `device` (default: the weight's)."""
+    q = _mlx_codes(tensors, key, bits, device)
+    return {"w_q4": pack_int4(q.t().to(torch.uint8)),
+            "scale": tensors.pop(f"{key}.scales").to(q.device).t().float().contiguous(),
+            "bias": tensors.pop(f"{key}.biases").to(q.device).t().float().contiguous()}
+
+
+_GEMMA_MODES = ("bf16", "int4", "w8a8")
 
 
 def load_gemma_params(tensors: Tensors, num_layers: int, quant_group_size: int = 64,
-                      quant_bits: int = 4, strict: bool = True, mode: str = "bf16",
-                      embed_int8: bool = False, device=None) -> Tensors:
-    """HF or MLX Gemma-3 weights -> the Gemma3Model state dict, bfloat16.
+                      quant_bits: int = 4, keep_quantized: bool = True, strict: bool = True,
+                      mode: str = "int4", embed_int8: bool = False, device=None) -> Tensors:
+    """HF or MLX Gemma-3 weights -> the Gemma3Model state dict
+    (`Gemma3Model.from_state_dict` builds the model of its formats).
 
     The reference's sanitize rules: a `language_model.` prefix is stripped
     (and keys without it, the vision tower's, are not read), `lm_head` is
-    dropped, float32 rounds to bfloat16, and MLX 4-bit linears and the
-    embedding dequantize (mode "bf16"; each on `device`, then back to the
-    host). The reference's quantized modes ("int4", "w8a8") and the int8
-    embedding are ROADMAP A10 and raise NotImplementedError."""
-    if mode not in _GEMMA_MODES or embed_int8:
-        raise NotImplementedError(f"Gemma mode {mode!r}"
-                                  f"{' with an int8 embedding' if embed_int8 else ''} is "
-                                  "not ported yet (ROADMAP A10): pass mode='bf16'")
+    dropped, float32 rounds to bfloat16. The reference's modes for the
+    linears of an MLX 4-bit snapshot: "int4" repacks them losslessly
+    (QuantizedLinear leaves), "w8a8" repacks and requantizes them per
+    output channel (W8A8Linear leaves: `requant_int8_channel` of the
+    dequantized values), "bf16" dequantizes them; a dense linear stays
+    bfloat16 but in "w8a8". keep_quantized=False is "bf16". The token table
+    dequantizes to bfloat16, or with `embed_int8` quantizes per row to int8
+    ("w8r", "sr"). Whatever is computed is computed on `device` (default:
+    where the tensors are) and left there; a tensor kept as it is stays
+    where it was (a view of a mapped file)."""
+    if not keep_quantized and mode == "int4":
+        mode = "bf16"
+    if mode not in _GEMMA_MODES:
+        raise ValueError(f"Gemma mode {mode!r}: one of {_GEMMA_MODES}")
     src: Tensors = {}
     has_lm_prefix = any(k.startswith("language_model.") for k in tensors)
     for k, v in tensors.items():
@@ -444,26 +473,49 @@ def load_gemma_params(tensors: Tensors, num_layers: int, quant_group_size: int =
             continue
         src[k] = v
 
-    def dense(prefix: str) -> torch.Tensor:
+    def dense(prefix: str) -> Tensors:
+        """{leaf name: tensor} of one linear, the module's names."""
         if f"{prefix}.scales" in src:
+            if mode == "int4":
+                return _repack_mlx_4bit(src, prefix, quant_bits, device)
+            if mode == "w8a8":
+                return requant_int8_channel(_repack_mlx_4bit(src, prefix, quant_bits, device))
             w = _maybe_dequant_mlx_4bit(src, prefix, quant_group_size, quant_bits, device)
-            return _bf16(w).cpu()
-        return _bf16(src.pop(f"{prefix}.weight"))
+        else:
+            w = src.pop(f"{prefix}.weight")
+        if mode == "w8a8":
+            return requant_int8_channel(w.to(device if device is not None else w.device).t())
+        return {"weight": _bf16(w)}
 
     out: Tensors = {}
+
+    def put(name: str, leaves: Tensors):
+        out.update({f"{name}.{leaf}": t for leaf, t in leaves.items()})
+
     for i in range(num_layers):
         p, q = f"model.layers.{i}", f"layers.{i}"
         for name, key in (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
                           ("v_proj", "self_attn.v_proj"), ("o_proj", "self_attn.o_proj")):
-            out[f"{q}.{name}.weight"] = dense(f"{p}.{key}")
+            put(f"{q}.{name}", dense(f"{p}.{key}"))
         for name in ("q_norm", "k_norm"):
             out[f"{q}.{name}.weight"] = _bf16(src.pop(f"{p}.self_attn.{name}.weight"))
         for name in ("gate_proj", "up_proj", "down_proj"):
-            out[f"{q}.{name}.weight"] = dense(f"{p}.mlp.{name}")
+            put(f"{q}.{name}", dense(f"{p}.mlp.{name}"))
         for name in ("input_layernorm", "post_attention_layernorm",
                      "pre_feedforward_layernorm", "post_feedforward_layernorm"):
             out[f"{q}.{name}.weight"] = _bf16(src.pop(f"{p}.{name}.weight"))
-    out["embed_tokens.weight"] = dense("model.embed_tokens")
+    if "model.embed_tokens.scales" in src:
+        emb = _maybe_dequant_mlx_4bit(src, "model.embed_tokens", quant_group_size,
+                                      quant_bits, device)
+    else:
+        emb = src.pop("model.embed_tokens.weight")
+    if embed_int8:
+        # per-row scales: each row of the (vocab, dim) table is a column of
+        # its transpose, which requant_int8_channel scales per column
+        rows = requant_int8_channel(emb.to(device if device is not None else emb.device).t())
+        out["embed_tokens.w8r"], out["embed_tokens.sr"] = rows["w8"].t(), rows["sw"]
+    else:
+        out["embed_tokens.weight"] = _bf16(emb)
     out["norm.weight"] = _bf16(src.pop("model.norm.weight"))
     _check_consumed(src, "Gemma", strict)
     return out

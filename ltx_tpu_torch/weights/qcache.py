@@ -4,8 +4,9 @@ Port of ltx_tpu/weights/qcache.py, file for file: one safetensors file next
 to the source checkpoint, the tree's nested keys joined with "/", bfloat16
 leaves stored as their uint16 payload under a "@bf16" key suffix, and the
 header metadata holding the format string, the source's size and mtime and
-the quantization signature (`pipeline.loader._quant_signature`). A tree in
-the JAX package's layout (`convert.transformer_tree`) is what is stored,
+the quantization signature (`pipeline.loader._quant_signature`, or the
+Gemma entries' `gemma_signature`). A tree in the JAX package's layout
+(`convert.transformer_tree`, `convert.gemma_tree`) is what is stored,
 so a cache written by either package loads in the other. Any mismatch of
 the signature means a miss, and the caller quantizes again.
 """
@@ -63,12 +64,13 @@ def _flatten(tree, prefix=""):
 
 
 def save_quantized_tree(tree, source_path, tag: str, quant_sig: dict) -> Optional[Path]:
-    """Persist a tree of CPU tensors; returns the path, or None when the
-    tree cannot be cached or the directory is not writable."""
+    """Persist a tree of tensors, on the host or a device (each is copied
+    to the host as it is written); returns the path, or None when the tree
+    cannot be cached or the directory is not writable."""
     flat = {}
     try:
         for key, t in _flatten(tree):
-            if not isinstance(t, torch.Tensor) or t.device.type != "cpu":
+            if not isinstance(t, torch.Tensor):
                 return None
             if t.dtype == torch.bfloat16:
                 flat[key + "@bf16"] = t.contiguous().view(torch.uint16)

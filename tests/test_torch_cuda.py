@@ -15,7 +15,9 @@ plus two bf16 ulps; the softmax statistics within 2**-14 (m) and
 2**-12 (l) relative; the backward's dQ, dK, dV element by element (the bf16
 rounding of P and dS, checks' docstring), exactly 0 on -1e30 masked keys,
 in the layouts of q, k and v, and bitwise equal from run to run; the int4
-product within one bf16 ulp plus 2**-12 * (|X| @ |W|);
+product within one bf16 ulp plus 2**-12 * (|X| @ |W|), at the DiT's and
+Gemma's shapes; the W8A8 product's activation codes, int32 accumulator and
+bf16 output bit for bit the CPU's (and the accumulator the exact one);
 dequant_int4 and quantize_weight on the card bit for bit; the tiny
 pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative,
 in bf16 and with a float32 compute dtype;
@@ -140,6 +142,23 @@ def test_int4_route_matches_plain(device, case):
     big = case.m >= qz.BIG_M_DEQUANT_THRESHOLD
     assert (res["int4_matmul_launches"], res["dequant_int4_launches"]) == (
         (0, 1) if big else (1, 0))
+
+
+@pytest.mark.parametrize("case", checks.W8A8_CASES, ids=lambda c: c.name)
+def test_w8a8_product_matches_the_cpu(device, case):
+    assert not any(checks.check_w8a8(case, device).values())
+
+
+def test_int8_product_pads_rows_and_refuses_unaligned_widths(device):
+    """Fewer than the 17 rows cuBLASLt takes are padded (exact); K or N off
+    a multiple of 8 raises."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    x8 = torch.randint(-127, 128, (5, 64), generator=gen, device=device, dtype=torch.int8)
+    w8 = qz.w8_layout(torch.randint(-127, 128, (64, 32), generator=gen, device=device,
+                                    dtype=torch.int8))
+    assert torch.equal(qz.int8_mm(x8, w8).cpu(), qz.int8_mm(x8.cpu(), w8.cpu()))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        qz.int8_mm(x8[:, :60].contiguous(), w8[:60])
 
 
 def test_dequant_kernel_is_exact(device):

@@ -13,6 +13,11 @@ top-level one.
   reference's bit for bit (the rank-4 delta is bit for bit, see
   test_torch_lora_fuse.py); a quantized-weight cache written by either
   package loads in the other without quantizing again.
+* With the reference's defaults the port loads Gemma as W8A8, equal bit for
+  bit to the reference's, and its frames match within 2e-2 abs; the
+  `gemma-w8a8` (with the int8 token table), `gemma-int4` and `dit-w8a8`
+  caches cross between the packages without a second preparation; the
+  W8A8 DiT equals the reference's bit for bit.
 * train.cli --weights builds the keymaps' DiT and takes one step.
 * With a unified file holding the DiT alone, the standalone connector
   (format 1) and VAE files (decoder and encoder) stand in, and the VAE
@@ -31,6 +36,7 @@ from ltx_tpu.core import config as jconfig
 from ltx_tpu.ops.latents import VideoLatentShape as JShape
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.config import GenerationConfig, LTXModel, MemoryConfig, QuantizationConfig
+from ltx_tpu_torch.models.common import W8A8Linear
 from ltx_tpu_torch.models.gemma3 import Gemma3Config
 from ltx_tpu_torch.models.text_encoder import TextEncoderConfig
 from ltx_tpu_torch.models.vae import VAEConfig
@@ -88,16 +94,17 @@ def _port_cfgs(cfgs):
                 text_encoder_config=convert.port_config(tecfg, TextEncoderConfig))
 
 
-def _load_both(models_dir, **kw):
+def _load_both(models_dir, gemma_quant="bf16", **kw):
     base, cfgs, _ = models_dir
-    ref = e2e._load(base, cfgs, gemma_quant="bf16", **kw)
+    ref = e2e._load(base, cfgs, gemma_quant=gemma_quant, **kw)
     jq = kw.pop("quantization", None)
     port_kw = dict(kw)
     if jq is not None:
         port_kw["quantization"] = QuantizationConfig(mode=jq.mode, group_size=jq.group_size)
     port = loader.load_pipeline(model=LTXModel.DISTILLED, models_dir=str(base),
                                 memory=MemoryConfig(offload_text_encoder=False),
-                                device="cpu", **_port_cfgs(cfgs), **port_kw)
+                                device="cpu", gemma_quant=gemma_quant, **_port_cfgs(cfgs),
+                                **port_kw)
     return ref, port
 
 
@@ -126,8 +133,7 @@ def test_bf16_components_equal_convert_of_reference(bf16_pipes, models_dir):
             np.array_equal(mask.numpy(), np.asarray(jmask))
 
 
-def test_bf16_files_to_frames_match_reference(bf16_pipes):
-    ref, port = bf16_pipes
+def _frames_match(ref, port, what: str):
     shape = JShape.from_pixels(1, CONFIG.num_frames, CONFIG.height, CONFIG.width,
                                channels=port.tcfg.in_channels)
     _, nkey = jax.random.split(jax.random.key(CONFIG.seed))
@@ -137,9 +143,96 @@ def test_bf16_files_to_frames_match_reference(bf16_pipes):
     got = port.generate_video(PROMPT, CONFIG, torch.from_numpy(noise)).frames
     assert got.shape == want.shape == (9, 64, 64, 3) and np.isfinite(got).all()
     err = float(np.abs(got - want).max())
-    print(f"[parity] load_pipeline -> generate_video vs reference: max abs {err:.3e} "
-          f"(tol {FRAME_ATOL:.0e})")
+    print(f"[parity] {what} vs reference: max abs {err:.3e} (tol {FRAME_ATOL:.0e})")
     assert err <= FRAME_ATOL
+
+
+def test_bf16_files_to_frames_match_reference(bf16_pipes):
+    ref, port = bf16_pipes
+    _frames_match(ref, port, "load_pipeline -> generate_video")
+
+
+def _gemma_cfg(models_dir):
+    return convert.port_config(models_dir[1][1], Gemma3Config)
+
+
+def test_default_load_is_the_references_w8a8_gemma_to_frames(models_dir):
+    """load_pipeline with the reference's defaults: Gemma as W8A8, its
+    cache written beside the snapshot; it equals `convert` of the
+    reference's gemma_quant="w8a8" tree, and the frames match."""
+    base, cfgs, _ = models_dir
+    cache = qcache.cache_path(base / "vlm-gemma", "gemma-w8a8")
+    cache.unlink(missing_ok=True)
+    ref = e2e._load(base, cfgs, gemma_quant="w8a8", quant_cache=False)
+    port = loader.load_pipeline(models_dir=str(base), device="cpu", **_port_cfgs(cfgs))
+    assert cache.exists()
+    assert_same_params(port.gemma, convert.gemma(ref.gemma_params, _gemma_cfg(models_dir)))
+    assert sum(isinstance(m, W8A8Linear) for m in port.gemma.modules()) == \
+        7 * port.gcfg.hidden_layers
+    _frames_match(ref, port, "load_pipeline defaults (W8A8 Gemma) -> generate_video")
+    cache.unlink()
+
+
+def _refuse(*a, **kw):
+    raise AssertionError("prepared again although the cache holds the tree")
+
+
+@pytest.mark.parametrize("mode,embed_int8", [("w8a8", True), ("int4", False)])
+def test_gemma_cache_across_packages(models_dir, monkeypatch, mode, embed_int8):
+    """A `gemma-{mode}` cache written by either package loads in the other
+    without the key map running again, to the same model."""
+    import ltx_tpu.weights.keymaps as jkeymaps
+
+    base, cfgs, _ = models_dir
+    cache = qcache.cache_path(base / "vlm-gemma", f"gemma-{mode}")
+    cache.unlink(missing_ok=True)
+    kw = dict(gemma_quant=mode, gemma_embed_int8=embed_int8)
+    first = loader.LoadTimings()
+    port = loader.load_pipeline(models_dir=str(base), device="cpu", timings=first,
+                                **_port_cfgs(cfgs), **kw)
+    assert cache.exists() and not first.gemma_cache_hit
+    monkeypatch.setattr(jkeymaps, "load_gemma_params", _refuse)
+    ref = e2e._load(base, cfgs, **kw)
+    assert_same_params(port.gemma, convert.gemma(ref.gemma_params, _gemma_cfg(models_dir)))
+    monkeypatch.undo()
+
+    cache.unlink()
+    e2e._load(base, cfgs, **kw)
+    assert cache.exists()
+    monkeypatch.setattr(keymaps, "load_gemma_params", _refuse)
+    again = loader.LoadTimings()
+    hit = loader.load_pipeline(models_dir=str(base), device="cpu", timings=again,
+                               **_port_cfgs(cfgs), **kw)
+    assert again.gemma_cache_hit
+    assert_same_params(hit.gemma, port.gemma)
+    cache.unlink()
+
+
+def test_w8a8_dit_and_its_cache_across_packages(models_dir, monkeypatch):
+    """QuantizationConfig(mode="w8a8"): the port's DiT equals the
+    reference's bit for bit, and a `dit-w8a8` cache written by the port
+    loads in the reference without quantizing again."""
+    import ltx_tpu.kernels.quantization as jqz
+
+    base, cfgs, _ = models_dir
+    unified = base / "ltx-distilled" / LTXModel.DISTILLED.unified_weights_filename
+    cache = qcache.cache_path(unified, "dit-w8a8")
+    cache.unlink(missing_ok=True)
+    tcfg = convert.port_config(cfgs[0], type(loader.TransformerConfig()))
+    ref, _ = _load_both(models_dir, quantization=jconfig.QuantizationConfig(mode="w8a8"),
+                        quant_cache=False)
+    want = convert.transformer(ref.transformer_params, tcfg)
+    port = loader.load_pipeline(models_dir=str(base), device="cpu", gemma_quant="bf16",
+                                quantization=QuantizationConfig(mode="w8a8"),
+                                **_port_cfgs(cfgs))
+    assert cache.exists()
+    assert_same_params(port.transformer, want)
+    assert sum(isinstance(m, W8A8Linear) for m in port.transformer.modules()) == 4
+    monkeypatch.setattr(jqz, "quantize_dit_params", _refuse)
+    again = e2e._load(base, cfgs, gemma_quant="bf16",
+                      quantization=jconfig.QuantizationConfig(mode="w8a8"))
+    assert_same_params(convert.transformer(again.transformer_params, tcfg), want)
+    cache.unlink()
 
 
 def test_int4_with_lora_and_the_cache_across_packages(models_dir, monkeypatch):
@@ -167,7 +260,8 @@ def test_int4_with_lora_and_the_cache_across_packages(models_dir, monkeypatch):
     monkeypatch.setattr(loader, "_fuse_and_quantize", no_quantizing)
     timings = loader.LoadTimings()
     hit = loader.load_pipeline(models_dir=str(base), device="cpu", quantization=QuantizationConfig(
-        mode="int4"), lora_path=str(lora_path), timings=timings, **_port_cfgs(cfgs))
+        mode="int4"), lora_path=str(lora_path), timings=timings, gemma_quant="bf16",
+        **_port_cfgs(cfgs))
     assert timings.cache_hit
     assert_same_params(hit.transformer, want)
     monkeypatch.undo()
@@ -176,7 +270,7 @@ def test_int4_with_lora_and_the_cache_across_packages(models_dir, monkeypatch):
     cache.unlink()
     loader.load_pipeline(models_dir=str(base), device="cpu",
                          quantization=QuantizationConfig(mode="int4"),
-                         lora_path=str(lora_path), **_port_cfgs(cfgs))
+                         lora_path=str(lora_path), gemma_quant="bf16", **_port_cfgs(cfgs))
     assert cache.exists()
     import ltx_tpu.kernels.quantization as jqz
     import ltx_tpu.lora.fuse as jfuse

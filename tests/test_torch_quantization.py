@@ -296,10 +296,21 @@ def test_quantized_convert_roundtrip_and_strictness(trees):
 
 
 def test_convert_rejects_w8a8(trees):
-    """W8A8 leaves are refused where the tree is loaded, not in the linear."""
+    """W8A8 leaves convert into W8A8Linear modules holding them as they are
+    (tests/test_torch_w8a8.py holds the numbers); a W8A8 leaf of the wrong
+    shape is rejected where the tree is loaded."""
+    from ltx_tpu_torch.models.common import W8A8Linear
+
     tree, _ = trees
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        convert.transformer(jq.quantize_transformer_params(tree, 8, 64, w8a8=True), CFG)
+    w8a8 = jax.tree.map(np.asarray, jq.quantize_transformer_params(tree, 8, 64, w8a8=True))
+    model = convert.transformer(w8a8, CFG)
+    linear = model.blocks[1].ff.project_in
+    assert isinstance(linear, W8A8Linear)
+    np.testing.assert_array_equal(linear.w8.numpy(),
+                                  w8a8["blocks"]["ff"]["project_in"]["w8"][1])
+    w8a8["blocks"]["ff"]["project_in"]["sw"] = w8a8["blocks"]["ff"]["project_in"]["sw"][:, :8]
+    with pytest.raises(ValueError, match="sw"):
+        convert.transformer(w8a8, CFG)
 
 
 def test_quantized_linear_keeps_its_format():
@@ -309,8 +320,13 @@ def test_quantized_linear_keeps_its_format():
         layer.to(torch.bfloat16)
     with pytest.raises(TypeError, match="format"):
         torch.nn.Sequential(layer).half()
-    with pytest.raises(NotImplementedError):
-        quantize_transformer(LTXTransformer(CFG, dtype=torch.float32), 8, w8a8=True)
+    from ltx_tpu_torch.models.common import W8A8Linear
+
+    model = quantize_transformer(LTXTransformer(CFG, dtype=torch.float32), 8, w8a8=True)
+    w8a8 = [m for m in model.modules() if isinstance(m, W8A8Linear)]
+    assert len(w8a8) == 10 * CFG.num_layers and w8a8[0].w8.dtype == torch.int8
+    with pytest.raises(TypeError, match="format"):
+        w8a8[0].to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

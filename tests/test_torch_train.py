@@ -11,6 +11,9 @@ Tolerances (largest error relative to the reference's largest magnitude):
 * 6 train steps (LoRA-only, warmup, gradient accumulation 2, EMA) in
   float32: the trainable leaves and the EMA 1e-4 per leaf, the losses and
   gradient norms 1e-4.
+* 3 QLoRA steps over a W8A8 base, float32: the losses and gradient norms
+  1e-4, the LoRA leaves 2**-7 (one int8 step of an activation row; see the
+  test).
 * the optimizer against optax: 1e-6 per leaf (float32, the same formulas).
 * datasets, checkpoint resume, the JAX checkpoint's trainable part, the
   exported adapter: equal.
@@ -205,6 +208,59 @@ def test_train_steps_match_reference():
         for k in want:
             assert_rel(got[k], want[k], 1e-4, f"{what} {k} after 6 steps")
     assert int(t_opt["gradient_step"]) == 3 and int(t_opt["inner"]["count"]) == 3
+
+
+def test_qlora_steps_over_a_w8a8_base_match_reference(monkeypatch):
+    """The reference's test_qlora_over_w8a8_base, on both sides: every block
+    linear W8A8 (the size gate lowered), rank-4 LoRA, 3 float32 steps fed
+    the reference's draws through the int8 straight-through backward; the
+    losses and gradient norms within 1e-4, the LoRA leaves within 2**-7,
+    the int8 base unchanged. The leaves' bound is one int8 step of an
+    activation row (1/127): where f32 sums in another order move an
+    activation across a rounding boundary, its int8 code differs by one
+    (with the inputs changed by 1e-7 relative, the port's own first
+    gradient of block 0's to_k lora_b moves by 2.5e-4 of its largest value,
+    against 7e-7 unquantized). Adam's eps is 1e-3, for
+    test_train_steps_match_reference's reason."""
+    from ltx_tpu.kernels import quantization as jq
+
+    from ltx_tpu_torch.models.common import W8A8Linear
+
+    monkeypatch.setattr(jq, "_MIN_QUANT_SIZE", 1)
+    tree = jq.quantize_transformer_params(jax.tree.map(jnp.asarray, _params(jnp.float32)), 8,
+                                          w8a8=True)
+    tree = jax.tree.map(np.asarray, jlora.add_lora(tree, jax.random.key(3), rank=RANK))
+    batch = _batch()
+    tokens, context, mask, rope = batch
+    jtc = jstep.TrainConfig(learning_rate=1e-3, lora_only=True, remat=False, eps=1e-3,
+                            compute_dtype=jnp.float32)
+    trainable, frozen, opt_state = jstep.init_train_state(jax.tree.map(jnp.asarray, tree), jtc)
+    jstep_fn = jstep.make_train_step(JCFG, jtc, donate=False)
+
+    model = convert.transformer(tree, CFG)
+    assert sum(isinstance(m, W8A8Linear) for m in model.modules()) == 10 * CFG.num_layers
+    base = {n: p.clone() for n, p in model.named_parameters() if n.endswith(".w8")}
+    tc = step.TrainConfig(learning_rate=1e-3, lora_only=True, remat=False, eps=1e-3,
+                          compute_dtype=torch.float32)
+    t_trainable, _, t_opt = step.init_train_state(model, tc)
+    t_step = step.make_train_step(model, tc)
+    tt, tc_, trope, tbias = _torch_batch(batch)
+    for i in range(3):
+        sub = jax.random.key(100 + i)
+        trainable, opt_state, aux = jstep_fn(
+            trainable, frozen, opt_state, jnp.asarray(tokens), jnp.asarray(context),
+            tuple(map(jnp.asarray, rope)), sub, context_bias=j_mask(jnp.asarray(mask)))
+        sigma, noise = _draws(sub, tokens.shape)
+        t_trainable, t_opt, t_aux = t_step(t_trainable, t_opt, tt, tc_, trope,
+                                           torch.tensor(sigma), torch.tensor(noise), tbias)
+        assert_rel(t_aux["loss"].reshape(1), np.asarray([aux["loss"]]), 1e-4, f"W8A8 loss {i}")
+        assert_rel(t_aux["grad_norm"].reshape(1), np.asarray([aux["grad_norm"]]), 1e-4,
+                   f"W8A8 grad_norm {i}")
+    got, want = checkpoint.flatten_params(t_trainable, ""), _stacked(trainable)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert_rel(got[k], want[k], 2**-7, f"W8A8 QLoRA {k} after 3 steps")
+    assert all(torch.equal(p, base[n]) for n, p in model.named_parameters() if n in base)
 
 
 @pytest.mark.parametrize("kw", [
@@ -411,7 +467,8 @@ def test_sample_sigmas_ranges():
 def test_train_cli_cpu_and_resume(tmp_path):
     """The trainer on the CPU: 4 steps with checkpoints, then a resume leg
     to 6 steps, exports what an uninterrupted 6-step run exports, bit for
-    bit; the unported options raise, naming their ROADMAP item, and
+    bit; --quant w8a8 on the tiny base trains it unquantized, as the
+    reference; the unported options raise, naming their ROADMAP item, and
     --weights reads the file it names."""
     shards = tmp_path / "shards"
     shards.mkdir()
@@ -431,8 +488,13 @@ def test_train_cli_cpu_and_resume(tmp_path):
     assert len(full) == 3 * 10 * CFG.num_layers and sorted(full) == sorted(resumed)
     for k in full:
         np.testing.assert_array_equal(full[k], resumed[k])
-    for extra, item in ((["--quant", "w8a8"], "A10"), (["--mesh", "1,1"], "A18"),
-                        (["--sdpa", "ring"], "A18")):
+    # --quant w8a8 (the default) with a tiny random base quantizes nothing,
+    # the reference's rule: the run is the --quant none run
+    assert cli.main(common + ["--out", str(tmp_path / "w.safetensors"), "--steps", "6",
+                              "--quant", "w8a8"]) == 0
+    w8a8 = export.read_safetensors(tmp_path / "w.safetensors")
+    assert sorted(w8a8) == sorted(full) and all(np.array_equal(full[k], w8a8[k]) for k in full)
+    for extra, item in ((["--mesh", "1,1"], "A18"), (["--sdpa", "ring"], "A18")):
         argv = common + ["--out", str(tmp_path / "x.safetensors"), "--steps", "1"] + extra
         with pytest.raises(NotImplementedError, match=item):
             cli.main(argv)

@@ -112,16 +112,16 @@ CASES = {
                        lambda tree: convert.text_encoder(tree, TECFG)),
     "gemma_f32": (_gemma_spec,
                   lambda t: jk.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
-                  lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers),
+                  lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
                   lambda tree: convert.gemma(tree, GCFG)),
     "gemma_mlx4": (lambda: _gemma_spec(mlx_4bit=True),
                    lambda t: jk.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
-                   lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers),
+                   lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
                    lambda tree: convert.gemma(tree, GCFG)),
     "gemma_vlm_mlx4": (lambda: {**_gemma_spec(mlx_4bit=True, vlm_prefix=True),
                                 "vision_tower.encoder.w.weight": (4, 4)},
                        lambda t: jk.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
-                       lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers),
+                       lambda t: keymaps.load_gemma_params(t, GCFG.hidden_layers, mode="bf16"),
                        lambda tree: convert.gemma(tree, GCFG)),
     "upscaler": (lambda: wf.upscaler_spec(in_ch=UCFG.in_channels, mid=UCFG.mid_channels,
                                           blocks_per_stage=UCFG.blocks_per_stage),
@@ -177,10 +177,11 @@ def test_extra_key_raises_on_both_sides(component, extra):
 
 
 def test_unported_gemma_modes_and_audio_raise():
+    """Gemma's modes are all ported (test_torch_gemma_quant): an unknown
+    one is refused; the audio components raise NotImplementedError."""
     t = _torch(wf.materialize(_gemma_spec(), seed=1))
-    for kw in (dict(mode="int4"), dict(mode="w8a8"), dict(embed_int8=True)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            keymaps.load_gemma_params(dict(t), GCFG.hidden_layers, **kw)
+    with pytest.raises(ValueError, match="int3"):
+        keymaps.load_gemma_params(dict(t), GCFG.hidden_layers, mode="int3")
     with pytest.raises(NotImplementedError, match="A14"):
         keymaps.load_transformer_params({}, 1, include_audio=True)
     conn = _torch(wf.materialize(wf.connector_spec(
@@ -188,6 +189,55 @@ def test_unported_gemma_modes_and_audio_raise():
         gemma_layers=TECFG.num_gemma_layers, layers=2, registers=TECFG.num_registers)))
     with pytest.raises(NotImplementedError, match="A14"):
         keymaps.load_text_encoder_params(conn)
+
+
+def _meta_tensors(spec: dict) -> dict:
+    """Shape-only tensors of a checkpoint spec: MLX packed codes uint32,
+    everything else bf16."""
+    return {k: torch.empty(shape, device="meta", dtype=torch.uint32 if k.endswith(".weight")
+                           and f"{k[:-7]}.scales" in spec else torch.bfloat16)
+            for k, shape in spec.items()}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int4", "w8a8"])
+@pytest.mark.parametrize("mlx", [True, False])
+def test_gemma_key_map_takes_the_full_inventory(mode, mlx):
+    """Gemma-3-12B's every key (48 layers, full widths; MLX 4-bit with the
+    VLM prefix, or dense), shape-only: the key map consumes all of them but
+    lm_head (strict), and the model built from the state dict takes each
+    tensor once, with the shapes and the formats of the mode."""
+    from ltx_tpu_torch.models.common import Linear, QuantizedLinear, W8A8Linear
+    from ltx_tpu_torch.models.gemma3 import Gemma3Model
+
+    spec = wf.gemma_spec(mlx_4bit=mlx, vlm_prefix=mlx)
+    state = keymaps.load_gemma_params(_meta_tensors(spec), 48, mode=mode, strict=True)
+    model = Gemma3Model.from_state_dict(Gemma3Config(), state)
+    assert len(model.layers) == 48
+    want = {"bf16": Linear, "int4": QuantizedLinear if mlx else Linear,
+            "w8a8": W8A8Linear}[mode]
+    linears = [m for layer in model.layers for m in layer.children()
+               if isinstance(m, (Linear, QuantizedLinear, W8A8Linear))]
+    assert len(linears) == 48 * 7 and all(type(m) is want for m in linears)
+    if want is Linear:  # the checkpoint's values, lm_head (262208 x 3840) dropped
+        assert sum(p.numel() for p in model.parameters()) == \
+            wf.param_count(wf.gemma_spec()) - 262208 * 3840
+
+
+def test_dit_key_map_takes_the_full_inventory():
+    """The video DiT's every key (48 blocks, full widths), shape-only: the
+    key map consumes all of them (strict), the model takes each tensor once,
+    13.04 G parameters; quantized to W8A8 and int4 in place, shape-only."""
+    from ltx_tpu_torch.models.common import QuantizedLinear, W8A8Linear, assign_
+    from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
+
+    spec = wf.video_transformer_spec()
+    state = keymaps.load_transformer_params(_meta_tensors(spec), 48, strict=True)
+    model = assign_(LTXTransformer(TransformerConfig(), "meta", torch.bfloat16), state)
+    assert sum(p.numel() for p in model.parameters()) == wf.param_count(spec) == 13_041_520_768
+    for w8a8, cls in ((True, W8A8Linear), (False, QuantizedLinear)):
+        quantized = quantize_transformer(assign_(LTXTransformer(
+            TransformerConfig(), "meta", torch.bfloat16), state), 8 if w8a8 else 4, w8a8=w8a8)
+        assert sum(isinstance(m, cls) for m in quantized.modules()) == 48 * 10
 
 
 def test_split_unified_buckets_match_reference():
