@@ -20,10 +20,13 @@ Phases, each printing its own lines:
      host's microseconds a call of its wrapper and of the plain chain;
      the W8A8 product (activation codes, the library's int32 accumulator,
      the bf16 output) bit for bit the CPU's at the DiT's and Gemma's
-     shapes, timed beside F.linear in bf16 and the int8 bound;
-     then the tiny pipeline, the tiny two-stage I2V pipeline and the tiny
-     LoRA train on the card against the same weights and draws on the
-     CPU, the norms as the default route gives them;
+     shapes, timed beside F.linear in bf16 and the int8 bound (Gemma's
+     decode rows, 1 and 9, among the int4 and W8A8 cases; flash attention
+     at SigLIP's head dim 72 among the attention cases);
+     then the tiny pipeline, the tiny two-stage I2V pipeline, the tiny
+     LoRA train and the tiny cycle Gemma's greedy generation on the card
+     against the same weights and draws on the CPU, the norms as the
+     default route gives them;
   3. the bf16 main path: LTXPipeline.generate_video at full width and depth
      (Gemma-3-12B, the text connector, the 48-block DiT, the VAE decoder;
      random bf16 weights from a seeded generator) at 25 frames, 768x512,
@@ -46,6 +49,22 @@ Phases, each printing its own lines:
      DiT call on two rows bit for bit its solo call; then one denoise step
      timed under the default dispatch and under `forced_rms_chain()`, in
      turns;
+  3e. prompt enhancement: the cycle Gemma at Gemma-3-12B's shapes (bf16,
+     built on the card; the byte-fallback tokenizer of phase 5b): greedy
+     generate_tokens with 8 drafts token for token the sequential run, its
+     tokens a forward (> 0.9 of the drafts), two prompts batched row for
+     row their solo runs, an int8 cache the same tokens. Then
+     generate_video with enhance_prompt=True on the phase-3 pipeline (the
+     default 512 tokens, 8 drafts, temperature 0.7): the enhanced text, not
+     the fallback (its warning fails the phase), the north star's launch
+     counts (Gemma's decode launches no flash attention: grouped-query,
+     plain), its seconds, tokens, forwards and peak memory, and a few
+     decode forwards under the profiler (host and device ms, idle share);
+     enhance_prompts(strict=True) on two prompts. Then I2V enhancement's
+     image path at full size: SigLIP-So400m (random, seeded, bf16) on a
+     seeded 896x896 pixel array, 27 flash launches at head dim 72, its
+     features against the same tower on the plain attention, the 256 soft
+     tokens spliced into the I2V prompt and decoded by generate_tokens;
   3d. the W8A8 main path: the same bf16 DiT requantized per channel to
      W8A8 on the card into a copy (quantize_transformer(w8a8=True)), the
      same generate_video and noise; every block linear through the
@@ -85,7 +104,10 @@ Phases, each printing its own lines:
      staging: Gemma prepared and kept on the card, staging copies nothing
      for it, the caches of both written; its hidden states against the
      bf16 load's (correlation, the reference's check); loaded again, both
-     caches hit with no requantization. train.cli --weights on the unified
+     caches hit with no requantization. The int4 and the W8A8 Gemma each
+     decode 64 greedy tokens with and without speculation: every forward's
+     seven linears a layer through int4_matmul (48 x 7 launches, at 1 and
+     9 rows) or the int8 product. train.cli --weights on the unified
      file (W8A8, the reference's default, rank 16, one step, its launches
      checked). The directory is deleted;
   6. the training path: `python -m ltx_tpu_torch.train.cli`'s `run` at full
@@ -101,8 +123,8 @@ Phases, each printing its own lines:
      adapter read back. (Phase 2 also holds the tiny LoRA train on the card against the
      CPU, and the statistics and backward kernels against their plain
      versions.)
-  7. a JSON line of the seven kernels: launches (each from the first path
-     that runs it), max error, kernel, plain and library ms, the bound and what sets
+  7. a JSON line of the seven kernels: launches (each from the paths that
+     run it, by path where there are several), max error, kernel, plain and library ms, the bound and what sets
      it, and `timing`, the clock that read the times ("idle": CUDA events
      around each call on an idle card; "queued": the launches queued behind
      other work, over buffers rotated past the L2's size);
@@ -119,6 +141,7 @@ import copy
 import dataclasses
 import gc
 import json
+import logging
 import re
 import resource
 import shutil
@@ -137,13 +160,17 @@ from ltx_tpu_torch.kernels import build
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
+from ltx_tpu_torch.models import gemma3
 from ltx_tpu_torch.models.common import QuantizedLinear, W8A8Linear
 from ltx_tpu_torch.models.dit import quantize_transformer
 from ltx_tpu_torch.ops import normalization, schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
 from ltx_tpu_torch.ops.normalization import forced_rms_chain
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
+from ltx_tpu_torch.pipeline import enhance
 from ltx_tpu_torch.pipeline.generate import GenerationTimings, LTXPipeline
+from ltx_tpu_torch.profile_step import profile_steps
+from ltx_tpu_torch.tokenizer import Tokenizer
 from ltx_tpu_torch.train import cli as train_cli
 from ltx_tpu_torch.train.data import write_shard
 from ltx_tpu_torch.train.export import read_safetensors
@@ -791,6 +818,9 @@ def phase_tiny_agreement(device) -> None:
         f"decode; norms through the rms_norm kernel) on the card vs the CPU: max abs err "
         f"{res['max_abs_err']:.3e}, mean {res['mean_abs_err']:.3e} (tol "
         f"{checks.TINY_FRAME_ATOL:.0e}); launches {json.dumps(res['launches'])}")
+    res = checks.check_tiny_generate(device)
+    log(f"[tiny] cycle Gemma greedy generation on the card vs the CPU, token for token: "
+        f"{json.dumps(res)}")
     for dtype, how in ((torch.bfloat16, "bf16"),
                        (torch.float32, "f32 compute, attention cast to bf16 on the card")):
         res = checks.check_tiny_train(device, dtype)
@@ -1171,6 +1201,261 @@ def phase_norm_choice(pipe: LTXPipeline, device) -> dict:
     return med
 
 
+# ---------------------------------------------------------------------------
+# Prompt enhancement (phase 3e)
+# ---------------------------------------------------------------------------
+
+# the cycle model's generated tokens, and the drafts of the enhancement's
+# speculation (GenerationConfig.enhancement_spec_k's default)
+CYCLE_NEW_TOKENS = 128
+SPEC_K = 8
+# the share of the drafts a verify forward commits on the cycle model, at
+# least (the tiny test's: more than 3 tokens a forward of 5 at spec_k 4)
+CYCLE_ACCEPTANCE = 0.9
+I2V_NEW_TOKENS = 32
+
+
+def timed_generate(fn):
+    """(fn()'s result, its seconds, synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_cycle_gemma(tok: Tokenizer, device) -> None:
+    """The cycle Gemma at Gemma-3-12B's shapes, bf16, built on the card:
+    greedy speculation (8 drafts) token for token the sequential run, its
+    commit rate, two prompts batched row for row their solo runs, an int8
+    cache the same tokens; every launch count 0 (Gemma's attention is
+    grouped-query, plain)."""
+    from ltx_tpu_torch.weights.synthetic import default_cycle, make_cycle_gemma
+
+    cfg = gemma3.Gemma3Config()
+    t0 = time.perf_counter()
+    model = make_cycle_gemma(cfg, torch.Generator(device=device).manual_seed(0),
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    cycle = list(default_cycle(cfg))
+    log(f"[cycle] cycle Gemma at Gemma-3-12B's shapes (bf16, built on the card): "
+        f"{time.perf_counter() - t0:.2f} s, cycle {cycle[0]}..{cycle[-1]}")
+    prompts = [np.asarray(tok.encode(p).ids + cycle + cycle[:4]) for p in BATCH_PROMPTS]
+    kw = dict(max_new_tokens=CYCLE_NEW_TOKENS, temperature=0.0, stop_tokens=(),
+              return_stats=True)
+    runs = {}
+    for name, extra in (("sequential", {}), ("spec", dict(spec_k=SPEC_K)),
+                        ("int8 cache, spec", dict(spec_k=SPEC_K, kv_quant="int8"))):
+        ((toks, stats), seconds), launches = run_counted(lambda: timed_generate(
+            lambda: gemma3.generate_tokens(model, prompts[0], **kw, **extra)))
+        runs[name] = toks
+        check_launches(f"cycle {name}", launches, NO_LAUNCHES)
+        log(f"[cycle] {name}: {len(toks)} tokens in {stats['forwards']} decode forwards "
+            f"({len(toks) / stats['forwards']:.2f} a forward), {seconds:.3f} s, "
+            f"{seconds / (stats['forwards'] + 1) * 1e3:.2f} ms a forward (prefill among them), "
+            f"{len(toks) / seconds:.1f} tokens/s")
+        if name == "spec":
+            share = len(toks) / stats["forwards"] / (SPEC_K + 1)
+            log(f"[cycle] speculation commits {share:.3f} of a full bundle (must exceed "
+                f"{CYCLE_ACCEPTANCE})")
+            if not share > CYCLE_ACCEPTANCE:
+                raise AssertionError(f"cycle Gemma: speculation commits {share}")
+    solo = gemma3.generate_tokens(model, prompts[1], **kw, spec_k=SPEC_K)[0]
+    (batched, seconds) = timed_generate(lambda: gemma3.generate_tokens_batched(
+        model, prompts, max_new_tokens=CYCLE_NEW_TOKENS, temperature=0.0, stop_tokens=(),
+        spec_k=SPEC_K))
+    same = {"spec == sequential": runs["spec"] == runs["sequential"],
+            "int8 cache == sequential": runs["int8 cache, spec"] == runs["sequential"],
+            "batched == solo": batched == [runs["spec"], solo]}
+    walks = all(b == cycle[(cycle.index(a) + 1) % len(cycle)]
+                for a, b in zip(runs["sequential"], runs["sequential"][1:]))
+    log(f"[cycle] two prompts batched with speculation: {seconds:.3f} s; {json.dumps(same)}; "
+        f"the sequential run walks the cycle: {walks}")
+    if not (all(same.values()) and walks):
+        raise AssertionError(f"cycle Gemma: {same}, walks {walks}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _Records(logging.Handler):
+    """The records of a logger, kept."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+@contextlib.contextmanager
+def port_log():
+    """The port's log records at INFO and up, for the duration."""
+    logger = logging.getLogger("ltx_tpu_torch")
+    handler, level = _Records(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield handler.records
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+DECODE_PROFILED_BUNDLE = SPEC_K + 1
+
+
+def profile_decode(gemma, tok: Tokenizer) -> dict:
+    """A few speculative verify forwards (SPEC_K + 1 tokens) of `gemma` over
+    the enhancement prompt's cache, as profile_step profiles a denoise step:
+    host ms, device ms by group, idle share."""
+    ids = tok.encode(enhance.build_chat_prompt(enhance.T2V_SYSTEM_PROMPT, PROMPT)).ids
+    t_pad = -(-len(ids) // 128) * 128
+    dec = gemma3.KVDecoder(gemma, [t_pad - len(ids)], t_pad + 512 + SPEC_K + 1)
+    padded = np.zeros((1, t_pad), np.int64)
+    padded[0, t_pad - len(ids):] = ids
+    toks = np.asarray([ids[-DECODE_PROFILED_BUNDLE:]])
+
+    def forward():
+        with torch.inference_mode():
+            dec.forward(toks, t_pad)
+
+    with torch.inference_mode():
+        dec.prefill(dec.embed(torch.from_numpy(padded).to(gemma.norm.weight.device)))
+    return profile_steps(forward)
+
+
+def phase_enhancement(pipe: LTXPipeline, tok: Tokenizer, noise, steps: int, device) -> int:
+    """generate_video with enhance_prompt=True on the phase-3 pipeline (its
+    bf16 Gemma-3-12B on random weights, the default 512 tokens and 8
+    drafts, temperature 0.7): the enhanced text, not the fallback; the north
+    star's launch counts; the phase's seconds, tokens, forwards and peak
+    memory; a few decode forwards profiled; enhance_prompts(strict=True);
+    then the I2V image path (`phase_i2v_siglip`, whose flash launches it
+    returns)."""
+    config = dataclasses.replace(NORTH_STAR, enhance_prompt=True)
+    expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
+                + pipe.tecfg.connector_layers,
+                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
+    pipe.tokenizer = tok
+    try:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        with port_log() as records:
+            result, launches = run_counted(lambda: pipe.generate_video(PROMPT, config, noise))
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+        texts = [r.getMessage() for r in records]
+        enhanced = [t for t in texts if t.startswith("Enhanced prompt: ")]
+        failed = [t for t in texts if "enhancement failed" in t or "not loaded" in t]
+        tm = result.timings
+        log(f"[enhance] generate_video, enhance_prompt=True, {config.num_frames}f@"
+            f"{config.width}x{config.height}: enhancement {tm.enhancement:.3f} s, "
+            f"{tm.enhancement_tokens} tokens in {tm.enhancement_forwards} decode forwards "
+            f"({tm.enhancement_tokens / max(tm.enhancement_forwards, 1):.2f} a forward), "
+            f"{tm.enhancement_tokens / tm.enhancement:.1f} tokens/s, "
+            f"{tm.enhancement / (tm.enhancement_forwards + 1) * 1e3:.2f} ms a forward "
+            f"(prefill among them); phases (s): staging {tm.staging:.3f}, gemma "
+            f"{tm.gemma:.3f}, connector {tm.connector:.3f}, denoise "
+            f"{sum(tm.denoise_steps):.3f}, vae_decode {tm.vae_decode:.3f}, total "
+            f"{tm.total:.3f}; peak device memory {peak_gib:.2f} GiB")
+        log(f"[enhance] enhanced prompt ({len(enhanced[0]) if enhanced else 0} characters): "
+            f"{enhanced[0][len('Enhanced prompt: '):][:160]!r}" if enhanced else
+            "[enhance] no enhanced prompt logged")
+        check_launches("enhance", launches, expected)
+        check_frames("enhance", result.frames, config)
+        if failed or len(enhanced) != 1 or enhanced[0] == f"Enhanced prompt: {PROMPT}" \
+                or tm.enhancement_tokens == 0:
+            raise AssertionError(f"enhancement fell back: {failed or enhanced}")
+
+        gemma = pipe._on_device("gemma", GenerationTimings())
+        res = profile_decode(gemma, tok)
+        groups = ", ".join(f"{k} {v:.2f}" for k, v in res["device_ms"].items() if v)
+        log(f"[enhance] decode forward of {DECODE_PROFILED_BUNDLE} tokens (profiled): host "
+            f"{res['host_ms']:.2f} ms, device {res['device_busy_ms']:.2f} ms ({groups}), idle "
+            f"share {res['idle_share']:.3f}; unprofiled wall {res['wall_ms']:.2f} ms")
+        out, seconds = timed_generate(lambda: enhance.enhance_prompts(
+            gemma, tok, list(BATCH_PROMPTS), max_tokens=I2V_NEW_TOKENS, strict=True))
+        log(f"[enhance] enhance_prompts(strict=True), {len(out)} prompts, "
+            f"{I2V_NEW_TOKENS} tokens: {seconds:.3f} s, lengths {[len(t) for t in out]}")
+        if len(out) != len(BATCH_PROMPTS) or not all(out):
+            raise AssertionError(f"enhance_prompts: {out}")
+        return phase_i2v_siglip(gemma, tok, device)
+    finally:
+        pipe.tokenizer = None
+        pipe._release("gemma")
+
+
+SIGLIP_LAYERS = 27
+
+
+def phase_i2v_siglip(gemma, tok: Tokenizer, device) -> int:
+    """I2V enhancement's image path at full size: SigLIP-So400m (random,
+    seeded, bf16) on a seeded 896x896 pixel array through vision_forward
+    (the flash kernel at head dim 72, one launch a layer) held against the
+    same tower on the plain attention; its 256 soft tokens spliced into the
+    I2V prompt and decoded greedily. Returns the tower's flash launches."""
+    from ltx_tpu_torch.models.siglip import (
+        SigLIPConfig,
+        project_to_soft_tokens,
+        vision_forward,
+    )
+
+    cfg = SigLIPConfig()
+    model, pixels = checks.siglip_inputs(cfg, device)
+    with torch.inference_mode():
+        res, launches = run_counted(lambda: checks.check_siglip(model, pixels))
+        ms = cuda_ms(lambda: vision_forward(model, pixels), warmup=1, iters=3)
+        soft = project_to_soft_tokens(model, res["features"])
+    log(f"[siglip] SigLIP-So400m {cfg.num_layers} layers at {cfg.image_size}x{cfg.image_size} "
+        f"({cfg.num_patches} patches, {cfg.num_heads} heads of "
+        f"{cfg.hidden_size // cfg.num_heads}): features vs the plain attention "
+        f"{res['rel_err']:.3e} of max (tol {checks.SIGLIP_REL_TOL:.0e}); tower {ms:.2f} ms; "
+        f"soft tokens {tuple(soft.shape)}; launches {json.dumps(launches)}")
+    check_launches("siglip", launches, {**NO_LAUNCHES, "flash_attention": SIGLIP_LAYERS})
+    ids, embeds = enhance._splice_image_embeds(gemma, tok, enhance.I2V_SYSTEM_PROMPT, PROMPT,
+                                               soft)
+    (toks, stats), seconds = timed_generate(lambda: gemma3.generate_tokens(
+        gemma, [ids], max_new_tokens=I2V_NEW_TOKENS, temperature=0.0, spec_k=SPEC_K,
+        input_embeds=embeds, return_stats=True, stop_tokens=enhance._stop_ids(tok)))
+    text = enhance.clean_enhanced_prompt(tok.decode(toks))
+    log(f"[siglip] I2V prompt of {len(ids)} positions ({soft.shape[1]} soft tokens): "
+        f"{len(toks)} tokens in {stats['forwards']} forwards, {seconds:.3f} s; the first "
+        f"ids {toks[:8]}, text {len(text)} characters (special ids decode to nothing)")
+    del model
+    return launches["flash_attention"]
+
+
+def gemma_decode(tag: str, pipe: LTXPipeline, counter: str) -> int:
+    """A greedy 64-token generate_tokens of the loaded Gemma, sequential and
+    with 8 drafts: 48 x 7 launches of `counter` (int4_matmul, or the int8
+    product of W8A8) each forward, the prefill's and every decode
+    forward's (one row, or SPEC_K + 1). Returns the decode forwards'
+    launches of both runs."""
+    gemma = pipe._on_device("gemma", GenerationTimings())
+    ids = pipe.tokenizer.encode(PROMPT).ids
+    per_forward = pipe.gcfg.hidden_layers * 7
+    runs, decode_launches = {}, 0
+    for spec_k in (0, SPEC_K):
+        ((toks, stats), seconds), launches = run_counted(lambda: timed_generate(
+            lambda: gemma3.generate_tokens(gemma, ids, max_new_tokens=64, temperature=0.0,
+                                           stop_tokens=(), spec_k=spec_k, return_stats=True)))
+        runs[spec_k] = toks
+        rows = 1 if spec_k == 0 else spec_k + 1
+        log(f"[files] Gemma {tag} decode, {rows} row(s) a forward: {len(toks)} tokens in "
+            f"{stats['forwards']} forwards, {seconds:.3f} s, "
+            f"{seconds / (stats['forwards'] + 1) * 1e3:.2f} ms a forward (prefill among them)")
+        check_launches(f"files gemma {tag} decode", launches,
+                       {**NO_LAUNCHES, counter: per_forward * (stats["forwards"] + 1)})
+        decode_launches += per_forward * stats["forwards"]
+    agree = next((i for i, (a, b) in enumerate(zip(runs[0], runs[SPEC_K])) if a != b),
+                 len(runs[0]))
+    log(f"[files] Gemma {tag}: speculative and sequential greedy agree on the first {agree} "
+        f"of {len(runs[0])} tokens (random weights: a near-tie may part them)")
+    pipe._release("gemma")
+    return decode_launches
+
+
 def structure_copy(model: torch.nn.Module) -> torch.nn.Module:
     """A copy of the module tree sharing every parameter and buffer, so
     that swapping a submodule of the copy leaves the original as it is."""
@@ -1371,10 +1656,11 @@ def _mlx_gemma(spec: dict, layers, gen, device) -> dict:
     return out
 
 
-def smoke_tokenizer() -> dict:
+def smoke_tokenizer(vocab_size: int = 262208) -> dict:
     """A Gemma-style tokenizer.json, written without the tokenizers package:
     BPE with byte fallback, spaces as "▁", the prompt's words as merges,
-    special tokens and a BOS template."""
+    special tokens, unused tokens up to Gemma-3's vocabulary (so that every
+    id a random Gemma samples decodes), a BOS template and Gemma's decoder."""
     specials = ["<pad>", "<eos>", "<bos>", "<unk>", "<start_of_turn>", "<end_of_turn>"]
     vocab = {t: i for i, t in enumerate(specials)}
     for b in range(256):
@@ -1388,6 +1674,8 @@ def smoke_tokenizer() -> dict:
             merges.append(f"{pieces[0]} {pieces[1]}")
             pieces[:2] = [pieces[0] + pieces[1]]
             vocab.setdefault(pieces[0], len(vocab))
+    while len(vocab) < vocab_size:
+        vocab[f"<unused{len(vocab)}>"] = len(vocab)
     return {"version": "1.0", "truncation": None, "padding": None,
             "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
                               "lstrip": False, "rstrip": False, "normalized": False,
@@ -1400,7 +1688,10 @@ def smoke_tokenizer() -> dict:
                                "pair": [{"Sequence": {"id": "A", "type_id": 0}}],
                                "special_tokens": {"<bos>": {"id": "<bos>", "ids": [2],
                                                             "tokens": ["<bos>"]}}},
-            "decoder": None,
+            "decoder": {"type": "Sequence", "decoders": [
+                {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"},
+                {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
             "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
                       "continuing_subword_prefix": None, "end_of_word_suffix": None,
                       "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
@@ -1681,9 +1972,10 @@ def phase_files_to_frames(device) -> int:
     loads, check the MLX dequantization bit for bit, the loaded sizes
     against the files', the LoRA fusion on the card against the CPU's and
     against the adapter as a side path, each quantized Gemma's hidden
-    states against the bf16 one's, and train one step from the unified
-    file with train.cli --weights --quant w8a8. Returns the int4_matmul
-    launches of the int4 Gemma's text pass."""
+    states against the bf16 one's and its greedy decode (`gemma_decode`),
+    and train one step from the unified file with train.cli --weights
+    --quant w8a8. Returns the int4_matmul launches of the int4 Gemma's
+    text pass and of its decode forwards."""
     from ltx_tpu_torch.lora.fuse import fuse_lora, parse_lora
     from ltx_tpu_torch.weights import download as dl
     from ltx_tpu_torch.weights import safetensors_io
@@ -1780,6 +2072,7 @@ def phase_files_to_frames(device) -> int:
     gemma_linears = pipe.gcfg.hidden_layers * 7
     states = gemma_states("int4", pipe, {**NO_LAUNCHES, "int4_matmul": gemma_linears})
     states_beside_bf16("int4", states, bf16_states)
+    decode_launches = gemma_decode("int4", pipe, "int4_matmul")
     expected = {**NO_LAUNCHES, "flash_attention": flash, **norms,
                 "int4_matmul": steps * FILES_DIT_BLOCKS * 10 + gemma_linears}
     north_star_run("files int4", pipe, noise, expected, device)
@@ -1803,6 +2096,7 @@ def phase_files_to_frames(device) -> int:
         raise AssertionError("w8a8: a quantized cache hit on the first load")
     states = gemma_states("w8a8", pipe, {**NO_LAUNCHES, INT8: gemma_linears})
     states_beside_bf16("w8a8", states, bf16_states)
+    gemma_decode("w8a8", pipe, INT8)
     expected = {**NO_LAUNCHES, "flash_attention": flash, **norms,
                 INT8: steps * FILES_DIT_BLOCKS * 10 + gemma_linears}
     north_star_run("files w8a8", pipe, noise, expected, device)
@@ -1831,7 +2125,7 @@ def phase_files_to_frames(device) -> int:
         train_step_launches(cfg, "w8a8"))
     shutil.rmtree(base, ignore_errors=True)
     log(f"[files] phase: {time.perf_counter() - t_phase:.2f} s")
-    return gemma_linears
+    return gemma_linears, decode_launches
 
 
 TRAIN_GRID = (4, 16, 24)   # 25f@768x512: 1536 latent tokens
@@ -1973,11 +2267,19 @@ def main() -> int:
     phase_w8a8_products(device)
     phase_tiny_agreement(device)
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
-    flash["launches"] = launches["flash_attention"]
     rms["launches"] = launches["rms_norm"]
     phase_two_stage(pipe, device)
     phase_batched(pipe, device)
     phase_norm_choice(pipe, device)
+    t_phase = time.perf_counter()
+    tok = Tokenizer.from_str(json.dumps(smoke_tokenizer()))
+    phase_cycle_gemma(tok, device)
+    siglip = phase_enhancement(pipe, tok, noise, steps, device)
+    log(f"[enhance] phase 3e: {time.perf_counter() - t_phase:.2f} s")
+    # B1's paths: the north star (its DiT and connector) and the SigLIP tower
+    flash["launches_by_path"] = {"north star": launches["flash_attention"],
+                                 "SigLIP tower (I2V enhancement)": siglip}
+    flash["launches"] = sum(flash["launches_by_path"].values())
     w8a8_run = phase_w8a8_main_path(pipe, noise, steps, device)
     north_star = phase_int4_main_path(pipe, noise, steps, bf16_run, device,
                                       w8a8_run)["int4_matmul"]
@@ -1985,11 +2287,13 @@ def main() -> int:
     del pipe, noise, bf16_run, w8a8_run
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_pass = phase_files_to_frames(device)
-    # B4's paths: the int4 north star and the int4 Gemma's text pass
-    matmul["launches"] = north_star + gemma_pass
+    gemma_pass, gemma_decode_launches = phase_files_to_frames(device)
+    # B4's paths: the int4 north star, the int4 Gemma's text pass and its
+    # decode (64 greedy tokens, sequential and with 8 drafts)
     matmul["launches_by_path"] = {"int4 north star": north_star,
-                                  "int4 Gemma text pass": gemma_pass}
+                                  "int4 Gemma text pass": gemma_pass,
+                                  "int4 Gemma decode forwards": gemma_decode_launches}
+    matmul["launches"] = sum(matmul["launches_by_path"].values())
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(device)

@@ -94,6 +94,7 @@ such elements is reported.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Optional, Union
@@ -174,6 +175,11 @@ ATTN_CASES = (
     # ragged one with a bias
     AttentionCase("dit_self_attn_view", 1, 32, 1536, 1536, 128, layout="bthd"),
     AttentionCase("ragged_d128_view", 2, 3, 200, 77, 128, pad=30, layout="bthd"),
+    # head dim 72 (128-wide tiles, zeros past column 72): the SigLIP-So400m
+    # tower of I2V enhancement (16 heads over 64 x 64 patches, views of its
+    # projections, scale 72**-0.5), and a ragged one with a key bias
+    AttentionCase("siglip_attn", 1, 16, 4096, 4096, 72, scale=72**-0.5, layout="bthd"),
+    AttentionCase("ragged_d72_bias", 2, 3, 200, 77, 72, pad=30),
 )
 
 
@@ -216,6 +222,11 @@ INT4_CASES = (
     Int4Case("gemma_gate_up", 1024, 3840, 15360),
     Int4Case("gemma_down", 1024, 15360, 3840),
     Int4Case("gemma_gate_up_two_prompts", 2048, 3840, 15360),
+    # Gemma's decode (prompt enhancement): one row a sequential step, and
+    # spec_k + 1 = 9 rows a speculative verify bundle
+    *(Int4Case(f"gemma_{name}_decode{m}", m, k, n) for m in (1, 9)
+      for name, k, n in (("q", 3840, 4096), ("kv", 3840, 2048), ("o", 4096, 3840),
+                         ("gate_up", 3840, 15360), ("down", 15360, 3840))),
 )
 GEMMA_INT4_CASES = tuple(c.name for c in INT4_CASES if c.name.startswith("gemma_"))
 # the W8A8 product's cases: the DiT's path shapes and Gemma's (INT4_CASES)
@@ -229,6 +240,10 @@ FF_IN_SHAPE = DEQUANT_SHAPES[1]
 # the tiny pipeline, device against CPU: frames in [0, 1] from bf16 Gemma,
 # connector and DiT whose sums run in other orders
 TINY_FRAME_ATOL = 2e-2
+
+# the tiny cycle Gemma of the generation checks: its cycle and a prompt that
+# ends on it (tests/test_spec_synthetic.py's)
+TINY_CYCLE_PERIOD = 11
 
 
 def attention_inputs(case: AttentionCase, device, seed: int = 1234):
@@ -1187,3 +1202,103 @@ def lora_side_path_check(model: torch.nn.Module, layers, scale: float, tokens=(4
     got, want = fused(*args).float(), side(*args).float()
     return {"rel_err": _rel(got, want), "fused": fused,
             "finite": bool(torch.isfinite(got).all() and torch.isfinite(want).all())}
+
+
+def tiny_cycle_gemma(device="cpu", seed: int = 0):
+    """The tiny cycle Gemma (f32) on `device`, its cycle and a prompt that
+    ends on the cycle."""
+    from ltx_tpu_torch.models.gemma3 import Gemma3Config
+    from ltx_tpu_torch.weights.synthetic import default_cycle, make_cycle_gemma
+
+    cfg = Gemma3Config().tiny()
+    cycle = default_cycle(cfg, period=TINY_CYCLE_PERIOD)
+    model = make_cycle_gemma(cfg, torch.Generator().manual_seed(seed), cycle=cycle)
+    return model.to(device), cycle, np.asarray((5, 7, 9) + cycle + cycle[:4], np.int64)
+
+
+def check_tiny_generate(device) -> dict:
+    """The tiny cycle Gemma's greedy generation on `device` against the same
+    weights on the CPU, token for token: generate_tokens sequential and
+    speculative (spec_k 4), with the bf16 and the int8 cache, and
+    generate_tokens_batched on two prompts. Raises AssertionError on a
+    difference; returns the tokens generated and the speculative forwards."""
+    from ltx_tpu_torch.models.gemma3 import generate_tokens, generate_tokens_batched
+
+    cpu, _, prompt = tiny_cycle_gemma("cpu")
+    dev = tiny_cycle_gemma(device)[0]
+    kw = dict(max_new_tokens=24, temperature=0.0, stop_tokens=(), bucket=16)
+    res = {}
+    for name, extra in (("sequential", {}), ("spec", dict(spec_k=4)),
+                        ("int8_kv", dict(kv_quant="int8"))):
+        want, stats = generate_tokens(cpu, prompt, return_stats=True, **kw, **extra)
+        got, dev_stats = generate_tokens(dev, prompt, return_stats=True, **kw, **extra)
+        if got != want or stats != dev_stats:
+            raise AssertionError(f"tiny generate {name} on {device}: {got} {dev_stats}, "
+                                 f"the CPU {want} {stats}")
+        res[name] = {"tokens": len(got), **dev_stats}
+    prompts = [prompt, prompt[3:9]]
+    want = generate_tokens_batched(cpu, prompts, spec_k=4, **kw)
+    got = generate_tokens_batched(dev, prompts, spec_k=4, **kw)
+    if got != want:
+        raise AssertionError(f"tiny batched generate on {device}: {got}, the CPU {want}")
+    res["batched"] = [len(t) for t in got]
+    return res
+
+
+# the SigLIP tower on the card through the flash kernel against the same
+# tower with the plain attention: bf16 features, relative to their largest
+# value (the CPU tests' bf16 bound)
+SIGLIP_REL_TOL = 5e-2
+
+
+@contextlib.contextmanager
+def plain_siglip_attention():
+    """SigLIP's attention through `flash_attention_reference` (the plain
+    version, on any device) instead of `ops.attention.sdpa`, for holding
+    the tower's kernel route against it."""
+    from ltx_tpu_torch.models import siglip
+
+    routed = siglip.sdpa
+    siglip.sdpa = lambda q, k, v, bias=None, scale=None: fa.flash_attention_reference(
+        q, k, v, bias, scale)
+    try:
+        yield
+    finally:
+        siglip.sdpa = routed
+
+
+def siglip_inputs(cfg, device, seed: int = 11, dtype=torch.bfloat16):
+    """A SigLIP tower at `cfg` with seeded random weights on `device`, and a
+    seeded (1, S, S, 3) pixel array in [-1, 1]."""
+    from ltx_tpu_torch.models.siglip import SigLIPModel
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = init_random_(SigLIPModel(cfg, device=device, dtype=dtype), gen)
+    pixels = torch.rand(1, cfg.image_size, cfg.image_size, 3, generator=gen,
+                        device=device) * 2 - 1
+    return model, pixels
+
+
+@torch.inference_mode()
+def check_siglip(model, pixels) -> dict:
+    """`vision_forward` with the flash kernel (its launches counted) against
+    the same tower with the plain attention on the same device, within
+    SIGLIP_REL_TOL of the plain features' largest value; raises
+    AssertionError otherwise. Returns the error, the launches, the soft
+    tokens' shape and the features (kernel route)."""
+    from ltx_tpu_torch.models.siglip import project_to_soft_tokens, vision_forward
+
+    before = fa.flash_attention.launches
+    got = vision_forward(model, pixels)
+    launches = fa.flash_attention.launches - before
+    with plain_siglip_attention():
+        want = vision_forward(model, pixels)
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    soft = project_to_soft_tokens(model, got)
+    cfg = model.cfg
+    if not (np.isfinite(err) and err <= SIGLIP_REL_TOL) or tuple(soft.shape) != (
+            1, cfg.mm_tokens_per_image, cfg.text_hidden_size):
+        raise AssertionError(f"SigLIP on {pixels.device}: kernel vs plain attention "
+                             f"{err}, soft tokens {tuple(soft.shape)}")
+    return {"rel_err": err, "launches": launches, "soft_tokens": tuple(soft.shape),
+            "features": got}

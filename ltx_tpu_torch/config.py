@@ -109,8 +109,8 @@ LATENT_CHANNELS = 128
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     """All generation knobs. The port runs T2V and I2V, single- and
-    two-stage, with CFG, STG, guidance rescale and extrapolation;
-    `enhance_prompt` raises NotImplementedError (ROADMAP A13)."""
+    two-stage, with CFG, STG, guidance rescale and extrapolation, and
+    prompt enhancement (`enhance_prompt`, `enhancement_spec_k`)."""
 
     width: int = 704
     height: int = 480

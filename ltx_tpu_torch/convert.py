@@ -351,3 +351,13 @@ def text_encoder(tree, cfg, device=None):
     dtype = tree_dtype(tree["feature_extractor"]["aggregate_embed"]["w"])
     return load_tree(TextEncoder(port_config(cfg, TextEncoderConfig),
                                  device=device, dtype=dtype), tree)
+
+
+def siglip(tree, cfg, device=None):
+    """siglip.init_params / load_vision_params tree -> SigLIPModel (cfg: a
+    SigLIPConfig)."""
+    from ltx_tpu_torch.models.siglip import SigLIPConfig, SigLIPModel
+
+    dtype = tree_dtype(tree["patch_embedding"]["w"])
+    return load_tree(SigLIPModel(port_config(cfg, SigLIPConfig), device=device,
+                                 dtype=dtype), tree)

@@ -51,7 +51,17 @@
 // The two consumers also interleave on the tensor cores by themselves; FA3's
 // explicit ping-pong between them is not done.
 //
-// Layouts: q, k, v and o are (B, H, T, D) views with a dense last dim, other
+// Head dim 72 (SigLIP's 16 heads of 72): wgmma's k step is 16 bf16 values
+// and the swizzled tiles are 64 columns wide, so a 72-wide head runs in the
+// D = 128 tiles (template parameter DD = 72, the data's width). The tensor
+// maps are 72 wide: TMA fills the tile's columns 72..127 with zeros, so the
+// rows keep their 144-byte strides and SigLIP's (B, T, H * 72) projections go
+// in as views, without a padded copy. Q K^T runs 5 of the 8 k steps (columns
+// 0..79, the last 8 zero), P V the full 128-wide product (its columns past 72
+// are zero), and the epilogue stores 72 columns: 0.81 of D = 128's products
+// for 0.56 of its useful work.
+//
+// Layouts: q, k, v and o are (B, H, T, DD) views with a dense last dim, other
 // strides multiples of 16 bytes and a 16-byte aligned base (the wrapper's
 // rule, kernels/flash_attention.py::kernel_strides). The grid is one block
 // per (query tile, batch * head), query tiles fastest.
@@ -103,8 +113,9 @@ struct Params {
 
 
 // kRawProbs (the check of the P hand-off alone, `ltx_flash_fwd_pv_check`):
-// no softmax, P = bf16(S) and O = P V, one tile of 128 keys.
-template <int D, bool kHasBias, bool kStats, bool kRawProbs>
+// no softmax, P = bf16(S) and O = P V, one tile of 128 keys. D is the
+// tile's width, DD <= D the data's (a multiple of 8).
+template <int D, int DD, bool kHasBias, bool kStats, bool kRawProbs>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -195,11 +206,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   float m_run[2] = {kNegInf2, kNegInf2};
   float l_run[2] = {0.f, 0.f};
 
-  // S = Q K^T of tile n, 64 rows x 128 keys, f32: issued, not waited for
+  // S = Q K^T of tile n, 64 rows x 128 keys, f32: issued, not waited for;
+  // the k steps cover the data's DD columns (the tile's others are zero)
   auto issue_s = [&](float (&sacc)[64], int n) {
     const uint32_t k_tile = s_k + (n % kStages) * T::kTileBytes;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < (DD + 15) / 16; ++kk) {
       const uint32_t off = (kk / T::kBoxSteps) * T::kBoxBytes + (kk % T::kBoxSteps) * 32;
       wgmma_ss_m64n128k16(sacc, smem_desc(q_rows + off, 16, T::kGroupBytes, T::kLayout),
                           smem_desc(k_tile + off, 16, T::kGroupBytes, T::kLayout), kk > 0);
@@ -353,7 +365,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (row < p.tq) {
       __nv_bfloat16* orow = ob + row * p.o_st + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DD / 8; ++j) {
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
             pack_bf16(o_acc[4 * j + 2 * r] / div[r], o_acc[4 * j + 2 * r + 1] / div[r]);
       }
@@ -379,18 +391,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool kHasBias, bool kStats, bool kRawProbs>
+template <int D, int DD, bool kHasBias, bool kStats, bool kRawProbs>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_fwd_kernel<D, kHasBias, kStats, kRawProbs>;
+  auto kernel = flash_fwd_kernel<D, DD, kHasBias, kStats, kRawProbs>;
   const int smem = Tile<D>::kSmemBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap tq_map, tk_map, tv_map;
-  if ((err = tensor_map<D>(&tq_map, a.q, a.tq, a.heads, a.batch, a.strides)) != cudaSuccess ||
-      (err = tensor_map<D>(&tk_map, a.k, a.tk, a.heads, a.batch, a.strides + 3)) !=
+  if ((err = tensor_map<D>(&tq_map, a.q, a.tq, a.heads, a.batch, a.strides, 128, DD)) !=
           cudaSuccess ||
-      (err = tensor_map<D>(&tv_map, a.v, a.tk, a.heads, a.batch, a.strides + 6)) !=
+      (err = tensor_map<D>(&tk_map, a.k, a.tk, a.heads, a.batch, a.strides + 3, 128, DD)) !=
+          cudaSuccess ||
+      (err = tensor_map<D>(&tv_map, a.v, a.tk, a.heads, a.batch, a.strides + 6, 128, DD)) !=
           cudaSuccess) {
     return err;
   }
@@ -414,19 +427,19 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DD = D>
 cudaError_t dispatch(const Args& a) {
   const bool stats = a.m != nullptr;
   if (a.bias != nullptr) {
-    return stats ? launch<D, true, true, false>(a) : launch<D, true, false, false>(a);
+    return stats ? launch<D, DD, true, true, false>(a) : launch<D, DD, true, false, false>(a);
   }
-  return stats ? launch<D, false, true, false>(a) : launch<D, false, false, false>(a);
+  return stats ? launch<D, DD, false, true, false>(a) : launch<D, DD, false, false, false>(a);
 }
 
 }  // namespace
 
-// q, o: (batch, heads, tq, head_dim) bf16; k, v: (batch, heads, tk,
-// head_dim) bf16, each a view with a dense last dim and the element strides
+// q, o: (batch, heads, tq, head_dim) bf16, head_dim 16, 32, 64, 72 or 128;
+// k, v: (batch, heads, tk, head_dim) bf16, each a view with a dense last dim and the element strides
 // (sb, sh, st) in `strides` (q, k, v, o: 12 values), every stride a multiple
 // of 8 elements and every base 16-byte aligned; bias: NULL or (batch, tk)
 // f32, contiguous; m, l: both NULL, or both (batch, heads, tq) f32,
@@ -443,6 +456,7 @@ extern "C" int ltx_flash_attention_fwd(const void* q, const void* k, const void*
     case 16: return static_cast<int>(dispatch<16>(a));
     case 32: return static_cast<int>(dispatch<32>(a));
     case 64: return static_cast<int>(dispatch<64>(a));
+    case 72: return static_cast<int>(dispatch<128, 72>(a));
     case 128: return static_cast<int>(dispatch<128>(a));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -458,5 +472,5 @@ extern "C" int ltx_flash_fwd_pv_check(const void* q, const void* k, const void* 
                                  128 * 128, 128 * 128, 128, 128 * 128, 128 * 128, 128};
   const Args a{q, k, v, nullptr, o, nullptr, nullptr, 1, 1, 128, 128, strides, 1.f,
                static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(launch<128, false, false, true>(a));
+  return static_cast<int>(launch<128, 128, false, false, true>(a));
 }

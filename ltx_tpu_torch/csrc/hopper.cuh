@@ -324,11 +324,12 @@ thread_local int map_next = 0;
 
 // the (d, t, h, b) map of a (b, h, t, d) bf16 view with element strides
 // (sb, sh, st, 1), boxes of `rows` rows x Swizzle<D>::kBoxCols, zero fill out
-// of bounds
+// of bounds. `cols` (at most D) is the view's d: a narrower view than the
+// tile (head dim 72 in 128-wide tiles) reads as zeros past its last column
 template <int D>
 cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int t, int heads, int batch,
-                       const long long* strides, int rows = 128) {
-  const MapKey key{ptr, {D, t, heads, batch}, {strides[2], strides[1], strides[0]}, rows};
+                       const long long* strides, int rows = 128, int cols = D) {
+  const MapKey key{ptr, {cols, t, heads, batch}, {strides[2], strides[1], strides[0]}, rows};
   for (int i = 0; i < kMapSlots; ++i) {
     if (map_cache[i].used && map_cache[i].key == key) {
       *out = map_cache[i].map;
@@ -337,7 +338,7 @@ cudaError_t tensor_map(CUtensorMap* out, const void* ptr, int t, int heads, int 
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(t),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(t),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
                                static_cast<cuuint64_t>(strides[1]) * 2,

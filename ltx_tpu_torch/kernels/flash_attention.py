@@ -25,7 +25,8 @@ import torch
 
 from ltx_tpu_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 72, 128)  # the forward's (B1, B2); 72 in 128-wide tiles
+BACKWARD_HEAD_DIMS = (16, 32, 64, 128)  # B3's
 _FWD_LIB = "flash_attention_fwd"
 _BWD_LIB = "flash_attention_bwd"
 _C_FNS = {}
@@ -211,7 +212,9 @@ def flash_attention(q, k, v, bias=None, scale: Optional[float] = None,
     with return_stats=True `flash_attention_stats`'s (out, m, l).
 
     CPU tensors go to `flash_attention_reference`; CUDA tensors launch the
-    kernel (bf16, D in HEAD_DIMS), counted in `flash_attention.launches`."""
+    kernel (bf16, D in HEAD_DIMS: 72, SigLIP's, runs in 128-wide tiles that
+    the loads fill with zeros past column 72), counted in
+    `flash_attention.launches`."""
     if return_stats:
         return flash_attention_stats(q, k, v, bias, scale)
     if q.device.type == "cpu":
@@ -294,6 +297,9 @@ def _bwd_call(name, q, k, v, bias, do, lse, delta, outs, scale):
     `outs` (allocated in the layouts of q, or of k and v), after checking
     the arguments' devices, dtypes, shapes and layouts."""
     _check_cuda_args(q, k, v, bias)
+    if q.shape[3] not in BACKWARD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head_dim {q.shape[3]} not in "
+                         f"{BACKWARD_HEAD_DIMS}")
     strides = backward_strides(q, k, v, do)
     for arg, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:3] or t.dtype != torch.float32 \

@@ -1,8 +1,8 @@
 """Video VAE: causal-3D-conv decoder to pixels, and the encoder for image
 and video conditioning.
 
-Port of ltx_tpu/models/vae.py (all but the mesh-sharded decode, ROADMAP A18,
-and the yuv420 transfer format, ROADMAP A4b). The reference runs
+Port of ltx_tpu/models/vae.py (all but the mesh-sharded decode, ROADMAP
+A18), with the tiled decode's uint8 and yuv420 transfers. The reference runs
 channels-last (NDHWC, DHWIO weights); this port runs torch's NCDHW with
 (O, I, D, H, W) weights, converted once in convert.py. The public layout is
 the same in both: latents (B, C, F, H, W) in, pixels (B, 3, T, H, W) out.
@@ -294,6 +294,83 @@ def without_time_embedders(decoder: "VideoDecoder", present) -> "VideoDecoder":
     return decoder
 
 
+def rgb_to_yuv420_u8(px):
+    """(B, 3, F, H, W) pixels in [-1, 1] -> one packed uint8 (B, F, 3H/2, W)
+    on their device: the planar I420 frame, BT.601 Y at full resolution on
+    top, then the 2x2-averaged U and V planes each reshaped to (H/4, W)
+    rows, all in f32 and rounded half to even once. 1.5 bytes a pixel
+    instead of uint8 RGB's 3 for the copy to the host, in one contiguous
+    tensor (the reference's `_rgb_to_yuv420_u8`)."""
+    rgb = torch.clamp((px.float() + 1.0) / 2.0, 0.0, 1.0)
+    r, g, b = rgb[:, 0], rgb[:, 1], rgb[:, 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    u = -0.168736 * r - 0.331264 * g + 0.5 * b + 0.5
+    v = 0.5 * r - 0.418688 * g - 0.081312 * b + 0.5
+    bb, ff, hh, ww = u.shape
+    u = u.reshape(bb, ff, hh // 2, 2, ww // 2, 2).mean(dim=(3, 5))
+    v = v.reshape(bb, ff, hh // 2, 2, ww // 2, 2).mean(dim=(3, 5))
+
+    def q(x):
+        return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+    return torch.cat([q(y), q(u).reshape(bb, ff, hh // 4, ww),
+                      q(v).reshape(bb, ff, hh // 4, ww)], dim=2)
+
+
+def yuv420_to_rgb_np(packed: np.ndarray) -> np.ndarray:
+    """The host inverse of `rgb_to_yuv420_u8`: packed (B, F, 3H/2, W) uint8
+    -> (B, 3, F, H, W) float32 in [0, 1], chroma upsampled by repetition
+    (the reference's `_yuv420_to_rgb_np`)."""
+    bb, ff, rows, ww = packed.shape
+    hh = rows * 2 // 3
+    y = packed[:, :, :hh].astype(np.float32) / 255.0
+    u = packed[:, :, hh: hh + hh // 4].reshape(bb, ff, hh // 2, ww // 2)
+    v = packed[:, :, hh + hh // 4:].reshape(bb, ff, hh // 2, ww // 2)
+    u = u.astype(np.float32) / 255.0 - 0.5
+    v = v.astype(np.float32) / 255.0 - 0.5
+    u = u.repeat(2, axis=-2).repeat(2, axis=-1)
+    v = v.repeat(2, axis=-2).repeat(2, axis=-1)
+    r = y + 1.402 * v
+    g = y - 0.344136 * u - 0.714136 * v
+    b = y + 1.772 * u
+    return np.clip(np.stack([r, g, b], axis=1), 0.0, 1.0)
+
+
+def _stitch_tiled_yuv(launch, starts, f: int, pixel_blend: int) -> np.ndarray:
+    """The tiled decode's host stitch for the yuv420 transfer: the uint8
+    path's frame-aligned loop on the packed I420 frames (B, F_tile, 3H/2,
+    W), one copy a tile. Seam blending weighs every packed row of a frame
+    alike, which blends each plane: blending commutes with the packing.
+    Returns frames (F, H, W, 3) float32 in [0, 1]."""
+    total = 8 * (f - 1) + 1
+    out = None
+    filled = 0
+    pending = launch(0)
+    for idx in range(len(starts)):
+        wait = pending
+        if idx + 1 < len(starts):
+            pending = launch(idx + 1)
+        chunk = wait()  # (B, F_tile, 3H/2, W) uint8
+        if idx == 0:
+            b, _, rows, ww = chunk.shape
+            out = np.empty((b, total, rows, ww), np.uint8)
+            out[:, :chunk.shape[1]] = chunk
+            filled = chunk.shape[1]
+            continue
+        nxt = chunk[:, 1:]  # drop the re-anchored first pixel frame
+        n_new = nxt.shape[1]
+        blend = pixel_blend if 0 < pixel_blend < filled and pixel_blend < n_new else 0
+        if blend:
+            wts = (np.arange(1, blend + 1, dtype=np.float32) / (blend + 1)).reshape(1, -1, 1, 1)
+            out[:, filled - blend:filled] = np.round(out[:, filled - blend:filled] * (1 - wts)
+                                                     + nxt[:, :blend] * wts)
+        out[:, filled:filled + n_new - blend] = nxt[:, blend:]
+        filled += n_new - blend
+    if filled != total:
+        raise AssertionError(f"tiled decode filled {filled} of {total} frames")
+    return yuv420_to_rgb_np(out)[0].transpose(1, 2, 3, 0)
+
+
 def _tile_starts(frames: int, tile_size: int, stride: int):
     starts, s = [], 0
     while s < frames:
@@ -344,10 +421,11 @@ def decode_video(decoder: VideoDecoder, latent, timestep: Optional[float] = None
     latent shape (the reference folds the tile index into its key).
     transfer_uint8=True rounds each tile to uint8 on the device before the
     copy (a quarter of f32's bytes) and blends in uint8 with f32 weights,
-    rounded: at most 1/255 off. "yuv420" is not ported (ROADMAP A4b)."""
-    if transfer_uint8 == "yuv420":
-        raise NotImplementedError("the yuv420 decode transfer is not ported yet "
-                                  "(ROADMAP A4b)")
+    rounded: at most 1/255 off. transfer_uint8="yuv420" packs each tile as
+    I420 on the device (`rgb_to_yuv420_u8`, an eighth of f32's bytes),
+    blends the packed frames as the uint8 path does and converts to RGB on
+    the host (`yuv420_to_rgb_np`). Untiled, every mode decodes to the exact
+    frames, as the reference's."""
     if latent.ndim == 4:
         latent = latent[None]
     f = latent.shape[2]
@@ -372,10 +450,15 @@ def decode_video(decoder: VideoDecoder, latent, timestep: Optional[float] = None
     def launch(i):
         tile = latent[:, :, starts[i]:starts[i] + tile_size]
         px = decoder(tile, timestep, None if noise is None else noise[i])
-        if transfer_uint8:
+        if transfer_uint8 == "yuv420":
+            px = rgb_to_yuv420_u8(px)
+        elif transfer_uint8:
             px = torch.round(torch.clamp((px.float() + 1.0) / 2.0, 0.0, 1.0)
                              * 255.0).to(torch.uint8)
         return _pull(px)
+
+    if transfer_uint8 == "yuv420":
+        return _stitch_tiled_yuv(launch, starts, f, pixel_blend)
 
     out = None  # host (B, 3, 8(f-1)+1, H, W), allocated on the first tile
     filled = 0

@@ -8,8 +8,11 @@ and an input that requires grad: training) it goes to the differentiable
 `flash_attention_vjp` instead, the statistics forward and the backward
 kernels, as the reference's `sdpa_impl="pallas"` routes through its
 `flash_attention_vjp`; under `torch.inference_mode` or `no_grad`
-(generation) nothing records and B1 runs. Grouped-query attention with a
-full mask (Gemma) stays plain PyTorch, as it stayed on XLA in the reference.
+(generation) nothing records and B1 runs. Grouped-query attention (Gemma),
+and any attention whose bias is a full (Tq, Tk) mask rather than a key bias
+(Gemma with as many key/value heads as query heads; every KV-cached decode),
+stays plain PyTorch (`_gqa_sdpa`, one query head a group when the heads are
+equal), as the reference's kernel refuses a full mask and XLA takes it.
 
 The card's kernels take bfloat16 only. On CUDA, q, k and v of another
 floating dtype (a float32 compute dtype) are cast to bfloat16 at the kernel
@@ -52,15 +55,23 @@ def _gqa_sdpa(q, k, v, bias=None, scale: Optional[float] = None):
     return out.reshape(b, h, tq, d).to(q.dtype)
 
 
+def _is_key_bias(bias) -> bool:
+    """No bias, a (B, Tk) one, or a (B, 1, 1, Tk) one: what the flash
+    kernels take. A (B, 1 | H, Tq, Tk) mask with Tq > 1 is a full mask."""
+    return bias is None or bias.ndim == 2 or (bias.ndim == 4 and bias.shape[1] == 1
+                                               and bias.shape[2] == 1)
+
+
 def sdpa(q, k, v, bias=None, scale: Optional[float] = None):
     """q: (B, H, Tq, D); k, v: (B, Hkv, Tk, D) with H % Hkv == 0; bias an
-    additive float mask. Hkv < H goes to `_gqa_sdpa`; Hkv == H to the
-    flash-attention kernels, which take no bias or a key bias only. Both
+    additive float mask. Hkv < H, or a bias that is not a key bias (its
+    query axis longer than 1), goes to `_gqa_sdpa`; Hkv == H with no bias
+    or a key bias to the flash-attention kernels. Both
     routes hand the kernels strided (B, H, T, D) views as they are (the
     DiT's views of its (B, T, H * D) projections): no copy. On CUDA a dtype
     other than bfloat16 is cast to it for the kernels and the output back
     (the module docstring)."""
-    if k.shape[1] != q.shape[1]:
+    if k.shape[1] != q.shape[1] or not _is_key_bias(bias):
         return _gqa_sdpa(q, k, v, bias=bias, scale=scale)
     dtype = q.dtype
     if q.device.type == "cuda" and dtype != torch.bfloat16:

@@ -4,10 +4,12 @@ Port of ltx_tpu/pipeline/generate.py::LTXPipeline for text-to-video and
 image-to-video, single-stage (`generate_video`), batched over prompts
 (`generate_videos`) and two-stage (`generate_video_two_stage`: a guided
 half-resolution denoise, a 2x latent upscale with AdaIN, a 3-step refine),
-with `encode_prompt(s)` and `encode_image`. Phases: tokenize -> Gemma-3 ->
-feature extractor and connector -> [VAE encoder] -> the DiT denoise loop
-[-> upscaler -> the DiT again] -> VAE decode, tiled in time when
-`memory.vae_tile_size` says so. With `memory.phase_staging` every component
+with `encode_prompt(s)` and `encode_image`. Phases: [prompt enhancement:
+Gemma-3 samples the enhanced prompt, an I2V one seeing the image through
+the SigLIP tower] -> tokenize -> Gemma-3 -> feature extractor and connector
+-> [VAE encoder] -> the DiT denoise loop [-> upscaler -> the DiT again] ->
+VAE decode, tiled in time when `memory.vae_tile_size` says so (uint8 or
+yuv420 tiles, `memory.decode_transfer`). With `memory.phase_staging` every component
 lives on the host between phases and comes to the device only for its own
 phase, as the reference stages them; otherwise all sit on the device, and
 `memory.offload_text_encoder` drops Gemma and the connector after encoding.
@@ -20,14 +22,14 @@ one decode-noise tensor per decode tile. The reference derives them from
 
 The reference's warm-compile machinery (`_WarmCompiles`, `_warm_*`) overlaps
 XLA compiles with earlier phases; eager PyTorch compiles nothing, so it has
-no counterpart here. Prompt enhancement raises NotImplementedError (ROADMAP
-A13); the extension, keyframe, video-to-video, chain and audio entry points
-are ROADMAP A14 and A15.
+no counterpart here. The extension, keyframe, video-to-video, chain and
+audio entry points are ROADMAP A14 and A15.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Optional
 
@@ -64,13 +66,20 @@ from ltx_tpu_torch.pipeline.denoise import (
     run_denoise_loop,
 )
 
+log = logging.getLogger("ltx_tpu_torch")
+
 
 @dataclasses.dataclass
 class GenerationTimings:
     """Seconds per phase, each ended by a device synchronise. `staging` is
-    the time spent moving components to the device, outside the phases."""
+    the time spent moving components to the device, outside the phases;
+    `enhancement` the prompt enhancement's, with its generated tokens and
+    decode forwards."""
 
     staging: float = 0.0
+    enhancement: float = 0.0
+    enhancement_tokens: int = 0
+    enhancement_forwards: int = 0
     gemma: float = 0.0
     connector: float = 0.0
     image_encode: float = 0.0
@@ -118,13 +127,15 @@ class LTXPipeline:
                  text_encoder: Optional[TextEncoder] = None, tokenizer=None,
                  memory: MemoryConfig = MemoryConfig(), is_distilled: bool = True,
                  device=None, vae_encoder: Optional[VideoEncoder] = None,
-                 upscaler: Optional[LatentUpscaler] = None):
+                 upscaler: Optional[LatentUpscaler] = None, vision=None, vision_config=None):
         self.transformer = transformer
         self.vae_decoder = vae_decoder
         self.gemma = gemma
         self.text_encoder = text_encoder
         self.vae_encoder = vae_encoder
         self.upscaler = upscaler
+        self.vision = vision  # the SigLIP tower of I2V enhancement, staged like Gemma
+        self.vision_config = vision_config
         self.tokenizer = tokenizer
         self.memory = memory
         self.is_distilled = is_distilled
@@ -443,10 +454,36 @@ class LTXPipeline:
         self._release("vae_decoder")
         return frames
 
-    @staticmethod
-    def _check_ported(config: GenerationConfig) -> None:
-        if config.enhance_prompt:
-            raise NotImplementedError("enhance_prompt is not ported yet (ROADMAP A13)")
+    def _maybe_enhance(self, prompt: str, config: GenerationConfig, is_i2v: bool,
+                       timings: GenerationTimings) -> str:
+        """Prompt enhancement when `config.enhance_prompt` asks for it, on
+        every generation path as the reference: Gemma (and for I2V the
+        SigLIP tower) on the device, `enhance.enhance_prompt` with the
+        config's speculation, timed. Gemma stays placed for the text phase
+        that follows; the tower goes back (phase staging)."""
+        if not config.enhance_prompt:
+            return prompt
+        if self.gemma is None or self.tokenizer is None:
+            log.warning("enhance_prompt requested but the text encoder is not loaded; "
+                        "using the raw prompt")
+            return prompt
+        from ltx_tpu_torch.pipeline.enhance import enhance_prompt
+
+        gemma = self._on_device("gemma", timings)
+        vision = self._on_device("vision", timings) if self.vision is not None else None
+        t0 = time.perf_counter()
+        stats = {}
+        enhanced = enhance_prompt(gemma, self.tokenizer, prompt, is_i2v=is_i2v,
+                                  image_path=config.image_path, vision=vision,
+                                  vision_config=self.vision_config,
+                                  spec_k=config.enhancement_spec_k, stats=stats)
+        _sync(self.device)
+        timings.enhancement += time.perf_counter() - t0
+        timings.enhancement_tokens += stats.get("tokens", 0)
+        timings.enhancement_forwards += stats.get("forwards", 0)
+        self._release("vision")
+        log.info("Enhanced prompt: %s", enhanced)
+        return enhanced
 
     @staticmethod
     def _seed(config: GenerationConfig) -> int:
@@ -468,15 +505,16 @@ class LTXPipeline:
         decode tile (`decode_tile_frames`). Returns frames (F, H, W, 3) in
         [0, 1] on the host."""
         config.validate()
-        self._check_ported(config)
         total_start = time.perf_counter()
         timings = GenerationTimings()
         guidance = GuidanceSpec.from_config(config)
 
+        is_i2v = image_latent is not None or config.image_path is not None
         if image_latent is None and config.image_path is not None:
             image_latent = self._encode_image_at(config.image_path, config.width,
                                                  config.height, timings)
 
+        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
         (pos,), neg = self._encode_text([prompt], config, guidance, timings)
         context, bias = build_guidance_context(
             guidance, pos["video"], pos["mask"],
@@ -519,7 +557,6 @@ class LTXPipeline:
         `generate_video`'s; seeds: the seeds to report (default config.seed,
         config.seed + 1, ...). Returns a list of VideoGenerationResult."""
         config.validate()
-        self._check_ported(config)
         if config.image_path is not None:
             raise ValueError("generate_videos is T2V-only: image conditioning is "
                              "per-job state; route I2V requests through generate_video")
@@ -536,6 +573,16 @@ class LTXPipeline:
             raise ValueError(f"{len(decode_noise)} decode noises for {b} prompts")
         guidance = GuidanceSpec.from_config(config)
         timings = GenerationTimings()
+
+        if config.enhance_prompt and self.gemma is not None:
+            from ltx_tpu_torch.pipeline.enhance import enhance_prompts
+
+            gemma = self._on_device("gemma", timings)
+            t0 = time.perf_counter()
+            prompts = enhance_prompts(gemma, self.tokenizer, prompts,
+                                      spec_k=config.enhancement_spec_k)
+            _sync(self.device)
+            timings.enhancement += time.perf_counter() - t0
 
         # the positives and the shared negative ride one text pass
         pos_rows, neg = self._encode_text(prompts, config, guidance, timings)
@@ -560,7 +607,8 @@ class LTXPipeline:
         results = []
         for i in range(b):
             t_i = GenerationTimings(
-                staging=timings.staging / b, gemma=timings.gemma / b,
+                staging=timings.staging / b, enhancement=timings.enhancement / b,
+                gemma=timings.gemma / b,
                 connector=timings.connector / b,
                 denoise_steps=[d / b for d in timings.denoise_steps])
             frames = self._decode_frames(
@@ -592,7 +640,6 @@ class LTXPipeline:
         latent shape, when config.image_cond_noise_scale > 0; decode_noise
         as in `generate_video`."""
         config.validate()
-        self._check_ported(config)
         if self.upscaler is None:
             raise ModelNotLoadedError("upscaler")
         total_start = time.perf_counter()
@@ -600,10 +647,13 @@ class LTXPipeline:
         guidance = GuidanceSpec.from_config(config)
         g2 = GuidanceSpec.from_config(config, use_cfg=False)
 
+        is_i2v = (config.image_path is not None or image_latent is not None
+                  or full_res_image_latent is not None)
         if image_latent is None and config.image_path is not None:
             image_latent = self._encode_image_at(
                 config.image_path, config.width // 2, config.height // 2, timings)
 
+        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
         (pos,), neg = self._encode_text([prompt], config, guidance, timings)
         context, bias = build_guidance_context(
             guidance, pos["video"], pos["mask"],

@@ -4,7 +4,7 @@ Port of ltx_tpu/pipeline/loader.py, in the reference's order: resolve the
 models directory's files (nothing is downloaded) -> split the unified file
 -> key-map each component -> fuse the LoRA into the DiT (the distilled
 LoRA, or a user's) -> quantize the DiT -> cache the quantized DiT -> the
-tokenizer.
+SigLIP vision tower, when the Gemma snapshot carries one -> the tokenizer.
 
 Every component is built on the host from the mapped files
 (`models.common.assign_`: a tensor whose dtype needs no change is a view
@@ -19,8 +19,9 @@ phase staging keeps components on the host, where then only the prepared
 (quantized) leaves go. A quantized Gemma is cached beside its snapshot, as
 the reference does (`gemma-{mode}` entries).
 
-Not ported: the audio components (`include_audio`, ROADMAP A14) and the
-SigLIP vision tower (A13), which is not read.
+The vision tower (I2V prompt enhancement) lives where Gemma lives, its MLX
+4-bit linears dequantized on `device`. Not ported: the audio components
+(`include_audio`, ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -59,13 +60,15 @@ class LoadTimings:
     """Seconds of each part of `load_pipeline` (device work synchronised):
     mapping the files, the key maps (with their dtype changes), building
     the modules, Gemma's preparation in its mode and its placement, the
-    DiT's LoRA fusion and quantization, the quantized caches (read or
-    written), and the whole; whether the DiT's and Gemma's caches hit."""
+    vision tower's, the DiT's LoRA fusion and quantization, the quantized
+    caches (read or written), and the whole; whether the DiT's and Gemma's
+    caches hit."""
 
     read: float = 0.0
     key_map: float = 0.0
     build: float = 0.0
     gemma: float = 0.0
+    vision: float = 0.0
     fuse: float = 0.0
     quantize: float = 0.0
     cache: float = 0.0
@@ -160,6 +163,24 @@ def _fuse_and_quantize(model: LTXTransformer, lora_layers, lora_scale: float,
     log.info("DiT prepared on %s in %.2f s", device, time.perf_counter() - t0)
 
 
+def _load_vision(tensors, vision_config, device, home, timings: LoadTimings):
+    """The SigLIP tower of a Gemma snapshot's `vision_tower.*` tensors (the
+    reference's `siglip.load_vision_params`, at `vision_config` or its
+    SigLIPConfig()), built on the host and placed on `home`; (None, None)
+    for a text-only snapshot."""
+    from ltx_tpu_torch.models import siglip
+
+    t0 = time.perf_counter()
+    cfg = vision_config or siglip.SigLIPConfig()
+    state = siglip.load_vision_params(tensors, cfg, device=device)
+    if state is None:
+        return None, None
+    vision = assign_(siglip.SigLIPModel(cfg, "meta"), state).to(home)
+    _sync(device)
+    timings.vision += time.perf_counter() - t0
+    return vision, cfg
+
+
 def load_pipeline(
     model: LTXModel = LTXModel.DISTILLED,
     models_dir: Optional[str] = None,
@@ -179,6 +200,7 @@ def load_pipeline(
     transformer_config: Optional[TransformerConfig] = None,
     vae_config=None,
     text_encoder_config=None,
+    vision_config=None,
     device="cuda",
     timings: Optional[LoadTimings] = None,
 ) -> LTXPipeline:
@@ -194,7 +216,8 @@ def load_pipeline(
     staleness key is the source's size and mtime and the quantization (and
     LoRA) signature. `device` is where the pipeline runs and where the
     heavy load-time work runs (default: the card). The *_config overrides
-    exist for checkpoints cut to size (tests, the smoke run). `timings`,
+    exist for checkpoints cut to size (tests, the smoke run; the vision
+    tower's is the reference's SigLIPConfig() otherwise). `timings`,
     when given, receives the seconds of each part."""
     if include_audio:
         raise NotImplementedError("include_audio: the audio components are not ported "
@@ -310,6 +333,9 @@ def load_pipeline(
     gemma_sig = gemma_signature(gemma_quant, gcfg.hidden_layers, gemma_embed_int8)
     cached = quant_cache and gemma_quant != "bf16"
     gemma = None
+    t0 = time.perf_counter()
+    gemma_tensors = load_safetensors_dir(gemma_dir)
+    timings.read += time.perf_counter() - t0
     if cached:
         t0 = time.perf_counter()
         tree = qcache.load_quantized_tree(gemma_dir, f"gemma-{gemma_quant}", gemma_sig)
@@ -320,13 +346,9 @@ def load_pipeline(
         timings.cache += time.perf_counter() - t0
     if gemma is None:
         t0 = time.perf_counter()
-        gemma_tensors = load_safetensors_dir(gemma_dir)
-        timings.read += time.perf_counter() - t0
-        t0 = time.perf_counter()
         g_state = keymaps.load_gemma_params(gemma_tensors, gcfg.hidden_layers,
                                             mode=gemma_quant, embed_int8=gemma_embed_int8,
                                             device=device)
-        del gemma_tensors
         gemma = Gemma3Model.from_state_dict(gcfg, g_state)
         del g_state
         _sync(device)
@@ -340,7 +362,12 @@ def load_pipeline(
     gemma.to(gemma_home)
     _sync(device)
     timings.gemma += time.perf_counter() - t0
-    log.info("no vision tower read from %s (ROADMAP A13)", gemma_dir)
+    vision, vision_config = _load_vision(gemma_tensors, vision_config, device, gemma_home,
+                                         timings)
+    del gemma_tensors
+    if vision is None:
+        log.info("no vision tower in %s: I2V prompt enhancement will run text-only",
+                 gemma_dir)
     tokenizer = load_tokenizer(gemma_dir)
 
     upscaler = None
@@ -361,6 +388,7 @@ def load_pipeline(
     pipe = LTXPipeline(transformer=transformer, vae_decoder=decoder, gemma=gemma,
                        text_encoder=text_encoder, tokenizer=tokenizer, memory=memory,
                        is_distilled=model.is_distilled or distilled_lora, device=device,
-                       vae_encoder=encoder, upscaler=upscaler)
+                       vae_encoder=encoder, upscaler=upscaler, vision=vision,
+                       vision_config=vision_config)
     timings.total = time.perf_counter() - t_start
     return pipe

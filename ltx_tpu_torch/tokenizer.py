@@ -1,8 +1,9 @@
-"""A reader of Hugging Face `tokenizer.json` files, encoding text to ids.
+"""A reader of Hugging Face `tokenizer.json` files: text to ids and back.
 
-What `LTXPipeline.tokenize` needs from the `tokenizers` package
-(`Tokenizer.from_file(path).encode(text).ids`), for the components a Gemma
-tokenizer and the tests' tokenizers use, with the package's semantics:
+What `LTXPipeline.tokenize` and prompt enhancement need from the
+`tokenizers` package (`Tokenizer.from_file(path).encode(text).ids` and
+`.decode(ids)`), for the components a Gemma tokenizer and the tests'
+tokenizers use, with the package's semantics:
 
   * added tokens are cut out of the text whole before anything else
     (leftmost, longest first), those marked `normalized` after
@@ -14,11 +15,15 @@ tokenizer and the tests' tokenizers use, with the package's semantics:
   * models `BPE` (merges by rank, leftmost first among equals;
     `byte_fallback` to `<0xXX>` tokens; `unk_token` with `fuse_unk`;
     `ignore_merges`) and `WordLevel`;
-  * post-processor `TemplateProcessing` (the `single` template).
+  * post-processor `TemplateProcessing` (the `single` template);
+  * decoding: special added tokens and unknown ids are skipped, then the
+    decoders `Replace`, `ByteFallback` (runs of `<0xXX>` tokens as UTF-8,
+    one U+FFFD per byte when they are not), `Fuse`, `Strip` and
+    `Sequence` (Gemma's), or without a decoder the tokens joined by spaces.
 
 Any other component, or an option of these that changes the ids and is
 not implemented, raises NotImplementedError when the file is read, never
-while encoding.
+while encoding; another decoder raises when `decode` is called.
 """
 
 from __future__ import annotations
@@ -262,12 +267,90 @@ def _model(spec: dict):
 
 
 # --------------------------------------------------------------------------
+# Decoders: a list of token strings -> a list of strings
+# --------------------------------------------------------------------------
+
+
+def _byte_fallback(tokens: List[str]) -> List[str]:
+    """Runs of `<0xXX>` tokens become their UTF-8 text, or one U+FFFD a
+    byte when the run is not valid UTF-8."""
+    out: List[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" * len(run))
+            run.clear()
+
+    for tok in tokens:
+        if len(tok) == 6 and tok.startswith("<0x") and tok.endswith(">"):
+            try:
+                run.append(int(tok[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        flush()
+        out.append(tok)
+    flush()
+    return out
+
+
+def _strip(content: str, start: int, stop: int):
+    """Each token without up to `start` leading and `stop` trailing
+    `content` characters."""
+    def run(tokens: List[str]) -> List[str]:
+        out = []
+        for tok in tokens:
+            lo = 0
+            while lo < min(start, len(tok)) and tok[lo] == content:
+                lo += 1
+            hi = len(tok)
+            while len(tok) - hi < stop and hi > lo and tok[hi - 1] == content:
+                hi -= 1
+            out.append(tok[lo:hi])
+        return out
+    return run
+
+
+def _decoder(spec: Optional[dict]):
+    """A decoder spec -> a function of the token list, or a function that
+    raises NotImplementedError for a decoder this reader lacks."""
+    if spec is None:
+        return None
+    kind = spec.get("type")
+    if kind == "Replace":
+        pat, content = _pattern(spec["pattern"]), spec["content"]
+        return lambda tokens: [pat.sub(lambda _: content, t) for t in tokens]
+    if kind == "ByteFallback":
+        return _byte_fallback
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Strip":
+        return _strip(spec["content"], int(spec.get("start", 0)), int(spec.get("stop", 0)))
+    if kind == "Sequence":
+        steps = [_decoder(d) for d in spec["decoders"]]
+
+        def run(tokens):
+            for step in steps:
+                tokens = step(tokens)
+            return tokens
+        return run
+
+    def unsupported(tokens):
+        return _unsupported(f"decoder {kind}")
+    return unsupported
+
+
+# --------------------------------------------------------------------------
 # The tokenizer
 # --------------------------------------------------------------------------
 
 
 class Tokenizer:
-    """`Tokenizer.from_file(path).encode(text).ids`."""
+    """`Tokenizer.from_file(path).encode(text).ids`, `.decode(ids)`."""
 
     def __init__(self, spec: dict):
         for key in ("truncation", "padding"):
@@ -277,7 +360,13 @@ class Tokenizer:
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
         self.model = _model(spec["model"])
         self.raw_added, self.normalized_added = {}, {}
+        self.decoder = _decoder(spec.get("decoder"))
+        self.id_to_token = {i: t for t, i in self.model.vocab.items()}
+        self.special_ids = set()
         for tok in spec.get("added_tokens", []):
+            self.id_to_token[tok["id"]] = tok["content"]
+            if tok.get("special", False):
+                self.special_ids.add(tok["id"])
             for opt in ("single_word", "lstrip", "rstrip"):
                 if tok.get(opt):
                     _unsupported(f"added token {tok['content']!r} with {opt}")
@@ -355,3 +444,13 @@ class Tokenizer:
             else:
                 out.append(t)
         return Encoding(out)
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        """The text of `ids`: each id's token (an unknown id skipped, a
+        special added token too unless skip_special_tokens is False)
+        through the decoder, or joined by spaces when there is none."""
+        tokens = [self.id_to_token[i] for i in map(int, ids) if i in self.id_to_token
+                  and not (skip_special_tokens and i in self.special_ids)]
+        if self.decoder is None:
+            return " ".join(tokens)
+        return "".join(self.decoder(tokens))

@@ -27,7 +27,10 @@ the tiny two-stage I2V pipeline, its norms through that kernel by the
 default route, within 2e-2; the MLX 4-bit dequantization of the loader on
 the card bit for bit; LoRA fusion on the card against the CPU's within
 checks.check_fused_leaves' bound, and the fused DiT against the adapter as
-a side path within 5e-2.
+a side path within 5e-2; the tiny cycle Gemma's greedy generation
+(sequential, speculative, int8 cache, batched) token for token the CPU's;
+a SigLIP tower at head dim 72 through the flash kernel within 5e-2 of the
+same tower on the plain attention.
 """
 
 import pytest
@@ -90,6 +93,25 @@ def test_flash_kernel_rejects_what_it_does_not_take(device):
     q48 = torch.randn(1, 2, 8, 48, device=device).bfloat16()
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q48, q48, q48)
+    # head dim 72 runs forward only
+    q72 = torch.randn(1, 2, 8, 72, device=device).bfloat16()
+    lse = torch.zeros(1, 2, 8, device=device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_backward(q72, q72, q72, None, q72, lse, q72)
+
+
+def test_tiny_generate_cuda_matches_cpu(device):
+    res = checks.check_tiny_generate(device)
+    assert res["spec"]["forwards"] < res["sequential"]["forwards"]
+
+
+def test_siglip_head_dim_72_through_the_kernel(device):
+    from ltx_tpu_torch.models.siglip import SigLIPConfig
+
+    cfg = SigLIPConfig(hidden_size=144, image_size=56, num_layers=2, num_heads=2,
+                       intermediate_size=64, text_hidden_size=48, mm_tokens_per_image=4)
+    res = checks.check_siglip(*checks.siglip_inputs(cfg, device))
+    assert res["launches"] == cfg.num_layers
 
 
 @pytest.mark.parametrize("case", checks.BWD_CASES, ids=lambda c: c.name)

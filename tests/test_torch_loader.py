@@ -347,3 +347,40 @@ def test_standalone_files_and_the_vae_config_flag(tmp_path):
         ref.text_encoder_params, convert.port_config(tecfg, TextEncoderConfig)))
     assert_same_params(port.transformer, convert.transformer(
         ref.transformer_params, convert.port_config(tcfg, type(loader.TransformerConfig()))))
+
+
+def test_vision_tower_from_the_gemma_snapshot(models_dir, tmp_path):
+    """A VLM snapshot (the Gemma keys under `language_model.`, the SigLIP
+    tower's `vision_tower.*` keys in MLX 4-bit beside them) gives the
+    pipeline its vision tower, bit for bit `convert` of the reference's
+    `load_vision_params`; Gemma loads as from the text-only snapshot. The
+    other tests' snapshot is text-only: no tower."""
+    import shutil
+
+    from ltx_tpu.models import siglip as js
+    from ltx_tpu_torch.models import siglip as ps
+    from test_torch_siglip import MLX_CFG, _hf_tensors
+
+    base, cfgs, _ = models_dir
+    copy = tmp_path / "vlm"
+    shutil.copytree(base, copy, ignore=shutil.ignore_patterns("*.qcache.*"))
+    gdir = copy / "vlm-gemma"
+    text = safetensors_io.load(gdir / "model.safetensors")
+    safetensors_io.save({f"language_model.{k}": v for k, v in text.items()},
+                        gdir / "model.safetensors")
+    vcfg = dataclasses.replace(MLX_CFG, text_hidden_size=cfgs[1].hidden_size)
+    tensors = {k: v for k, v in _hf_tensors(vcfg, mlx=True).items()
+               if not k.startswith("language_model.")}
+    safetensors_io.save(tensors, gdir / "vision.safetensors")
+    port_vcfg = convert.port_config(vcfg, ps.SigLIPConfig)
+    timings = loader.LoadTimings()
+    port = loader.load_pipeline(models_dir=str(copy), device="cpu", gemma_quant="bf16",
+                                vision_config=port_vcfg, timings=timings,
+                                **_port_cfgs(cfgs))
+    assert port.vision_config == port_vcfg and timings.vision > 0
+    assert_same_params(port.vision, convert.siglip(js.load_vision_params(dict(tensors), vcfg),
+                                                   vcfg))
+    text_only = loader.load_pipeline(models_dir=str(base), device="cpu", gemma_quant="bf16",
+                                     **_port_cfgs(cfgs))
+    assert text_only.vision is None and text_only.vision_config is None
+    assert_same_params(port.gemma, text_only.gemma)

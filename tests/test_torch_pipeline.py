@@ -14,8 +14,12 @@ quantize_transformer_params) against a live reference run: at the tiny
 widths only the FF linears are large enough to quantize, and their N or K
 of 128 keeps them off the kernel route on both sides."""
 
+import contextlib
 import dataclasses
+import json
+import logging
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +40,7 @@ from ltx_tpu_torch.config import GenerationConfig, MemoryConfig, QuantizationCon
 from ltx_tpu_torch.models.common import QuantizedLinear
 from ltx_tpu_torch.pipeline import generate
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
+from torch_parity import torch_threads
 
 GOLDEN = pathlib.Path(__file__).parent / "goldens" / "tiny_t2v.npz"
 FRAME_ATOL = 2e-2
@@ -173,17 +178,28 @@ def test_tokenize_and_encode_prompt_match(pipes):
     assert err <= 5e-2 * scale
 
 
+class _StubTokenizer:
+    """The reference's enhancement test tokenizer: bytes to ids (at most 128),
+    and a fixed enhanced text."""
+
+    def encode(self, text):
+        return types.SimpleNamespace(ids=[(b % 90) + 4 for b in text.encode()][:128] or [4])
+
+    def decode(self, ids):
+        return "a cinematic, richly detailed scene"
+
+
 @pytest.mark.parametrize("kw", [
     dict(cfg_scale=4.0), dict(stg_scale=1.0), dict(ge_gamma=0.5),
     dict(cross_attention_scale=0.5), dict(enhance_prompt=True),
     dict(two_stage=True), dict(image_path="x.png"),
 ])
-def test_generation_knobs_run_and_enhancement_raises(pipes, kw, tmp_path):
-    """Prompt enhancement is the one generation knob still to port (ROADMAP
-    A13) and raises; every other knob of this list now runs (the guided and
-    image-conditioned paths, held against the reference in
-    test_torch_two_stage.py; `two_stage` is a flag for callers, which
-    generate_video ignores as the reference's does)."""
+def test_generation_knobs_run(pipes, kw, tmp_path):
+    """Every knob of this list runs (the guided and image-conditioned paths,
+    held against the reference in test_torch_two_stage.py; enhancement
+    below and in test_torch_enhance.py; `two_stage` is a flag for callers,
+    which generate_video ignores as the reference's does). Enhancement
+    runs its phase with the reference's test tokenizer and times it."""
     _, port = pipes
     if "image_path" in kw:
         Image = pytest.importorskip("PIL.Image")  # load_image needs Pillow
@@ -193,17 +209,77 @@ def test_generation_knobs_run_and_enhancement_raises(pipes, kw, tmp_path):
     if "stg_scale" in kw:
         kw = dict(kw, stg_blocks=(1,))  # the default block 29 is past the tiny DiT
     config = dataclasses.replace(CONFIG, **kw)
-    if config.enhance_prompt:
-        with pytest.raises(NotImplementedError, match="A13"):
-            port.generate_video(PROMPT, config, torch.zeros(1, port.tcfg.in_channels, 2, 2, 2))
-        return
     noise = torch.from_numpy(_reference_noise(config, port.tcfg.in_channels))
     port_with_encoder = port
     if config.image_path is not None:
         port_with_encoder = LTXPipeline.random_tiny(device="cpu", seed=0)
-    frames = port_with_encoder.generate_video(PROMPT, config, noise).frames
+    if config.enhance_prompt:
+        port.tokenizer = _StubTokenizer()
+    try:
+        with torch_threads(1) if config.enhance_prompt else contextlib.nullcontext():
+            result = port_with_encoder.generate_video(PROMPT, config, noise)
+    finally:
+        port.tokenizer = None
+    frames = result.frames
     assert frames.shape == (9, 64, 64, 3) and np.isfinite(frames).all()
     assert frames.min() >= 0.0 and frames.max() <= 1.0
+    if config.enhance_prompt:
+        assert result.timings.enhancement > 0 and result.timings.enhancement_tokens > 0
+
+
+def _enhanced(caplog, logger):
+    return [r.getMessage().removeprefix("Enhanced prompt: ") for r in caplog.records
+            if r.name == logger and r.getMessage().startswith("Enhanced prompt: ")]
+
+
+def test_enhanced_generate_video_with_the_cycle_gemma(pipes, caplog):
+    """Both tiny pipelines with the reference's cycle Gemma in place of
+    theirs (a vocabulary of 2048 for test_torch_enhance's Gemma-style
+    tokenizer), enhance_prompt=True at the defaults (temperature 0.7, 512
+    tokens, 8 drafts): the cycle walks the same tokens even when sampled,
+    so the enhanced text is the reference's and the frames are within
+    FRAME_ATOL of the reference's; the phase is timed, with no fallback.
+    The batched path enhances each of its prompts too."""
+    from tokenizers import Tokenizer
+
+    from ltx_tpu.weights import synthetic as jsyn
+    from ltx_tpu_torch.tokenizer import Tokenizer as PortTokenizer
+    from test_torch_enhance import tokenizer_spec
+
+    ref, port = pipes
+    jgcfg = dataclasses.replace(ref.gcfg, vocab_size=2048)
+    tree = jsyn.make_cycle_gemma_params(jgcfg, jax.random.key(2),
+                                        cycle=jsyn.default_cycle(jgcfg, period=11),
+                                        dtype=jnp.bfloat16)
+    text = json.dumps(tokenizer_spec(jgcfg.vocab_size))
+    saved = (ref.gemma_params, ref.gcfg, port.gemma, port.gcfg)
+    ref.gemma_params, ref.gcfg, ref.tokenizer = tree, jgcfg, Tokenizer.from_str(text)
+    port.gemma = convert.gemma(tree, convert.port_config(jgcfg, generate.Gemma3Config))
+    port.gcfg, port.tokenizer = port.gemma.cfg, PortTokenizer.from_str(text)
+    config = dataclasses.replace(CONFIG, enhance_prompt=True)
+    noise = _reference_noise(config, port.tcfg.in_channels)
+    try:
+        with caplog.at_level(logging.INFO), torch_threads(1):
+            want = ref.generate_video("a beaver", convert.port_config(
+                config, jconfig.GenerationConfig))
+            got = port.generate_video("a beaver", config, torch.from_numpy(noise))
+            batched = port.generate_videos(["a beaver", "a fox"], config,
+                                           torch.from_numpy(np.concatenate([noise, noise])))
+    finally:
+        ref.gemma_params, ref.gcfg, port.gemma, port.gcfg = saved
+        ref.tokenizer = port.tokenizer = None
+    want_text, got_text = _enhanced(caplog, "ltx_tpu"), _enhanced(caplog, "ltx_tpu_torch")
+    assert got_text == want_text and len(got_text) == 1 and got_text[0] != "a beaver"
+    assert "enhancement failed" not in caplog.text
+    err = float(np.abs(got.frames - np.asarray(want.frames, np.float32)).max())
+    print(f"[parity] enhanced generate_video vs live reference: max abs {err:.3e} "
+          f"(tol {FRAME_ATOL:.0e}); enhancement {got.timings.enhancement:.2f} s, "
+          f"{got.timings.enhancement_tokens} tokens in {got.timings.enhancement_forwards} "
+          f"forwards")
+    assert err <= FRAME_ATOL
+    tm = got.timings
+    assert tm.enhancement > 0 and tm.enhancement_tokens > 0 and tm.enhancement_forwards > 0
+    assert len(batched) == 2 and batched[0].timings.enhancement > 0
 
 
 def test_staged_int4_pipeline_keeps_its_codes_on_the_host():
@@ -225,10 +301,10 @@ def test_staged_int4_pipeline_keeps_its_codes_on_the_host():
     assert (layer.w_q4.dtype, layer.scale.dtype) == (torch.uint8, torch.float32)
 
 
-def test_staged_and_tiled_pipelines_run_and_yuv420_raises():
-    """Staging keeps every component. Tiled decoding now runs (one latent
-    frame a tile cannot overlap by one and raises ValueError, as the
-    reference's does); the yuv420 transfer raises, naming ROADMAP A4b."""
+def test_staged_and_tiled_pipelines_run_and_yuv420_decodes():
+    """Staging keeps every component. Tiled decoding runs (one latent frame
+    a tile cannot overlap by one and raises ValueError, as the reference's
+    does), and so does the yuv420 transfer (held in test_torch_yuv.py)."""
     port = LTXPipeline.random_tiny(device="cpu", seed=1,
                                    memory=MemoryConfig(phase_staging=True))
     noise = torch.randn(1, port.tcfg.in_channels, 2, 2, 2,
@@ -250,5 +326,6 @@ def test_staged_and_tiled_pipelines_run_and_yuv420_raises():
     assert tiled.decode_tile_frames(4) == [2, 2, 2]
     yuv = LTXPipeline.random_tiny(device="cpu", seed=1, memory=MemoryConfig(
         vae_tile_size=2, decode_transfer="yuv420"))
-    with pytest.raises(NotImplementedError, match="A4b"):
-        yuv.generate_video("tiled", long, long_noise)
+    yuv_frames = yuv.generate_video("tiled", long, long_noise).frames
+    assert yuv_frames.shape == (25, 64, 64, 3) and np.isfinite(yuv_frames).all()
+    assert yuv_frames.min() >= 0.0 and yuv_frames.max() <= 1.0

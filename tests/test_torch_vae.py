@@ -169,7 +169,7 @@ def test_tiled_decode_against_untiled_and_per_tile_noise():
     shorter tiles give the same frame count (the decoder is not causal, so
     their values differ from the untiled ones); with timestep conditioning
     each tile takes its own noise tensor, the reference's fold_in(key, tile)
-    draw."""
+    draw; the yuv420 transfer decodes the tiles too."""
     tree = _tree(jnp.float32)
     latent = np.random.default_rng(16).standard_normal(
         (1, CFG.latent_channels, 5, 2, 2)).astype(np.float32)
@@ -199,5 +199,8 @@ def test_tiled_decode_against_untiled_and_per_tile_noise():
         vae.decode_video(decoder, lt, 0.05, noises[0], tile_size=3, tile_overlap=1)
     with pytest.raises(ValueError, match="must be <"):
         vae.decode_video(decoder, lt, None, None, tile_size=2, tile_overlap=2)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        vae.decode_video(decoder, lt, None, None, tile_size=3, transfer_uint8="yuv420")
+    # the yuv420 transfer decodes the same tiles (tests/test_torch_yuv.py
+    # holds it against the reference and its bounds)
+    yuv = vae.decode_video(decoder, lt, None, None, tile_size=3, transfer_uint8="yuv420")
+    assert yuv.shape == tiled.shape and np.isfinite(yuv).all()
+    assert yuv.min() >= 0 and yuv.max() <= 1

@@ -5,6 +5,8 @@ come back as float32 numpy arrays and are compared by the largest absolute
 error relative to the reference's largest magnitude.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -60,3 +62,18 @@ def reference_int4_kernel_route(monkeypatch) -> list:
     monkeypatch.setattr(jq, "_use_pallas_int4", shape_rule)
     monkeypatch.setattr(jq, "int4_matmul", interpreted)
     return calls
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to `n` for the duration. The generation
+    loops run thousands of small ops a token; when six test workers share
+    the cores, each process's default of one thread a core oversubscribes
+    them and every small op waits on the others (one file took 290 s under
+    such load, 24 s on one thread)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
