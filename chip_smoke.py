@@ -22,11 +22,13 @@ Phases, each printing its own lines:
      the bf16 output) bit for bit the CPU's at the DiT's and Gemma's
      shapes, timed beside F.linear in bf16 and the int8 bound (Gemma's
      decode rows, 1 and 9, among the int4 and W8A8 cases; flash attention
-     at SigLIP's head dim 72 among the attention cases);
+     at SigLIP's head dim 72 and at the dual audio-video DiT's head dim 64
+     among the attention cases, rms_norm at its audio stream's 2048);
      then the tiny pipeline, the tiny two-stage I2V pipeline, the tiny
-     LoRA train and the tiny cycle Gemma's greedy generation on the card
-     against the same weights and draws on the CPU, the norms as the
-     default route gives them;
+     joint-audio pipeline (CFG, then I2V; frames and waveform, the flash
+     launches by head dim), the tiny LoRA train and the tiny cycle Gemma's
+     greedy generation on the card against the same weights and draws on
+     the CPU, the norms as the default route gives them;
   3. the bf16 main path: LTXPipeline.generate_video at full width and depth
      (Gemma-3-12B, the text connector, the 48-block DiT, the VAE decoder;
      random bf16 weights from a seeded generator) at 25 frames, 768x512,
@@ -77,11 +79,24 @@ Phases, each printing its own lines:
   5. the big-M route: one int4 DiT call at 121 frames, 1024x576 (9216
      tokens), where the 9216-row linears go through dequant_int4 and a
      plain product and the 1024-row text K/V through int4_matmul;
+  5c. joint audio: the 48-block dual audio-video DiT drawn on the card
+     (kept on the host for phase staging) beside the phase-3 pipeline's
+     Gemma, VAE and upscaler, after the video DiT is dropped; then
+     generate_video_with_audio at the north star (8 x 48 x 6 flash
+     launches in the dual DiT, 1536 of them at head dim 64, and both
+     connectors'; 20 rms_norm launches a dual block; the frames and the
+     waveform: finite, in [-1, 1], 240 x (4T - 3) samples) with one dual
+     step under the profiler, and generate_video_with_audio_two_stage at
+     241f@1024x640 (the flagship: I2V through encode_image at half and full
+     resolution, 8 distilled steps at 4960 tokens, the upscaler, 3 plain
+     Euler steps at 19840 tokens, 251 audio tokens, a tiled decode), each
+     with its launches, phases and peak memory;
   5b. files to frames: a models directory written under build/ in the
      layout weights.download resolves, from seeded generators on the card
-     by the port's own safetensors writer: the unified file (the video DiT
-     at full width with 8 of its 48 blocks, the one cut; the connector in
-     format 2; the VAE decoder), the standalone VAE file with the encoder,
+     by the port's own safetensors writer: the unified file (the dual DiT's
+     keys at full width with 8 of its 48 blocks, the one cut; the
+     connectors in format 2, the audio one too; the VAE decoder), the audio
+     VAE's and the vocoder's files, the standalone VAE file with the encoder,
      the Gemma-3-12B snapshot at full width and depth in MLX 4-bit with the
      `language_model.` prefix (four shards, config.json, a byte-fallback
      BPE tokenizer.json), the upscaler in f32 and a rank-384 LoRA over the
@@ -89,7 +104,9 @@ Phases, each printing its own lines:
      bf16, its seconds by part and the host's resident memory printed, then
      the north star from it (launches checked); one Gemma linear's MLX
      dequantization against numpy from the file's arrays, bit for bit;
-     every loaded component's values and bytes against its files'. The
+     every loaded component's values and bytes against its files'; then
+     load_pipeline(include_audio=True) in bf16 and one
+     generate_video_with_audio at the north star from it. The
      LoRA fused on the card against the CPU's fusion of blocks 0 and 7
      (checks.check_fused_leaves) and the fused DiT against the adapter as
      a side path (checks.lora_side_path_check). load_pipeline in int4 with
@@ -415,7 +432,7 @@ def phase_flash_kernel(device) -> dict:
             + (0 if bias is None else 4.0 * case.b * case.tk)
         bound_ms, bound_by = bound(flops, nbytes)
         queued = ""
-        if case.tq >= 1024:
+        if case.tq >= 1024 or case.name.startswith("av_"):
             q_ms = queued_ms(flash_calls(fa.flash_attention, q, k, v, bias, case.scale))
             q_lib = queued_ms(flash_calls(
                 lambda *a: F.scaled_dot_product_attention(
@@ -434,12 +451,17 @@ def phase_flash_kernel(device) -> dict:
             f" bound {bound_ms:.4f} ms ({bound_by}); {flops / ms * 1e-9:.1f} TFLOP/s,"
             f" {bound_ms / ms:.3f} of the bound, {ms / library:.2f}x sdpa" + queued)
     ms, plain, library, bound_ms, bound_by, idle_ms, idle_lib = timings["dit_self_attn"]
+    # the dual DiT's head-dim-64 shapes beside the line's self-attention
+    av = {name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "idle_ms",
+                          "idle_library_ms"), t))
+          for name, t in timings.items() if name.startswith("av_")}
     return {"name": "flash_attention", "route": "cuda",
             "source": "ltx_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "ltx_tpu/kernels/flash_attention.py:124",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
-            "timing": "queued", "idle_ms": idle_ms, "idle_library_ms": idle_lib}
+            "timing": "queued", "idle_ms": idle_ms, "idle_library_ms": idle_lib,
+            "av_cases": av}
 
 
 def int4_bytes(m: int, k: int, n: int, group: int) -> float:
@@ -803,7 +825,11 @@ def phase_rms_kernel(device) -> dict:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
             "timing": "queued", "idle_ms": idle_ms, "host_us": wrapper,
-            "chain_host_us": chain}
+            "chain_host_us": chain,
+            # the dual DiT's audio stream at 2048 wide
+            "av_cases": {name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by", "idle_ms"), t))
+                         for name, t in timings.items() if name.startswith("av_")}}
 
 
 def phase_tiny_agreement(device) -> None:
@@ -821,6 +847,10 @@ def phase_tiny_agreement(device) -> None:
     res = checks.check_tiny_generate(device)
     log(f"[tiny] cycle Gemma greedy generation on the card vs the CPU, token for token: "
         f"{json.dumps(res)}")
+    res = checks.check_tiny_av_pipeline(device)
+    log(f"[tiny] joint-audio pipeline (CFG; I2V re-noised) on the card vs the CPU: "
+        f"{json.dumps(res)} (tol {checks.TINY_FRAME_ATOL:.0e} frames, "
+        f"{checks.TINY_AUDIO_ATOL:.0e} waveform)")
     for dtype, how in ((torch.bfloat16, "bf16"),
                        (torch.float32, "f32 compute, attention cast to bf16 on the card")):
         res = checks.check_tiny_train(device, dtype)
@@ -850,6 +880,7 @@ NO_LAUNCHES = {**{name: 0 for name in KERNELS}, CHAIN: 0, INT8: 0}
 def reset_counts() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+    fa.flash_attention.launches_by_head_dim.clear()
     normalization.rms_chain_on_cuda = 0
     qz.int8_mm.calls = 0
 
@@ -1541,6 +1572,238 @@ def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Joint audio (phase 5c): the dual audio-video DiT at full width and depth
+# ---------------------------------------------------------------------------
+
+# the flagship: two-stage joint audio at 241f@1024x640 (stage 1 at 512x320,
+# 4960 tokens; stage 2 19840; 251 audio tokens), I2V through the image hooks
+AV_FLAGSHIP = GenerationConfig(width=1024, height=640, num_frames=241, num_steps=8, seed=0,
+                               image_cond_noise_scale=0.15, two_stage=True)
+AV_FLAGSHIP_TILE, AV_FLAGSHIP_OVERLAP = 8, 2
+
+
+def audio_pipeline(pipe: LTXPipeline, device) -> LTXPipeline:
+    """The joint-audio pipeline at full width and depth beside the phase-3
+    one: its Gemma, VAE and upscaler shared, the video DiT dropped from both
+    first (its host copy is what the dual DiT's 35 GiB take the place of),
+    then the dual DiT, a text encoder with both connectors, the audio VAE
+    and the vocoder drawn from seeded generators on the card and kept on the
+    host for phase staging."""
+    from ltx_tpu_torch.config import AudioVAEConfig, VocoderConfig
+    from ltx_tpu_torch.models.audio_vae import AudioVAE, Vocoder
+    from ltx_tpu_torch.models.common import init_random_
+    from ltx_tpu_torch.models.dit_av import LTXAVTransformer
+    from ltx_tpu_torch.models.text_encoder import TextEncoder
+
+    pipe.transformer = None
+    pipe._host_store.pop("transformer", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = host_rss_gib()
+    release_host_memory()
+    log(f"[av] video DiT dropped: host RSS {before:.2f} GiB, {host_rss_gib():.2f} after "
+        "returning freed memory to the system")
+    t0 = time.perf_counter()
+    home = "cpu" if pipe.memory.phase_staging else device
+
+    def build(i, make):
+        gen = torch.Generator(device=device).manual_seed(16 + i)
+        return init_random_(make(), gen).to(home)
+
+    tcfg = TransformerConfig()
+    av = build(6, lambda: LTXAVTransformer(tcfg, device, torch.bfloat16))
+    text_encoder = build(3, lambda: TextEncoder(pipe.tecfg, device, torch.bfloat16,
+                                                include_audio=True))
+    out = LTXPipeline(
+        transformer=None, vae_decoder=pipe.vae_decoder, gemma=pipe.gemma,
+        text_encoder=text_encoder, tokenizer=pipe.tokenizer, memory=pipe.memory,
+        device=device, vae_encoder=pipe.vae_encoder, upscaler=pipe.upscaler,
+        av_transformer=av, audio_vae=build(7, lambda: AudioVAE(AudioVAEConfig(), device)),
+        vocoder=build(8, lambda: Vocoder(VocoderConfig(), device)))
+    log(f"[av] random full-size dual DiT ({sum(p.numel() for p in av.parameters()) / 1e9:.3f}"
+        f" G parameters, {module_sizes(av)[1] / 2**30:.2f} GiB), text encoder with the audio "
+        f"connector, audio VAE, vocoder (seeded, on the card, kept on the {home}): "
+        f"{time.perf_counter() - t0:.2f} s; host RSS {host_rss_gib():.2f} GiB")
+    return out
+
+
+def release_host_memory() -> None:
+    """Hand the host memory the allocator holds free back to the system
+    (glibc's malloc_trim), so that the dual DiT's host copy takes the place
+    of the dropped video DiT's."""
+    import ctypes
+
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def av_expected(pipe: LTXPipeline, dit_calls: int, text_passes: int = 1) -> tuple:
+    """(launch counts, flash launches by head dim) of a joint-audio path on
+    the card, from the code: the dual blocks' six attentions and twenty
+    norms, both connectors a text pass."""
+    by_dim = checks.av_flash_counts(pipe.tcfg, pipe.tecfg, dit_calls, text_passes)
+    launches, chain = checks.rms_inference_counts(pipe.tcfg, pipe.tecfg, dit_calls,
+                                                  text_passes, av=True)
+    return ({**NO_LAUNCHES, "flash_attention": sum(by_dim.values()), "rms_norm": launches,
+             CHAIN: chain}, by_dim)
+
+
+def check_waveform(tag: str, audio, config: GenerationConfig, vocoder_cfg) -> None:
+    """Finite, in [-1, 1], not constant, (2, samples) with the vocoder's
+    samples for the clip's audio latent frames (4T - 3 mel frames)."""
+    from ltx_tpu_torch.models.dit_av import audio_frame_count
+
+    frames = audio_frame_count(config.num_frames / config.fps)
+    samples = (4 * frames - 3) * int(np.prod(vocoder_cfg.upsample_factors))
+    log(f"[{tag}] waveform {audio.shape} {audio.dtype} ({frames} audio latent frames, "
+        f"{audio.shape[-1] / vocoder_cfg.sample_rate:.3f} s at {vocoder_cfg.sample_rate} Hz): "
+        f"mean {audio.mean():.5f}, std {audio.std():.5f}, min {audio.min():.5f}, max "
+        f"{audio.max():.5f}")
+    if audio.shape != (2, samples):
+        raise AssertionError(f"{tag}: waveform {audio.shape}, expected (2, {samples})")
+    if not (np.isfinite(audio).all() and np.abs(audio).max() <= 1.0 and audio.std() > 0.0):
+        raise AssertionError(f"{tag}: waveform not finite in [-1, 1], or constant")
+
+
+def av_run(tag: str, fn, expected: tuple, device):
+    """fn() (a joint-audio generation) with the counts read around it and
+    the device's peak memory; checks the launches, and the flash launches by
+    head dim. Returns (result, launches, peak GiB)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    result, launches = run_counted(fn)
+    by_dim = dict(fa.flash_attention.launches_by_head_dim)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"[{tag}] flash launches by head dim {json.dumps(by_dim)} (expected "
+        f"{json.dumps(expected[1])})")
+    check_launches(tag, launches, expected[0])
+    if by_dim != expected[1]:
+        raise AssertionError(f"{tag}: flash launches by head dim {by_dim}")
+    return result, launches, peak_gib
+
+
+def phase_av_north_star(pipe: LTXPipeline, device) -> dict:
+    """generate_video_with_audio at the north star (T2V, 25f@768x512, 8
+    distilled steps: 1536 video and 26 audio tokens) on the bf16 dual DiT:
+    the launch counts (8 x 48 x 6 flash, 1536 of them at head dim 64),
+    the frames and the waveform, the phases and the peak memory. Returns
+    the launches."""
+    config = NORTH_STAR
+    shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                         channels=pipe.tcfg.in_channels)
+    gen = torch.Generator(device=device).manual_seed(0)
+    noise = generate_noise(shape, gen)
+    audio_noise = torch.randn(pipe.audio_noise_shape(config), generator=gen, device=device)
+    steps = len(pipe._sigmas(config, shape)) - 1
+    expected = av_expected(pipe, steps)
+    log(f"[av] {config.num_frames}f@{config.width}x{config.height} with audio: "
+        f"{shape.token_count} video and {pipe.audio_frames(config)} audio tokens, {steps} "
+        f"steps; expected launches {json.dumps(expected[0])}")
+    result, launches, peak = av_run("av", lambda: pipe.generate_video_with_audio(
+        PROMPT, config, noise, audio_noise), expected, device)
+    tm = result.timings
+    log(f"[av] phases (s): staging {tm.staging:.3f}, gemma {tm.gemma:.3f}, connectors "
+        f"{tm.connector:.3f}, denoise {sum(tm.denoise_steps):.3f} (steady step "
+        f"{steady_steps(result)}), vae_decode {tm.vae_decode:.3f}, audio decode "
+        f"{tm.audio_decode:.3f}, total {tm.total:.3f}; peak {peak:.2f} GiB")
+    log("[av] denoise steps (s): " + ", ".join(f"{s:.4f}" for s in tm.denoise_steps))
+    check_frames("av", result.frames, config)
+    check_waveform("av", result.audio, config, pipe.vocoder_config)
+    profile_av_step(pipe, shape, noise, device)
+    return launches
+
+
+def profile_av_step(pipe: LTXPipeline, shape, noise, device) -> None:
+    """One dual denoise step at the north star under torch.profiler
+    (`profile_step.profile_steps`: a warm-up, two profiled steps, five
+    timed): host and device ms, device ms by kernel group, the idle share;
+    a random 1024-token context for both streams with 300 padded keys."""
+    from ltx_tpu_torch.pipeline.denoise import make_av_denoise_step
+
+    transformer = pipe._on_device("av_transformer", GenerationTimings())
+    gen = torch.Generator(device=device).manual_seed(5)
+    context = torch.randn(1, 1024, pipe.tcfg.caption_channels, generator=gen,
+                          device=device).bfloat16()
+    bias = torch.zeros(1, 1, 1, 1024, device=device)
+    bias[..., :300] = -10000.0
+    af = pipe.audio_frames(NORTH_STAR)
+    audio = torch.randn(1, af, pipe.tcfg.audio_in_channels, generator=gen, device=device)
+    step = make_av_denoise_step(transformer, GuidanceSpec.from_config(NORTH_STAR), shape, af,
+                                context, context, bias, fps=NORTH_STAR.fps)
+    prof = profile_steps(lambda latent, s, s_next: step(latent, audio, s, s_next), noise)
+    pipe._release("av_transformer")
+    log(f"[av] one dual denoise step, profiled: host {prof['host_ms']:.1f} ms, device "
+        f"{prof['device_busy_ms']:.1f} ms ({json.dumps({k: round(v, 2) for k, v in prof['device_ms'].items()})}), "
+        f"idle share {prof['idle_share']:.3f}; unprofiled wall {prof['wall_ms']:.1f} ms")
+
+
+def phase_av_flagship(pipe: LTXPipeline, device) -> dict:
+    """generate_video_with_audio_two_stage at 241f@1024x640 (the README's
+    flagship), I2V from a seeded pixel array through encode_image at half
+    and full resolution, the conditioned frame re-noised every step: stage
+    1's 8 distilled steps at 4960 tokens, the upscaler and AdaIN, stage 2's
+    3 plain-Euler steps at 19840 tokens, 251 audio tokens throughout, a
+    temporally tiled decode. The launches, frames, waveform, phases and
+    peak memory. Returns the launches."""
+    config = AV_FLAGSHIP
+    c = pipe.tcfg.in_channels
+    s1 = VideoLatentShape.from_pixels(1, config.num_frames, config.height // 2,
+                                      config.width // 2, channels=c)
+    s2 = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                      channels=c)
+    n1 = len(schedule.get_sigmas(config.num_steps, distilled=True,
+                                 token_count=s1.token_count)) - 1
+    n2 = len(schedule.STAGE_2_SIGMAS) - 1
+    expected = av_expected(pipe, n1 + n2)
+    gen = torch.Generator(device=device).manual_seed(9)
+    image = torch.rand(1, 3, 1, config.height, config.width, generator=gen,
+                       device=device) * 2 - 1
+    half_image = F.interpolate(image[:, :, 0], scale_factor=0.5, mode="bilinear")[:, :, None]
+    af = pipe.audio_frames(config)
+    log(f"[av flagship] {config.num_frames}f@{config.width}x{config.height} two-stage I2V "
+        f"with audio: stage 1 {s1.token_count} tokens x {n1} steps, stage 2 "
+        f"{s2.token_count} tokens x {n2} steps, {af} audio tokens; expected launches "
+        f"{json.dumps(expected[0])}")
+    memory = pipe.memory
+    pipe.memory = dataclasses.replace(memory, vae_tile_size=AV_FLAGSHIP_TILE,
+                                      vae_tile_overlap=AV_FLAGSHIP_OVERLAP)
+    try:
+        enc = GenerationTimings()
+        half = pipe.encode_image(half_image, enc)
+        full = pipe.encode_image(image, enc)
+        draws = dict(
+            stage1_noise=generate_noise(s1, gen),
+            stage1_audio_noise=torch.randn(pipe.audio_noise_shape(config), generator=gen,
+                                           device=device),
+            stage2_noise=generate_noise(s2, gen),
+            stage2_audio_noise=torch.randn(1, af, pipe.tcfg.audio_in_channels,
+                                           generator=gen, device=device),
+            stage1_cond_noise=[torch.randn(half.shape, generator=gen, device=device)
+                               for _ in range(n1)],
+            stage2_cond_noise=[torch.randn(full.shape, generator=gen, device=device)
+                               for _ in range(n2)])
+        result, launches, peak = av_run(
+            "av flagship", lambda: pipe.generate_video_with_audio_two_stage(
+                PROMPT, config, image_latent=half, full_res_image_latent=full, **draws),
+            expected, device)
+    finally:
+        pipe.memory = memory
+    tm = result.timings
+    log(f"[av flagship] image latents {tuple(half.shape)} and {tuple(full.shape)}: encoder "
+        f"staging {enc.staging:.3f} s, image encode {enc.image_encode:.3f} s")
+    log(f"[av flagship] phases (s): staging {tm.staging:.3f}, gemma {tm.gemma:.3f}, "
+        f"connectors {tm.connector:.3f}, stage 1 {sum(tm.denoise_steps[:n1]):.3f}, upscale "
+        f"{tm.upscale:.3f}, stage 2 {sum(tm.denoise_steps[n1:]):.3f}, vae_decode "
+        f"{tm.vae_decode:.3f}, audio decode {tm.audio_decode:.3f}, total {tm.total:.3f}; "
+        f"peak {peak:.2f} GiB")
+    log("[av flagship] denoise steps (s): " + ", ".join(f"{s:.4f}" for s in tm.denoise_steps))
+    if len(tm.denoise_steps) != n1 + n2:
+        raise AssertionError(f"av flagship: {len(tm.denoise_steps)} denoise steps")
+    check_frames("av flagship", result.frames, config)
+    check_waveform("av flagship", result.audio, config, pipe.vocoder_config)
+    return launches
+
+
 def phase_big_m(pipe: LTXPipeline, device) -> dict:
     """One int4 DiT call at 121f@1024x576 (9216 latent tokens, a random
     1024-token context): the 9216-row linears (attn1 q/k/v/out, attn2
@@ -1729,13 +1992,15 @@ def write_models_dir(base, device) -> dict:
         safetensors_io.save(tensors, path)
         files[name] = path
 
-    dit_spec = wf.video_transformer_spec(num_layers=FILES_DIT_BLOCKS)
+    # the dual DiT's keys: the video DiT's and the audio stream's, as the
+    # checkpoint holds them
+    dit_spec = wf.av_transformer_spec(num_layers=FILES_DIT_BLOCKS)
     unified = _materialize(dit_spec, "model.diffusion_model.", gen, device)
     for suffix in ("weight_scale", "input_scale"):  # fp8 checkpoints' scalars: dropped
         unified[f"model.diffusion_model.transformer_blocks.0.attn1.to_q.{suffix}"] = \
             torch.ones((), dtype=torch.float32)
-    unified.update(_materialize(wf.connector_spec(fmt=2), "model.diffusion_model.", gen,
-                                device))
+    unified.update(_materialize(wf.connector_spec(fmt=2, include_audio=True),
+                                "model.diffusion_model.", gen, device))
     unified.update(_materialize(wf.vae_decoder_spec(layout="unified"), "vae.", gen, device))
     save("unified", unified, base / f"ltx-{LTXModel.DISTILLED.value}" /
          LTXModel.DISTILLED.unified_weights_filename)
@@ -1748,6 +2013,10 @@ def write_models_dir(base, device) -> dict:
          base / "ltx-connector" / Path(dl.CONNECTOR_FILE).name)
     save("upscaler", _materialize(wf.upscaler_spec(), "", gen, device, torch.float32),
          base / "ltx-upscaler" / Path(dl.UPSCALER_FILE).name)
+    save("audio_vae", _materialize(wf.audio_vae_spec(), "", gen, device, torch.float32),
+         base / "ltx-audio-vae" / Path(dl.AUDIO_VAE_FILE).name)
+    save("vocoder", _materialize(wf.vocoder_spec(), "", gen, device, torch.float32),
+         base / "ltx-vocoder" / Path(dl.VOCODER_FILE).name)
     lora = {}
     for i in range(FILES_DIT_BLOCKS):
         for linear in FILES_LORA_LINEARS:
@@ -1778,12 +2047,12 @@ def write_models_dir(base, device) -> dict:
 _DROPPED = (".weight_scale", ".input_scale", "timestep_scale_multiplier")
 
 
-def file_sizes(paths, mlx: bool = False, prefixes=None) -> tuple:
+def file_sizes(paths, mlx: bool = False, prefixes=None, keep=None) -> tuple:
     """(values, bytes) the loaders keep from files: the keys the reference
     drops left out (lm_head, fp8 scales, the VAE's timestep multiplier, the
-    upscaler's blur kernel); an MLX 4-bit weight counts its 8 codes a word
-    and 2 bytes a value (bf16 once dequantized), its scales and biases
-    nothing."""
+    upscaler's blur kernel), and those `keep` refuses; an MLX 4-bit weight
+    counts its 8 codes a word and 2 bytes a value (bf16 once dequantized),
+    its scales and biases nothing."""
     from ltx_tpu_torch.weights import safetensors_io
 
     values = nbytes = 0
@@ -1792,7 +2061,8 @@ def file_sizes(paths, mlx: bool = False, prefixes=None) -> tuple:
         for key, info in header.items():
             if key == "__metadata__" or key.endswith(_DROPPED) or "lm_head" in key or \
                     key.startswith("blur_down") or (
-                    prefixes is not None and not key.startswith(prefixes)):
+                    prefixes is not None and not key.startswith(prefixes)) or (
+                    keep is not None and not keep(key)):
                 continue
             n = int(np.prod(info["shape"], dtype=np.int64))
             if mlx and key.endswith((".scales", ".biases")):
@@ -1964,6 +2234,65 @@ def same_dit(pipe: LTXPipeline, first: dict, timings, calls, tag: str, what: str
         raise AssertionError(f"{tag}: the quantized caches did not serve the second load")
 
 
+_DIT_PREFIX = "model.diffusion_model."
+_CONNECTOR_KEYS = ("video_embeddings_connector.", "audio_embeddings_connector.",
+                   "text_embedding_projection.")
+
+
+def _dual_dit_keys(key: str) -> bool:
+    """The unified file's keys of the dual DiT (every transformer key)."""
+    return key.startswith(_DIT_PREFIX) and not key[len(_DIT_PREFIX):].startswith(
+        _CONNECTOR_KEYS)
+
+
+def _video_dit_keys(key: str) -> bool:
+    """The dual DiT's keys the video DiT keeps: the audio stream's and the
+    dual block's learnable norms are the video key map's to drop."""
+    from ltx_tpu_torch.weights.keymaps import map_transformer_key
+
+    return _dual_dit_keys(key) and map_transformer_key(key[len(_DIT_PREFIX):]) is not None
+
+
+def phase_files_audio(base, files, noise, device) -> dict:
+    """load_pipeline(include_audio=True) in bf16 from the models directory
+    (the dual DiT assembled from the unified file, the audio connector, the
+    audio VAE's and the vocoder's files): its parts' seconds and the host's
+    resident memory, the loaded sizes against the files', and one
+    generate_video_with_audio at the north star with its launches, frames
+    and waveform. Returns the launches."""
+    pipe, _ = _load("bf16 with audio", base, device, include_audio=True, gemma_quant="bf16")
+    for name, module, keep, paths in (
+            ("dual DiT", pipe.av_transformer, _dual_dit_keys, [files["unified"]]),
+            ("connectors", pipe.text_encoder,
+             lambda k: k[len(_DIT_PREFIX):].startswith(_CONNECTOR_KEYS), [files["unified"]]),
+            ("audio VAE", pipe.audio_vae, lambda k: not k.startswith("encoder."),
+             [files["audio_vae"]]),
+            ("vocoder", pipe.vocoder, None, [files["vocoder"]])):
+        want, got = file_sizes(paths, keep=keep), module_sizes(module)
+        log(f"[files] {name}: {got[0]} values, {got[1]} bytes loaded; the files' "
+            f"{want[0]} / {want[1]}")
+        if got != want:
+            raise AssertionError(f"{name}: loaded {got}, files {want}")
+    config = NORTH_STAR
+    steps = len(pipe._sigmas(config, VideoLatentShape(*noise.shape))) - 1
+    audio_noise = torch.randn(pipe.audio_noise_shape(config), device=device,
+                              generator=torch.Generator(device=device).manual_seed(1))
+    expected = av_expected(pipe, steps)
+    result, launches, peak = av_run("files av", lambda: pipe.generate_video_with_audio(
+        PROMPT, config, noise, audio_noise), expected, device)
+    tm = result.timings
+    log(f"[files av] phases (s): staging {tm.staging:.3f}, gemma {tm.gemma:.3f}, connectors "
+        f"{tm.connector:.3f}, denoise {sum(tm.denoise_steps):.3f}, vae_decode "
+        f"{tm.vae_decode:.3f}, audio decode {tm.audio_decode:.3f}, total {tm.total:.3f}; "
+        f"peak {peak:.2f} GiB")
+    check_frames("files av", result.frames, config)
+    check_waveform("files av", result.audio, config, pipe.vocoder_config)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_files_to_frames(device) -> int:
     """Write a models directory, load it with load_pipeline (bf16; int4
     with the LoRA fused and Gemma in "int4", the quantized caches missed
@@ -1974,8 +2303,10 @@ def phase_files_to_frames(device) -> int:
     against the adapter as a side path, each quantized Gemma's hidden
     states against the bf16 one's and its greedy decode (`gemma_decode`),
     and train one step from the unified file with train.cli --weights
-    --quant w8a8. Returns the int4_matmul launches of the int4 Gemma's
-    text pass and of its decode forwards."""
+    --quant w8a8; between the bf16 and the int4 loads, the joint-audio load
+    and clip (`phase_files_audio`). Returns the int4_matmul launches of the
+    int4 Gemma's text pass and of its decode forwards, and the joint-audio
+    clip's launches."""
     from ltx_tpu_torch.lora.fuse import fuse_lora, parse_lora
     from ltx_tpu_torch.weights import download as dl
     from ltx_tpu_torch.weights import safetensors_io
@@ -2015,10 +2346,7 @@ def phase_files_to_frames(device) -> int:
         f"{res['differing']} of {res['values']} values differ")
     unified, vae_file = files["unified"], files["vae"]
     for name, module, (paths, mlx, prefixes) in (
-            ("DiT", pipe.transformer, ([unified], False, (
-                "model.diffusion_model.transformer_blocks", "model.diffusion_model.proj",
-                "model.diffusion_model.time_embed", "model.diffusion_model.caption",
-                "model.diffusion_model.scale_shift_table"))),
+            ("DiT", pipe.transformer, ([unified], False, _video_dit_keys)),
             ("connector", pipe.text_encoder, ([unified], False, (
                 "model.diffusion_model.video_embeddings_connector",
                 "model.diffusion_model.text_embedding_projection"))),
@@ -2026,7 +2354,8 @@ def phase_files_to_frames(device) -> int:
             ("VAE encoder", pipe.vae_encoder, ([vae_file], False, None)),
             ("Gemma", pipe.gemma, (gemma_files, True, ("language_model.",))),
             ("upscaler", pipe.upscaler, ([files["upscaler"]], False, None))):
-        want = file_sizes(paths, mlx, prefixes)
+        want = (file_sizes(paths, mlx, keep=prefixes) if callable(prefixes)
+                else file_sizes(paths, mlx, prefixes))
         got = module_sizes(module)
         log(f"[files] {name}: {got[0]} values, {got[1]} bytes loaded; the files' "
             f"{want[0]} / {want[1]}")
@@ -2061,6 +2390,7 @@ def phase_files_to_frames(device) -> int:
     del side, cpu, pipe
     gc.collect()
     torch.cuda.empty_cache()
+    audio_launches = phase_files_audio(base, files, noise, device)
 
     # --- int4 with the LoRA fused, Gemma in "int4": the caches miss, then hit
     q = QuantizationConfig(mode="int4")
@@ -2125,7 +2455,7 @@ def phase_files_to_frames(device) -> int:
         train_step_launches(cfg, "w8a8"))
     shutil.rmtree(base, ignore_errors=True)
     log(f"[files] phase: {time.perf_counter() - t_phase:.2f} s")
-    return gemma_linears, decode_launches
+    return gemma_linears, decode_launches, audio_launches
 
 
 TRAIN_GRID = (4, 16, 24)   # 25f@768x512: 1536 latent tokens
@@ -2267,6 +2597,7 @@ def main() -> int:
     phase_w8a8_products(device)
     phase_tiny_agreement(device)
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
+    rms["launches_by_path"] = {"north star": launches["rms_norm"]}
     rms["launches"] = launches["rms_norm"]
     phase_two_stage(pipe, device)
     phase_batched(pipe, device)
@@ -2284,10 +2615,21 @@ def main() -> int:
     north_star = phase_int4_main_path(pipe, noise, steps, bf16_run, device,
                                       w8a8_run)["int4_matmul"]
     dequant["launches"] = phase_big_m(pipe, device)["dequant_int4"]
+    t_phase = time.perf_counter()
+    av_pipe = audio_pipeline(pipe, device)
     del pipe, noise, bf16_run, w8a8_run
+    av_north = phase_av_north_star(av_pipe, device)
+    av_flagship = phase_av_flagship(av_pipe, device)
+    log(f"[av] phase 5c: {time.perf_counter() - t_phase:.2f} s")
+    del av_pipe
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_pass, gemma_decode_launches = phase_files_to_frames(device)
+    gemma_pass, gemma_decode_launches, files_av = phase_files_to_frames(device)
+    av_paths = {"AV north star": av_north, "AV flagship 241f@1024x640": av_flagship,
+                "AV clip from files (8 blocks)": files_av}
+    for entry in (flash, rms):
+        entry["launches_by_path"].update({k: v[entry["name"]] for k, v in av_paths.items()})
+        entry["launches"] = sum(entry["launches_by_path"].values())
     # B4's paths: the int4 north star, the int4 Gemma's text pass and its
     # decode (64 greedy tokens, sequential and with 8 drafts)
     matmul["launches_by_path"] = {"int4 north star": north_star,

@@ -102,7 +102,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ltx_tpu_torch.config import GenerationConfig, TransformerConfig
+from ltx_tpu_torch.config import GenerationConfig, MemoryConfig, TransformerConfig
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
@@ -180,6 +180,23 @@ ATTN_CASES = (
     # projections, scale 72**-0.5), and a ragged one with a key bias
     AttentionCase("siglip_attn", 1, 16, 4096, 4096, 72, scale=72**-0.5, layout="bthd"),
     AttentionCase("ragged_d72_bias", 2, 3, 200, 77, 72, pad=30),
+    # the dual audio-video DiT's head dim 64 (32 audio heads, views of its
+    # projections): audio self-attention at the north star's 26 audio tokens
+    # and the flagship's 251 (241f@1024x640), the audio text cross-attention
+    # with a key bias (one row, and two guidance rows), audio-to-video
+    # (video queries over the audio keys: stage 1's 1536 and 4960 tokens,
+    # stage 2's 19840) and video-to-audio (audio queries over the video keys)
+    AttentionCase("av_audio_self_26", 1, 32, 26, 26, 64, layout="bthd"),
+    AttentionCase("av_audio_self_251", 1, 32, 251, 251, 64, layout="bthd"),
+    AttentionCase("av_audio_cross_26", 1, 32, 26, 1024, 64, pad=300, pad_left=True,
+                  layout="bthd"),
+    AttentionCase("av_audio_cross_two_rows", 2, 32, 26, 1024, 64, pad=(300, 0),
+                  pad_left=True, layout="bthd"),
+    AttentionCase("av_a2v_1536", 1, 32, 1536, 26, 64, layout="bthd"),
+    AttentionCase("av_a2v_4960", 1, 32, 4960, 251, 64, layout="bthd"),
+    AttentionCase("av_a2v_19840", 1, 32, 19840, 251, 64, layout="bthd"),
+    AttentionCase("av_v2a_1536", 1, 32, 26, 1536, 64, layout="bthd"),
+    AttentionCase("av_v2a_19840", 1, 32, 251, 19840, 64, layout="bthd"),
 )
 
 
@@ -240,6 +257,10 @@ FF_IN_SHAPE = DEQUANT_SHAPES[1]
 # the tiny pipeline, device against CPU: frames in [0, 1] from bf16 Gemma,
 # connector and DiT whose sums run in other orders
 TINY_FRAME_ATOL = 2e-2
+# the tiny joint-audio pipeline's waveform in [-1, 1], device against CPU
+# (the CPU parity tests' bound against the reference, tests/
+# test_torch_audio_pipeline.py)
+TINY_AUDIO_ATOL = 5e-2
 
 # the tiny cycle Gemma of the generation checks: its cycle and a prompt that
 # ends on it (tests/test_spec_synthetic.py's)
@@ -598,6 +619,16 @@ RMS_CASES = (
     RmsCase("connector_two_rows_out", 2 * 1024, 3840),
     RmsCase("connector_qk", 1024, 3840, weight="bfloat16"),
     RmsCase("connector_out", 1024, 3840),
+    # the dual DiT's audio stream at 2048 wide (every one of its norms
+    # weighted): the audio tokens' norms at the north star (26) and the
+    # flagship (251), the audio text context's k norm, and the cross-modal
+    # q / k norms over the video tokens (1536 at the north star, 19840 in
+    # the flagship's stage 2)
+    RmsCase("av_audio_26", 26, 2048, weight="bfloat16"),
+    RmsCase("av_audio_251", 251, 2048, weight="bfloat16"),
+    RmsCase("av_audio_text_k", 1024, 2048, weight="bfloat16"),
+    RmsCase("av_cross_video_1536", 1536, 2048, weight="bfloat16"),
+    RmsCase("av_cross_video_19840", 19840, 2048, weight="bfloat16"),
     # ragged rows, narrow and wide rows, f32, a weight in f32 under bf16 x
     RmsCase("one_row_d128", 1, 128),
     RmsCase("five_rows_d128_f32", 5, 128, "float32", "float32"),
@@ -807,8 +838,9 @@ def check_w8a8(case: Int4Case, device) -> dict:
 def _move(pipe: LTXPipeline, device) -> LTXPipeline:
     """Every component of `pipe` onto `device`."""
     for name in ("transformer", "vae_decoder", "gemma", "text_encoder", "vae_encoder",
-                 "upscaler"):
-        getattr(pipe, name).to(device)
+                 "upscaler", "av_transformer", "audio_vae", "vocoder"):
+        if getattr(pipe, name) is not None:
+            getattr(pipe, name).to(device)
     pipe.device = torch.device(device)
     return pipe
 
@@ -857,14 +889,24 @@ def _tiny_counts() -> list:
             normalization.rms_chain_on_cuda]
 
 
-def rms_launches_per_encode(tecfg) -> int:
-    """rms_norm kernel launches of one connector pass (any batch): per block
-    two weightless norms and the q and k norms, and the final norm; none
-    when the connector's width is not a multiple of 128 (they take the
-    chain)."""
+def rms_launches_per_encode(tecfg, audio: bool = False) -> int:
+    """rms_norm kernel launches of one text pass (any batch) through the
+    connector, and with `audio` the audio connector too: per block two
+    weightless norms and the q and k norms, and the final norm; none when
+    the connectors' width is not a multiple of 128 (they take the chain)."""
     if tecfg.inner_dim % rk.LANES:
         return 0
-    return tecfg.connector_layers * 4 + 1
+    return (2 if audio else 1) * (tecfg.connector_layers * 4 + 1)
+
+
+def av_block_norm_widths(tcfg) -> list:
+    """The widths of a dual block's 20 weighted RMSNorms, in its order:
+    norm1, attn1's q and k, the audio's; norm2, attn2's q and k, the
+    audio's; the cross-modal norms of the video and of the audio stream;
+    audio-to-video's and video-to-audio's q and k (both at the audio inner
+    dim); norm3, the audio's."""
+    dv, da = tcfg.inner_dim, tcfg.audio_inner_dim
+    return [dv, dv, dv, da, da, da, dv, dv, dv, da, da, da, dv, da, da, da, da, da, dv, da]
 
 
 def rms_launches_per_dit_call(tcfg) -> int:
@@ -874,14 +916,100 @@ def rms_launches_per_dit_call(tcfg) -> int:
     return 0 if tcfg.inner_dim % rk.LANES else 6 * tcfg.num_layers
 
 
-def rms_inference_counts(tcfg, tecfg, dit_calls: int, text_passes: int) -> list:
+def rms_inference_counts(tcfg, tecfg, dit_calls: int, text_passes: int,
+                         av: bool = False) -> list:
     """[rms_norm kernel launches, chain calls on the card] of an inference
     run (nothing recorded by autograd): every norm of a width that is a
-    multiple of 128 through the kernel, the rest through the chain."""
-    launches = (dit_calls * rms_launches_per_dit_call(tcfg)
-                + text_passes * rms_launches_per_encode(tecfg))
-    calls = dit_calls * 6 * tcfg.num_layers + text_passes * (tecfg.connector_layers * 4 + 1)
+    multiple of 128 through the kernel, the rest through the chain. av: the
+    DiT calls are the dual DiT's and the text passes run both connectors."""
+    if av:
+        widths = av_block_norm_widths(tcfg)
+        per_call = tcfg.num_layers * sum(w % rk.LANES == 0 for w in widths)
+        calls_per_call = tcfg.num_layers * len(widths)
+    else:
+        per_call, calls_per_call = rms_launches_per_dit_call(tcfg), 6 * tcfg.num_layers
+    connectors = 2 if av else 1
+    launches = dit_calls * per_call + text_passes * rms_launches_per_encode(tecfg, av)
+    calls = dit_calls * calls_per_call \
+        + text_passes * connectors * (tecfg.connector_layers * 4 + 1)
     return [launches, calls - launches]
+
+
+def av_flash_counts(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
+    """{head dim: flash_attention launches} of a joint-audio inference run:
+    each dual block's video self and text attentions at the video head dim,
+    its audio self, audio text, audio-to-video and video-to-audio ones at
+    the audio head dim; each connector layer of both connectors a text
+    pass."""
+    out = {}
+    for d, n in ((tcfg.head_dim, 2 * tcfg.num_layers * dit_calls),
+                 (tcfg.audio_head_dim, 4 * tcfg.num_layers * dit_calls),
+                 (tecfg.connector_head_dim, 2 * tecfg.connector_layers * text_passes)):
+        out[d] = out.get(d, 0) + n
+    return out
+
+
+def check_tiny_av_pipeline(device) -> dict:
+    """The tiny joint-audio pipeline on `device` (its kernels; the norms
+    through the rms_norm kernel where the width allows: the video stream's
+    128, not the audio stream's 64 nor the connectors') against the same
+    weights and draws on the CPU: generate_video_with_audio with CFG, then
+    I2V with the conditioned frame re-noised. Raises AssertionError on a
+    disagreement or a wrong launch count; returns the max abs errors on the
+    frames and the waveform and the launches."""
+    results = {}
+    gen = torch.Generator().manual_seed(13)
+    image = torch.rand(1, 3, 1, 64, 64, generator=gen) * 2 - 1
+    cases = {"t2v_cfg": GenerationConfig(width=64, height=64, num_frames=17, num_steps=4,
+                                         seed=3, cfg_scale=2.5),
+             "i2v": GenerationConfig(width=64, height=64, num_frames=9, num_steps=3, seed=4,
+                                     image_cond_noise_scale=0.15)}
+
+    def run(pipe, config, i2v):
+        c = pipe.tcfg.in_channels
+        shape = VideoLatentShape.from_pixels(1, config.num_frames, 64, 64, channels=c)
+        g = torch.Generator().manual_seed(config.seed)
+        kw = dict(initial_noise=torch.randn(shape.shape, generator=g),
+                  audio_noise=torch.randn(pipe.audio_noise_shape(config), generator=g))
+        if i2v:
+            kw["image_latent"] = pipe.encode_image(image)
+            steps = len(pipe._sigmas(config, shape)) - 1
+            kw["cond_noise"] = [torch.randn(kw["image_latent"].shape, generator=g)
+                                for _ in range(steps)]
+        return pipe.generate_video_with_audio("a tiny song", config, **kw)
+
+    memory = MemoryConfig(offload_text_encoder=False)  # both cases on one pipeline
+    cpu = LTXPipeline.random_tiny(device="cpu", seed=2, include_audio=True, memory=memory)
+    dev = _move(LTXPipeline.random_tiny(device="cpu", seed=2, include_audio=True,
+                                        memory=memory), device)
+    for name, config in cases.items():
+        want = run(cpu, config, name == "i2v")
+        before = _tiny_counts()
+        by_dim = dict(fa.flash_attention.launches_by_head_dim)
+        got = run(dev, config, name == "i2v")
+        launches = [a - b for a, b in zip(_tiny_counts(), before)]
+        dims = {d: n - by_dim.get(d, 0)
+                for d, n in fa.flash_attention.launches_by_head_dim.items()
+                if n != by_dim.get(d, 0)}
+        steps = len(got.timings.denoise_steps)
+        want_dims = av_flash_counts(dev.tcfg, dev.tecfg, steps, 1)
+        expected = [sum(want_dims.values()),
+                    *rms_inference_counts(dev.tcfg, dev.tecfg, steps, 1, av=True)]
+        err = float(np.abs(got.frames - want.frames).max())
+        audio_err = float(np.abs(got.audio - want.audio).max())
+        if got.frames.shape != want.frames.shape or got.audio.shape != want.audio.shape                 or not (np.isfinite(got.frames).all() and np.isfinite(got.audio).all()):
+            raise AssertionError(f"tiny AV {name}: frames {got.frames.shape}, audio "
+                                 f"{got.audio.shape}")
+        if not (err <= TINY_FRAME_ATOL and audio_err <= TINY_AUDIO_ATOL):
+            raise AssertionError(f"tiny AV {name}: device and CPU differ by {err} (frames), "
+                                 f"{audio_err} (waveform)")
+        if launches != expected or dims != want_dims:
+            raise AssertionError(f"tiny AV {name}: launches {launches} {dims}, expected "
+                                 f"{expected} {want_dims}")
+        results[name] = {"max_abs_err": err, "audio_max_abs_err": audio_err,
+                         "launches": dict(zip(_TINY_COUNTS, launches)),
+                         "flash_by_head_dim": dims}
+    return results
 
 
 def rms_train_counts(tcfg, forwards: int = 2) -> dict:

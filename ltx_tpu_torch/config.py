@@ -3,8 +3,9 @@
 Port of the parts of ltx_tpu/core/config.py that the generation paths
 read, field for field and with the same defaults (tests/test_torch_static.py
 holds them against the reference's classes): the model variants
-(`LTXModel`), the DiT's `TransformerConfig`,
-the pixel/latent scale factors, `GenerationConfig`, `QuantizationConfig` and
+(`LTXModel`), the DiT's `TransformerConfig`, the audio VAE's and the
+vocoder's configs (ltx_tpu/models/audio_vae.py), the pixel/latent scale
+factors, `GenerationConfig`, `QuantizationConfig` and
 the memory knobs the port honours.
 """
 
@@ -54,7 +55,7 @@ class TransformerConfig:
     timestep_scale_multiplier: float = 1000.0
     norm_eps: float = 1e-6
     ffn_mult: int = 4
-    # audio stream of the dual AV transformer (not ported yet)
+    # audio stream of the dual audio-video transformer
     audio_num_heads: int = 32
     audio_head_dim: int = 64
     audio_in_channels: int = 128
@@ -69,6 +70,14 @@ class TransformerConfig:
     def ffn_dim(self) -> int:
         return self.inner_dim * self.ffn_mult
 
+    @property
+    def audio_inner_dim(self) -> int:
+        return self.audio_num_heads * self.audio_head_dim
+
+    @property
+    def audio_cross_attention_dim(self) -> int:
+        return self.audio_inner_dim
+
     def tiny(self) -> "TransformerConfig":
         """A CPU-test-sized config with the same structure."""
         return dataclasses.replace(
@@ -76,6 +85,45 @@ class TransformerConfig:
             out_channels=16, cross_attention_dim=128, caption_channels=48,
             audio_num_heads=4, audio_head_dim=16, audio_in_channels=16,
             audio_out_channels=16)
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioVAEConfig:
+    """The audio VAE decoder: latent (B, 8, T, 16) -> stereo mel (B, 2,
+    4T - 3, 64)."""
+
+    latent_channels: int = 8
+    output_channels: int = 2
+    base_channels: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4)
+    num_res_blocks: int = 2  # decoder levels use num_res_blocks + 1
+    mel_bins: int = 64
+    mel_latent_bins: int = 16  # latent width; packed dim = 8 * this = 128
+    latent_downsample: int = 4
+
+    def tiny(self) -> "AudioVAEConfig":
+        return dataclasses.replace(self, base_channels=16, num_res_blocks=0,
+                                   mel_bins=8, mel_latent_bins=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class VocoderConfig:
+    """The HiFi-GAN vocoder: stereo mel -> 24 kHz stereo waveform."""
+
+    in_channels: int = 128
+    hidden_channels: int = 1024
+    out_channels: int = 2
+    upsample_factors: Tuple[int, ...] = (6, 5, 2, 2, 2)
+    upsample_kernels: Tuple[int, ...] = (16, 15, 8, 4, 4)
+    resnet_kernels: Tuple[int, ...] = (3, 7, 11)
+    resnet_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5),) * 3
+    leaky_slope: float = 0.1
+    sample_rate: int = 24000
+
+    def tiny(self) -> "VocoderConfig":
+        return dataclasses.replace(
+            self, in_channels=16, hidden_channels=32, upsample_factors=(2, 2),
+            upsample_kernels=(4, 4), resnet_kernels=(3,), resnet_dilations=((1, 3),))
 
 
 # The reference's default negative prompt, verbatim: checkpoint-defined

@@ -6,11 +6,12 @@ build them. The rules:
   * a dict meeting an nn.ModuleList is STACKED (the reference's scanned
     `blocks` / `layers`): leaf i along the leading axis goes to entry i;
     a list meets a ModuleList entry by entry;
-  * "w" -> "weight", "b" -> "bias" on Linear, Conv3d, Conv2d, NormWeight,
-    NormAffine, Embedding;
+  * "w" -> "weight", "b" -> "bias" on Linear, Conv3d, Conv2d, Conv1d,
+    ConvTranspose1d, NormWeight, NormAffine, Embedding;
   * Linear weights transpose (in, out) -> (out, in); Conv3d weights permute
     DHWIO (kt, kh, kw, I, O) -> (O, I, kt, kh, kw), Conv2d weights HWIO ->
-    (O, I, kh, kw); everything else copies;
+    (O, I, kh, kw), Conv1d weights (k, I, O) -> (O, I, k) and
+    ConvTranspose1d weights (k, O, I) -> (I, O, k); everything else copies;
   * a quantized linear leaf ({"w_q4"|"w_q", "scale", "bias", "b"?}, or
     W8A8's {"w8", "sw", "b"?}) meeting a Linear turns it into a
     QuantizedLinear (a W8A8Linear) shaped from the leaf, whose parameters
@@ -37,8 +38,10 @@ import torch
 from torch import nn
 
 from ltx_tpu_torch.models.common import (
+    Conv1d,
     Conv2d,
     Conv3d,
+    ConvTranspose1d,
     Embedding,
     Linear,
     NormAffine,
@@ -48,7 +51,8 @@ from ltx_tpu_torch.models.common import (
     for_leaves,
 )
 
-_RENAMED = (Linear, Conv3d, Conv2d, NormWeight, NormAffine, Embedding)
+_RENAMED = (Linear, Conv3d, Conv2d, Conv1d, ConvTranspose1d, NormWeight, NormAffine,
+            Embedding)
 
 
 def _leaves(tree, module: nn.Module, prefix: str) -> Iterator[Tuple[str, object]]:
@@ -156,6 +160,8 @@ def _to_torch(array, owner: nn.Module, leaf: str) -> Tuple[torch.Tensor, str]:
         host = host.permute(4, 3, 0, 1, 2)
     elif leaf == "weight" and isinstance(owner, Conv2d):
         host = host.permute(3, 2, 0, 1)
+    elif leaf == "weight" and isinstance(owner, (Conv1d, ConvTranspose1d)):
+        host = host.permute(2, 1, 0)
     return host, dtype_name
 
 
@@ -344,13 +350,61 @@ def gemma(tree, cfg, device=None):
 
 
 def text_encoder(tree, cfg, device=None):
-    """text_encoder.init_params tree -> TextEncoder (cfg: a
-    TextEncoderConfig). A tree with the audio connector raises."""
+    """text_encoder.init_params tree, with or without the audio connector ->
+    TextEncoder (cfg: a TextEncoderConfig)."""
     from ltx_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 
     dtype = tree_dtype(tree["feature_extractor"]["aggregate_embed"]["w"])
-    return load_tree(TextEncoder(port_config(cfg, TextEncoderConfig),
-                                 device=device, dtype=dtype), tree)
+    return load_tree(TextEncoder(port_config(cfg, TextEncoderConfig), device=device,
+                                 dtype=dtype,
+                                 include_audio="audio_embeddings_connector" in tree), tree)
+
+
+def av_transformer(tree, cfg, device=None):
+    """dit_av.init_params tree, plain or quantized by
+    quantize_transformer_params -> LTXAVTransformer (cfg: TransformerConfig)."""
+    from ltx_tpu_torch.models.dit_av import LTXAVTransformer
+
+    tree = _to_numpy(tree)
+    model = LTXAVTransformer(cfg, device=device, dtype=tree_dtype(tree["patchify_proj"]["w"]))
+    _swap_quantized(model, tree)
+    return load_tree(model, tree)
+
+
+def av_transformer_tree(model: nn.Module) -> dict:
+    """The JAX package's tree of an LTXAVTransformer, as `transformer_tree`."""
+    return _module_tree(model, "blocks")
+
+
+def av_transformer_from_tree(tree, cfg) -> nn.Module:
+    """A JAX-layout dual DiT tree of torch tensors (a quantized-weight
+    cache) -> LTXAVTransformer, as `transformer_from_tree`."""
+    from ltx_tpu_torch.models.dit_av import LTXAVTransformer
+
+    return _from_tree(LTXAVTransformer(cfg, device="meta",
+                                       dtype=tree["patchify_proj"]["w"].dtype), tree)
+
+
+def audio_vae(tree, cfg, device=None):
+    """audio_vae.init_audio_vae_params / load_audio_vae_params tree ->
+    AudioVAE (cfg: an AudioVAEConfig)."""
+    from ltx_tpu_torch.config import AudioVAEConfig
+    from ltx_tpu_torch.models.audio_vae import AudioVAE
+
+    dtype = tree_dtype(tree["decoder"]["conv_in"]["w"])
+    return load_tree(AudioVAE(port_config(cfg, AudioVAEConfig), device=device,
+                              dtype=dtype), tree)
+
+
+def vocoder(tree, cfg, device=None):
+    """audio_vae.init_vocoder_params / load_vocoder_params tree -> Vocoder
+    (cfg: a VocoderConfig)."""
+    from ltx_tpu_torch.config import VocoderConfig
+    from ltx_tpu_torch.models.audio_vae import Vocoder
+
+    dtype = tree_dtype(tree["conv_in"]["w"])
+    return load_tree(Vocoder(port_config(cfg, VocoderConfig), device=device, dtype=dtype),
+                     tree)
 
 
 def siglip(tree, cfg, device=None):

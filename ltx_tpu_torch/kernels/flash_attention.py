@@ -11,7 +11,7 @@ nvcc for sm_90a on first use and bound with ctypes.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises: there is no fallback.
-Each counts its own launches (`flash_attention.launches`,
+Each counts its own launches (`flash_attention.launches`, by head dim too,
 `flash_attention_stats.launches`, `flash_attention_bwd_dq.launches`,
 `flash_attention_bwd_dkv.launches`).
 """
@@ -214,17 +214,21 @@ def flash_attention(q, k, v, bias=None, scale: Optional[float] = None,
     CPU tensors go to `flash_attention_reference`; CUDA tensors launch the
     kernel (bf16, D in HEAD_DIMS: 72, SigLIP's, runs in 128-wide tiles that
     the loads fill with zeros past column 72), counted in
-    `flash_attention.launches`."""
+    `flash_attention.launches` and, by head dim, in
+    `flash_attention.launches_by_head_dim`."""
     if return_stats:
         return flash_attention_stats(q, k, v, bias, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale)
     out = _launch_forward(q, k, v, bias, scale, stats=False)
     flash_attention.launches += 1
+    d = q.shape[-1]
+    flash_attention.launches_by_head_dim[d] = flash_attention.launches_by_head_dim.get(d, 0) + 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_head_dim = {}
 
 
 def flash_attention_stats(q, k, v, bias=None, scale: Optional[float] = None):

@@ -266,6 +266,37 @@ class NormAffine(nn.Module):
         self.bias.zero_()
 
 
+class Conv1d(nn.Module):
+    """weight (C_out, C_in, k) (the JAX tree is (k, C_in, C_out)), bias
+    (C_out,)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = param(c_out, c_in, k, device=device, dtype=dtype)
+        self.bias = param(c_out, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator):
+        """normal * (c_in * k)**-0.5, zero bias."""
+        _normal_(self.weight, gen, self.weight[0].numel()**-0.5)
+        self.bias.zero_()
+
+
+class ConvTranspose1d(nn.Module):
+    """A transposed 1D convolution: weight (C_in, C_out, k), torch's layout
+    (the JAX tree keeps the forward convolution's (k, C_out, C_in)), bias
+    (C_out,)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = param(c_in, c_out, k, device=device, dtype=dtype)
+        self.bias = param(c_out, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator):
+        """normal * (c_in * k)**-0.5, zero bias."""
+        _normal_(self.weight, gen, (self.weight.shape[0] * self.weight.shape[2])**-0.5)
+        self.bias.zero_()
+
+
 class NormWeight(nn.Module):
     """A norm's weight vector; `init` is its random-init value (1 for the
     DiT and connector QK norms, 0 for Gemma's (1 + w) norms)."""

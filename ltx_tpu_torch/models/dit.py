@@ -49,9 +49,10 @@ class Attention(nn.Module):
         self.q_norm = NormWeight(inner_dim, 1.0, device=device, dtype=dtype)
         self.k_norm = NormWeight(inner_dim, 1.0, device=device, dtype=dtype)
 
-    def forward(self, x, context, bias=None, rope=None):
+    def forward(self, x, context, bias=None, rope=None, k_rope=None):
         """QK RMSNorm on the flat tensor, RoPE on the flat tensor, then the
-        head split and attention."""
+        head split and attention. k_rope: the keys' own (cos, sin) tables
+        (the dual block's cross-modal attentions), else `rope`'s."""
         b, tq, _ = x.shape
         tk = context.shape[1]
         h, d = self.num_heads, self.head_dim
@@ -59,9 +60,8 @@ class Attention(nn.Module):
         k = rms_norm(self.to_k(context), self.k_norm.weight, eps=self.norm_eps)
         v = self.to_v(context)
         if rope is not None:
-            cos, sin = rope
-            q = apply_rope_split(q, cos, sin)
-            k = apply_rope_split(k, cos, sin)
+            q = apply_rope_split(q, *rope)
+            k = apply_rope_split(k, *(k_rope if k_rope is not None else rope))
         # (B, H, T, D) views of the (B, T, H*D) projections: the forward
         # kernel reads them by their strides and writes its output in q's
         # layout, so the transpose back is a view too
@@ -95,13 +95,13 @@ class TwoLinear(nn.Module):
 
 
 class AdaLNSingle(nn.Module):
-    def __init__(self, d, device, dtype):
+    def __init__(self, d, device, dtype, n: int = 6):
         super().__init__()
         self.emb = TwoLinear(256, d, d, device, dtype)
-        self.linear = Linear(d, 6 * d, device=device, dtype=dtype)
+        self.linear = Linear(d, n * d, device=device, dtype=dtype)
 
     def forward(self, t):
-        """Timestep -> (6*D modulation, D embedded timestep): sinusoid(256)
+        """Timestep -> (n*D modulation, D embedded timestep): sinusoid(256)
         -> Linear -> SiLU -> Linear, then SiLU -> Linear."""
         emb = get_timestep_embedding(t, 256)
         emb = self.emb.linear_1(emb.to(self.emb.linear_1.weight.dtype))
@@ -195,13 +195,8 @@ class LTXTransformer(nn.Module):
         return p.linear_2(gelu_tanh(p.linear_1(context)))
 
     def output_head(self, x, embedded_ts):
-        """Final AdaLN LayerNorm and projection."""
-        dtype = x.dtype
-        vals = self.scale_shift_table.float()[None, None] + embedded_ts[:, :, None].float()
-        shift, scale = vals[:, :, 0].to(dtype), vals[:, :, 1].to(dtype)
-        out = layer_norm_no_affine(x, eps=self.cfg.norm_eps)
-        out = out * (1 + scale) + shift
-        return self.proj_out(out)
+        return output_head(x, self.scale_shift_table, embedded_ts, self.proj_out,
+                           self.cfg.norm_eps)
 
     def forward(self, latent, context, timesteps, rope, context_bias=None,
                 remat: bool = False, remat_segments: int = 0,
@@ -251,6 +246,17 @@ class LTXTransformer(nn.Module):
         else:
             x = _run_blocks(blocks, extras, x, *args, remat=remat)
         return self.output_head(x, embedded_ts)
+
+
+def output_head(x, table, embedded_ts, proj_out, eps: float):
+    """Final AdaLN: affine-free LayerNorm modulated by the (2, D) table plus
+    the embedded timestep, then the projection."""
+    dtype = x.dtype
+    vals = table.float()[None, None] + embedded_ts[:, :, None].float()
+    shift, scale = vals[:, :, 0].to(dtype), vals[:, :, 1].to(dtype)
+    out = layer_norm_no_affine(x, eps=eps)
+    out = out * (1 + scale) + shift
+    return proj_out(out)
 
 
 def _remat(fn, *args, remat: bool = False):

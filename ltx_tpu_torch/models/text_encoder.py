@@ -1,9 +1,10 @@
-"""LTX text encoding: Gemma feature extractor and the 1D embeddings connector.
+"""LTX text encoding: Gemma feature extractor and the 1D embeddings connectors.
 
-Port of ltx_tpu/models/text_encoder.py (video connector only). 49 Gemma
-states -> masked norm & concat (f32) -> Linear 188160 -> 3840 (f32) -> a
-2-layer 1D transformer with learnable registers in place of pad tokens ->
-weightless RMSNorm.
+Port of ltx_tpu/models/text_encoder.py. 49 Gemma states -> masked norm &
+concat (f32) -> Linear 188160 -> 3840 (f32) -> a 2-layer 1D transformer with
+learnable registers in place of pad tokens -> weightless RMSNorm. The video
+connector always; with `include_audio` a second connector of the same shape
+gives the audio stream's context from the same features.
 """
 
 from __future__ import annotations
@@ -187,19 +188,31 @@ class FeatureExtractor(nn.Module):
 
 
 class TextEncoder(nn.Module):
-    """Parameter names follow ltx_tpu.models.text_encoder.init_params
-    (without the audio connector)."""
+    """Parameter names follow ltx_tpu.models.text_encoder.init_params, the
+    audio connector with include_audio."""
 
-    def __init__(self, cfg: TextEncoderConfig, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg: TextEncoderConfig, device=None, dtype=torch.bfloat16,
+                 include_audio: bool = False):
         super().__init__()
         self.cfg = cfg
         self.feature_extractor = FeatureExtractor(cfg, device, dtype)
         self.embeddings_connector = Connector(cfg, device, dtype)
+        self.audio_embeddings_connector = (Connector(cfg, device, dtype) if include_audio
+                                           else None)
+
+    @property
+    def has_audio(self) -> bool:
+        return self.audio_embeddings_connector is not None
 
     def encode_from_hidden_states(self, hidden_states, attention_mask):
         """49 Gemma states (L, B, T, D) + mask (B, T) -> {"video": (B, T,
-        3840), "mask": (B, T)}."""
+        3840), "mask": (B, T)}, and "audio": (B, T, 3840) with the audio
+        connector."""
         encoded = self.feature_extractor(hidden_states, attention_mask)
         video, out_mask = self.embeddings_connector(encoded, attention_mask)
         video = video * out_mask[:, :, None].to(video.dtype)
-        return {"video": video, "mask": out_mask}
+        result = {"video": video, "mask": out_mask}
+        if self.has_audio:
+            audio, audio_mask = self.audio_embeddings_connector(encoded, attention_mask)
+            result["audio"] = audio * audio_mask[:, :, None].to(audio.dtype)
+        return result

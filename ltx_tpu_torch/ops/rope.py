@@ -41,6 +41,20 @@ def create_position_grid(frames: int, height: int, width: int,
     ).astype(np.float32)
 
 
+def create_audio_position_grid(audio_frames: int, hop_length: int = 160,
+                               sample_rate: int = 16000, temporal_scale: int = 4,
+                               causal_offset: int = 1) -> np.ndarray:
+    """1D temporal positions of the audio tokens, (1, T) float32: the middle,
+    in seconds, of each latent frame's mel span."""
+    i = np.arange(audio_frames, dtype=np.float32)
+    scale = np.float32(temporal_scale)
+    off = np.float32(causal_offset)
+    start_mel = np.maximum(i * scale + off - scale, 0)
+    end_mel = np.maximum((i + 1) * scale + off - scale, 0)
+    mid_s = (start_mel + end_mel) / 2.0 * np.float32(hop_length) / np.float32(sample_rate)
+    return mid_s[None, :].astype(np.float32)
+
+
 def _freq_indices_f64(dim: int, n_pos_dims: int, theta: float) -> np.ndarray:
     """theta^t_k * pi/2 with t_k evenly spaced over [0, 1], float64."""
     num_indices = max(1, dim // (2 * n_pos_dims))

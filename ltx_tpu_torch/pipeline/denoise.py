@@ -2,9 +2,11 @@
 guidance combine -> Euler, per sigma.
 
 Port of ltx_tpu/pipeline/denoise.py: `GuidanceSpec`, `build_guidance_context`
-and its batched form, `make_denoise_step` (all but the pipeline-parallel
-branch, ROADMAP A18) and `run_denoise_loop` (all but the DenoiseCheckpoint
-resume, ROADMAP A16). The step runs eagerly; the reference compiles it once.
+and its batched form, `make_denoise_step` and the dual audio-video
+`make_av_denoise_step` (all but their pipeline-parallel branch, ROADMAP
+A18), `run_denoise_loop` (all but the DenoiseCheckpoint resume, ROADMAP A16)
+and `run_av_denoise_loop`. The steps run eagerly; the reference compiles
+each once.
 
 Row layout (CFG order, uncond first):
   G=1: [cond]
@@ -15,7 +17,8 @@ With one prompt the G rows tile the latent; with B prompts the rows are
 B-major, sample i's rows at i*G .. i*G+G-1.
 
 The re-noise of conditioned frames draws nothing itself: the step takes the
-draw as a tensor, one per step, where the reference splits a key.
+draw as a tensor, one per step, where the reference splits a key (and the
+audio step's audio draw, where the reference folds 1 into that key).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ltx_tpu_torch.config import GenerationConfig
 from ltx_tpu_torch.models.dit import LTXTransformer, stg_skip_masks
+from ltx_tpu_torch.models.dit_av import LTXAVTransformer, prepare_av_ropes
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from ltx_tpu_torch.ops.latents import (
     VideoLatentShape,
@@ -111,6 +115,50 @@ def build_guidance_context_batched(guidance: GuidanceSpec, pos_embeddings, pos_m
     return context, prepare_additive_mask(mask)
 
 
+def _video_conditioning(shape: VideoLatentShape, device, conditioning_mask,
+                        conditioned_latent, image_cond_noise_scale: float, cond_frame_idx):
+    """(cond_mask (1, T) f32 or None, the clean latent to re-noise from or
+    None, the keyframe indices and their (1, 1, F, 1, 1) mask or Nones), on
+    `device`, checked as the reference checks them."""
+    cond_mask = None
+    if conditioning_mask is not None:
+        cond_mask = torch.as_tensor(conditioning_mask, dtype=torch.float32).to(device)
+    cond_lat = None
+    if cond_mask is not None and image_cond_noise_scale > 0:
+        if conditioned_latent is None:
+            raise ValueError("image_cond_noise_scale > 0 requires conditioned_latent "
+                             "(the clean injection source)")
+        cond_lat = conditioned_latent.to(device, torch.float32)
+
+    fidx = fmask = None
+    if cond_frame_idx is not None:
+        if cond_mask is None:
+            raise ValueError("cond_frame_idx requires conditioning_mask")
+        idx = np.asarray(cond_frame_idx, np.int64).reshape(-1)
+        if idx.size == 0 or (np.diff(idx) <= 0).any():
+            raise ValueError("cond_frame_idx must be non-empty, strictly increasing")
+        if idx[0] < 0 or idx[-1] >= shape.frames:
+            raise ValueError(f"cond_frame_idx {idx.tolist()} out of range "
+                             f"[0, {shape.frames})")
+        fidx = torch.from_numpy(idx).to(device)
+        fmask = torch.zeros(1, 1, shape.frames, 1, 1, dtype=torch.bool, device=device)
+        fmask[:, :, fidx] = True
+        if cond_lat is not None and cond_lat.shape[2] != idx.size:
+            raise ValueError(f"conditioned_latent has {cond_lat.shape[2]} frames, "
+                             f"cond_frame_idx names {idx.size}")
+    return cond_mask, cond_lat, fidx, fmask
+
+
+def _check_draw(noise, like, what: str):
+    """The step's draw for a re-noise of `like`'s shape, as f32 on its device."""
+    if noise is None:
+        raise ValueError(f"the {what} re-noise needs its draw: pass noise of shape "
+                         f"{tuple(like.shape)}")
+    if tuple(noise.shape) != tuple(like.shape):
+        raise ValueError(f"{what} re-noise draw {tuple(noise.shape)} != {tuple(like.shape)}")
+    return noise.to(like.device, torch.float32)
+
+
 def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
                       shape: VideoLatentShape, context, context_bias,
                       conditioning_mask=None, conditioned_latent=None,
@@ -147,32 +195,9 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
             tcfg, b * g, guidance.stg_blocks,
             perturbed_rows=[i * g + g - 1 for i in range(b)], device=device)
 
-    cond_mask = None
-    if conditioning_mask is not None:
-        cond_mask = torch.as_tensor(conditioning_mask, dtype=torch.float32).to(device)
-    cond_lat = None
-    if cond_mask is not None and image_cond_noise_scale > 0:
-        if conditioned_latent is None:
-            raise ValueError("image_cond_noise_scale > 0 requires conditioned_latent "
-                             "(the clean injection source)")
-        cond_lat = conditioned_latent.to(device, torch.float32)
-
-    fidx = fmask = None
-    if cond_frame_idx is not None:
-        if cond_mask is None:
-            raise ValueError("cond_frame_idx requires conditioning_mask")
-        idx = np.asarray(cond_frame_idx, np.int64).reshape(-1)
-        if idx.size == 0 or (np.diff(idx) <= 0).any():
-            raise ValueError("cond_frame_idx must be non-empty, strictly increasing")
-        if idx[0] < 0 or idx[-1] >= shape.frames:
-            raise ValueError(f"cond_frame_idx {idx.tolist()} out of range "
-                             f"[0, {shape.frames})")
-        fidx = torch.from_numpy(idx).to(device)
-        fmask = torch.zeros(1, 1, shape.frames, 1, 1, dtype=torch.bool, device=device)
-        fmask[:, :, fidx] = True
-        if cond_lat is not None and cond_lat.shape[2] != idx.size:
-            raise ValueError(f"conditioned_latent has {cond_lat.shape[2]} frames, "
-                             f"cond_frame_idx names {idx.size}")
+    cond_mask, cond_lat, fidx, fmask = _video_conditioning(
+        shape, device, conditioning_mask, conditioned_latent, image_cond_noise_scale,
+        cond_frame_idx)
 
     cas = (guidance.cross_attention_scale
            if guidance.cross_attention_scale != 1.0 else None)
@@ -180,15 +205,9 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
     def step(latent, sigma: float, sigma_next: float, prev_velocity=None,
              has_prev: bool = False, noise=None):
         if cond_lat is not None:
-            if noise is None:
-                raise ValueError("the conditioned frames' re-noise needs its draw: "
-                                 "pass noise of conditioned_latent's shape")
-            if tuple(noise.shape) != tuple(cond_lat.shape):
-                raise ValueError(f"re-noise draw {tuple(noise.shape)} != "
-                                 f"{tuple(cond_lat.shape)}")
             sigma_f32 = torch.tensor(sigma, dtype=torch.float32, device=device)
-            noised = cond_lat + image_cond_noise_scale * noise.to(
-                device, torch.float32) * sigma_f32**2
+            noised = cond_lat + image_cond_noise_scale * _check_draw(
+                noise, cond_lat, "conditioned frames'") * sigma_f32**2
             latent = latent.clone()
             if fidx is not None:
                 latent[:, :, fidx] = noised
@@ -251,6 +270,161 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
 
     step.needs_noise = cond_lat is not None
     return step
+
+
+def make_av_denoise_step(transformer: LTXAVTransformer, guidance: GuidanceSpec,
+                         shape: VideoLatentShape, audio_frames: int, video_context,
+                         audio_context, context_bias, conditioning_mask=None,
+                         conditioned_latent=None, image_cond_noise_scale: float = 0.0,
+                         cond_frames: int = 1, cond_frame_idx=None,
+                         audio_cond_frames: int = 0, audio_conditioned_latent=None,
+                         fps: float = 24.0, video_euler: str = "scheduler", pp_mesh=None):
+    """The dual video + audio step, guidance rows batched:
+
+        step(video_latent, audio_packed, sigma, sigma_next, noise=None,
+             audio_noise=None) -> (new video latent, new audio packed)
+
+    both f32: video (1, C, F, H, W), audio (1, T_a, C_a) packed. The
+    streams' contexts are (G, S, D) from build_guidance_context, one key
+    bias (G, 1, 1, S) for both. Guidance rescale applies to the video only,
+    as in the reference; STG is not defined on this path and raises.
+
+    Video conditioning as make_denoise_step's (conditioning_mask,
+    conditioned_latent, cond_frames or cond_frame_idx, re-noised from the
+    clean latent with the step's `noise` when image_cond_noise_scale > 0).
+    audio_cond_frames > 0 holds the first K audio latent frames likewise:
+    timestep 0 on them, re-noised from audio_conditioned_latent (1, K, C_a)
+    with the step's `audio_noise`, carried through the audio Euler.
+
+    video_euler: "scheduler" (f32 Euler with the bf16 round trip) or
+    "plain" (x += (sigma_next - sigma) * v, the reference's video step in
+    stage 2 of the two-stage audio path). The audio step is always plain.
+    pp_mesh (the reference's pipeline-parallel blocks) is ROADMAP A18."""
+    if pp_mesh is not None:
+        raise NotImplementedError("pipeline-parallel denoise is not ported (ROADMAP A18)")
+    if guidance.use_stg:
+        raise ValueError("STG is not supported on the audio+video path")
+    if video_euler not in ("scheduler", "plain"):
+        raise ValueError(f"video_euler {video_euler!r}: 'scheduler' or 'plain'")
+    tcfg = transformer.cfg
+    g = guidance.num_rows
+    device = video_context.device
+    ropes = prepare_av_ropes(tcfg, shape.frames, shape.height, shape.width, audio_frames,
+                             fps=fps, device=device)
+
+    cond_mask, cond_lat, fidx, fmask = _video_conditioning(
+        shape, device, conditioning_mask, conditioned_latent, image_cond_noise_scale,
+        cond_frame_idx)
+
+    a_k = int(audio_cond_frames)
+    a_cond_mask = a_cond_lat = None
+    if a_k > 0:
+        if not a_k < audio_frames:
+            raise ValueError(f"audio_cond_frames {a_k} must be < audio_frames {audio_frames}")
+        a_cond_mask = torch.zeros(1, audio_frames, dtype=torch.float32, device=device)
+        a_cond_mask[:, :a_k] = 1.0
+        if image_cond_noise_scale > 0:
+            if audio_conditioned_latent is None:
+                raise ValueError("audio_cond_frames with injection requires "
+                                 "audio_conditioned_latent (the clean source)")
+            a_cond_lat = audio_conditioned_latent.to(device, torch.float32)
+            if a_cond_lat.shape[1] != a_k:
+                raise ValueError(f"audio_conditioned_latent has {a_cond_lat.shape[1]} "
+                                 f"frames, audio_cond_frames is {a_k}")
+
+    def vstep(lat, vel, sigma: float, sigma_next: float, dt):
+        if video_euler == "plain":
+            return (lat.float() + dt * vel).to(lat.dtype)
+        return euler_step(lat, vel, sigma, sigma_next)
+
+    def step(video_latent, audio_packed, sigma: float, sigma_next: float, noise=None,
+             audio_noise=None):
+        sigma_t = torch.tensor(sigma, dtype=torch.float32, device=device)
+        # the f32 difference of the f32 sigmas, as the reference's
+        dt = torch.tensor(sigma_next, dtype=torch.float32, device=device) - sigma_t
+        if cond_lat is not None:
+            noised = cond_lat + image_cond_noise_scale * _check_draw(
+                noise, cond_lat, "conditioned frames'") * sigma_t**2
+            video_latent = video_latent.clone()
+            if fidx is not None:
+                video_latent[:, :, fidx] = noised.to(video_latent.dtype)
+            else:
+                video_latent[:, :, :cond_frames] = noised.to(video_latent.dtype)
+        if a_cond_lat is not None:
+            a_noised = a_cond_lat + image_cond_noise_scale * _check_draw(
+                audio_noise, a_cond_lat, "conditioned audio frames'") * sigma_t**2
+            audio_packed = audio_packed.clone()
+            audio_packed[:, :a_k] = a_noised.to(audio_packed.dtype)
+
+        v_tokens = patchify(video_latent).to(torch.bfloat16).repeat(g, 1, 1)
+        a_tokens = audio_packed.to(torch.bfloat16).repeat(g, 1, 1)
+        if cond_mask is not None:
+            ts_v = (sigma_t * (1 - cond_mask)).repeat(g, 1)
+        else:
+            ts_v = torch.full((g,), sigma, dtype=torch.float32, device=device)
+        if a_cond_mask is not None:
+            ts_a = (sigma_t * (1 - a_cond_mask)).repeat(g, 1)
+        else:
+            ts_a = torch.full((g,), sigma, dtype=torch.float32, device=device)
+
+        v_vel_tok, a_vel_tok = transformer(v_tokens, a_tokens, video_context, audio_context,
+                                           ts_v, ts_a, ropes, video_bias=context_bias,
+                                           audio_bias=context_bias)
+        v_rows = unpatchify(v_vel_tok, dataclasses.replace(shape, batch=g)).float()
+        a_rows = a_vel_tok.float()
+        if guidance.use_cfg:
+            v_vel = apply_cfg(v_rows[0:1], v_rows[1:2], guidance.cfg_scale)
+            a_vel = apply_cfg(a_rows[0:1], a_rows[1:2], guidance.cfg_scale)
+            if guidance.guidance_rescale > 0:  # video only
+                v_vel = apply_guidance_rescale(v_vel, v_rows[1:2], guidance.guidance_rescale)
+        else:
+            v_vel, a_vel = v_rows[0:1], a_rows[0:1]
+
+        if fidx is not None:
+            new_video = torch.where(fmask, video_latent,
+                                    vstep(video_latent, v_vel, sigma, sigma_next, dt))
+        elif cond_mask is not None:
+            stepped = vstep(video_latent[:, :, cond_frames:], v_vel[:, :, cond_frames:],
+                            sigma, sigma_next, dt)
+            new_video = torch.cat([video_latent[:, :, :cond_frames], stepped], dim=2)
+        else:
+            new_video = vstep(video_latent, v_vel, sigma, sigma_next, dt)
+
+        new_audio = audio_packed.float() + dt * a_vel
+        if a_cond_mask is not None:
+            new_audio = torch.cat([audio_packed[:, :a_k].float(), new_audio[:, a_k:]], dim=1)
+        return new_video, new_audio
+
+    step.needs_noise = cond_lat is not None
+    step.needs_audio_noise = a_cond_lat is not None
+    return step
+
+
+def run_av_denoise_loop(step_fn, video_latent, audio_packed, sigmas, cond_noise=None,
+                        audio_cond_noise=None, on_step=None):
+    """Drive the dual step over the host sigma schedule. cond_noise /
+    audio_cond_noise: one draw per step (a sequence of len(sigmas) - 1
+    tensors) when the step re-noises conditioned video / audio frames.
+    on_step(i, n, sigma) runs after each step, once the device has finished
+    it. Returns (video latent, audio packed)."""
+    num_steps = len(sigmas) - 1
+    for needs, draws, what in ((getattr(step_fn, "needs_noise", False), cond_noise,
+                                "cond_noise"),
+                               (getattr(step_fn, "needs_audio_noise", False),
+                                audio_cond_noise, "audio_cond_noise")):
+        if needs and (draws is None or len(draws) != num_steps):
+            raise ValueError(f"the conditioned frames' re-noise needs {num_steps} draws "
+                             f"({what}), one per step")
+    for i in range(num_steps):
+        video_latent, audio_packed = step_fn(
+            video_latent, audio_packed, float(sigmas[i]), float(sigmas[i + 1]),
+            None if cond_noise is None else cond_noise[i],
+            None if audio_cond_noise is None else audio_cond_noise[i])
+        if on_step is not None:
+            if video_latent.is_cuda:
+                torch.cuda.synchronize(video_latent.device)
+            on_step(i, num_steps, float(sigmas[i]))
+    return video_latent, audio_packed
 
 
 def run_denoise_loop(step_fn, latent, sigmas, cond_noise=None, on_step=None):

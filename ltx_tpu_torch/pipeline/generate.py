@@ -1,10 +1,14 @@
-"""Generation: prompt (and an optional conditioning image) -> frames.
+"""Generation: prompt (and an optional conditioning image) -> frames, and
+with the audio components a stereo waveform.
 
 Port of ltx_tpu/pipeline/generate.py::LTXPipeline for text-to-video and
 image-to-video, single-stage (`generate_video`), batched over prompts
 (`generate_videos`) and two-stage (`generate_video_two_stage`: a guided
 half-resolution denoise, a 2x latent upscale with AdaIN, a 3-step refine),
-with `encode_prompt(s)` and `encode_image`. Phases: [prompt enhancement:
+with `encode_prompt(s)` and `encode_image`; and jointly with audio through
+the dual audio-video DiT, single-stage (`generate_video_with_audio`) and
+two-stage (`generate_video_with_audio_two_stage`), the latent audio decoded
+by the audio VAE and the vocoder. Phases: [prompt enhancement:
 Gemma-3 samples the enhanced prompt, an I2V one seeing the image through
 the SigLIP tower] -> tokenize -> Gemma-3 -> feature extractor and connector
 -> [VAE encoder] -> the DiT denoise loop [-> upscaler -> the DiT again] ->
@@ -14,16 +18,16 @@ lives on the host between phases and comes to the device only for its own
 phase, as the reference stages them; otherwise all sit on the device, and
 `memory.offload_text_encoder` drops Gemma and the connector after encoding.
 
-Random draws are explicit tensors: the initial latent noise of each stage,
-one re-noise draw per denoise step for conditioned frames (when
-`image_cond_noise_scale` > 0) and, for decoders with timestep conditioning,
-one decode-noise tensor per decode tile. The reference derives them from
+Random draws are explicit tensors: the initial latent noise of each stage
+(and the audio latent's), one re-noise draw per denoise step for conditioned
+frames (when `image_cond_noise_scale` > 0) and, for decoders with timestep
+conditioning, one decode-noise tensor per decode tile. The reference derives them from
 `config.seed`; a torch generator cannot give jax.random's numbers.
 
 The reference's warm-compile machinery (`_WarmCompiles`, `_warm_*`) overlaps
 XLA compiles with earlier phases; eager PyTorch compiles nothing, so it has
-no counterpart here. The extension, keyframe, video-to-video, chain and
-audio entry points are ROADMAP A14 and A15.
+no counterpart here. The extension, keyframe, video-to-video and chain
+entry points, and the audio path's clip extension, are ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -38,12 +42,16 @@ import torch
 
 from ltx_tpu_torch.config import (
     DEFAULT_NEGATIVE_PROMPT,
+    AudioVAEConfig,
+    VocoderConfig,
     GenerationConfig,
     MemoryConfig,
     QuantizationConfig,
     TransformerConfig,
 )
-from ltx_tpu_torch.errors import ModelNotLoadedError
+from ltx_tpu_torch.errors import ModelNotLoadedError, TextEncodingFailedError
+from ltx_tpu_torch.models import dit_av
+from ltx_tpu_torch.models.audio_vae import AudioVAE, Vocoder, decode_audio
 from ltx_tpu_torch.models.common import init_random_
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
 from ltx_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
@@ -62,7 +70,9 @@ from ltx_tpu_torch.pipeline.denoise import (
     GuidanceSpec,
     build_guidance_context,
     build_guidance_context_batched,
+    make_av_denoise_step,
     make_denoise_step,
+    run_av_denoise_loop,
     run_denoise_loop,
 )
 
@@ -86,6 +96,7 @@ class GenerationTimings:
     denoise_steps: list = dataclasses.field(default_factory=list)  # every stage's
     upscale: float = 0.0
     vae_decode: float = 0.0
+    audio_decode: float = 0.0  # the audio VAE and the vocoder
     total: float = 0.0
 
 
@@ -94,6 +105,7 @@ class VideoGenerationResult:
     frames: np.ndarray  # (F, H, W, 3) float32 in [0, 1]
     timings: GenerationTimings
     seed: int = 0  # config.seed (the draws themselves are arguments)
+    audio: Optional[np.ndarray] = None  # (2, samples) float32 in [-1, 1], the audio paths
 
 
 def _sync(device: torch.device) -> None:
@@ -120,15 +132,26 @@ def tiny_upscaler_config(tcfg: TransformerConfig) -> UpscalerConfig:
 
 
 class LTXPipeline:
-    """Holds the modules and their configs; drives the phases."""
+    """Holds the modules and their configs; drives the phases. The audio
+    paths take the dual DiT (`av_transformer`, at the video DiT's config),
+    the audio VAE and the vocoder, and a text encoder with the audio
+    connector; a pipeline built for them alone may have no video DiT."""
 
-    def __init__(self, transformer: LTXTransformer, vae_decoder: VideoDecoder,
+    def __init__(self, transformer: Optional[LTXTransformer], vae_decoder: VideoDecoder,
                  gemma: Optional[Gemma3Model] = None,
                  text_encoder: Optional[TextEncoder] = None, tokenizer=None,
                  memory: MemoryConfig = MemoryConfig(), is_distilled: bool = True,
                  device=None, vae_encoder: Optional[VideoEncoder] = None,
-                 upscaler: Optional[LatentUpscaler] = None, vision=None, vision_config=None):
+                 upscaler: Optional[LatentUpscaler] = None, vision=None, vision_config=None,
+                 av_transformer: Optional[dit_av.LTXAVTransformer] = None,
+                 audio_vae: Optional[AudioVAE] = None, vocoder: Optional[Vocoder] = None):
+        dit = transformer if transformer is not None else av_transformer
+        if dit is None:
+            raise ModelNotLoadedError("transformer")
         self.transformer = transformer
+        self.av_transformer = av_transformer
+        self.audio_vae = audio_vae
+        self.vocoder = vocoder
         self.vae_decoder = vae_decoder
         self.gemma = gemma
         self.text_encoder = text_encoder
@@ -140,9 +163,11 @@ class LTXPipeline:
         self.memory = memory
         self.is_distilled = is_distilled
         self.device = torch.device(device if device is not None
-                                   else transformer.proj_out.weight.device)
-        self.tcfg = transformer.cfg
+                                   else dit.proj_out.weight.device)
+        self.tcfg = dit.cfg
         self.vcfg = vae_decoder.cfg
+        self.audio_vae_config = audio_vae.cfg if audio_vae is not None else None
+        self.vocoder_config = vocoder.cfg if vocoder is not None else None
         self.gcfg = gemma.cfg if gemma is not None else None
         self.tecfg = text_encoder.cfg if text_encoder is not None else None
         self._host_store = {}  # name -> host tensors of a staged component
@@ -153,21 +178,26 @@ class LTXPipeline:
                dtype=torch.bfloat16, vae_dtype=torch.bfloat16,
                memory: MemoryConfig = MemoryConfig(),
                quantization: QuantizationConfig = QuantizationConfig(),
-               ucfg: Optional[UpscalerConfig] = None):
+               ucfg: Optional[UpscalerConfig] = None,
+               acfg: Optional[AudioVAEConfig] = None,
+               voccfg: Optional[VocoderConfig] = None):
         """Random weights at the given configs, drawn on `device` from one
         seeded torch.Generator per component with the reference's init
-        scales. With `quantization.mode` "int4", "qint8" or "w8a8" the DiT's
+        scales. With `quantization.mode` "int4", "qint8" or "w8a8" the DiTs'
         block linears are then quantized there, layer by layer; Gemma, the
-        connector, the VAE and the upscaler stay unquantized. The VAE
-        encoder takes the decoder's dtype, the upscaler (built when `ucfg`
-        is given) float32. With phase staging each component then moves to
-        the host."""
+        connectors, the VAEs, the vocoder and the upscaler stay unquantized.
+        The VAE encoder takes the decoder's dtype, the upscaler (built when
+        `ucfg` is given) float32. With `acfg` and `voccfg` the audio
+        components come too: the dual DiT (the DiT's dtype), the text
+        encoder's audio connector, the audio VAE and the vocoder (float32).
+        With phase staging each component then moves to the host."""
         device = torch.device(device)
+        audio = acfg is not None and voccfg is not None
 
         def build(i, make):
             gen = torch.Generator(device=device).manual_seed(seed * 16 + i)
             module = init_random_(make(), gen)
-            if i == 0 and quantization.bits is not None:
+            if i in (0, 6) and quantization.bits is not None:
                 quantize_transformer(module, quantization.bits, quantization.group_size,
                                      w8a8=quantization.mode == "w8a8")
             return module.to("cpu") if memory.phase_staging else module
@@ -176,36 +206,49 @@ class LTXPipeline:
             transformer=build(0, lambda: LTXTransformer(tcfg, device, dtype)),
             vae_decoder=build(1, lambda: VideoDecoder(vcfg, device, vae_dtype)),
             gemma=build(2, lambda: Gemma3Model(gcfg, device, dtype)),
-            text_encoder=build(3, lambda: TextEncoder(tecfg, device, dtype)),
+            text_encoder=build(3, lambda: TextEncoder(tecfg, device, dtype,
+                                                      include_audio=audio)),
             vae_encoder=build(4, lambda: VideoEncoder(vcfg, device, vae_dtype)),
             upscaler=None if ucfg is None else build(
                 5, lambda: LatentUpscaler(ucfg, device, torch.float32)),
+            av_transformer=build(6, lambda: dit_av.LTXAVTransformer(tcfg, device, dtype))
+            if audio else None,
+            audio_vae=build(7, lambda: AudioVAE(acfg, device)) if audio else None,
+            vocoder=build(8, lambda: Vocoder(voccfg, device)) if audio else None,
             memory=memory, device=device)
 
     @classmethod
     def random_full(cls, device="cuda", seed: int = 0,
                     memory: MemoryConfig = MemoryConfig(phase_staging=True),
-                    quantization: QuantizationConfig = QuantizationConfig()):
+                    quantization: QuantizationConfig = QuantizationConfig(),
+                    include_audio: bool = False):
         """Full widths and depths: Gemma-3-12B, the 30x128 connector, the
         48-block DiT (bf16, or quantized per `quantization`), the
         1024-channel VAE decoder and the 128..2048-channel encoder; bf16
-        otherwise, and the 1024-channel latent upscaler in float32."""
+        otherwise, and the 1024-channel latent upscaler in float32. With
+        include_audio also the 48-block dual DiT, the audio connector, the
+        audio VAE and the vocoder."""
+        audio = dict(acfg=AudioVAEConfig(), voccfg=VocoderConfig()) if include_audio else {}
         return cls.random(TransformerConfig(), VAEConfig(), Gemma3Config(),
                           TextEncoderConfig(), device, seed=seed, memory=memory,
-                          quantization=quantization, ucfg=UpscalerConfig())
+                          quantization=quantization, ucfg=UpscalerConfig(), **audio)
 
     @classmethod
     def random_tiny(cls, device="cuda", seed: int = 0,
                     memory: MemoryConfig = MemoryConfig(),
-                    quantization: QuantizationConfig = QuantizationConfig()):
-        """The reference's tiny test configs; f32 VAE like its tiny pipeline.
-        Torch draws differ from jax.random's: parity tests convert the
-        reference's parameters instead (convert.py)."""
+                    quantization: QuantizationConfig = QuantizationConfig(),
+                    include_audio: bool = False):
+        """The reference's tiny test configs; f32 VAE like its tiny pipeline,
+        and with include_audio its tiny audio VAE and vocoder. Torch draws
+        differ from jax.random's: parity tests convert the reference's
+        parameters instead (convert.py)."""
         cfgs = tiny_configs()
+        audio = (dict(acfg=AudioVAEConfig().tiny(), voccfg=VocoderConfig().tiny())
+                 if include_audio else {})
         return cls.random(*cfgs, device, seed=seed,
                           vae_dtype=torch.float32, memory=memory,
                           quantization=quantization,
-                          ucfg=tiny_upscaler_config(cfgs[0]))
+                          ucfg=tiny_upscaler_config(cfgs[0]), **audio)
 
     # ------------------------------------------------------------------
     # Phase staging
@@ -259,8 +302,9 @@ class LTXPipeline:
                 torch.from_numpy(mask).to(self.device))
 
     def encode_prompt(self, prompt: str, timings: Optional[GenerationTimings] = None):
-        """prompt -> {"video": (1, S, D), "mask": (1, S)}: the Gemma tower,
-        then the connector, each staged on the device for its own phase."""
+        """prompt -> {"video": (1, S, D), "mask": (1, S)} (and "audio": (1,
+        S, D) with the audio connector): the Gemma tower, then the
+        connector(s), each staged on the device for its own phase."""
         return self.encode_prompts([prompt], timings=timings)[0]
 
     @torch.inference_mode()
@@ -273,8 +317,8 @@ class LTXPipeline:
         the padded rows are dropped. stage=None follows memory.phase_staging:
         when staged, each chunk's hidden states wait on the host while the
         tower leaves and the connector arrives, so the two never share the
-        device. Returns one {"video": (1, S, D), "mask": (1, S)} per prompt,
-        on the pipeline's device."""
+        device. Returns one {"video": (1, S, D), "mask": (1, S)} per prompt
+        (and "audio" with the audio connector), on the pipeline's device."""
         timings = timings if timings is not None else GenerationTimings()
         prompts = list(prompts)
         if not prompts:
@@ -312,7 +356,7 @@ class LTXPipeline:
             out = text_encoder.encode_from_hidden_states(hidden[ci].to(self.device), msk)
             hidden[ci] = None
             for r in range(n):
-                results.append({"video": out["video"][r:r + 1], "mask": out["mask"][r:r + 1]})
+                results.append({k: v[r:r + 1] for k, v in out.items()})
         _sync(self.device)
         timings.connector += time.perf_counter() - t0
         self._release("text_encoder")
@@ -371,11 +415,12 @@ class LTXPipeline:
         return self.encode_image(load_image(image_path, width, height), timings)
 
     @staticmethod
-    def _conditioning_mask(shape: VideoLatentShape) -> np.ndarray:
-        """(1, T) mask, 1 on the tokens of the conditioned first latent frame
-        (patchify is row-major (F, H, W): frame 0's tokens come first)."""
+    def _conditioning_mask(shape: VideoLatentShape, frames: int = 1) -> np.ndarray:
+        """(1, T) mask, 1 on the tokens of the first `frames` conditioned
+        latent frames (patchify is row-major (F, H, W): frame f's tokens are
+        the block [f*h*w, (f+1)*h*w))."""
         cm = np.zeros((1, shape.token_count), np.float32)
-        cm[:, :shape.height * shape.width] = 1.0
+        cm[:, :frames * shape.height * shape.width] = 1.0
         return cm
 
     # ------------------------------------------------------------------
@@ -719,3 +764,247 @@ class LTXPipeline:
         timings.total = time.perf_counter() - total_start
         return VideoGenerationResult(frames=frames, timings=timings,
                                      seed=self._seed(config))
+
+    # ------------------------------------------------------------------
+    # Joint audio
+    # ------------------------------------------------------------------
+
+    def _require_audio(self, upscaler: bool = False) -> None:
+        for name, module in (("av_transformer", self.av_transformer),
+                             ("audio_vae", self.audio_vae), ("vocoder", self.vocoder)):
+            if module is None:
+                raise ModelNotLoadedError(name)
+        if upscaler and self.upscaler is None:
+            raise ModelNotLoadedError("upscaler")
+
+    def audio_frames(self, config: GenerationConfig) -> int:
+        """Audio latent frames of a clip: its seconds (num_frames / fps) at 25
+        latent frames a second."""
+        return dit_av.audio_frame_count(config.num_frames / config.fps)
+
+    def audio_noise_shape(self, config: GenerationConfig) -> tuple:
+        """The raw audio draw's shape, (1, 8, audio frames, mel latent bins)."""
+        return (1, 8, self.audio_frames(config), self.tcfg.audio_in_channels // 8)
+
+    def _encode_text_with_audio(self, prompt: str, config: GenerationConfig,
+                                guidance: GuidanceSpec, timings: GenerationTimings):
+        """The video and audio contexts of the guidance rows, and their one
+        key bias."""
+        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        if "audio" not in pos:
+            raise TextEncodingFailedError("text encoder lacks the audio connector")
+        v_ctx, bias = build_guidance_context(
+            guidance, pos["video"], pos["mask"],
+            neg["video"] if neg else None, neg["mask"] if neg else None)
+        a_ctx, _ = build_guidance_context(
+            guidance, pos["audio"], pos["mask"],
+            neg["audio"] if neg else None, neg["mask"] if neg else None)
+        return v_ctx, a_ctx, bias
+
+    def _audio_latent(self, audio_noise, config: GenerationConfig, what: str):
+        shape = self.audio_noise_shape(config)
+        if tuple(audio_noise.shape) != shape:
+            raise ValueError(f"{what} {tuple(audio_noise.shape)} != {shape}")
+        return dit_av.pack_audio_latents(audio_noise.to(self.device, torch.float32))
+
+    def _av_denoise(self, video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx,
+                    bias, conditioning_mask, conditioned_latent, config, cond_noise,
+                    timings, on_progress, video_euler: str = "scheduler"):
+        """One dual denoise loop on the AV DiT, which stays on the device."""
+        step_fn = make_av_denoise_step(
+            self._on_device("av_transformer", timings), guidance, shape,
+            self.audio_frames(config), v_ctx, a_ctx, bias,
+            conditioning_mask=conditioning_mask, conditioned_latent=conditioned_latent,
+            image_cond_noise_scale=config.image_cond_noise_scale, fps=config.fps,
+            video_euler=video_euler)
+
+        def on_step(i, n, sigma):
+            now = time.perf_counter()
+            timings.denoise_steps.append(now - on_step.t0)
+            on_step.t0 = now
+            if on_progress:
+                on_progress(i, n, sigma)
+
+        on_step.t0 = time.perf_counter()
+        return run_av_denoise_loop(step_fn, video_latent, audio_packed, sigmas,
+                                   cond_noise=cond_noise, on_step=on_step)
+
+    def _decode_av(self, video_latent, audio_packed, decode_noise, audio_gain: float,
+                   timings: GenerationTimings):
+        """Frames (the dual DiT leaves the device first under phase staging)
+        and the waveform (2, samples) on the host, gain applied and clipped
+        to [-1, 1]."""
+        self._release("av_transformer")
+        frames = self._decode_frames(video_latent, decode_noise, timings)
+        vae = self._on_device("audio_vae", timings)
+        vocoder = self._on_device("vocoder", timings)
+        t0 = time.perf_counter()
+        latents = dit_av.unpack_audio_latents(audio_packed, channels=8,
+                                              mel=self.tcfg.audio_in_channels // 8)
+        waveform = decode_audio(vae, vocoder, latents.to(vae.latents_mean.dtype))
+        if audio_gain != 1.0:
+            waveform = torch.clamp(waveform * audio_gain, -1.0, 1.0)
+        waveform = waveform[0].float().cpu().numpy()
+        timings.audio_decode += time.perf_counter() - t0
+        self._release("audio_vae")
+        self._release("vocoder")
+        return frames, waveform
+
+    @torch.inference_mode()
+    def generate_video_with_audio(self, prompt: str, config: GenerationConfig,
+                                  initial_noise, audio_noise, decode_noise=None,
+                                  image_latent=None, cond_noise=None,
+                                  audio_gain: float = 1.0, video_path: Optional[str] = None,
+                                  video_frames=None, cond_frames: int = 9,
+                                  on_progress=None) -> VideoGenerationResult:
+        """Joint video + audio through the dual DiT: the audio lasts as long
+        as the clip (num_frames / fps), round(seconds * 25) latent frames.
+        T2V, or I2V when `image_latent` (see `encode_image`) or
+        `config.image_path` is given; CFG with the negative prompt on both
+        streams (STG is not defined on this path and is dropped).
+
+        initial_noise: the video latent's shape, as `generate_video`'s;
+        audio_noise: `audio_noise_shape(config)` standard normal, the raw
+        (1, 8, T, mel) audio latent before packing; cond_noise and
+        decode_noise as `generate_video`'s. audio_gain scales the waveform,
+        clipped to [-1, 1]. video_path / video_frames (extending a clip with
+        a soundtrack) need the video encoder, ROADMAP A15. Returns frames
+        (F, H, W, 3) in [0, 1] and audio (2, samples) in [-1, 1] on the
+        host."""
+        config.validate()
+        if video_path is not None or video_frames is not None:
+            raise NotImplementedError("extending a clip with audio (video_path / "
+                                      "video_frames) needs encode_video (ROADMAP A15)")
+        self._require_audio()
+        total_start = time.perf_counter()
+        timings = GenerationTimings()
+        guidance = dataclasses.replace(GuidanceSpec.from_config(config), stg_scale=0.0)
+
+        is_i2v = image_latent is not None or config.image_path is not None
+        if image_latent is None and config.image_path is not None:
+            image_latent = self._encode_image_at(config.image_path, config.width,
+                                                 config.height, timings)
+        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
+        v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance, timings)
+
+        shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
+                                             config.width, channels=self.tcfg.in_channels)
+        sigmas = self._sigmas(config, shape)
+        video_latent = self._initial_latent(initial_noise, shape, "initial_noise") \
+            * float(sigmas[0])
+        audio_packed = self._audio_latent(audio_noise, config, "audio_noise") \
+            * float(sigmas[0])
+        conditioning_mask = None
+        if image_latent is not None:
+            image_latent = image_latent.to(self.device, torch.float32)
+            video_latent[:, :, :1] = image_latent
+            conditioning_mask = self._conditioning_mask(shape)
+
+        video_latent, audio_packed = self._av_denoise(
+            video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx, bias,
+            conditioning_mask, image_latent, config, cond_noise, timings, on_progress)
+        frames, audio = self._decode_av(video_latent, audio_packed, decode_noise, audio_gain,
+                                        timings)
+        timings.total = time.perf_counter() - total_start
+        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+                                     seed=self._seed(config), audio=audio)
+
+    @torch.inference_mode()
+    def generate_video_with_audio_two_stage(
+            self, prompt: str, config: GenerationConfig, stage1_noise, stage1_audio_noise,
+            stage2_noise, stage2_audio_noise, decode_noise=None, image_latent=None,
+            full_res_image_latent=None, stage1_cond_noise=None, stage2_cond_noise=None,
+            audio_gain: float = 1.0, on_progress=None) -> VideoGenerationResult:
+        """Two-stage joint video + audio: a half-resolution dual denoise on
+        the distilled schedule -> the video latent upscaled 2x with AdaIN
+        toward stage 1 (the audio is not upscaled) -> both re-noised -> a
+        3-step full-resolution dual refine whose video steps are plain Euler
+        -> decode both. No CFG or STG on either stage (one row a step).
+
+        I2V: with config.image_path the image is encoded at half resolution
+        for stage 1 and again at full resolution for stage 2; image_latent
+        and full_res_image_latent are hooks that take the place of those
+        encodes. stage1_noise / stage2_noise: the video latent's shape at
+        half / full resolution; stage1_audio_noise: `audio_noise_shape`,
+        the raw audio draw; stage2_audio_noise: the packed audio's shape
+        (1, T, C_a), mixed as s * noise + (1 - s) * audio with s =
+        STAGE_2_SIGMAS[0], as the video; stage{1,2}_cond_noise: per-step
+        re-noise draws of each stage's image latent, when
+        config.image_cond_noise_scale > 0."""
+        config.validate()
+        self._require_audio(upscaler=True)
+        total_start = time.perf_counter()
+        timings = GenerationTimings()
+        guidance = dataclasses.replace(GuidanceSpec.from_config(config, use_cfg=False),
+                                       stg_scale=0.0)
+
+        is_i2v = (config.image_path is not None or image_latent is not None
+                  or full_res_image_latent is not None)
+        if image_latent is None and config.image_path is not None:
+            image_latent = self._encode_image_at(
+                config.image_path, config.width // 2, config.height // 2, timings)
+        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
+        v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance, timings)
+
+        # === stage 1: half resolution, always the distilled schedule ===
+        channels = self.tcfg.in_channels
+        s1_shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height // 2,
+                                                config.width // 2, channels=channels)
+        s1_sigmas = schedule.get_sigmas(config.num_steps, distilled=True,
+                                        token_count=s1_shape.token_count)
+        video_latent = self._initial_latent(stage1_noise, s1_shape, "stage1_noise") \
+            * float(s1_sigmas[0])
+        audio_packed = self._audio_latent(stage1_audio_noise, config, "stage1_audio_noise") \
+            * float(s1_sigmas[0])
+        s1_cond_mask = None
+        if image_latent is not None:
+            image_latent = image_latent.to(self.device, torch.float32)
+            video_latent[:, :, :1] = image_latent
+            s1_cond_mask = self._conditioning_mask(s1_shape)
+        video_latent, audio_packed = self._av_denoise(
+            video_latent, audio_packed, s1_sigmas, s1_shape, guidance, v_ctx, a_ctx, bias,
+            s1_cond_mask, image_latent, config, stage1_cond_noise, timings, on_progress)
+        stage1_output = video_latent
+
+        # === the video upscaled 2x, AdaIN toward stage 1; the audio as it is ===
+        upscaler = self._on_device("upscaler", timings)
+        t0 = time.perf_counter()
+        mean = self.vae_decoder.mean_of_means.to(self.device)
+        std = self.vae_decoder.std_of_means.to(self.device)
+        video_latent = adain_filter_latent(
+            upsample_latents(upscaler, video_latent, mean, std), stage1_output)
+        _sync(self.device)
+        timings.upscale += time.perf_counter() - t0
+        self._release("upscaler")
+
+        # === stage 2: re-noise both, 3 full-resolution steps ===
+        s2_shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
+                                                config.width, channels=channels)
+        s2_sigmas = schedule.STAGE_2_SIGMAS
+        noise_scale = float(s2_sigmas[0])
+        video_latent = (noise_scale * self._initial_latent(stage2_noise, s2_shape,
+                                                           "stage2_noise")
+                        + (1.0 - noise_scale) * video_latent)
+        if tuple(stage2_audio_noise.shape) != tuple(audio_packed.shape):
+            raise ValueError(f"stage2_audio_noise {tuple(stage2_audio_noise.shape)} != "
+                             f"{tuple(audio_packed.shape)}")
+        audio_packed = (noise_scale * stage2_audio_noise.to(self.device, torch.float32)
+                        + (1.0 - noise_scale) * audio_packed.float())
+        if full_res_image_latent is None and config.image_path is not None:
+            full_res_image_latent = self._encode_image_at(
+                config.image_path, config.width, config.height, timings)
+        s2_cond_mask = None
+        if full_res_image_latent is not None:
+            full_res_image_latent = full_res_image_latent.to(self.device, torch.float32)
+            video_latent[:, :, :1] = full_res_image_latent
+            s2_cond_mask = self._conditioning_mask(s2_shape)
+        video_latent, audio_packed = self._av_denoise(
+            video_latent, audio_packed, s2_sigmas, s2_shape, guidance, v_ctx, a_ctx, bias,
+            s2_cond_mask, full_res_image_latent, config, stage2_cond_noise, timings,
+            on_progress, video_euler="plain")
+
+        frames, audio = self._decode_av(video_latent, audio_packed, decode_noise, audio_gain,
+                                        timings)
+        timings.total = time.perf_counter() - total_start
+        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+                                     seed=self._seed(config), audio=audio)

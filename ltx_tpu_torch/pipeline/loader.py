@@ -20,8 +20,12 @@ phase staging keeps components on the host, where then only the prepared
 the reference does (`gemma-{mode}` entries).
 
 The vision tower (I2V prompt enhancement) lives where Gemma lives, its MLX
-4-bit linears dequantized on `device`. Not ported: the audio components
-(`include_audio`, ROADMAP A14).
+4-bit linears dequantized on `device`. With `include_audio` the audio
+components come too, as the reference loads them: the text encoder's audio
+connector from the unified file, the audio VAE and the vocoder from their
+files, and the dual audio-video DiT assembled from the unified file again
+(no LoRA fused into it), quantized block by block on `device` in the DiT's
+mode and cached as `av-{mode}`.
 """
 
 from __future__ import annotations
@@ -39,8 +43,11 @@ import torch
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.config import LTXModel, MemoryConfig, QuantizationConfig, TransformerConfig
 from ltx_tpu_torch.errors import FileNotFoundLTXError
+from ltx_tpu_torch.config import AudioVAEConfig, VocoderConfig
+from ltx_tpu_torch.models import audio_vae as audio_mod
 from ltx_tpu_torch.models import vae
 from ltx_tpu_torch.models.common import assign_
+from ltx_tpu_torch.models.dit_av import LTXAVTransformer
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_linears
 from ltx_tpu_torch.models.gemma3 import Gemma3Config, Gemma3Model
 from ltx_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
@@ -127,11 +134,11 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.no_grad()
-def _fuse_and_quantize(model: LTXTransformer, lora_layers, lora_scale: float,
+def _fuse_and_quantize(model, lora_layers, lora_scale: float,
                        quantization: QuantizationConfig, device, timings: LoadTimings):
-    """The DiT's LoRA fusion, then its quantization, each block in turn on
+    """A DiT's LoRA fusion, then its quantization, each block in turn on
     `device` and back to the host; the top-level linears fuse on `device`
-    too (they are not quantized)."""
+    too (they are not quantized). The dual DiT comes with no LoRA."""
     from ltx_tpu_torch.lora.fuse import _BLOCK_KEY, fuse_lora
 
     per_block = {}
@@ -181,6 +188,52 @@ def _load_vision(tensors, vision_config, device, home, timings: LoadTimings):
     return vision, cfg
 
 
+def _load_audio(paths, unified_path, tcfg: TransformerConfig,
+                quantization: QuantizationConfig, quant_cache: bool, audio_vae_config,
+                vocoder_config, device, timings: LoadTimings) -> dict:
+    """The audio VAE, the vocoder and the dual DiT (from the qcache's
+    `av-{mode}` entry when a quantized one is there), on the host."""
+    t0 = time.perf_counter()
+    vae_state = audio_mod.load_audio_vae_params(load_safetensors(paths["audio_vae"]))
+    voc_state = audio_mod.load_vocoder_params(load_safetensors(paths["vocoder"]))
+    timings.read += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    audio_vae = assign_(audio_mod.AudioVAE(audio_vae_config or AudioVAEConfig(), "meta"),
+                        vae_state)
+    vocoder = assign_(audio_mod.Vocoder(vocoder_config or VocoderConfig(), "meta"), voc_state)
+    timings.build += time.perf_counter() - t0
+
+    av = None
+    sig = None
+    if quantization.bits is not None:
+        sig = _quant_signature("av", quantization, tcfg.num_layers)
+        if quant_cache:
+            t0 = time.perf_counter()
+            tree = qcache.load_quantized_tree(unified_path, f"av-{quantization.mode}", sig)
+            if tree is not None:
+                av = convert.av_transformer_from_tree(
+                    _cached_leaves(tree, device, torch.device("cpu")), tcfg)
+            timings.cache += time.perf_counter() - t0
+    if av is None:
+        t0 = time.perf_counter()
+        state = keymaps.load_av_transformer_params(load_safetensors(unified_path),
+                                                   tcfg.num_layers)
+        timings.key_map += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        av = assign_(LTXAVTransformer(tcfg, "meta", state["patchify_proj.weight"].dtype),
+                     state)
+        timings.build += time.perf_counter() - t0
+        del state
+        if quantization.bits is not None:
+            _fuse_and_quantize(av, [], 1.0, quantization, device, timings)
+            if quant_cache:
+                t0 = time.perf_counter()
+                qcache.save_quantized_tree(convert.av_transformer_tree(av), unified_path,
+                                           f"av-{quantization.mode}", sig)
+                timings.cache += time.perf_counter() - t0
+    return dict(av_transformer=av, audio_vae=audio_vae, vocoder=vocoder)
+
+
 def load_pipeline(
     model: LTXModel = LTXModel.DISTILLED,
     models_dir: Optional[str] = None,
@@ -201,6 +254,8 @@ def load_pipeline(
     vae_config=None,
     text_encoder_config=None,
     vision_config=None,
+    audio_vae_config: Optional[AudioVAEConfig] = None,
+    vocoder_config: Optional[VocoderConfig] = None,
     device="cuda",
     timings: Optional[LoadTimings] = None,
 ) -> LTXPipeline:
@@ -208,20 +263,19 @@ def load_pipeline(
     (the reference's layout, `weights.download.download_all_components`).
 
     The reference's arguments, in its order and with its defaults;
-    `hf_token` is accepted and unused (nothing is downloaded);
-    `include_audio` is not ported (A14). quant_cache=True keeps a quantized
-    DiT next to the unified file, and a quantized Gemma (gemma_quant other
+    `hf_token` is accepted and unused (nothing is downloaded).
+    include_audio=True adds the audio components (the dual DiT, the audio
+    connector, the audio VAE and the vocoder). quant_cache=True keeps a
+    quantized DiT (and dual DiT) next to the unified file, and a quantized Gemma (gemma_quant other
     than "bf16") inside its snapshot, the first time (weights/qcache.py, in
     the JAX package's format) and maps them back on later loads; the
     staleness key is the source's size and mtime and the quantization (and
     LoRA) signature. `device` is where the pipeline runs and where the
     heavy load-time work runs (default: the card). The *_config overrides
     exist for checkpoints cut to size (tests, the smoke run; the vision
-    tower's is the reference's SigLIPConfig() otherwise). `timings`,
+    tower's is the reference's SigLIPConfig() otherwise, the audio VAE's and
+    the vocoder's their AudioVAEConfig() and VocoderConfig()). `timings`,
     when given, receives the seconds of each part."""
-    if include_audio:
-        raise NotImplementedError("include_audio: the audio components are not ported "
-                                  "yet (ROADMAP A14)")
     t_start = time.perf_counter()
     timings = timings if timings is not None else LoadTimings()
     device = torch.device(device)
@@ -235,7 +289,7 @@ def load_pipeline(
     gemma_dir = gemma_path or paths["gemma"]
     log.info("Loading unified weights: %s", unified_path)
     tensors = load_safetensors(unified_path)
-    tr_raw, vae_raw, conn_raw = keymaps.split_unified(tensors)
+    tr_raw, vae_raw, conn_raw = keymaps.split_unified(tensors, include_audio=include_audio)
     del tensors
     # the standalone files stand in when the unified split lacks a component
     if not any("conv_in" in k for k in vae_raw) and paths.get("vae"):
@@ -321,7 +375,8 @@ def load_pipeline(
         vae.VideoEncoder(vcfg, "meta", enc_state["conv_in.weight"].dtype), enc_state)
     tecfg = text_encoder_config or TextEncoderConfig()
     text_encoder = assign_(TextEncoder(
-        tecfg, "meta", te_state["feature_extractor.aggregate_embed.weight"].dtype), te_state)
+        tecfg, "meta", te_state["feature_extractor.aggregate_embed.weight"].dtype,
+        include_audio="audio_embeddings_connector.learnable_registers" in te_state), te_state)
     timings.build += time.perf_counter() - t0
     del dec_state, enc_state, te_state
 
@@ -385,10 +440,14 @@ def load_pipeline(
         upscaler = assign_(upscaler_mod.LatentUpscaler(ucfg, "meta", torch.float32), u_state)
         timings.build += time.perf_counter() - t0
 
+    audio = {}
+    if include_audio:
+        audio = _load_audio(paths, unified_path, tcfg, quantization, quant_cache,
+                            audio_vae_config, vocoder_config, device, timings)
     pipe = LTXPipeline(transformer=transformer, vae_decoder=decoder, gemma=gemma,
                        text_encoder=text_encoder, tokenizer=tokenizer, memory=memory,
                        is_distilled=model.is_distilled or distilled_lora, device=device,
                        vae_encoder=encoder, upscaler=upscaler, vision=vision,
-                       vision_config=vision_config)
+                       vision_config=vision_config, **audio)
     timings.total = time.perf_counter() - t_start
     return pipe

@@ -1,7 +1,6 @@
 """Checkpoint key maps: safetensors tensors -> the port's parameter names.
 
-Port of ltx_tpu/weights/keymaps.py for the video model: the same key
-tables, the same order of consumption and the same errors (KeyError for a
+Port of ltx_tpu/weights/keymaps.py: the same key tables, the same order of consumption and the same errors (KeyError for a
 missing or unconsumed block key, WeightLoadingFailedError for an unconsumed
 top-level key under strict=True). Where the reference assembles a JAX tree
 (every layer stacked on a leading axis, linear weights transposed to
@@ -20,10 +19,8 @@ the device the caller names and left there: an MLX 4-bit linear repacks
 losslessly to int4 ("int4"), requantizes per output channel to int8
 ("w8a8") or dequantizes in float32 (q * scale + bias, one rounding to
 bfloat16; "bf16"); `embed_int8` gives an int8 token table with per-row
-scales.
-
-Not ported here: the dual audio-video DiT and the audio connector (ROADMAP
-A14).
+scales. The audio VAE's and the vocoder's files keep their own names and
+layouts (models/audio_vae.py reads them).
 """
 
 from __future__ import annotations
@@ -60,7 +57,7 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Video DiT
+# Video DiT and the dual audio-video DiT
 # ---------------------------------------------------------------------------
 
 
@@ -107,12 +104,8 @@ def _linear(d: Tensors, prefix: str, out: Tensors, name: str) -> None:
         out[f"{name}.bias"] = _bf16(d.pop(f"{prefix}.bias"))
 
 
-def assemble_transformer_params(raw: Tensors, num_layers: int,
-                                include_audio: bool = False,
-                                strict: bool = True) -> Tensors:
-    """Canonical-keyed tensors -> the LTXTransformer state dict."""
-    if include_audio:
-        raise NotImplementedError("the dual audio-video DiT is not ported yet (ROADMAP A14)")
+def _split_blocks(raw: Tensors, num_layers: int):
+    """(per-block canonical tensors, top-level tensors)."""
     per_layer: list = [dict() for _ in range(num_layers)]
     top: Tensors = {}
     for key, value in raw.items():
@@ -124,7 +117,16 @@ def assemble_transformer_params(raw: Tensors, num_layers: int,
             per_layer[idx][m.group(2)] = value
         else:
             top[key] = value
+    return per_layer, top
 
+
+def assemble_transformer_params(raw: Tensors, num_layers: int,
+                                include_audio: bool = False,
+                                strict: bool = True) -> Tensors:
+    """Canonical-keyed tensors -> the LTXTransformer state dict
+    (include_audio is the reference's argument and changes nothing here:
+    the dual DiT has `assemble_av_transformer_params`)."""
+    per_layer, top = _split_blocks(raw, num_layers)
     out: Tensors = {}
     for i, d in enumerate(per_layer):
         p = f"blocks.{i}"
@@ -148,7 +150,7 @@ def assemble_transformer_params(raw: Tensors, num_layers: int,
     return out
 
 
-def _transformer_raw(tensors: Tensors) -> Tensors:
+def _transformer_raw(tensors: Tensors, include_audio: bool = False) -> Tensors:
     diffusion = "model.diffusion_model."
     raw: Tensors = {}
     for key, value in tensors.items():
@@ -159,7 +161,7 @@ def _transformer_raw(tensors: Tensors) -> Tensors:
                          "text_embedding_projection.", "vae.", "vocoder")) \
                 or "per_channel_statistics" in k:
             continue
-        mapped = map_transformer_key(k)
+        mapped = map_transformer_key(k, include_audio)
         if mapped is not None:
             raw[mapped] = value
     return raw
@@ -171,6 +173,83 @@ def load_transformer_params(tensors: Tensors, num_layers: int,
     """Unified-file or pre-stripped tensors -> the LTXTransformer state dict."""
     return assemble_transformer_params(_transformer_raw(tensors), num_layers, include_audio,
                                        strict)
+
+
+def assemble_av_transformer_params(raw: Tensors, num_layers: int,
+                                   strict: bool = True) -> Tensors:
+    """Canonical-keyed tensors -> the LTXAVTransformer state dict. The audio
+    stream's top-level modules may carry either spelling the reference
+    accepts (audio_proj_in | audio_patchify_proj, audio_time_embed |
+    audio_adaln_single)."""
+    per_layer, top = _split_blocks(raw, num_layers)
+    out: Tensors = {}
+
+    def lin(d: Tensors, prefix: str, name: str, alt: Optional[str] = None) -> None:
+        pre = prefix if f"{prefix}.weight" in d else alt
+        if pre is None or f"{pre}.weight" not in d:
+            raise KeyError(f"missing linear {prefix} (alt {alt})")
+        _linear(d, pre, out, name)
+
+    def attn(d: Tensors, prefix: str, name: str) -> None:
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            lin(d, f"{prefix}.{proj}", f"{name}.{proj}")
+        for nrm in ("q_norm", "k_norm"):
+            out[f"{name}.{nrm}.weight"] = _bf16(d.pop(f"{prefix}.{nrm}.weight"))
+
+    def norm(d: Tensors, prefix: str, name: str) -> None:
+        out[f"{name}.weight"] = _bf16(d.pop(f"{prefix}.weight"))
+
+    def ff(d: Tensors, prefix: str, name: str) -> None:
+        lin(d, f"{prefix}.project_in.proj", f"{name}.project_in")
+        lin(d, f"{prefix}.project_out", f"{name}.project_out")
+
+    for i, d in enumerate(per_layer):
+        p = f"blocks.{i}"
+        for stream in ("", "audio_"):
+            for n in ("1", "2", "3"):
+                norm(d, f"{stream}norm{n}", f"{p}.{stream}norm{n}")
+            attn(d, f"{stream}attn1", f"{p}.{stream}attn1")
+            attn(d, f"{stream}attn2", f"{p}.{stream}attn2")
+            ff(d, f"{stream}ff", f"{p}.{stream}ff")
+            out[f"{p}.{stream}scale_shift_table"] = _f32(d.pop(f"{stream}scale_shift_table"))
+        for cross in ("audio_to_video", "video_to_audio"):
+            norm(d, f"{cross}_norm", f"{p}.{cross}_norm")
+            attn(d, f"{cross}_attn", f"{p}.{cross}_attn")
+        for side in ("video", "audio"):
+            key = f"scale_shift_table_a2v_ca_{side}"
+            out[f"{p}.{key}"] = _f32(d.pop(key))
+        if d:
+            raise KeyError(f"unconsumed AV block-{i} keys: {sorted(d)[:5]}")
+
+    def adaln(prefix: str, alt: Optional[str] = None) -> None:
+        pre = prefix if f"{prefix}.emb.linear_1.weight" in top else (alt or prefix)
+        for sub in ("emb.linear_1", "emb.linear_2", "linear"):
+            lin(top, f"{pre}.{sub}", f"{prefix}.{sub}")
+
+    lin(top, "patchify_proj", "patchify_proj")
+    adaln("adaln_single")
+    lin(top, "caption_projection.linear_1", "caption_projection.linear_1")
+    lin(top, "caption_projection.linear_2", "caption_projection.linear_2")
+    lin(top, "proj_out", "proj_out")
+    out["scale_shift_table"] = _f32(top.pop("scale_shift_table"))
+    lin(top, "audio_patchify_proj", "audio_patchify_proj", alt="audio_proj_in")
+    adaln("audio_adaln_single", alt="audio_time_embed")
+    lin(top, "audio_caption_projection.linear_1", "audio_caption_projection.linear_1")
+    lin(top, "audio_caption_projection.linear_2", "audio_caption_projection.linear_2")
+    lin(top, "audio_proj_out", "audio_proj_out")
+    out["audio_scale_shift_table"] = _f32(top.pop("audio_scale_shift_table"))
+    for name in ("av_ca_video_scale_shift_adaln_single", "av_ca_a2v_gate_adaln_single",
+                 "av_ca_audio_scale_shift_adaln_single", "av_ca_v2a_gate_adaln_single"):
+        adaln(name)
+    _check_consumed(top, "top-level AV transformer", strict)
+    return out
+
+
+def load_av_transformer_params(tensors: Tensors, num_layers: int,
+                               strict: bool = True) -> Tensors:
+    """Unified-file tensors -> the LTXAVTransformer state dict."""
+    return assemble_av_transformer_params(_transformer_raw(tensors, include_audio=True),
+                                          num_layers, strict)
 
 
 def transformer_config_from_state_dict(sd: Tensors,
@@ -375,8 +454,9 @@ def _assemble_connector(raw: Tensors, prefix: str, out: Tensors) -> bool:
 
 
 def load_text_encoder_params(tensors: Tensors, strict: bool = True) -> Tensors:
-    """-> the TextEncoder state dict (feature extractor and video connector).
-    An audio connector raises NotImplementedError (ROADMAP A14)."""
+    """-> the TextEncoder state dict: the feature extractor, the video
+    connector and, when the tensors have it, the audio connector
+    (`TextEncoder(include_audio=...)`)."""
     raw: Tensors = {}
     for key, value in tensors.items():
         mapped = map_text_encoder_key(key)
@@ -386,8 +466,7 @@ def load_text_encoder_params(tensors: Tensors, strict: bool = True) -> Tensors:
            _bf16(raw.pop("feature_extractor.aggregate_embed.weight"))}
     if not _assemble_connector(raw, "embeddings_connector", out):
         raise WeightLoadingFailedError("missing video connector weights")
-    if "audio_embeddings_connector.learnable_registers" in raw:
-        raise NotImplementedError("the audio connector is not ported yet (ROADMAP A14)")
+    _assemble_connector(raw, "audio_embeddings_connector", out)
     _check_consumed(raw, "text encoder", strict)
     return out
 

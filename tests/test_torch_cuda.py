@@ -290,6 +290,13 @@ def test_tiny_two_stage_cuda_matches_cpu(device):
     assert res["launches"]["rms_chain_on_cuda"] == tecfg.connector_layers * 4 + 1
 
 
+def test_tiny_av_pipeline_cuda_matches_cpu(device):
+    """The tiny joint-audio pipeline (CFG, then I2V re-noised) on the card
+    against the CPU: frames and waveform, and the launches by head dim."""
+    res = checks.check_tiny_av_pipeline(device)
+    assert set(res) == {"t2v_cfg", "i2v"}
+
+
 def test_mlx_dequant_on_the_card_is_bit_for_bit(device):
     """keymaps' MLX 4-bit dequantization run on the card equals numpy's
     (checks.mlx_dequant_bits), bit for bit."""

@@ -59,7 +59,11 @@ def test_configs_match_reference(name):
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     if name == "TransformerConfig":
         assert dataclasses.asdict(port.tiny()) == dataclasses.asdict(ref.tiny())
-        assert (port.inner_dim, port.ffn_dim) == (ref.inner_dim, ref.ffn_dim)
+        for cfg_port, cfg_ref in ((port, ref), (port.tiny(), ref.tiny())):
+            assert (cfg_port.inner_dim, cfg_port.ffn_dim, cfg_port.audio_inner_dim,
+                    cfg_port.audio_cross_attention_dim) == (
+                cfg_ref.inner_dim, cfg_ref.ffn_dim, cfg_ref.audio_inner_dim,
+                cfg_ref.audio_cross_attention_dim)
     if name == "QuantizationConfig":
         modes = ("bf16", "qint8", "int4", "w8a8")
         assert [config.QuantizationConfig(mode=m).bits for m in modes] == [
@@ -108,6 +112,18 @@ def test_upscaler_and_vae_configs_match_reference():
     for port, ref in ((UpscalerConfig(), jup.UpscalerConfig()), (VAEConfig(), jvae.VAEConfig())):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert dataclasses.asdict(port.tiny()) == dataclasses.asdict(ref.tiny())
+
+
+@pytest.mark.parametrize("name", ["AudioVAEConfig", "VocoderConfig"])
+def test_audio_configs_match_reference(name):
+    """The audio VAE's and the vocoder's configs, field for field, default
+    and tiny, with the same field order."""
+    from ltx_tpu.models import audio_vae as jaudio
+
+    port, ref = getattr(config, name)(), getattr(jaudio, name)()
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(port.tiny()) == dataclasses.asdict(ref.tiny())
 
 
 def test_every_kernel_source_is_registered_and_counted():

@@ -89,11 +89,11 @@ def _check(got, want, what, guided=False):
         assert mean <= GUIDED_MEAN_ATOL
 
 
-def _check_golden(name, got, want, guided=False):
+def _check_golden(name, got, guided=False):
+    """The port against the stored golden at the port's tolerance; the
+    reference against its golden at 2e-4 is tests/test_goldens.py's check."""
     with np.load(GOLDENS / f"{name}.npz") as z:
         first, stats = z["first_frame"], z["stats"]
-    # the rebuilt reference reproduces the golden
-    np.testing.assert_allclose(want[0], first, atol=2e-4, rtol=2e-4)
     got_stats = np.array([got.mean(), got.std(), got.min(), got.max()], np.float32)
     e_first, e_stats = float(np.abs(got[0] - first).max()), float(np.abs(got_stats - stats).max())
     tol = GUIDED_ATOL if guided else FRAME_ATOL
@@ -207,7 +207,7 @@ def test_generate_video_guided_matches_live_reference(pipes, name):
     _check(result.frames, want, f"generate_video {name}", guided=True)
     assert result.seed == config.seed
     if name == "golden_cfg_stg":
-        _check_golden("tiny_t2v_guided", result.frames, want, guided=True)
+        _check_golden("tiny_t2v_guided", result.frames, guided=True)
 
 
 def test_generate_video_i2v_matches_live_reference(pipes, image_latents):
@@ -304,7 +304,7 @@ def test_two_stage_matches_live_reference_and_golden(pipes):
     draws, n1 = _two_stage_draws(port, config)
     result = port.generate_video_two_stage(prompt, config, **draws)
     _check(result.frames, want, "generate_video_two_stage T2V")
-    _check_golden("tiny_two_stage", result.frames, want)
+    _check_golden("tiny_two_stage", result.frames)
     assert len(result.timings.denoise_steps) == n1 + 3 and result.timings.upscale > 0
     assert result.seed == 42
 

@@ -4,9 +4,10 @@
   transcribed checkpoint specs of tests/weight_fixtures.py at small widths:
   the port's state dict equals, bit for bit and dtype for dtype, the
   parameters `convert` builds from the reference loader's tree on the same
-  tensors (video DiT; VAE decoder in both layouts; encoder; connector in
-  both formats; Gemma from f32, bf16, MLX 4-bit and a VLM export;
-  upscaler).
+  tensors (video DiT; the dual audio-video DiT in both spellings of its
+  audio top level; VAE decoder in both layouts; encoder; connector in both
+  formats, with and without the audio connector; Gemma from f32, bf16, MLX
+  4-bit and a VLM export; upscaler; audio VAE; vocoder).
   One extra key raises WeightLoadingFailedError on both sides.
 * `split_unified` gives the same buckets.
 * The port's safetensors reader and writer against the safetensors
@@ -27,12 +28,14 @@ import torch
 import tests.weight_fixtures as wf
 from ltx_tpu.core import config as jconfig
 from ltx_tpu.core import errors as jerrors
+from ltx_tpu.models import audio_vae as jaudio
 from ltx_tpu.models import upscaler as jupscaler
 from ltx_tpu.weights import download as jdl
 from ltx_tpu.weights import keymaps as jk
 from ltx_tpu.weights import registry as jreg
 from ltx_tpu_torch import convert, errors
-from ltx_tpu_torch.config import LTXModel, TransformerConfig
+from ltx_tpu_torch.config import AudioVAEConfig, LTXModel, TransformerConfig, VocoderConfig
+from ltx_tpu_torch.models import audio_vae
 from ltx_tpu_torch.models.gemma3 import Gemma3Config
 from ltx_tpu_torch.models.text_encoder import TextEncoderConfig
 from ltx_tpu_torch.models.upscaler import UpscalerConfig, load_params
@@ -44,6 +47,7 @@ VCFG = dataclasses.replace(VAEConfig().tiny(), encoder_resnets=(4, 6, 6, 2))
 TECFG = TextEncoderConfig().tiny()
 GCFG = dataclasses.replace(Gemma3Config().tiny(), hidden_layers=2)
 UCFG = UpscalerConfig().tiny()
+ACFG, VOCCFG = AudioVAEConfig().tiny(), VocoderConfig().tiny()
 
 
 def _torch(tensors: dict) -> dict:
@@ -72,6 +76,21 @@ def _dit_spec():
         caption_dim=TCFG.caption_channels)
 
 
+def _av_spec(old_spelling=False):
+    """The dual DiT's keys; old_spelling: the audio top level as
+    audio_proj_in / audio_time_embed (the other spelling both key maps
+    accept)."""
+    spec = wf.av_transformer_spec(
+        num_layers=TCFG.num_layers, inner=TCFG.inner_dim, audio_inner=TCFG.audio_inner_dim,
+        in_channels=TCFG.in_channels, out_channels=TCFG.out_channels,
+        cross_dim=TCFG.cross_attention_dim, caption_dim=TCFG.caption_channels,
+        audio_in=TCFG.audio_in_channels, audio_out=TCFG.audio_out_channels)
+    if old_spelling:
+        spec = {k.replace("audio_patchify_proj.", "audio_proj_in.").replace(
+            "audio_adaln_single.", "audio_time_embed."): v for k, v in spec.items()}
+    return spec
+
+
 def _gemma_spec(**kw):
     return wf.gemma_spec(layers=GCFG.hidden_layers, hidden=GCFG.hidden_size,
                          heads=GCFG.attention_heads, kv_heads=GCFG.kv_heads,
@@ -84,10 +103,11 @@ def _decoder_spec(layout):
                                blocks_per_group=VCFG.blocks_per_group, layout=layout)
 
 
-def _connector_spec(fmt):
+def _connector_spec(fmt, include_audio=False):
     return wf.connector_spec(fmt=fmt, dim=TECFG.hidden_dim,
                              gemma_layers=TECFG.num_gemma_layers,
-                             layers=TECFG.connector_layers, registers=TECFG.num_registers)
+                             layers=TECFG.connector_layers, registers=TECFG.num_registers,
+                             include_audio=include_audio)
 
 
 # component: (spec, reference loader -> tree, port loader, convert of the tree)
@@ -127,6 +147,31 @@ CASES = {
                                           blocks_per_stage=UCFG.blocks_per_stage),
                  jupscaler.load_params, load_params,
                  lambda tree: convert.upscaler(tree, UCFG)),
+    "av_dit": (_av_spec, lambda t: jk.load_av_transformer_params(t, TCFG.num_layers),
+               lambda t: keymaps.load_av_transformer_params(t, TCFG.num_layers),
+               lambda tree: convert.av_transformer(tree, TCFG)),
+    "av_dit_proj_in_time_embed": (
+        lambda: _av_spec(old_spelling=True),
+        lambda t: jk.load_av_transformer_params(t, TCFG.num_layers),
+        lambda t: keymaps.load_av_transformer_params(t, TCFG.num_layers),
+        lambda tree: convert.av_transformer(tree, TCFG)),
+    "connector_fmt1_audio": (lambda: _connector_spec(1, True), jk.load_text_encoder_params,
+                             keymaps.load_text_encoder_params,
+                             lambda tree: convert.text_encoder(tree, TECFG)),
+    "connector_fmt2_audio": (lambda: _connector_spec(2, True), jk.load_text_encoder_params,
+                             keymaps.load_text_encoder_params,
+                             lambda tree: convert.text_encoder(tree, TECFG)),
+    "audio_vae": (lambda: wf.audio_vae_spec(
+        latent=ACFG.latent_channels, base=ACFG.base_channels, num_res=ACFG.num_res_blocks,
+        mel_bins_packed=ACFG.latent_channels * ACFG.mel_latent_bins),
+        jaudio.load_audio_vae_params, audio_vae.load_audio_vae_params,
+        lambda tree: convert.audio_vae(tree, ACFG)),
+    "vocoder": (lambda: wf.vocoder_spec(
+        in_ch=VOCCFG.in_channels, hidden=VOCCFG.hidden_channels,
+        up_factors=VOCCFG.upsample_factors, up_kernels=VOCCFG.upsample_kernels,
+        res_kernels=VOCCFG.resnet_kernels, dils_per_res=len(VOCCFG.resnet_dilations[0])),
+        jaudio.load_vocoder_params, audio_vae.load_vocoder_params,
+        lambda tree: convert.vocoder(tree, VOCCFG)),
 }
 
 
@@ -164,7 +209,8 @@ def test_gemma_from_bf16_file_tensors_is_the_tensors_themselves():
     ("dit", "bogus.weight"), ("vae_decoder_unified", "decoder.bogus.weight"),
     ("vae_encoder", "encoder.bogus.weight"),
     ("connector_fmt2", "text_embedding_projection.bogus"),
-    ("gemma_f32", "model.bogus.weight"),
+    ("gemma_f32", "model.bogus.weight"), ("av_dit", "av_ca_bogus.weight"),
+    ("connector_fmt1_audio", "audio_connector.bogus"),
 ])
 def test_extra_key_raises_on_both_sides(component, extra):
     spec, ref_load, port_load, _ = CASES[component]
@@ -178,17 +224,22 @@ def test_extra_key_raises_on_both_sides(component, extra):
 
 def test_unported_gemma_modes_and_audio_raise():
     """Gemma's modes are all ported (test_torch_gemma_quant): an unknown
-    one is refused; the audio components raise NotImplementedError."""
+    one is refused. The audio components are ported (the cases above): a
+    video DiT's file given to the dual DiT's key map lacks the audio keys
+    and raises on both sides, and the video key map drops a dual file's
+    audio keys on both sides."""
     t = _torch(wf.materialize(_gemma_spec(), seed=1))
     with pytest.raises(ValueError, match="int3"):
         keymaps.load_gemma_params(dict(t), GCFG.hidden_layers, mode="int3")
-    with pytest.raises(NotImplementedError, match="A14"):
-        keymaps.load_transformer_params({}, 1, include_audio=True)
-    conn = _torch(wf.materialize(wf.connector_spec(
-        fmt=2, include_audio=True, dim=TECFG.hidden_dim,
-        gemma_layers=TECFG.num_gemma_layers, layers=2, registers=TECFG.num_registers)))
-    with pytest.raises(NotImplementedError, match="A14"):
-        keymaps.load_text_encoder_params(conn)
+    video = wf.materialize(_dit_spec(), seed=2)
+    with pytest.raises(KeyError, match="norm1"):
+        jk.load_av_transformer_params(dict(video), TCFG.num_layers)
+    with pytest.raises(KeyError, match="norm1"):
+        keymaps.load_av_transformer_params(_torch(video), TCFG.num_layers)
+    dual = wf.materialize(_av_spec(), seed=2)
+    assert_state_equal(keymaps.load_transformer_params(_torch(dual), TCFG.num_layers),
+                       convert.transformer(jk.load_transformer_params(
+                           dict(dual), TCFG.num_layers), TCFG))
 
 
 def _meta_tensors(spec: dict) -> dict:
@@ -240,7 +291,26 @@ def test_dit_key_map_takes_the_full_inventory():
         assert sum(isinstance(m, cls) for m in quantized.modules()) == 48 * 10
 
 
-def test_split_unified_buckets_match_reference():
+def test_av_dit_key_map_takes_the_full_inventory():
+    """The dual DiT's every key (48 blocks, full widths), shape-only: the
+    key map consumes all of them (strict), the model takes each tensor once,
+    18.88 G parameters; quantized to int4 in place, the six attentions and
+    two feed-forwards of each block: 28 linears a block."""
+    from ltx_tpu_torch.models.common import QuantizedLinear, assign_
+    from ltx_tpu_torch.models.dit import quantize_transformer
+    from ltx_tpu_torch.models.dit_av import LTXAVTransformer
+
+    spec = wf.av_transformer_spec()
+    state = keymaps.load_av_transformer_params(_meta_tensors(spec), 48, strict=True)
+    model = assign_(LTXAVTransformer(TransformerConfig(), "meta", torch.bfloat16), state)
+    assert sum(p.numel() for p in model.parameters()) == wf.param_count(spec) \
+        == 18_877_354_240
+    quantize_transformer(model, 4)
+    assert sum(isinstance(m, QuantizedLinear) for m in model.modules()) == 48 * 28
+
+
+@pytest.mark.parametrize("include_audio", [False, True], ids=["video", "audio"])
+def test_split_unified_buckets_match_reference(include_audio):
     unified = {}
     for k, v in wf.materialize(_dit_spec(), seed=1).items():
         unified[f"model.diffusion_model.{k}"] = v
@@ -252,9 +322,13 @@ def test_split_unified_buckets_match_reference():
     unified["model.diffusion_model.transformer_blocks.0.attn1.to_q.weight_scale"] = \
         np.ones((), np.float32)
     unified["vocoder.conv_in.weight"] = np.zeros((2,), np.float32)
+    for k, v in wf.materialize(_connector_spec(2, True), seed=4).items():
+        if "audio" in k:
+            unified[f"model.diffusion_model.{k}"] = v
     port = _torch(unified)
     source = {id(v): k for k, v in unified.items()}
-    for ref, got in zip(jk.split_unified(unified), keymaps.split_unified(port)):
+    for ref, got in zip(jk.split_unified(unified, include_audio=include_audio),
+                        keymaps.split_unified(port, include_audio=include_audio)):
         assert sorted(ref) == sorted(got)
         for k, v in ref.items():
             assert got[k] is port[source[id(v)]], k
