@@ -23,12 +23,15 @@ Phases, each printing its own lines:
      shapes, timed beside F.linear in bf16 and the int8 bound (Gemma's
      decode rows, 1 and 9, among the int4 and W8A8 cases; flash attention
      at SigLIP's head dim 72 and at the dual audio-video DiT's head dim 64
-     among the attention cases, rms_norm at its audio stream's 2048);
+     among the attention cases, rms_norm at its audio stream's 2048; both at
+     the long-video modes' 6144 tokens and four-prompt text pass);
      then the tiny pipeline, the tiny two-stage I2V pipeline, the tiny
      joint-audio pipeline (CFG, then I2V; frames and waveform, the flash
-     launches by head dim), the tiny LoRA train and the tiny cycle Gemma's
-     greedy generation on the card against the same weights and draws on
-     the CPU, the norms as the default route gives them;
+     launches by head dim), the tiny long-video modes (video-to-video,
+     extension, keyframes, an anchored two-prompt chain, and the audio
+     chain, keyframes and extension), the tiny LoRA train and the tiny cycle
+     Gemma's greedy generation on the card against the same weights and
+     draws on the CPU, the norms as the default route gives them;
   3. the bf16 main path: LTXPipeline.generate_video at full width and depth
      (Gemma-3-12B, the text connector, the 48-block DiT, the VAE decoder;
      random bf16 weights from a seeded generator) at 25 frames, 768x512,
@@ -51,6 +54,16 @@ Phases, each printing its own lines:
      DiT call on two rows bit for bit its solo call; then one denoise step
      timed under the default dispatch and under `forced_rms_chain()`, in
      turns;
+  3f. the long-video modes at 121f@768x512 (6144 tokens, 8 steps), the
+     phase-3 components resident on the card for the phase (no per-phase
+     staging, as a server keeps them) and the decode tiled: the README's
+     road-trip chain (four segments, four prompts in one text pass, an
+     anchor at frame 16 of segment 2, tail renormalisation 0.5, 9 frames
+     carried: 457 frames), its first 121 frames bit for bit generate_video
+     on segment 0's draws and the chain's text rows, the extension of its
+     last 9 frames, keyframes at frames 0 and 112, video-to-video at
+     strength 0.6 on its first 121 frames; each run's launches, seconds by
+     phase, steady step and peak;
   3e. prompt enhancement: the cycle Gemma at Gemma-3-12B's shapes (bf16,
      built on the card; the byte-fallback tokenizer of phase 5b): greedy
      generate_tokens with 8 drafts token for token the sequential run, its
@@ -90,7 +103,11 @@ Phases, each printing its own lines:
      241f@1024x640 (the flagship: I2V through encode_image at half and full
      resolution, 8 distilled steps at 4960 tokens, the upscaler, 3 plain
      Euler steps at 19840 tokens, 251 audio tokens, a tiled decode), each
-     with its launches, phases and peak memory;
+     with its launches, phases and peak memory; then, the components
+     resident, a 3-segment generate_video_chain_with_audio carrying the
+     audio tail (57 frames, the waveform's crossfaded length checked),
+     keyframes at frames 0 and 24 with audio, and generate_video_with_audio
+     extending the chain's last 9 frames, at 25f@768x512;
   5b. files to frames: a models directory written under build/ in the
      layout weights.download resolves, from seeded generators on the card
      by the port's own safetensors writer: the unified file (the dual DiT's
@@ -141,7 +158,9 @@ Phases, each printing its own lines:
      CPU, and the statistics and backward kernels against their plain
      versions.)
   7. a JSON line of the seven kernels: launches (each from the paths that
-     run it, by path where there are several), max error, kernel, plain and library ms, the bound and what sets
+     run it, by path where there are several, the long-video modes' among
+     them; B1's and B6's times at their shapes in `long_video_cases`), max
+     error, kernel, plain and library ms, the bound and what sets
      it, and `timing`, the clock that read the times ("idle": CUDA events
      around each call on an idle card; "queued": the launches queued behind
      other work, over buffers rotated past the L2's size);
@@ -451,17 +470,20 @@ def phase_flash_kernel(device) -> dict:
             f" bound {bound_ms:.4f} ms ({bound_by}); {flops / ms * 1e-9:.1f} TFLOP/s,"
             f" {bound_ms / ms:.3f} of the bound, {ms / library:.2f}x sdpa" + queued)
     ms, plain, library, bound_ms, bound_by, idle_ms, idle_lib = timings["dit_self_attn"]
-    # the dual DiT's head-dim-64 shapes beside the line's self-attention
-    av = {name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "idle_ms",
-                          "idle_library_ms"), t))
-          for name, t in timings.items() if name.startswith("av_")}
+    # the dual DiT's head-dim-64 shapes and the long-video modes' beside the
+    # line's self-attention
+    def cases(prefix):
+        return {name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                "idle_ms", "idle_library_ms"), t))
+                for name, t in timings.items() if name.startswith(prefix)}
+
     return {"name": "flash_attention", "route": "cuda",
             "source": "ltx_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "ltx_tpu/kernels/flash_attention.py:124",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
             "timing": "queued", "idle_ms": idle_ms, "idle_library_ms": idle_lib,
-            "av_cases": av}
+            "av_cases": cases("av_"), "long_video_cases": cases("long_")}
 
 
 def int4_bytes(m: int, k: int, n: int, group: int) -> float:
@@ -826,10 +848,12 @@ def phase_rms_kernel(device) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
             "timing": "queued", "idle_ms": idle_ms, "host_us": wrapper,
             "chain_host_us": chain,
-            # the dual DiT's audio stream at 2048 wide
-            "av_cases": {name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
-                                         "bound_by", "idle_ms"), t))
-                         for name, t in timings.items() if name.startswith("av_")}}
+            # the dual DiT's audio stream at 2048 wide, and the long-video
+            # modes' 6144 tokens and four-prompt connector
+            **{key: {name: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                     "idle_ms"), t))
+                     for name, t in timings.items() if name.startswith(prefix)}
+               for key, prefix in (("av_cases", "av_"), ("long_video_cases", "long_"))}}
 
 
 def phase_tiny_agreement(device) -> None:
@@ -849,6 +873,11 @@ def phase_tiny_agreement(device) -> None:
         f"{json.dumps(res)}")
     res = checks.check_tiny_av_pipeline(device)
     log(f"[tiny] joint-audio pipeline (CFG; I2V re-noised) on the card vs the CPU: "
+        f"{json.dumps(res)} (tol {checks.TINY_FRAME_ATOL:.0e} frames, "
+        f"{checks.TINY_AUDIO_ATOL:.0e} waveform)")
+    res = checks.check_tiny_long_video(device)
+    log(f"[tiny] long-video modes (v2v, extension, keyframes, anchored chain; the audio "
+        f"chain, keyframes and extension; re-noised) on the card vs the CPU: "
         f"{json.dumps(res)} (tol {checks.TINY_FRAME_ATOL:.0e} frames, "
         f"{checks.TINY_AUDIO_ATOL:.0e} waveform)")
     for dtype, how in ((torch.bfloat16, "bf16"),
@@ -896,6 +925,14 @@ def norm_launches(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
     through the chain."""
     return {"rms_norm": checks.rms_inference_counts(tcfg, tecfg, dit_calls, text_passes)[0],
             CHAIN: 0}
+
+
+def expected_launches(pipe: LTXPipeline, dit_calls: int, text_passes: int) -> dict:
+    """The launch counts of a video inference path on the card: the DiT's
+    and the connector's flash attentions and norms."""
+    return {**NO_LAUNCHES, "flash_attention": checks.flash_inference_counts(
+        pipe.tcfg, pipe.tecfg, dit_calls, text_passes),
+            **norm_launches(pipe.tcfg, pipe.tecfg, dit_calls, text_passes)}
 
 
 def run_counted(fn):
@@ -958,10 +995,8 @@ def phase_main_path(device):
                                          NORTH_STAR.width, channels=pipe.tcfg.in_channels)
     noise = generate_noise(shape, torch.Generator(device=device).manual_seed(0))
     steps = len(pipe._sigmas(NORTH_STAR, shape)) - 1
-    expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
-                + pipe.tecfg.connector_layers,
-                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
-    return pipe, noise, steps, north_star_run("main", pipe, noise, expected, device)
+    return pipe, noise, steps, north_star_run("main", pipe, noise,
+                                              expected_launches(pipe, steps, 1), device)
 
 
 def phase_two_stage(pipe: LTXPipeline, device) -> dict:
@@ -971,8 +1006,7 @@ def phase_two_stage(pipe: LTXPipeline, device) -> dict:
     no norm through the chain) against the counts the code implies, and the
     frames. Returns the launches."""
     config = TWO_STAGE
-    tcfg, tecfg = pipe.tcfg, pipe.tecfg
-    c = tcfg.in_channels
+    c = pipe.tcfg.in_channels
     s1 = VideoLatentShape.from_pixels(1, config.num_frames, config.height // 2,
                                       config.width // 2, channels=c)
     s2 = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
@@ -981,9 +1015,7 @@ def phase_two_stage(pipe: LTXPipeline, device) -> dict:
                                  token_count=s1.token_count)) - 1
     n2 = len(schedule.STAGE_2_SIGMAS) - 1
     dit_calls = n1 + n2
-    expected = {**NO_LAUNCHES,
-                "flash_attention": dit_calls * tcfg.num_layers * 2 + tecfg.connector_layers,
-                **norm_launches(tcfg, tecfg, dit_calls, 1)}
+    expected = expected_launches(pipe, dit_calls, 1)
     gen = torch.Generator(device=device).manual_seed(7)
     image = torch.rand(1, 3, 1, config.height, config.width, generator=gen,
                        device=device) * 2 - 1
@@ -1043,9 +1075,7 @@ def phase_batched(pipe: LTXPipeline, device) -> None:
                                          channels=pipe.tcfg.in_channels)
     noise = generate_noise(shape, torch.Generator(device=device).manual_seed(3))
     steps = len(pipe._sigmas(config, shape)) - 1
-    expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
-                + pipe.tecfg.connector_layers,
-                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
+    expected = expected_launches(pipe, steps, 1)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -1230,6 +1260,147 @@ def phase_norm_choice(pipe: LTXPipeline, device) -> dict:
     if not (np.isfinite(diff) and diff <= 5e-2 * scale):
         raise AssertionError(f"norm choice: velocities differ by {diff} (max {scale})")
     return med
+
+
+# ---------------------------------------------------------------------------
+# Long video (phase 3f): chains, extension, keyframes, video-to-video
+# ---------------------------------------------------------------------------
+
+# 121 frames at 768x512: 16 x 16 x 24 = 6144 latent tokens a segment
+LONG_VIDEO = GenerationConfig(width=768, height=512, num_frames=121, num_steps=8, seed=0)
+# the README's road trip: four segments, four prompts, an anchor in segment 2
+CHAIN_PROMPTS = ("a road trip", "through the desert", "into the hills", "arriving at dusk")
+CHAIN_COND_FRAMES = 9
+LONG_TILE, LONG_OVERLAP = 8, 2
+
+
+def pixels_of(frames: np.ndarray, device) -> torch.Tensor:
+    """Host frames (F, H, W, 3) in [0, 1] -> pixels (1, 3, F, H, W) in [-1, 1]
+    on the card."""
+    return torch.from_numpy(frames).to(device).permute(3, 0, 1, 2)[None] * 2 - 1
+
+
+@contextlib.contextmanager
+def resident(pipe: LTXPipeline, names, device, **memory):
+    """The named components placed on the card once and kept there, as a
+    server deploys them (no per-phase staging, the text encoder kept), with
+    `memory`'s other knobs; after, each points back at its host tensors."""
+    t0 = time.perf_counter()
+    host = {}
+    for name in names:
+        module = getattr(pipe, name)
+        host[name] = {n: p.data for n, p in module.named_parameters()}
+        module.to(device)
+    torch.cuda.synchronize(device)
+    nbytes = sum(p.numel() * p.element_size() for name in names
+                 for p in getattr(pipe, name).parameters())
+    log(f"[resident] {', '.join(names)} placed on the card: {nbytes / 2**30:.2f} GiB in "
+        f"{time.perf_counter() - t0:.2f} s")
+    saved = pipe.memory
+    pipe.memory = dataclasses.replace(saved, phase_staging=False, offload_text_encoder=False,
+                                      **memory)
+    try:
+        yield
+    finally:
+        pipe.memory = saved
+        for name, params in host.items():
+            for n, p in getattr(pipe, name).named_parameters():
+                p.data = params[n]
+        torch.cuda.empty_cache()
+
+
+def log_run(tag: str, result, peak_gib: float) -> None:
+    """A run's seconds by phase, its steady denoise step and its peak."""
+    tm = result.timings
+    log(f"[{tag}] phases (s): staging {tm.staging:.3f}, gemma {tm.gemma:.3f}, connector "
+        f"{tm.connector:.3f}, encode {tm.image_encode:.3f}, denoise "
+        f"{sum(tm.denoise_steps):.3f} ({len(tm.denoise_steps)} steps, steady step "
+        f"{steady_steps(result)}), vae_decode {tm.vae_decode:.3f}, audio decode "
+        f"{tm.audio_decode:.3f}, total {tm.total:.3f}; peak {peak_gib:.2f} GiB")
+
+
+def long_run(tag: str, fn, expected: dict, config: GenerationConfig, frames: int, device):
+    """fn() with the counts read around it and the device's peak memory;
+    checks the launches and the frames (finite, in [0, 1], `frames` of
+    them). Returns (result, launches)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    result, launches = run_counted(fn)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    log_run(tag, result, peak_gib)
+    check_launches(tag, launches, expected)
+    check_frames(tag, result.frames, dataclasses.replace(config, num_frames=frames))
+    return result, launches
+
+
+def phase_long_video(pipe: LTXPipeline, device) -> dict:
+    """The long-video modes at full width and depth in bf16 at 121f@768x512
+    (6144 tokens, 8 distilled steps), the components resident on the card
+    (`resident`), the decode tiled as the two-stage phase's: the README's
+    four-segment chain (four prompts in one text pass,
+    an anchor at pixel frame 16 of segment 2 from a seeded pixel array,
+    tail renormalisation 0.5, 9 frames carried: 121 + 3 x 112 frames); its
+    segment 0 against generate_video on the same draws and the chain's own
+    text rows (precomputed_embeddings; a text pass's rows depend on its
+    batch on the card), bit for bit; the extension of the chain's last 9
+    frames; keyframes at pixel frames 0 and 112 (the chain's first and last
+    frames); video-to-video at strength 0.6 on the chain's first 121 frames
+    (121 frames encoded at full size). Each with its launches, phases and
+    peak. Returns the launches by path."""
+    config = LONG_VIDEO
+    shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                         channels=pipe.tcfg.in_channels)
+    steps = len(pipe._sigmas(config, shape)) - 1
+    gen = torch.Generator(device=device).manual_seed(11)
+    anchor = torch.rand(1, 3, 1, config.height, config.width, generator=gen,
+                        device=device) * 2 - 1
+    noise = [generate_noise(shape, gen) for _ in range(len(CHAIN_PROMPTS))]
+    segments = len(CHAIN_PROMPTS)
+    chain_frames = config.num_frames + (segments - 1) * (config.num_frames - CHAIN_COND_FRAMES)
+    log(f"[long] {config.num_frames}f@{config.width}x{config.height}: {shape.token_count} "
+        f"tokens, {steps} steps; chain of {segments} segments -> {chain_frames} frames; "
+        f"decode tiles of {LONG_TILE} latent frames, overlap {LONG_OVERLAP}")
+    launches = {}
+    with resident(pipe, ("gemma", "text_encoder", "transformer", "vae_decoder", "vae_encoder"),
+                  device, vae_tile_size=LONG_TILE, vae_tile_overlap=LONG_OVERLAP):
+        chain, launches["long chain 4x121f@768x512"] = long_run(
+            "long chain", lambda: pipe.generate_video_chain(
+                CHAIN_PROMPTS[0], config, segments, noise, cond_frames=CHAIN_COND_FRAMES,
+                prompts=CHAIN_PROMPTS, anchors={2: [(16, anchor)]}, tail_renorm=0.5),
+            expected_launches(pipe, segments * steps, 1), config, chain_frames, device)
+        rows = pipe.encode_prompts(CHAIN_PROMPTS)  # the chain's one text pass again
+        solo, launches["long chain segment 0 alone"] = long_run(
+            "long segment 0", lambda: pipe.generate_video(
+                CHAIN_PROMPTS[0], config, noise[0], precomputed_embeddings=rows[0]),
+            expected_launches(pipe, steps, 0), config, config.num_frames, device)
+        same = np.array_equal(chain.frames[:config.num_frames], solo.frames)
+        log(f"[long] the chain's first {config.num_frames} frames against generate_video on "
+            f"segment 0's draws and text rows: bit for bit {same}")
+        if not same:
+            diff = np.abs(chain.frames[:config.num_frames] - solo.frames).max()
+            raise AssertionError(f"long chain: segment 0 differs from generate_video by {diff}")
+        del solo, rows
+
+        tail = pixels_of(chain.frames[-CHAIN_COND_FRAMES:], device)
+        _, launches["long extension 121f"] = long_run(
+            "long extension", lambda: pipe.generate_video_extension(
+                PROMPT, config, generate_noise(shape, gen), video_frames=tail,
+                cond_frames=CHAIN_COND_FRAMES),
+            expected_launches(pipe, steps, 1), config, config.num_frames, device)
+        del tail
+        first, last = pixels_of(chain.frames[:1], device), pixels_of(chain.frames[-1:], device)
+        _, launches["long keyframes 0 and 112"] = long_run(
+            "long keyframes", lambda: pipe.generate_video_keyframes(
+                PROMPT, config, [(0, first), (112, last)], generate_noise(shape, gen)),
+            expected_launches(pipe, steps, 1), config, config.num_frames, device)
+        clip = pixels_of(chain.frames[:config.num_frames], device)
+        del chain
+        k = min(max(int(round(0.4 * steps)), 0), steps - 1)
+        _, launches["long v2v 121f strength 0.6"] = long_run(
+            "long v2v", lambda: pipe.generate_video_from_video(
+                PROMPT, config, generate_noise(shape, gen), video_frames=clip, strength=0.6),
+            expected_launches(pipe, steps - k, 1), config, config.num_frames, device)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1514,10 +1685,7 @@ def phase_w8a8_main_path(pipe: LTXPipeline, noise, steps: int, device):
     nbytes = sum(p.numel() * p.element_size() for p in pipe.transformer.parameters())
     log(f"[w8a8] DiT requantized on the card, kept on the host: {quantized} linears, "
         f"{time.perf_counter() - t0:.2f} s; DiT now {nbytes / 1e9:.2f} GB")
-    layers = pipe.tcfg.num_layers
-    expected = {**NO_LAUNCHES, "flash_attention": steps * layers * 2
-                + pipe.tecfg.connector_layers, INT8: steps * layers * 10,
-                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
+    expected = {**expected_launches(pipe, steps, 1), INT8: steps * pipe.tcfg.num_layers * 10}
     try:
         _, run = north_star_run("w8a8", pipe, noise, expected, device)
     finally:
@@ -1552,10 +1720,8 @@ def phase_int4_main_path(pipe: LTXPipeline, noise, steps: int, bf16_run, device,
     nbytes = sum(p.numel() * p.element_size() for p in pipe.transformer.parameters())
     log(f"[int4] DiT quantized on the card, kept on the host: {quantized} linears, "
         f"{time.perf_counter() - t0:.2f} s; DiT now {nbytes / 1e9:.2f} GB")
-    layers = pipe.tcfg.num_layers
-    expected = {**NO_LAUNCHES, "flash_attention": steps * layers * 2
-                + pipe.tecfg.connector_layers, "int4_matmul": steps * layers * 10,
-                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
+    expected = {**expected_launches(pipe, steps, 1),
+                "int4_matmul": steps * pipe.tcfg.num_layers * 10}
     launches, int4_run = north_star_run("int4", pipe, noise, expected, device)
     for name, (result, peak) in (("bf16", bf16_run), ("w8a8", w8a8_run), ("int4", int4_run)):
         tm, frames = result.timings, result.frames
@@ -1801,6 +1967,72 @@ def phase_av_flagship(pipe: LTXPipeline, device) -> dict:
         raise AssertionError(f"av flagship: {len(tm.denoise_steps)} denoise steps")
     check_frames("av flagship", result.frames, config)
     check_waveform("av flagship", result.audio, config, pipe.vocoder_config)
+    return launches
+
+
+def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
+    """The long-video modes on the dual DiT at the north star's 25f@768x512:
+    a 3-segment generate_video_chain_with_audio carrying the audio tail
+    (audio_cond), keyframes at pixel frames 0 and 24 with audio (seeded
+    pixel arrays), and generate_video_with_audio extending the chain's last
+    9 frames, the components resident on the card (`resident`). The
+    launches, phases, peak, frames, and the waveform's length and stitch
+    (segments of S samples crossfaded over round(S * 9 / 25): 3 S - 2 k in
+    all). Returns the launches by path."""
+    from ltx_tpu_torch.models.dit_av import audio_frame_count
+
+    config = NORTH_STAR
+    shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                         channels=pipe.tcfg.in_channels)
+    steps = len(pipe._sigmas(config, shape)) - 1
+    gen = torch.Generator(device=device).manual_seed(12)
+    segments, cond = 3, CHAIN_COND_FRAMES
+    af = pipe.audio_frames(config)
+    samples = (4 * audio_frame_count(config.num_frames / config.fps) - 3) \
+        * int(np.prod(pipe.vocoder_config.upsample_factors))
+    k = min(int(round(samples * cond / config.num_frames)), samples)
+    launches = {}
+
+    def audio_noise():
+        return torch.randn(pipe.audio_noise_shape(config), generator=gen, device=device)
+
+    log(f"[av long] {config.num_frames}f@{config.width}x{config.height} with audio: chain of "
+        f"{segments} segments carrying {max(1, round(af * cond / config.num_frames))} of "
+        f"{af} audio latent frames, keyframes at 0 and 24, extension of 9 frames")
+    names = ("gemma", "text_encoder", "av_transformer", "vae_decoder", "vae_encoder",
+             "audio_vae", "vocoder")
+    with resident(pipe, names, device):
+        chain, launches["AV chain 3x25f audio_cond"], peak = av_run(
+            "av chain", lambda: pipe.generate_video_chain_with_audio(
+                PROMPT, config, segments, [generate_noise(shape, gen) for _ in range(segments)],
+                [audio_noise() for _ in range(segments)], cond_frames=cond, audio_cond=True),
+            av_expected(pipe, segments * steps), device)
+        log_run("av chain", chain, peak)
+        frames = config.num_frames + (segments - 1) * (config.num_frames - cond)
+        check_frames("av chain", chain.frames, dataclasses.replace(config, num_frames=frames))
+        stitched = segments * samples - (segments - 1) * k
+        log(f"[av chain] waveform {chain.audio.shape}: {segments} segments of {samples} samples "
+            f"crossfaded over {k}: {stitched} expected; mean {chain.audio.mean():.5f}, std "
+            f"{chain.audio.std():.5f}, min {chain.audio.min():.5f}, max {chain.audio.max():.5f}")
+        if chain.audio.shape != (2, stitched) or not (
+                np.isfinite(chain.audio).all() and np.abs(chain.audio).max() <= 1.0
+                and chain.audio.std() > 0.0):
+            raise AssertionError(f"av chain: waveform {chain.audio.shape}, expected (2, "
+                                 f"{stitched}) finite in [-1, 1]")
+
+        px = [torch.rand(1, 3, 1, config.height, config.width, generator=gen,
+                         device=device) * 2 - 1 for _ in range(2)]
+        for tag, name, fn in (
+                ("av keyframes", "AV keyframes 0 and 24", lambda: pipe.generate_video_keyframes(
+                    PROMPT, config, [(0, px[0]), (24, px[1])], generate_noise(shape, gen),
+                    audio_noise(), audio=True)),
+                ("av extension", "AV extension 25f", lambda: pipe.generate_video_with_audio(
+                    PROMPT, config, generate_noise(shape, gen), audio_noise(),
+                    video_frames=pixels_of(chain.frames[-cond:], device), cond_frames=cond))):
+            result, launches[name], peak = av_run(tag, fn, av_expected(pipe, steps), device)
+            log_run(tag, result, peak)
+            check_frames(tag, result.frames, config)
+            check_waveform(tag, result.audio, config, pipe.vocoder_config)
     return launches
 
 
@@ -2603,13 +2835,19 @@ def main() -> int:
     phase_batched(pipe, device)
     phase_norm_choice(pipe, device)
     t_phase = time.perf_counter()
+    long_paths = phase_long_video(pipe, device)
+    log(f"[long] phase 3f: {time.perf_counter() - t_phase:.2f} s")
+    t_phase = time.perf_counter()
     tok = Tokenizer.from_str(json.dumps(smoke_tokenizer()))
     phase_cycle_gemma(tok, device)
     siglip = phase_enhancement(pipe, tok, noise, steps, device)
     log(f"[enhance] phase 3e: {time.perf_counter() - t_phase:.2f} s")
-    # B1's paths: the north star (its DiT and connector) and the SigLIP tower
+    # B1's paths: the north star (its DiT and connector), the long-video
+    # modes and the SigLIP tower
     flash["launches_by_path"] = {"north star": launches["flash_attention"],
+                                 **{k: v["flash_attention"] for k, v in long_paths.items()},
                                  "SigLIP tower (I2V enhancement)": siglip}
+    rms["launches_by_path"].update({k: v["rms_norm"] for k, v in long_paths.items()})
     flash["launches"] = sum(flash["launches_by_path"].values())
     w8a8_run = phase_w8a8_main_path(pipe, noise, steps, device)
     north_star = phase_int4_main_path(pipe, noise, steps, bf16_run, device,
@@ -2620,13 +2858,14 @@ def main() -> int:
     del pipe, noise, bf16_run, w8a8_run
     av_north = phase_av_north_star(av_pipe, device)
     av_flagship = phase_av_flagship(av_pipe, device)
+    av_long = phase_av_long_video(av_pipe, device)
     log(f"[av] phase 5c: {time.perf_counter() - t_phase:.2f} s")
     del av_pipe
     gc.collect()
     torch.cuda.empty_cache()
     gemma_pass, gemma_decode_launches, files_av = phase_files_to_frames(device)
     av_paths = {"AV north star": av_north, "AV flagship 241f@1024x640": av_flagship,
-                "AV clip from files (8 blocks)": files_av}
+                **av_long, "AV clip from files (8 blocks)": files_av}
     for entry in (flash, rms):
         entry["launches_by_path"].update({k: v[entry["name"]] for k, v in av_paths.items()})
         entry["launches"] = sum(entry["launches_by_path"].values())

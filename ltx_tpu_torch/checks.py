@@ -197,6 +197,14 @@ ATTN_CASES = (
     AttentionCase("av_a2v_19840", 1, 32, 19840, 251, 64, layout="bthd"),
     AttentionCase("av_v2a_1536", 1, 32, 26, 1536, 64, layout="bthd"),
     AttentionCase("av_v2a_19840", 1, 32, 251, 19840, 64, layout="bthd"),
+    # the long-video modes at 121f@768x512 (6144 tokens, one row; views of
+    # the DiT's projections): self-attention, cross-attention over a
+    # left-padded 1024-token prompt, and the connector over a chain's four
+    # prompts in one text pass
+    AttentionCase("long_self_attn", 1, 32, 6144, 6144, 128, layout="bthd"),
+    AttentionCase("long_cross_attn", 1, 32, 6144, 1024, 128, pad=300, pad_left=True,
+                  layout="bthd"),
+    AttentionCase("long_connector_four_rows", 4, 30, 1024, 1024, 128, scale=128**-0.5),
 )
 
 
@@ -629,6 +637,12 @@ RMS_CASES = (
     RmsCase("av_audio_text_k", 1024, 2048, weight="bfloat16"),
     RmsCase("av_cross_video_1536", 1536, 2048, weight="bfloat16"),
     RmsCase("av_cross_video_19840", 19840, 2048, weight="bfloat16"),
+    # the long-video modes at 121f@768x512: the DiT's q/k and adaln norms
+    # over 6144 tokens, and the connector over a chain's four prompts
+    RmsCase("long_qk", 6144, 4096, weight="bfloat16"),
+    RmsCase("long_adaln", 6144, 4096),
+    RmsCase("long_connector_four_rows_qk", 4 * 1024, 3840, weight="bfloat16"),
+    RmsCase("long_connector_four_rows_out", 4 * 1024, 3840),
     # ragged rows, narrow and wide rows, f32, a weight in f32 under bf16 x
     RmsCase("one_row_d128", 1, 128),
     RmsCase("five_rows_d128_f32", 5, 128, "float32", "float32"),
@@ -866,7 +880,7 @@ def check_tiny_pipeline(device) -> dict:
     launches = [a - b for a, b in zip(_tiny_counts(), before)]
     # flash: steps x blocks x (self + cross) + one per connector layer; the
     # norms through the rms_norm kernel where their width allows it
-    expected = [config.num_steps * dev.tcfg.num_layers * 2 + dev.tecfg.connector_layers,
+    expected = [flash_inference_counts(dev.tcfg, dev.tecfg, config.num_steps, 1),
                 *rms_inference_counts(dev.tcfg, dev.tecfg, config.num_steps, 1)]
     err = float(np.abs(got - want).max())
     if got.shape != want.shape or not np.isfinite(got).all():
@@ -949,6 +963,16 @@ def av_flash_counts(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
     return out
 
 
+def flash_inference_counts(tcfg, tecfg, dit_calls: int, text_passes: int,
+                           av: bool = False) -> int:
+    """flash_attention launches of an inference run: each DiT block's self-
+    and cross-attention a call (the dual block's six), each connector layer
+    a text pass (both connectors' with av)."""
+    if av:
+        return sum(av_flash_counts(tcfg, tecfg, dit_calls, text_passes).values())
+    return dit_calls * tcfg.num_layers * 2 + text_passes * tecfg.connector_layers
+
+
 def check_tiny_av_pipeline(device) -> dict:
     """The tiny joint-audio pipeline on `device` (its kernels; the norms
     through the rms_norm kernel where the width allows: the video stream's
@@ -1009,6 +1033,114 @@ def check_tiny_av_pipeline(device) -> dict:
         results[name] = {"max_abs_err": err, "audio_max_abs_err": audio_err,
                          "launches": dict(zip(_TINY_COUNTS, launches)),
                          "flash_by_head_dim": dims}
+    return results
+
+
+def _long_video_cases(pipe: LTXPipeline, gen: torch.Generator) -> dict:
+    """{name: (run(pipe) -> result, DiT calls, text passes, dual DiT)} of
+    the tiny long-video checks, every draw and pixel source made here from
+    `gen` on the CPU, so that the card and the CPU get the same."""
+    config = GenerationConfig(width=64, height=64, num_frames=17, num_steps=2, seed=3,
+                              image_cond_noise_scale=0.15)
+    c = pipe.tcfg.in_channels
+    shape = VideoLatentShape.from_pixels(1, 17, 64, 64, channels=c)
+    steps = len(pipe._sigmas(config, shape)) - 1
+
+    def noise():
+        return torch.randn(shape.shape, generator=gen)
+
+    def draws(frames, audio: int = 0):
+        return [torch.randn((1, c, frames, 2, 2) if not audio
+                            else (1, audio, pipe.tcfg.audio_in_channels), generator=gen)
+                for _ in range(steps)]
+
+    def pixels(frames=1):
+        return torch.rand(1, 3, frames, 64, 64, generator=gen) * 2 - 1
+
+    audio_noise = [torch.randn(pipe.audio_noise_shape(config), generator=gen)
+                   for _ in range(2)]
+    k_a = max(1, round(pipe.audio_frames(config) * 9 / 17))
+    v2v = dict(initial_noise=noise(), video_frames=pixels(17), strength=0.6)
+    ext = dict(initial_noise=noise(), video_frames=pixels(9), cond_frames=9,
+               cond_noise=draws(2))
+    kf = dict(keyframes=[(0, pixels()), (8, pixels())], initial_noise=noise(),
+              cond_noise=draws(2))
+    chain = dict(initial_noise=[noise(), noise()], prompts=["a tiny road", "a tiny hill"],
+                 cond_noise=[None, draws(3)], anchors={1: [(16, pixels())]}, tail_renorm=0.5)
+    av_chain = dict(initial_noise=[noise(), noise()], audio_noise=audio_noise,
+                    cond_noise=[None, draws(2)], audio_cond_noise=[None, draws(0, k_a)],
+                    audio_cond=True)
+    av_kf = dict(keyframes=[(0, pixels()), (16, pixels())], initial_noise=noise(),
+                 audio_noise=audio_noise[0], cond_noise=draws(2), audio=True)
+    av_ext = dict(initial_noise=noise(), audio_noise=audio_noise[1], video_frames=pixels(9),
+                  cond_frames=9, cond_noise=draws(2))
+    v2v_steps = steps - min(max(int(round(0.4 * steps)), 0), steps - 1)
+    prompt = "a tiny long video"
+    return {
+        "v2v_0.6": (lambda p: p.generate_video_from_video(prompt, config, **v2v),
+                    v2v_steps, 1, False),
+        "extension_9": (lambda p: p.generate_video_extension(prompt, config, **ext),
+                        steps, 1, False),
+        "keyframes_0_8": (lambda p: p.generate_video_keyframes(prompt, config, **kf),
+                          steps, 1, False),
+        "chain_2_anchor_renorm": (lambda p: p.generate_video_chain(prompt, config, 2, **chain),
+                                  2 * steps, 1, False),
+        "av_chain_2_audio_cond": (
+            lambda p: p.generate_video_chain_with_audio(prompt, config, 2, **av_chain),
+            2 * steps, 1, True),
+        "av_keyframes_0_16": (lambda p: p.generate_video_keyframes(prompt, config, **av_kf),
+                              steps, 1, True),
+        "av_extension_9": (lambda p: p.generate_video_with_audio(prompt, config, **av_ext),
+                           steps, 1, True),
+    }
+
+
+def check_tiny_long_video(device) -> dict:
+    """The tiny pipeline's long-video modes on `device` (its kernels; the
+    norms through the rms_norm kernel where the width allows) against the
+    same weights, draws and pixel sources on the CPU: video-to-video at
+    strength 0.6, the extension of a 9-frame clip, keyframes at pixel frames
+    0 and 8, a two-segment chain with two prompts, an anchor in segment 1
+    and tail renormalisation; with audio a two-segment chain carrying the
+    audio tail, keyframes at 0 and 16 and a clip extension; every
+    conditioned frame re-noised. Raises AssertionError on a disagreement
+    beyond TINY_FRAME_ATOL (frames) or TINY_AUDIO_ATOL (waveform), or a
+    wrong launch count. Returns each case's errors and launches."""
+    memory = MemoryConfig(offload_text_encoder=False)  # every case on one pipeline
+    # the video modes on a pipeline without the audio connector (a text pass
+    # runs the connectors its text encoder has), the audio ones with it
+    pipes = {av: (LTXPipeline.random_tiny(device="cpu", seed=2, include_audio=av,
+                                          memory=memory),
+                  _move(LTXPipeline.random_tiny(device="cpu", seed=2, include_audio=av,
+                                                memory=memory), device))
+             for av in (False, True)}
+    cases = _long_video_cases(pipes[True][0], torch.Generator().manual_seed(17))
+    results = {}
+    for name, (run, dit_calls, text_passes, av) in cases.items():
+        cpu, dev = pipes[av]
+        want = run(cpu)
+        before = _tiny_counts()
+        got = run(dev)
+        launches = [a - b for a, b in zip(_tiny_counts(), before)]
+        expected = [flash_inference_counts(dev.tcfg, dev.tecfg, dit_calls, text_passes, av),
+                    *rms_inference_counts(dev.tcfg, dev.tecfg, dit_calls, text_passes, av=av)]
+        if got.frames.shape != want.frames.shape or not np.isfinite(got.frames).all():
+            raise AssertionError(f"tiny long video {name}: frames {got.frames.shape}")
+        err = float(np.abs(got.frames - want.frames).max())
+        audio_err = None
+        if av:
+            if got.audio.shape != want.audio.shape or not np.isfinite(got.audio).all():
+                raise AssertionError(f"tiny long video {name}: audio {got.audio.shape}")
+            audio_err = float(np.abs(got.audio - want.audio).max())
+        if not (err <= TINY_FRAME_ATOL and (audio_err is None or audio_err <= TINY_AUDIO_ATOL)):
+            raise AssertionError(f"tiny long video {name}: device and CPU differ by {err} "
+                                 f"(frames), {audio_err} (waveform)")
+        if launches != expected:
+            raise AssertionError(f"tiny long video {name}: launches {launches}, expected "
+                                 f"{expected}")
+        results[name] = {"frames": list(got.frames.shape), "max_abs_err": err,
+                         "audio_max_abs_err": audio_err,
+                         "launches": dict(zip(_TINY_COUNTS, launches))}
     return results
 
 

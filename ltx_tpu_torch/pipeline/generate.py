@@ -24,10 +24,19 @@ frames (when `image_cond_noise_scale` > 0) and, for decoders with timestep
 conditioning, one decode-noise tensor per decode tile. The reference derives them from
 `config.seed`; a torch generator cannot give jax.random's numbers.
 
+Long video: video-to-video (`generate_video_from_video`, SDEdit on the
+flow-matching forward), clip extension (`generate_video_extension`, and the
+audio path's `generate_video_with_audio(video_frames=)`), keyframes at any
+8-aligned frames (`generate_video_keyframes`, with or without audio) and
+latent-carry chains (`generate_video_chain`, `generate_video_chain_with_audio`:
+every segment denoises first, the DiT staged once, then every segment
+decodes, the VAE staged once; each segment after the first is conditioned on
+the previous one's tail latent, optionally pinned to keyframe anchors).
+
 The reference's warm-compile machinery (`_WarmCompiles`, `_warm_*`) overlaps
-XLA compiles with earlier phases; eager PyTorch compiles nothing, so it has
-no counterpart here. The extension, keyframe, video-to-video and chain
-entry points, and the audio path's clip extension, are ROADMAP A15.
+XLA compiles with earlier phases, and its chains rebind one compiled step
+across segments; eager PyTorch compiles nothing, so neither has a
+counterpart here: a chain builds each segment's step over the staged DiT.
 """
 
 from __future__ import annotations
@@ -49,7 +58,11 @@ from ltx_tpu_torch.config import (
     QuantizationConfig,
     TransformerConfig,
 )
-from ltx_tpu_torch.errors import ModelNotLoadedError, TextEncodingFailedError
+from ltx_tpu_torch.errors import (
+    InvalidConfigurationError,
+    ModelNotLoadedError,
+    TextEncodingFailedError,
+)
 from ltx_tpu_torch.models import dit_av
 from ltx_tpu_torch.models.audio_vae import AudioVAE, Vocoder, decode_audio
 from ltx_tpu_torch.models.common import init_random_
@@ -407,6 +420,12 @@ class LTXPipeline:
         self._release("vae_encoder")
         return out
 
+    def encode_video(self, pixels, timings: Optional[GenerationTimings] = None):
+        """(1, 3, F, H, W) pixels in [-1, 1], F = 8k + 1 -> the normalized f32
+        latent (1, C, k + 1, H/32, W/32): the multi-frame twin of
+        `encode_image` (the causal encoder takes any 8k + 1 frames)."""
+        return self.encode_image(pixels, timings)
+
     def _encode_image_at(self, image_path: str, width: int, height: int,
                          timings: GenerationTimings):
         """Load the conditioning image at a target resolution and encode it."""
@@ -414,13 +433,86 @@ class LTXPipeline:
 
         return self.encode_image(load_image(image_path, width, height), timings)
 
+    def _clip_frames(self, video_path, video_frames, config: GenerationConfig,
+                     frames: int, sample: str):
+        """Exactly one of a clip's path (read by io.video.load_video, `frames`
+        of it by `sample`) or its pixels, checked to be (1, 3, frames, H, W)."""
+        if (video_path is None) == (video_frames is None):
+            raise InvalidConfigurationError("pass exactly one of video_path / video_frames")
+        if video_frames is None:
+            from ltx_tpu_torch.io.video import load_video
+
+            video_frames = load_video(video_path, config.width, config.height, frames,
+                                      sample=sample)
+        video_frames = torch.as_tensor(video_frames)
+        want = (1, 3, frames, config.height, config.width)
+        if tuple(video_frames.shape) != want:
+            raise InvalidConfigurationError(
+                f"video_frames {tuple(video_frames.shape)} != {want}")
+        return video_frames
+
     @staticmethod
-    def _conditioning_mask(shape: VideoLatentShape, frames: int = 1) -> np.ndarray:
-        """(1, T) mask, 1 on the tokens of the first `frames` conditioned
-        latent frames (patchify is row-major (F, H, W): frame f's tokens are
-        the block [f*h*w, (f+1)*h*w))."""
+    def _check_cond_frames(cond_frames: int, config: GenerationConfig) -> None:
+        if cond_frames < 1 or (cond_frames - 1) % 8 != 0:
+            raise InvalidConfigurationError(f"cond_frames must be 8k+1, got {cond_frames}")
+        if cond_frames >= config.num_frames:
+            raise InvalidConfigurationError(
+                f"cond_frames {cond_frames} must be < num_frames {config.num_frames}")
+
+    def _encode_keyframe_sources(self, keyframes, config: GenerationConfig,
+                                 timings: GenerationTimings):
+        """[(pixel frame index, source)] -> (the sources' latents stacked on
+        the frame axis, f32, in index order; their latent-frame indices,
+        int64). A source is an image path, pixels (1, 3, 1, H, W) in [-1, 1]
+        or a normalized latent (1, C, 1, h, w); each index a multiple of 8
+        (latent frame k sits at pixel frame 8k) inside the clip, none twice."""
+        lat_idx, lats = [], []
+        for pix_idx, src in sorted(keyframes, key=lambda kv: int(kv[0])):
+            pix_idx = int(pix_idx)
+            if pix_idx % 8 != 0:
+                raise InvalidConfigurationError(
+                    f"keyframe index {pix_idx} must be a multiple of 8 "
+                    "(latent-frame alignment: latent k sits at pixel 8k)")
+            if not 0 <= pix_idx < config.num_frames:
+                raise InvalidConfigurationError(
+                    f"keyframe index {pix_idx} outside [0, {config.num_frames})")
+            k = pix_idx // 8
+            if k in lat_idx:
+                raise InvalidConfigurationError(f"duplicate keyframe at latent index {k}")
+            if isinstance(src, str):
+                lat = self._encode_image_at(src, config.width, config.height, timings)
+            else:
+                src = torch.as_tensor(src)
+                if src.ndim != 5 or src.shape[2] != 1:
+                    raise InvalidConfigurationError(
+                        f"keyframe source shape {tuple(src.shape)} is neither pixels "
+                        "(1, 3, 1, H, W) nor a latent (1, C, 1, h, w)")
+                if src.shape[1] == 3:
+                    lat = self.encode_image(src, timings)
+                elif src.shape[1] == self.tcfg.in_channels:
+                    lat = src
+                else:
+                    raise InvalidConfigurationError(
+                        f"keyframe source has {src.shape[1]} channels; expected 3 (pixels) "
+                        f"or {self.tcfg.in_channels} (latent)")
+            lat_idx.append(k)
+            lats.append(lat.to(self.device, torch.float32))
+        return torch.cat(lats, dim=2), np.asarray(lat_idx, np.int64)
+
+    @staticmethod
+    def _conditioning_mask(shape: VideoLatentShape, frames: int = 1,
+                           frame_idx=None) -> np.ndarray:
+        """(1, T) mask, 1 on the tokens of the conditioned latent frames: the
+        first `frames` (I2V, extension), or those named by `frame_idx`
+        (keyframes). Patchify is row-major (F, H, W): frame f's tokens are
+        the block [f*h*w, (f+1)*h*w)."""
+        per_frame = shape.height * shape.width
         cm = np.zeros((1, shape.token_count), np.float32)
-        cm[:, :frames * shape.height * shape.width] = 1.0
+        if frame_idx is not None:
+            for f in np.asarray(frame_idx).reshape(-1):
+                cm[:, f * per_frame:(f + 1) * per_frame] = 1.0
+        else:
+            cm[:, :frames * per_frame] = 1.0
         return cm
 
     # ------------------------------------------------------------------
@@ -437,18 +529,63 @@ class LTXPipeline:
                                    token_count=shape.token_count)
 
     def _initial_latent(self, noise, shape: VideoLatentShape, what: str):
-        if tuple(noise.shape) != shape.shape:
-            raise ValueError(f"{what} {tuple(noise.shape)} != {shape.shape}")
+        if noise is None or tuple(noise.shape) != shape.shape:
+            got = None if noise is None else tuple(noise.shape)
+            raise ValueError(f"{what} {got} != {shape.shape}")
         return noise.to(self.device, torch.float32)
+
+    @staticmethod
+    def _per_segment(draws, segments: int, what: str, required: bool = True) -> list:
+        """A chain's draws: one entry per segment (None entries when the
+        argument is optional and absent), else ValueError naming it."""
+        if draws is None and not required:
+            return [None] * segments
+        if draws is None or len(draws) != segments:
+            got = None if draws is None else len(draws)
+            raise ValueError(f"{what}: one entry per segment, {segments}, got {got}")
+        return list(draws)
+
+    @staticmethod
+    def _check_draws(draws, steps: int, like, what: str) -> None:
+        """The re-noise draws of a conditioned latent: `steps` tensors of its
+        shape, else ValueError naming the argument."""
+        shape = tuple(like.shape)
+        if draws is None or len(draws) != steps:
+            got = None if draws is None else len(draws)
+            raise ValueError(f"{what}: the conditioned frames' re-noise needs {steps} draws "
+                             f"of {shape}, one per step; got {got}")
+        for d in draws:
+            if tuple(d.shape) != shape:
+                raise ValueError(f"{what}: a re-noise draw {tuple(d.shape)} != {shape}")
+
+    @staticmethod
+    def _guidance_context(guidance: GuidanceSpec, pos: dict, neg: Optional[dict]):
+        """(context, key bias) of one prompt's guidance rows."""
+        return build_guidance_context(
+            guidance, pos["video"], pos["mask"],
+            neg["video"] if neg else None, neg["mask"] if neg else None)
+
+    def _precomputed(self, embeddings: dict, guidance: GuidanceSpec):
+        """The text encoder bypassed: {"video": (1, S, D), "mask": (1, S)}
+        and, under CFG, "neg_video" / "neg_mask" -> (pos, neg or None) rows
+        on the device."""
+        def row(video, mask):
+            return {"video": torch.as_tensor(embeddings[video]).to(self.device),
+                    "mask": torch.as_tensor(embeddings[mask]).to(self.device)}
+
+        return (row("video", "mask"),
+                row("neg_video", "neg_mask") if guidance.use_cfg else None)
 
     def _denoise(self, latent, sigmas, shape, guidance, context, bias,
                  conditioning_mask, cond_noise_scale, fps, cond_noise, timings,
-                 on_progress, conditioned_latent=None):
+                 on_progress, conditioned_latent=None, cond_frames: int = 1,
+                 cond_frame_idx=None):
         """One denoise loop on the DiT, which stays on the device after it."""
         step_fn = make_denoise_step(
             self._on_device("transformer", timings), guidance, shape, context, bias,
             conditioning_mask=conditioning_mask, conditioned_latent=conditioned_latent,
-            image_cond_noise_scale=cond_noise_scale, fps=fps)
+            image_cond_noise_scale=cond_noise_scale, cond_frames=cond_frames,
+            cond_frame_idx=cond_frame_idx, fps=fps)
 
         def on_step(i, n, sigma):
             now = time.perf_counter()
@@ -468,11 +605,13 @@ class LTXPipeline:
         return tile_latent_frames(latent_frames, self.memory.vae_tile_size,
                                   self.memory.vae_tile_overlap)
 
-    def _decode_frames(self, latent, decode_noise, timings: GenerationTimings):
+    def _decode_frames(self, latent, decode_noise, timings: GenerationTimings,
+                       release: bool = True):
         """VAE decode in the decoder's own dtype -> host (F, H, W, 3) f32.
         The DiT leaves the device first (phase staging). A tiled decode
         copies each tile to the host as uint8. decode_noise: None, a tensor
-        (untiled) or one tensor per tile."""
+        (untiled) or one tensor per tile. release=False keeps the decoder
+        placed for the next decode (a chain's segments)."""
         if self.memory.decode_transfer not in ("uint8", "yuv420"):
             raise ValueError(f"unknown decode_transfer {self.memory.decode_transfer!r}")
         self._release("transformer")
@@ -496,7 +635,8 @@ class LTXPipeline:
         if torch.is_tensor(frames):
             frames = frames.float().cpu().numpy()
         timings.vae_decode += time.perf_counter() - t0
-        self._release("vae_decoder")
+        if release:
+            self._release("vae_decoder")
         return frames
 
     def _maybe_enhance(self, prompt: str, config: GenerationConfig, is_i2v: bool,
@@ -537,7 +677,8 @@ class LTXPipeline:
     @torch.inference_mode()
     def generate_video(self, prompt: str, config: GenerationConfig,
                        initial_noise, decode_noise=None, image_latent=None,
-                       cond_noise=None, on_progress=None) -> VideoGenerationResult:
+                       cond_noise=None, on_progress=None,
+                       precomputed_embeddings=None) -> VideoGenerationResult:
         """Single-stage T2V, or I2V when `image_latent` (1, C, 1, H', W'), a
         normalized latent from `encode_image`, or `config.image_path` is
         given (the hook takes precedence).
@@ -547,8 +688,11 @@ class LTXPipeline:
         config.image_cond_noise_scale > 0, one standard-normal tensor of
         image_latent's shape per denoise step. decode_noise: for decoders
         with timestep conditioning, the latent's shape, or one tensor per
-        decode tile (`decode_tile_frames`). Returns frames (F, H, W, 3) in
-        [0, 1] on the host."""
+        decode tile (`decode_tile_frames`). precomputed_embeddings:
+        {"video": (1, S, D), "mask": (1, S)} and under CFG "neg_video" /
+        "neg_mask" in place of the text encoder (its rows from
+        `encode_prompt(s)`). Returns frames (F, H, W, 3) in [0, 1] on the
+        host."""
         config.validate()
         total_start = time.perf_counter()
         timings = GenerationTimings()
@@ -560,14 +704,15 @@ class LTXPipeline:
                                                  config.height, timings)
 
         prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
-        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
-        context, bias = build_guidance_context(
-            guidance, pos["video"], pos["mask"],
-            neg["video"] if neg else None, neg["mask"] if neg else None)
+        if precomputed_embeddings is not None:
+            pos, neg = self._precomputed(precomputed_embeddings, guidance)
+            if self.memory.offload_text_encoder:
+                self.offload_text_encoder()
+        else:
+            (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        context, bias = self._guidance_context(guidance, pos, neg)
 
-        shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
-                                             config.width,
-                                             channels=self.tcfg.in_channels)
+        shape = self._shape(config)
         sigmas = self._sigmas(config, shape)
         latent = self._initial_latent(initial_noise, shape, "initial_noise") \
             * float(sigmas[0])
@@ -700,9 +845,7 @@ class LTXPipeline:
 
         prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
         (pos,), neg = self._encode_text([prompt], config, guidance, timings)
-        context, bias = build_guidance_context(
-            guidance, pos["video"], pos["mask"],
-            neg["video"] if neg else None, neg["mask"] if neg else None)
+        context, bias = self._guidance_context(guidance, pos, neg)
 
         # === stage 1: half resolution ===
         channels = self.tcfg.in_channels
@@ -766,6 +909,351 @@ class LTXPipeline:
                                      seed=self._seed(config))
 
     # ------------------------------------------------------------------
+    # Long video: video-to-video, extension, keyframes, chains
+    # ------------------------------------------------------------------
+
+    def _shape(self, config: GenerationConfig) -> VideoLatentShape:
+        return VideoLatentShape.from_pixels(1, config.num_frames, config.height,
+                                            config.width, channels=self.tcfg.in_channels)
+
+    @torch.inference_mode()
+    def generate_video_from_video(self, prompt: str, config: GenerationConfig,
+                                  initial_noise, video_path: Optional[str] = None,
+                                  video_frames=None, strength: float = 0.6,
+                                  decode_noise=None, on_progress=None) -> VideoGenerationResult:
+        """Video-to-video: the input clip encoded, noised to the schedule's
+        sigma at step k = round((1 - strength) * n) by the flow-matching
+        forward (1 - s) x0 + s noise, then the last n - k steps denoised
+        under the prompt. strength in (0, 1]; 1.0 starts from pure noise and
+        is `generate_video` bit for bit on the same initial_noise.
+
+        video_path: a clip read by io.video.load_video (config.num_frames
+        frames sampled evenly, resized); video_frames: (1, 3, num_frames, H,
+        W) in [-1, 1] instead. initial_noise: the latent's shape (the noise
+        the clip's latent is mixed with); decode_noise as `generate_video`'s."""
+        config.validate()
+        if not 0.0 < strength <= 1.0:
+            raise InvalidConfigurationError(f"v2v strength must be in (0, 1], got {strength}")
+        video_frames = self._clip_frames(video_path, video_frames, config, config.num_frames,
+                                         "even")
+        total_start = time.perf_counter()
+        timings = GenerationTimings()
+        guidance = GuidanceSpec.from_config(config)
+        prompt = self._maybe_enhance(prompt, config, False, timings)
+        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        context, bias = self._guidance_context(guidance, pos, neg)
+
+        shape = self._shape(config)
+        src_latent = self.encode_video(video_frames, timings)
+        sig_full = self._sigmas(config, shape)
+        n_steps = len(sig_full) - 1
+        k = min(max(int(round((1.0 - strength) * n_steps)), 0), n_steps - 1)
+        sigmas = sig_full[k:]
+        noise = self._initial_latent(initial_noise, shape, "initial_noise")
+        latent = schedule.add_noise(src_latent, noise, float(sigmas[0]))
+        latent = self._denoise(latent, sigmas, shape, guidance, context, bias, None, 0.0,
+                               config.fps, None, timings, on_progress)
+        frames = self._decode_frames(latent, decode_noise, timings)
+        timings.total = time.perf_counter() - total_start
+        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+                                     seed=self._seed(config))
+
+    @torch.inference_mode()
+    def generate_video_extension(self, prompt: str, config: GenerationConfig,
+                                 initial_noise, video_path: Optional[str] = None,
+                                 video_frames=None, cond_frames: int = 9, decode_noise=None,
+                                 cond_noise=None, on_progress=None) -> VideoGenerationResult:
+        """Extend a clip: its last `cond_frames` pixel frames (8k + 1, fewer
+        than num_frames) are encoded into the first k + 1 latent frames,
+        which keep timestep 0 and are carried through Euler (re-noised each
+        step from the clean latent when config.image_cond_noise_scale > 0);
+        the rest is generated. The result starts with those frames, re-encoded,
+        and runs num_frames in all. cond_frames=1 on a one-frame clip is I2V
+        bit for bit.
+
+        video_path: a clip whose last cond_frames frames io.video.load_video
+        reads; video_frames: (1, 3, cond_frames, H, W) in [-1, 1] instead.
+        initial_noise and decode_noise as `generate_video`'s; cond_noise: one
+        draw a step of the conditioned latent's shape (1, C, k + 1, h, w)."""
+        config.validate()
+        self._check_cond_frames(cond_frames, config)
+        video_frames = self._clip_frames(video_path, video_frames, config, cond_frames, "tail")
+        total_start = time.perf_counter()
+        timings = GenerationTimings()
+        guidance = GuidanceSpec.from_config(config)
+        prompt = self._maybe_enhance(prompt, config, False, timings)
+        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        context, bias = self._guidance_context(guidance, pos, neg)
+
+        shape = self._shape(config)
+        cond_latent = self.encode_video(video_frames, timings)
+        k_lat = cond_latent.shape[2]
+        sigmas = self._sigmas(config, shape)
+        if config.image_cond_noise_scale > 0:
+            self._check_draws(cond_noise, len(sigmas) - 1, cond_latent, "cond_noise")
+        latent = self._initial_latent(initial_noise, shape, "initial_noise") \
+            * float(sigmas[0])
+        latent[:, :, :k_lat] = cond_latent
+        latent = self._denoise(latent, sigmas, shape, guidance, context, bias,
+                               self._conditioning_mask(shape, frames=k_lat),
+                               config.image_cond_noise_scale, config.fps, cond_noise, timings,
+                               on_progress, conditioned_latent=cond_latent, cond_frames=k_lat)
+        frames = self._decode_frames(latent, decode_noise, timings)
+        timings.total = time.perf_counter() - total_start
+        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+                                     seed=self._seed(config))
+
+    @torch.inference_mode()
+    def generate_video_keyframes(self, prompt: str, config: GenerationConfig, keyframes,
+                                 initial_noise, audio_noise=None, decode_noise=None,
+                                 cond_noise=None, audio: bool = False,
+                                 audio_gain: float = 1.0,
+                                 on_progress=None) -> VideoGenerationResult:
+        """Condition on keyframes at any 8-aligned pixel frames:
+        keyframes = [(pixel frame index, source), ...], e.g. the first and
+        the last frame for the motion between. A source is an image path,
+        pixels (1, 3, 1, H, W) in [-1, 1] or a normalized latent (1, C, 1,
+        h, w); each anchors latent frame index // 8, which keeps timestep 0
+        and is carried through Euler (re-noised from the clean latent when
+        config.image_cond_noise_scale > 0). keyframes=[(0, latent)] is I2V
+        bit for bit.
+
+        audio=True runs the dual DiT with a soundtrack, as
+        `generate_video_with_audio` (STG dropped, audio_gain applied):
+        keyframes=[(0, latent)] is its I2V bit for bit. initial_noise,
+        audio_noise and decode_noise as those entry points'; cond_noise: one
+        draw a step of the keyframes' stacked latent (1, C, K, h, w)."""
+        config.validate()
+        if not keyframes:
+            raise InvalidConfigurationError("keyframes must be non-empty")
+        if audio:
+            self._require_audio()
+        total_start = time.perf_counter()
+        timings = GenerationTimings()
+        guidance = GuidanceSpec.from_config(config)
+        if audio:
+            guidance = dataclasses.replace(guidance, stg_scale=0.0)
+        shape = self._shape(config)
+        cond_latent, cond_idx = self._encode_keyframe_sources(keyframes, config, timings)
+        prompt = self._maybe_enhance(prompt, config, True, timings)
+        if audio:
+            v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance,
+                                                              timings)
+        else:
+            (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+            context, bias = self._guidance_context(guidance, pos, neg)
+
+        sigmas = self._sigmas(config, shape)
+        if config.image_cond_noise_scale > 0:
+            self._check_draws(cond_noise, len(sigmas) - 1, cond_latent, "cond_noise")
+        cm = self._conditioning_mask(shape, frame_idx=cond_idx)
+        latent = self._initial_latent(initial_noise, shape, "initial_noise") \
+            * float(sigmas[0])
+        latent[:, :, torch.from_numpy(cond_idx).to(self.device)] = cond_latent
+        if audio:
+            audio_packed = self._audio_latent(audio_noise, config, "audio_noise") \
+                * float(sigmas[0])
+            latent, audio_packed = self._av_denoise(
+                latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx, bias, cm,
+                cond_latent, config, cond_noise, timings, on_progress, cond_frame_idx=cond_idx)
+            frames, waveform = self._decode_av(latent, audio_packed, decode_noise, audio_gain,
+                                               timings)
+        else:
+            latent = self._denoise(latent, sigmas, shape, guidance, context, bias, cm,
+                                   config.image_cond_noise_scale, config.fps, cond_noise,
+                                   timings, on_progress, conditioned_latent=cond_latent,
+                                   cond_frame_idx=cond_idx)
+            frames, waveform = self._decode_frames(latent, decode_noise, timings), None
+        timings.total = time.perf_counter() - total_start
+        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+                                     seed=self._seed(config), audio=waveform)
+
+    def _check_chain(self, segments: int, cond_frames: int, prompts,
+                     config: GenerationConfig) -> None:
+        if segments < 1:
+            raise InvalidConfigurationError(f"segments must be >= 1, got {segments}")
+        if cond_frames < 1 or (cond_frames - 1) % 8 != 0:
+            raise InvalidConfigurationError(f"cond_frames must be 8k+1, got {cond_frames}")
+        if segments > 1 and cond_frames >= config.num_frames:
+            raise InvalidConfigurationError(
+                f"cond_frames {cond_frames} must be < num_frames {config.num_frames}")
+        if prompts is not None and len(prompts) != segments:
+            raise InvalidConfigurationError(f"{len(prompts)} prompts for {segments} segments")
+
+    def _encode_chain_anchors(self, anchors, segments: int, k_lat: int,
+                              config: GenerationConfig, timings: GenerationTimings) -> dict:
+        """{segment: [(pixel frame index, source), ...]} -> {segment:
+        (latents, latent indices)}, encoded and checked before any text or
+        denoise work; an anchor of a segment after the first must lie past
+        the carried tail's k_lat latent frames."""
+        anchor_enc = {}
+        for si, kfs in (anchors or {}).items():
+            si = int(si)
+            if not 0 <= si < segments:
+                raise InvalidConfigurationError(f"anchor segment {si} outside [0, {segments})")
+            a_lat, a_idx = self._encode_keyframe_sources(kfs, config, timings)
+            if si > 0 and int(a_idx[0]) < k_lat:
+                raise InvalidConfigurationError(
+                    f"segment {si} anchor at latent frame {int(a_idx[0])} overlaps the "
+                    f"carried tail (first {k_lat} latent frames)")
+            anchor_enc[si] = (a_lat, a_idx)
+        return anchor_enc
+
+    def _encode_chain_prompts(self, seg_prompts, config: GenerationConfig,
+                              guidance: GuidanceSpec, timings: GenerationTimings,
+                              need_audio: bool = False):
+        """A chain's prompts -> ({prompt: row}, the negative row or None).
+        One unique prompt takes `generate_video`'s sequence (its enhancement,
+        then its text pass), so that segment 0 is `generate_video`; several
+        are enhanced together (`enhance_prompts`, four rows at a time) and
+        encoded in one text pass with the negative after them."""
+        unique = list(dict.fromkeys(seg_prompts))
+        if len(unique) == 1:
+            enhanced = [self._maybe_enhance(unique[0], config, False, timings)]
+        else:
+            enhanced = unique
+            if config.enhance_prompt:
+                if self.gemma is None or self.tokenizer is None:
+                    log.warning("enhance_prompt requested but the text encoder is not "
+                                "loaded; using the raw prompts")
+                else:
+                    from ltx_tpu_torch.pipeline.enhance import enhance_prompts
+
+                    gemma = self._on_device("gemma", timings)
+                    t0 = time.perf_counter()
+                    enhanced = enhance_prompts(gemma, self.tokenizer, unique,
+                                               spec_k=config.enhancement_spec_k, max_batch=4)
+                    _sync(self.device)
+                    timings.enhancement += time.perf_counter() - t0
+        rows, neg = self._encode_text(enhanced, config, guidance, timings)
+        if need_audio and any("audio" not in r for r in rows + ([neg] if neg else [])):
+            raise TextEncodingFailedError("text encoder lacks the audio connector")
+        return dict(zip(unique, rows)), neg
+
+    def _chain_segment_conditioning(self, i: int, shape: VideoLatentShape, k_lat: int,
+                                    tail, anchor):
+        """Segment i's video conditioning: (the frames to set in its initial
+        latent as [(index or slice, latent)], conditioning mask, clean
+        conditioned latent, cond_frames, cond_frame_idx). Segment 0 is
+        unconditioned unless anchored; a later segment is conditioned on the
+        carried tail, in its first k_lat frames, and on its anchors after
+        them (indices tail ++ anchors, latents in that order)."""
+        if i == 0 and anchor is None:
+            return [], None, None, 1, None
+        if anchor is None:
+            return ([(slice(0, k_lat), tail)], self._conditioning_mask(shape, frames=k_lat),
+                    tail, k_lat, None)
+        a_lat, a_idx = anchor
+        sets = [(torch.from_numpy(a_idx).to(self.device), a_lat)]
+        if i == 0:
+            idx, c_lat = a_idx, a_lat
+        else:
+            sets.insert(0, (slice(0, k_lat), tail))
+            idx = np.concatenate([np.arange(k_lat), a_idx])
+            c_lat = torch.cat([tail, a_lat], dim=2)
+        return sets, self._conditioning_mask(shape, frame_idx=idx), c_lat, 1, idx
+
+    @torch.inference_mode()
+    def generate_video_chain(self, prompt: str, config: GenerationConfig, segments: int,
+                             initial_noise, cond_frames: int = 9, prompts=None,
+                             decode_noise=None, cond_noise=None, precomputed_embeddings=None,
+                             anchors=None, tail_renorm: float = 0.0,
+                             on_progress=None) -> VideoGenerationResult:
+        """Long video as a chain of segments, each after the first conditioned
+        on the previous one's denoised tail latent (its last (cond_frames -
+        1) // 8 + 1 latent frames, no decode and re-encode between), as
+        `generate_video_extension` conditions on a clip. Every segment
+        denoises first, the DiT staged once; then every segment decodes, the
+        VAE staged once, and each after the first drops its first
+        cond_frames frames (they re-render the carried tail): num_frames +
+        (segments - 1) * (num_frames - cond_frames) frames in all. Segment 0
+        is `generate_video` bit for bit on the same draws.
+
+        prompts: one per segment (default `prompt` for all). anchors:
+        {segment: [(pixel frame index, source), ...]}, keyframes as
+        `generate_video_keyframes`' with per-segment indices, past the
+        carried tail after segment 0; an anchored segment is conditioned on
+        the tail and its anchors through keyframe indices; anchors={0: kfs}
+        with segments=1 is `generate_video_keyframes` bit for bit.
+        tail_renorm in [0, 1]: AdaIN of each carried tail toward segment 0's
+        tail statistics, blended by this factor (0: off).
+        precomputed_embeddings: as `generate_video`'s, for every segment
+        (one prompt only).
+
+        Draws, one entry per segment: initial_noise (the latent's shape);
+        cond_noise (when config.image_cond_noise_scale > 0, for each
+        conditioned segment one draw a step of its conditioned latent:
+        (1, C, k_lat, h, w), with anchors (1, C, k_lat + A, h, w); None for
+        segment 0 when it is unanchored); decode_noise (optional, each as
+        `generate_video`'s). on_progress(i * steps + s, segments * steps,
+        sigma)."""
+        config.validate()
+        segments = int(segments)
+        self._check_chain(segments, cond_frames, prompts, config)
+        initial_noise = self._per_segment(initial_noise, segments, "initial_noise")
+        decode_noise = self._per_segment(decode_noise, segments, "decode_noise", required=False)
+        cond_noise = self._per_segment(cond_noise, segments, "cond_noise", required=False)
+        total_start = time.perf_counter()
+        timings = GenerationTimings()
+        guidance = GuidanceSpec.from_config(config)
+        seg_prompts = list(prompts) if prompts is not None else [prompt] * segments
+        k_lat = (cond_frames - 1) // 8 + 1
+        anchor_enc = self._encode_chain_anchors(anchors, segments, k_lat, config, timings)
+
+        if precomputed_embeddings is not None:
+            if len(set(seg_prompts)) > 1:
+                raise InvalidConfigurationError(
+                    "precomputed_embeddings carries ONE embedding set; per-segment prompts "
+                    "cannot vary with it")
+            pos, neg = self._precomputed(precomputed_embeddings, guidance)
+            encoded = {p: pos for p in seg_prompts}
+        else:
+            encoded, neg = self._encode_chain_prompts(seg_prompts, config, guidance, timings)
+        contexts = [self._guidance_context(guidance, encoded[p], neg) for p in seg_prompts]
+
+        shape = self._shape(config)
+        sigmas = self._sigmas(config, shape)
+        n_steps = len(sigmas) - 1
+        latents, tail, tail0 = [], None, None
+        for i in range(segments):
+            latent = self._initial_latent(initial_noise[i], shape, f"initial_noise[{i}]") \
+                * float(sigmas[0])
+            sets, cm, c_lat, cf, idx = self._chain_segment_conditioning(
+                i, shape, k_lat, tail, anchor_enc.get(i))
+            for where, value in sets:
+                latent[:, :, where] = value
+            scale = config.image_cond_noise_scale if cm is not None else 0.0
+            if scale > 0:
+                self._check_draws(cond_noise[i], n_steps, c_lat, f"cond_noise[{i}]")
+            context, bias = contexts[i]
+            latent = self._denoise(
+                latent, sigmas, shape, guidance, context, bias, cm, scale, config.fps,
+                cond_noise[i], timings, self._chain_progress(on_progress, i, n_steps, segments),
+                conditioned_latent=c_lat, cond_frames=cf, cond_frame_idx=idx)
+            tail = latent[:, :, -k_lat:].float()
+            if i == 0:
+                tail0 = tail
+            elif tail_renorm > 0:
+                tail = adain_filter_latent(tail, tail0, factor=float(tail_renorm))
+            latents.append(latent)
+
+        parts = []
+        for i, latent in enumerate(latents):
+            frames = self._decode_frames(latent, decode_noise[i], timings,
+                                         release=i == segments - 1)[: config.num_frames]
+            parts.append(frames if i == 0 else frames[cond_frames:])
+        timings.total = time.perf_counter() - total_start
+        return VideoGenerationResult(frames=np.concatenate(parts, axis=0), timings=timings,
+                                     seed=self._seed(config))
+
+    @staticmethod
+    def _chain_progress(on_progress, i: int, n_steps: int, segments: int):
+        """Segment i's step callback in the chain's count of steps."""
+        if on_progress is None:
+            return None
+        return lambda s, n, sigma: on_progress(i * n_steps + s, segments * n_steps, sigma)
+
+    # ------------------------------------------------------------------
     # Joint audio
     # ------------------------------------------------------------------
 
@@ -793,6 +1281,12 @@ class LTXPipeline:
         (pos,), neg = self._encode_text([prompt], config, guidance, timings)
         if "audio" not in pos:
             raise TextEncodingFailedError("text encoder lacks the audio connector")
+        return self._av_contexts(guidance, pos, neg)
+
+    @staticmethod
+    def _av_contexts(guidance: GuidanceSpec, pos: dict, neg: Optional[dict]):
+        """(video context, audio context, their one key bias) of a prompt's
+        guidance rows."""
         v_ctx, bias = build_guidance_context(
             guidance, pos["video"], pos["mask"],
             neg["video"] if neg else None, neg["mask"] if neg else None)
@@ -809,13 +1303,18 @@ class LTXPipeline:
 
     def _av_denoise(self, video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx,
                     bias, conditioning_mask, conditioned_latent, config, cond_noise,
-                    timings, on_progress, video_euler: str = "scheduler"):
+                    timings, on_progress, video_euler: str = "scheduler",
+                    cond_frames: int = 1, cond_frame_idx=None, audio_cond_frames: int = 0,
+                    audio_conditioned_latent=None, audio_cond_noise=None):
         """One dual denoise loop on the AV DiT, which stays on the device."""
         step_fn = make_av_denoise_step(
             self._on_device("av_transformer", timings), guidance, shape,
             self.audio_frames(config), v_ctx, a_ctx, bias,
             conditioning_mask=conditioning_mask, conditioned_latent=conditioned_latent,
-            image_cond_noise_scale=config.image_cond_noise_scale, fps=config.fps,
+            image_cond_noise_scale=config.image_cond_noise_scale,
+            cond_frames=cond_frames, cond_frame_idx=cond_frame_idx,
+            audio_cond_frames=audio_cond_frames,
+            audio_conditioned_latent=audio_conditioned_latent, fps=config.fps,
             video_euler=video_euler)
 
         def on_step(i, n, sigma):
@@ -827,7 +1326,8 @@ class LTXPipeline:
 
         on_step.t0 = time.perf_counter()
         return run_av_denoise_loop(step_fn, video_latent, audio_packed, sigmas,
-                                   cond_noise=cond_noise, on_step=on_step)
+                                   cond_noise=cond_noise, audio_cond_noise=audio_cond_noise,
+                                   on_step=on_step)
 
     def _decode_av(self, video_latent, audio_packed, decode_noise, audio_gain: float,
                    timings: GenerationTimings):
@@ -836,19 +1336,29 @@ class LTXPipeline:
         to [-1, 1]."""
         self._release("av_transformer")
         frames = self._decode_frames(video_latent, decode_noise, timings)
+        (waveform,) = self._decode_waveforms([audio_packed], audio_gain, timings)
+        return frames, waveform
+
+    def _decode_waveforms(self, packed: list, audio_gain: float,
+                          timings: GenerationTimings) -> list:
+        """Each packed audio latent through the audio VAE and the vocoder,
+        both placed once -> (2, samples) f32 on the host, gain applied and
+        clipped to [-1, 1]."""
         vae = self._on_device("audio_vae", timings)
         vocoder = self._on_device("vocoder", timings)
         t0 = time.perf_counter()
-        latents = dit_av.unpack_audio_latents(audio_packed, channels=8,
-                                              mel=self.tcfg.audio_in_channels // 8)
-        waveform = decode_audio(vae, vocoder, latents.to(vae.latents_mean.dtype))
-        if audio_gain != 1.0:
-            waveform = torch.clamp(waveform * audio_gain, -1.0, 1.0)
-        waveform = waveform[0].float().cpu().numpy()
+        out = []
+        for audio_packed in packed:
+            latents = dit_av.unpack_audio_latents(audio_packed, channels=8,
+                                                  mel=self.tcfg.audio_in_channels // 8)
+            waveform = decode_audio(vae, vocoder, latents.to(vae.latents_mean.dtype))
+            if audio_gain != 1.0:
+                waveform = torch.clamp(waveform * audio_gain, -1.0, 1.0)
+            out.append(waveform[0].float().cpu().numpy())
         timings.audio_decode += time.perf_counter() - t0
         self._release("audio_vae")
         self._release("vocoder")
-        return frames, waveform
+        return out
 
     @torch.inference_mode()
     def generate_video_with_audio(self, prompt: str, config: GenerationConfig,
@@ -863,46 +1373,62 @@ class LTXPipeline:
         `config.image_path` is given; CFG with the negative prompt on both
         streams (STG is not defined on this path and is dropped).
 
+        video_path / video_frames extend a clip with a soundtrack, as
+        `generate_video_extension` extends one (its last cond_frames frames,
+        8k + 1, the first latent frames conditioned); not with image
+        conditioning. cond_frames=1 on a one-frame clip is I2V bit for bit.
+
         initial_noise: the video latent's shape, as `generate_video`'s;
         audio_noise: `audio_noise_shape(config)` standard normal, the raw
-        (1, 8, T, mel) audio latent before packing; cond_noise and
-        decode_noise as `generate_video`'s. audio_gain scales the waveform,
-        clipped to [-1, 1]. video_path / video_frames (extending a clip with
-        a soundtrack) need the video encoder, ROADMAP A15. Returns frames
-        (F, H, W, 3) in [0, 1] and audio (2, samples) in [-1, 1] on the
-        host."""
+        (1, 8, T, mel) audio latent before packing; cond_noise (of the image
+        latent's, or the clip's latent's shape) and decode_noise as
+        `generate_video`'s. audio_gain scales the waveform, clipped to
+        [-1, 1]. Returns frames (F, H, W, 3) in [0, 1] and audio (2,
+        samples) in [-1, 1] on the host."""
         config.validate()
-        if video_path is not None or video_frames is not None:
-            raise NotImplementedError("extending a clip with audio (video_path / "
-                                      "video_frames) needs encode_video (ROADMAP A15)")
         self._require_audio()
         total_start = time.perf_counter()
         timings = GenerationTimings()
         guidance = dataclasses.replace(GuidanceSpec.from_config(config), stg_scale=0.0)
 
         is_i2v = image_latent is not None or config.image_path is not None
+        ext = video_path is not None or video_frames is not None
+        if ext and is_i2v:
+            raise InvalidConfigurationError(
+                "clip-tail conditioning (video_path/video_frames) is mutually exclusive with "
+                "image conditioning")
         if image_latent is None and config.image_path is not None:
             image_latent = self._encode_image_at(config.image_path, config.width,
                                                  config.height, timings)
+        cond_latent = None
+        if image_latent is not None:
+            cond_latent = image_latent.to(self.device, torch.float32)
+        elif ext:
+            self._check_cond_frames(cond_frames, config)
+            video_frames = self._clip_frames(video_path, video_frames, config, cond_frames,
+                                             "tail")
+            cond_latent = self.encode_video(video_frames, timings)
         prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
         v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance, timings)
 
-        shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
-                                             config.width, channels=self.tcfg.in_channels)
+        shape = self._shape(config)
         sigmas = self._sigmas(config, shape)
         video_latent = self._initial_latent(initial_noise, shape, "initial_noise") \
             * float(sigmas[0])
         audio_packed = self._audio_latent(audio_noise, config, "audio_noise") \
             * float(sigmas[0])
-        conditioning_mask = None
-        if image_latent is not None:
-            image_latent = image_latent.to(self.device, torch.float32)
-            video_latent[:, :, :1] = image_latent
-            conditioning_mask = self._conditioning_mask(shape)
+        conditioning_mask, k_lat = None, 1
+        if cond_latent is not None:
+            k_lat = cond_latent.shape[2]
+            video_latent[:, :, :k_lat] = cond_latent
+            conditioning_mask = self._conditioning_mask(shape, frames=k_lat)
+            if ext and config.image_cond_noise_scale > 0:
+                self._check_draws(cond_noise, len(sigmas) - 1, cond_latent, "cond_noise")
 
         video_latent, audio_packed = self._av_denoise(
             video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx, bias,
-            conditioning_mask, image_latent, config, cond_noise, timings, on_progress)
+            conditioning_mask, cond_latent, config, cond_noise, timings, on_progress,
+            cond_frames=k_lat)
         frames, audio = self._decode_av(video_latent, audio_packed, decode_noise, audio_gain,
                                         timings)
         timings.total = time.perf_counter() - total_start
@@ -1008,3 +1534,118 @@ class LTXPipeline:
         timings.total = time.perf_counter() - total_start
         return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
                                      seed=self._seed(config), audio=audio)
+
+    @torch.inference_mode()
+    def generate_video_chain_with_audio(
+            self, prompt: str, config: GenerationConfig, segments: int, initial_noise,
+            audio_noise, cond_frames: int = 9, prompts=None, decode_noise=None,
+            cond_noise=None, audio_cond_noise=None, audio_gain: float = 1.0,
+            audio_cond: bool = False, anchors=None, on_progress=None) -> VideoGenerationResult:
+        """`generate_video_chain` with a soundtrack: each segment runs the
+        dual DiT as `generate_video_with_audio` does (segments=1 is that
+        entry point bit for bit), the video tail carried in latent space;
+        the segments' waveforms are joined with a linear crossfade over the
+        trimmed overlap, round(samples * cond_frames / num_frames) samples.
+
+        audio_cond=True also carries the previous segment's audio tail: its
+        last k_a = max(1, round(audio frames * cond_frames / num_frames))
+        packed audio frames condition the next segment's first k_a (timestep
+        0, re-noised from the clean tail when config.image_cond_noise_scale
+        > 0, carried through the audio Euler). anchors: as
+        `generate_video_chain`'s. No tail renormalisation on this path.
+
+        Draws, one entry per segment: initial_noise, audio_noise (as
+        `generate_video_with_audio`'s), decode_noise (optional), cond_noise
+        (as `generate_video_chain`'s) and audio_cond_noise (with audio_cond
+        and config.image_cond_noise_scale > 0, for every segment after the
+        first one draw a step of shape (1, k_a, C_a); None for segment 0)."""
+        config.validate()
+        self._require_audio()
+        segments = int(segments)
+        self._check_chain(segments, cond_frames, prompts, config)
+        k_lat = (cond_frames - 1) // 8 + 1
+        af = self.audio_frames(config)
+        k_a = max(1, int(round(af * cond_frames / config.num_frames))) if audio_cond else 0
+        if audio_cond and k_a >= af:
+            raise InvalidConfigurationError(
+                f"audio overlap {k_a} >= audio_frames {af} (cond_frames too close to "
+                "num_frames for audio_cond)")
+        initial_noise = self._per_segment(initial_noise, segments, "initial_noise")
+        audio_noise = self._per_segment(audio_noise, segments, "audio_noise")
+        decode_noise = self._per_segment(decode_noise, segments, "decode_noise", required=False)
+        cond_noise = self._per_segment(cond_noise, segments, "cond_noise", required=False)
+        audio_cond_noise = self._per_segment(audio_cond_noise, segments, "audio_cond_noise",
+                                             required=False)
+        total_start = time.perf_counter()
+        timings = GenerationTimings()
+        guidance = dataclasses.replace(GuidanceSpec.from_config(config), stg_scale=0.0)
+        seg_prompts = list(prompts) if prompts is not None else [prompt] * segments
+        anchor_enc = self._encode_chain_anchors(anchors, segments, k_lat, config, timings)
+        encoded, neg = self._encode_chain_prompts(seg_prompts, config, guidance, timings,
+                                                  need_audio=True)
+        contexts = [self._av_contexts(guidance, encoded[p], neg) for p in seg_prompts]
+
+        shape = self._shape(config)
+        sigmas = self._sigmas(config, shape)
+        n_steps = len(sigmas) - 1
+        scale = config.image_cond_noise_scale
+        seg_latents, tail, audio_tail = [], None, None
+        for i in range(segments):
+            video_latent = self._initial_latent(initial_noise[i], shape,
+                                                f"initial_noise[{i}]") * float(sigmas[0])
+            audio_packed = self._audio_latent(audio_noise[i], config,
+                                              f"audio_noise[{i}]") * float(sigmas[0])
+            sets, cm, c_lat, cf, idx = self._chain_segment_conditioning(
+                i, shape, k_lat, tail, anchor_enc.get(i))
+            for where, value in sets:
+                video_latent[:, :, where] = value
+            seg_k_a = k_a if i > 0 else 0
+            if seg_k_a:
+                audio_packed[:, :seg_k_a] = audio_tail
+            if cm is not None and scale > 0:
+                self._check_draws(cond_noise[i], n_steps, c_lat, f"cond_noise[{i}]")
+            if seg_k_a and scale > 0:
+                self._check_draws(audio_cond_noise[i], n_steps, audio_tail,
+                                  f"audio_cond_noise[{i}]")
+            v_ctx, a_ctx, bias = contexts[i]
+            video_latent, audio_packed = self._av_denoise(
+                video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx, bias, cm,
+                c_lat, config, cond_noise[i], timings,
+                self._chain_progress(on_progress, i, n_steps, segments), cond_frames=cf,
+                cond_frame_idx=idx, audio_cond_frames=seg_k_a,
+                audio_conditioned_latent=audio_tail if seg_k_a and scale > 0 else None,
+                audio_cond_noise=audio_cond_noise[i])
+            tail = video_latent[:, :, -k_lat:].float()
+            if audio_cond:
+                audio_tail = audio_packed[:, -k_a:].float()
+            seg_latents.append((video_latent, audio_packed))
+
+        self._release("av_transformer")
+        parts = []
+        for i, (video_latent, _) in enumerate(seg_latents):
+            frames = self._decode_frames(video_latent, decode_noise[i], timings,
+                                         release=i == segments - 1)[: config.num_frames]
+            parts.append(frames if i == 0 else frames[cond_frames:])
+        waves = self._decode_waveforms([a for _, a in seg_latents], audio_gain, timings)
+        timings.total = time.perf_counter() - total_start
+        return VideoGenerationResult(frames=np.concatenate(parts, axis=0), timings=timings,
+                                     seed=self._seed(config),
+                                     audio=crossfade(waves, cond_frames, config.num_frames))
+
+
+def crossfade(waves: list, cond_frames: int, num_frames: int) -> np.ndarray:
+    """Join a chain's (2, samples) waveforms: each next one overlaps the
+    joined audio by k = round(samples * cond_frames / num_frames) samples
+    (at most either's length), blended by a linear ramp from 0 to 1 (k
+    steps, the end excluded) in float32."""
+    audio = waves[0]
+    for w in waves[1:]:
+        s = w.shape[-1]
+        k = min(int(round(s * cond_frames / num_frames)), audio.shape[-1], s)
+        if k > 0:
+            ramp = np.linspace(0.0, 1.0, k, endpoint=False, dtype=np.float32)
+            blended = audio[..., -k:] * (1.0 - ramp) + w[..., :k] * ramp
+            audio = np.concatenate([audio[..., :-k], blended, w[..., k:]], axis=-1)
+        else:
+            audio = np.concatenate([audio, w], axis=-1)
+    return audio

@@ -25,21 +25,17 @@ import pytest
 import torch
 
 from ltx_tpu.core import config as jconfig
-from ltx_tpu.models import audio_vae as jaudio
-from ltx_tpu.models import dit as jdit
-from ltx_tpu.models import dit_av as jav
-from ltx_tpu.models import gemma3 as jgemma
-from ltx_tpu.models import text_encoder as jte
-from ltx_tpu.models import upscaler as jup
-from ltx_tpu.models import vae as jvae
 from ltx_tpu.ops import schedule as jsched
 from ltx_tpu.ops.latents import VideoLatentShape as JShape
-from ltx_tpu.pipeline.generate import LTXPipeline as JaxPipeline
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.config import GenerationConfig, MemoryConfig
-from ltx_tpu_torch.errors import ModelNotLoadedError, TextEncodingFailedError
-from ltx_tpu_torch.pipeline import generate
+from ltx_tpu_torch.errors import (
+    InvalidConfigurationError,
+    ModelNotLoadedError,
+    TextEncodingFailedError,
+)
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
+from torch_parity import jax_normal, loop_draws, reference_and_port
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 FRAME_ATOL = 2e-2
@@ -52,10 +48,6 @@ def _jcfg(config):
     return convert.port_config(config, jconfig.GenerationConfig)
 
 
-def _normal(key, shape):
-    return torch.from_numpy(np.array(jax.random.normal(key, shape, jnp.float32)))
-
-
 @pytest.fixture(scope="module")
 def pipes():
     """The reference's random_tiny(seed=0, include_audio=True) components
@@ -63,44 +55,7 @@ def pipes():
     its trees. The bf16 components init eagerly as random_tiny does; the f32
     ones (VAE, upscaler, audio VAE, vocoder) init jitted, within 2e-8 of
     eager, in a fraction of the time."""
-    tcfg, vcfg, gcfg, tecfg = generate.tiny_configs()
-    jt = convert.port_config(tcfg, jconfig.TransformerConfig)
-    jv = convert.port_config(vcfg, jvae.VAEConfig)
-    ju = convert.port_config(generate.tiny_upscaler_config(tcfg), jup.UpscalerConfig)
-    jac, jvoc = jaudio.AudioVAEConfig().tiny(), jaudio.VocoderConfig().tiny()
-    ks = jax.random.split(jax.random.key(0), 9)
-
-    def jit(init, key, cfg):
-        return jax.jit(init, static_argnums=1)(key, cfg)
-
-    ref = JaxPipeline(
-        transformer_params=jdit.init_params(ks[0], jt, jnp.bfloat16), transformer_config=jt,
-        vae_decoder_params=jit(jvae.init_decoder_params, ks[1], jv), vae_config=jv,
-        gemma_params=jgemma.init_params(ks[2], convert.port_config(gcfg, jgemma.Gemma3Config),
-                                        jnp.bfloat16),
-        gemma_config=convert.port_config(gcfg, jgemma.Gemma3Config),
-        text_encoder_params=jte.init_params(
-            ks[3], convert.port_config(tecfg, jte.TextEncoderConfig), jnp.bfloat16,
-            include_audio=True),
-        text_encoder_config=convert.port_config(tecfg, jte.TextEncoderConfig),
-        vae_encoder_params=jit(jvae.init_encoder_params, ks[4], jv),
-        upscaler_params=jit(jup.init_params, ks[5], ju), upscaler_config=ju,
-        av_transformer_params=jav.init_params(ks[6], jt, jnp.bfloat16),
-        audio_vae_params=jit(jaudio.init_audio_vae_params, ks[7], jac), audio_vae_config=jac,
-        vocoder_params=jit(jaudio.init_vocoder_params, ks[8], jvoc), vocoder_config=jvoc,
-        memory=jconfig.MemoryConfig(offload_text_encoder=False))
-    port = LTXPipeline(
-        transformer=convert.transformer(ref.transformer_params, tcfg),
-        vae_decoder=convert.vae_decoder(ref.vae_decoder_params, vcfg),
-        gemma=convert.gemma(ref.gemma_params, gcfg),
-        text_encoder=convert.text_encoder(ref.text_encoder_params, tecfg),
-        vae_encoder=convert.vae_encoder(ref.vae_encoder_params, vcfg),
-        upscaler=convert.upscaler(ref.upscaler_params, generate.tiny_upscaler_config(tcfg)),
-        av_transformer=convert.av_transformer(ref.av_transformer_params, tcfg),
-        audio_vae=convert.audio_vae(ref.audio_vae_params, ref.audio_vae_config),
-        vocoder=convert.vocoder(ref.vocoder_params, ref.vocoder_config),
-        memory=MemoryConfig(offload_text_encoder=False), device="cpu")
-    return ref, port
+    return reference_and_port(include_audio=True)
 
 
 def _draws(port, config, cond_shape=None):
@@ -110,20 +65,13 @@ def _draws(port, config, cond_shape=None):
     key, vkey, akey, dkey = jax.random.split(key, 4)
     shape = JShape.from_pixels(1, config.num_frames, config.height, config.width,
                                channels=port.tcfg.in_channels)
-    out = dict(initial_noise=_normal(vkey, shape.shape),
-               audio_noise=_normal(akey, port.audio_noise_shape(config)))
+    out = dict(initial_noise=jax_normal(vkey, shape.shape),
+               audio_noise=jax_normal(akey, port.audio_noise_shape(config)))
     if cond_shape is not None and config.image_cond_noise_scale > 0:
         steps = len(port._sigmas(config, shape)) - 1
-        out["cond_noise"] = _loop_draws(dkey, steps, cond_shape)
+        out["cond_noise"] = loop_draws(dkey, steps, cond_shape)
     return out
 
-
-def _loop_draws(dkey, steps, shape):
-    draws, key = [], dkey
-    for _ in range(steps):
-        key, sub = jax.random.split(key)
-        draws.append(_normal(sub, shape))
-    return draws
 
 
 def _check(got, want, what, guided=False):
@@ -230,14 +178,14 @@ def test_two_stage_with_audio_matches_live_reference(pipes, i2v, tmp_path):
                                token_count=s1.token_count)) - 1
     draws = {}
     if i2v:
-        draws = dict(stage1_cond_noise=_loop_draws(dkey, n1, (1, c, 1, 1, 1)),
-                     stage2_cond_noise=_loop_draws(dkey2, 3, (1, c, 1, 2, 2)))
+        draws = dict(stage1_cond_noise=loop_draws(dkey, n1, (1, c, 1, 1, 1)),
+                     stage2_cond_noise=loop_draws(dkey2, 3, (1, c, 1, 2, 2)))
     af = port.audio_frames(config)
     got = port.generate_video_with_audio_two_stage(
-        prompt, config, stage1_noise=_normal(vkey, s1.shape),
-        stage1_audio_noise=_normal(akey, port.audio_noise_shape(config)),
-        stage2_noise=_normal(nkey2, s2.shape),
-        stage2_audio_noise=_normal(akey2, (1, af, port.tcfg.audio_in_channels)), **draws)
+        prompt, config, stage1_noise=jax_normal(vkey, s1.shape),
+        stage1_audio_noise=jax_normal(akey, port.audio_noise_shape(config)),
+        stage2_noise=jax_normal(nkey2, s2.shape),
+        stage2_audio_noise=jax_normal(akey2, (1, af, port.tcfg.audio_in_channels)), **draws)
     _check(got, want, f"generate_video_with_audio_two_stage {'I2V' if i2v else 'T2V'}")
     assert len(got.timings.denoise_steps) == n1 + 3 and got.timings.upscale > 0
     assert (got.timings.image_encode > 0) == i2v
@@ -245,9 +193,10 @@ def test_two_stage_with_audio_matches_live_reference(pipes, i2v, tmp_path):
 
 def test_audio_paths_refuse_what_they_lack():
     """Missing components raise ModelNotLoadedError, a text encoder without
-    the audio connector TextEncodingFailedError, the clip extension
-    NotImplementedError naming A15; phase staging brings every audio
-    component back to its host tensors."""
+    the audio connector TextEncodingFailedError, the clip extension the
+    reference's InvalidConfigurationError for a wrong-shaped clip and for a
+    clip together with an image; phase staging brings every audio component
+    back to its host tensors."""
     port = LTXPipeline.random_tiny(device="cpu", seed=2, include_audio=True,
                                    memory=MemoryConfig(phase_staging=True))
     assert port.text_encoder.has_audio and port.audio_vae_config.mel_latent_bins == 2
@@ -264,8 +213,14 @@ def test_audio_paths_refuse_what_they_lack():
     assert not port._host_store
     for n, ptrs in before.items():
         assert {k: p.data_ptr() for k, p in getattr(port, n).named_parameters()} == ptrs, n
-    with pytest.raises(NotImplementedError, match="A15"):
-        port.generate_video_with_audio("x", config, None, None, video_frames=np.zeros(1))
+    with pytest.raises(InvalidConfigurationError,
+                       match=r"video_frames \(1,\) != \(1, 3, 1, 64, 64\)"):
+        port.generate_video_with_audio("x", config, None, None, video_frames=np.zeros(1),
+                                       cond_frames=1)
+    with pytest.raises(InvalidConfigurationError, match="mutually exclusive"):
+        port.generate_video_with_audio("x", config, None, None, video_frames=np.zeros(1),
+                                       image_latent=torch.zeros(1, port.tcfg.in_channels,
+                                                                1, 2, 2))
     with pytest.raises(ValueError, match="audio_noise"):
         port.generate_video_with_audio("x", config, torch.randn(shape), torch.randn(1, 8, 3, 2))
     port.text_encoder.audio_embeddings_connector = None

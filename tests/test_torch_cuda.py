@@ -24,7 +24,9 @@ in bf16 and with a float32 compute dtype;
 rms_norm within 16 f32 ulps of the plain version's f32 value plus, for a
 bf16 output, half a bf16 ulp, bitwise equal from run to run and row by row;
 the tiny two-stage I2V pipeline, its norms through that kernel by the
-default route, within 2e-2; the MLX 4-bit dequantization of the loader on
+default route, within 2e-2; the tiny long-video modes (video-to-video,
+extension, keyframes, chains, and their audio twins) within the tiny
+tolerances; the MLX 4-bit dequantization of the loader on
 the card bit for bit; LoRA fusion on the card against the CPU's within
 checks.check_fused_leaves' bound, and the fused DiT against the adapter as
 a side path within 5e-2; the tiny cycle Gemma's greedy generation
@@ -295,6 +297,15 @@ def test_tiny_av_pipeline_cuda_matches_cpu(device):
     against the CPU: frames and waveform, and the launches by head dim."""
     res = checks.check_tiny_av_pipeline(device)
     assert set(res) == {"t2v_cfg", "i2v"}
+
+
+def test_tiny_long_video_cuda_matches_cpu(device):
+    """Video-to-video, extension, keyframes, an anchored two-prompt chain
+    and the audio chain, keyframes and extension, each within the tiny
+    tolerances of the CPU, with the launches their DiT calls and text
+    passes imply."""
+    res = checks.check_tiny_long_video(device)
+    assert len(res) == 7 and all(r["launches"]["flash_attention"] > 0 for r in res.values())
 
 
 def test_mlx_dequant_on_the_card_is_bit_for_bit(device):

@@ -26,20 +26,15 @@ import pytest
 import torch
 
 from ltx_tpu.core import config as jconfig
-from ltx_tpu.models import dit as jdit
-from ltx_tpu.models import gemma3 as jgemma
-from ltx_tpu.models import text_encoder as jte
 from ltx_tpu.models import upscaler as jup
-from ltx_tpu.models import vae as jvae
 from ltx_tpu.ops import schedule as jsched
 from ltx_tpu.ops.latents import VideoLatentShape as JShape
-from ltx_tpu.pipeline.generate import LTXPipeline as JaxPipeline
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.config import GenerationConfig, MemoryConfig
 from ltx_tpu_torch.models import upscaler
 from ltx_tpu_torch.pipeline import generate
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
-from torch_parity import as_np, assert_rel
+from torch_parity import as_np, assert_rel, jax_normal, loop_draws, reference_and_port
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 FRAME_ATOL = 2e-2
@@ -50,18 +45,6 @@ def _jcfg(config):
     return convert.port_config(config, jconfig.GenerationConfig)
 
 
-def _normal(key, shape):
-    return torch.from_numpy(np.array(jax.random.normal(key, shape, jnp.float32)))
-
-
-def _loop_draws(dkey, steps, shape):
-    """The reference's re-noise draws: run_denoise_loop splits its key once
-    a step and the step draws normal(sub, conditioned_latent.shape)."""
-    draws, key = [], dkey
-    for _ in range(steps):
-        key, sub = jax.random.split(key)
-        draws.append(_normal(sub, shape))
-    return draws
 
 
 def _shape(port, config, scale=1):
@@ -109,34 +92,7 @@ def pipes():
     components init eagerly as random_tiny does (a jitted init rounds some
     bf16 weights differently); the f32 VAE and upscaler init jitted, within
     2e-8 of eager."""
-    tcfg, vcfg, gcfg, tecfg = generate.tiny_configs()
-    ucfg = generate.tiny_upscaler_config(tcfg)
-    jtcfg = convert.port_config(tcfg, jconfig.TransformerConfig)
-    jvcfg = convert.port_config(vcfg, jvae.VAEConfig)
-    jgcfg = convert.port_config(gcfg, jgemma.Gemma3Config)
-    jtecfg = convert.port_config(tecfg, jte.TextEncoderConfig)
-    jucfg = convert.port_config(ucfg, jup.UpscalerConfig)
-    ks = jax.random.split(jax.random.key(0), 9)
-    ref = JaxPipeline(
-        transformer_params=jdit.init_params(ks[0], jtcfg, jnp.bfloat16),
-        transformer_config=jtcfg,
-        vae_decoder_params=jax.jit(jvae.init_decoder_params, static_argnums=1)(ks[1], jvcfg),
-        vae_config=jvcfg,
-        gemma_params=jgemma.init_params(ks[2], jgcfg, jnp.bfloat16), gemma_config=jgcfg,
-        text_encoder_params=jte.init_params(ks[3], jtecfg, jnp.bfloat16),
-        text_encoder_config=jtecfg,
-        vae_encoder_params=jax.jit(jvae.init_encoder_params, static_argnums=1)(ks[4], jvcfg),
-        upscaler_params=jax.jit(jup.init_params, static_argnums=1)(ks[5], jucfg),
-        upscaler_config=jucfg,
-        memory=jconfig.MemoryConfig(offload_text_encoder=False))
-    port = LTXPipeline(
-        transformer=convert.transformer(ref.transformer_params, tcfg),
-        vae_decoder=convert.vae_decoder(ref.vae_decoder_params, vcfg),
-        gemma=convert.gemma(ref.gemma_params, gcfg),
-        text_encoder=convert.text_encoder(ref.text_encoder_params, tecfg),
-        vae_encoder=convert.vae_encoder(ref.vae_encoder_params, vcfg),
-        upscaler=convert.upscaler(ref.upscaler_params, ucfg),
-        memory=MemoryConfig(offload_text_encoder=False), device="cpu")
+    ref, port = reference_and_port()
     assert dataclasses.asdict(port.upscaler.cfg) == dataclasses.asdict(ref.upscaler_config)
     return ref, port
 
@@ -203,7 +159,7 @@ def test_generate_video_guided_matches_live_reference(pipes, name):
     prompt = "golden guided prompt"
     want = np.asarray(ref.generate_video(prompt, _jcfg(config)).frames, np.float32)
     nkey, _ = _single_stage_keys(config.seed)
-    result = port.generate_video(prompt, config, _normal(nkey, _shape(port, config).shape))
+    result = port.generate_video(prompt, config, jax_normal(nkey, _shape(port, config).shape))
     _check(result.frames, want, f"generate_video {name}", guided=True)
     assert result.seed == config.seed
     if name == "golden_cfg_stg":
@@ -222,11 +178,11 @@ def test_generate_video_i2v_matches_live_reference(pipes, image_latents):
     shape = _shape(port, config)
     steps = len(port._sigmas(config, shape)) - 1
     result = port.generate_video(
-        "an image comes alive", config, _normal(nkey, shape.shape), image_latent=tl,
-        cond_noise=_loop_draws(dkey, steps, tuple(tl.shape)))
+        "an image comes alive", config, jax_normal(nkey, shape.shape), image_latent=tl,
+        cond_noise=loop_draws(dkey, steps, tuple(tl.shape)))
     _check(result.frames, want, "generate_video I2V")
     with pytest.raises(ValueError, match="draws"):
-        port.generate_video("x", config, _normal(nkey, shape.shape), image_latent=tl)
+        port.generate_video("x", config, jax_normal(nkey, shape.shape), image_latent=tl)
 
 
 def test_generate_video_i2v_from_an_image_file(pipes, tmp_path):
@@ -246,7 +202,7 @@ def test_generate_video_i2v_from_an_image_file(pipes, tmp_path):
                               image_path=path)
     want = ref.generate_video("from a file", _jcfg(config)).frames
     nkey, _ = _single_stage_keys(config.seed)
-    got = port.generate_video("from a file", config, _normal(nkey, _shape(port, config).shape))
+    got = port.generate_video("from a file", config, jax_normal(nkey, _shape(port, config).shape))
     _check(got.frames, want, "generate_video I2V from image_path")
     assert got.timings.image_encode > 0
 
@@ -263,7 +219,7 @@ def test_generate_videos_matches_live_reference_and_solo(pipes, cfg_scale):
     prompts = ["a short one", "a rather longer second prompt"]
     want = ref.generate_videos(prompts, _jcfg(config))
     shape = _shape(port, config)
-    noises = [_normal(_single_stage_keys(config.seed + i)[0], shape.shape) for i in range(2)]
+    noises = [jax_normal(_single_stage_keys(config.seed + i)[0], shape.shape) for i in range(2)]
     got = port.generate_videos(prompts, config, torch.cat(noises))
     assert [r.seed for r in got] == [r.seed for r in want] == [5, 6]
     for i, (g, w) in enumerate(zip(got, want)):
@@ -289,10 +245,10 @@ def _two_stage_draws(port, config, half=None, full=None):
     distilled = config.num_steps <= 8 and config.cfg_scale <= 1.0
     n1 = len(jsched.get_sigmas(config.num_steps, distilled=distilled,
                                token_count=s1.token_count)) - 1
-    draws = dict(stage1_noise=_normal(nkey, s1.shape), stage2_noise=_normal(nkey2, s2.shape))
+    draws = dict(stage1_noise=jax_normal(nkey, s1.shape), stage2_noise=jax_normal(nkey2, s2.shape))
     if half is not None and config.image_cond_noise_scale > 0:
-        draws["stage1_cond_noise"] = _loop_draws(dkey, n1, tuple(half.shape))
-        draws["stage2_cond_noise"] = _loop_draws(dkey2, 3, tuple(full.shape))
+        draws["stage1_cond_noise"] = loop_draws(dkey, n1, tuple(half.shape))
+        draws["stage2_cond_noise"] = loop_draws(dkey2, 3, tuple(full.shape))
     return draws, n1
 
 
