@@ -80,6 +80,24 @@ Phases, each printing its own lines:
      seeded 896x896 pixel array, 27 flash launches at head dim 72, its
      features against the same tower on the plain attention, the 256 soft
      tokens spliced into the I2V prompt and decoded by generate_tokens;
+  3g. the surfaces at the north star on the phase-3 pipeline, its
+     components resident (a server's deployment): serve/app.py's
+     build_app on a SeededPipeline with the north star's warmup, served
+     on 127.0.0.1 from a thread; /healthz; two concurrent /v1/enhance
+     requests of 32 tokens coalesced into one batch; three T2V jobs at
+     seeds 7, 8, 7 (jobs 1 and 3 the same pixels bit for bit, job 2 not;
+     /metrics counts three done jobs), each with its latency and launches;
+     one more job under utils.diagnostics.profile_trace, whose Chrome trace
+     names flash_fwd_kernel and rms_norm_kernel as often as the counts;
+     io/cli.py's `generate --seed 7 --profile` with load_pipeline swapped
+     for this pipeline (its GenerationConfig job 1's field for field, its
+     pixels job 1's); generate_video with a DenoiseCheckpoint stopped after
+     4 steps and resumed (the uninterrupted frames bit for bit, 4 steps'
+     launches). The pixels are compared as the exports hand them to the
+     MP4 writer (checks.recorded_mp4); on a machine with no MP4 encoder the
+     writer is chip_smoke's npy_mp4_writer stand-in, and the log says so
+     (phase 1 lists the encoders found). Phase 2 runs the same identities
+     on the tiny pipeline (checks.check_tiny_surfaces);
   3d. the W8A8 main path: the same bf16 DiT requantized per channel to
      W8A8 on the card into a copy (quantize_transformer(w8a8=True)), the
      same generate_video and noise; every block linear through the
@@ -183,6 +201,7 @@ import resource
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -401,7 +420,40 @@ def phase_environment() -> dict:
         if name == "int4_matmul" and (not hgmma or hmma is None or hmma or spilling):
             raise AssertionError(f"int4_matmul: {hgmma} HGMMA, {hmma} HMMA.16816, spilling "
                                  f"{spilling}: the kernel must be wgmma without spills")
+    log(f"[env] MP4 encoders: {json.dumps(mp4_encoders())}")
     return seconds
+
+
+def mp4_encoders() -> dict:
+    """Which of the export's encoders this machine has: imageio with
+    imageio-ffmpeg (H.264), OpenCV (mp4v), PIL (PNG), an ffmpeg binary."""
+    import importlib.util
+
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("imageio", "imageio_ffmpeg", "cv2", "PIL")}
+    found["ffmpeg binary"] = shutil.which("ffmpeg") is not None
+    return found
+
+
+def npy_mp4_writer(pixels: np.ndarray, path: str, config) -> None:
+    """Stand-in for io.video._write_mp4 where no MP4 encoder is installed:
+    the uint8 (F, H, W, 3) pixels it is handed, saved in .npy format at
+    `path`. frames_to_uint8 and everything before it run as shipped."""
+    with open(path, "wb") as f:
+        np.save(f, pixels)
+
+
+def mp4_writer():
+    """The MP4 writer the surfaces' checks hand their exports: None (the
+    package's own) when imageio-ffmpeg or OpenCV can write MP4 here, else
+    the .npy stand-in, which is logged."""
+    found = mp4_encoders()
+    if (found["imageio"] and found["imageio_ffmpeg"]) or found["cv2"]:
+        return None
+    log("[env] no MP4 encoder on this machine (no imageio-ffmpeg, no OpenCV): the "
+        "surfaces' MP4 files are written by chip_smoke's npy_mp4_writer, the uint8 "
+        "pixels in .npy format, in place of io.video._write_mp4")
+    return npy_mp4_writer
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -880,6 +932,10 @@ def phase_tiny_agreement(device) -> None:
         f"chain, keyframes and extension; re-noised) on the card vs the CPU: "
         f"{json.dumps(res)} (tol {checks.TINY_FRAME_ATOL:.0e} frames, "
         f"{checks.TINY_AUDIO_ATOL:.0e} waveform)")
+    res = checks.check_tiny_surfaces(device, mp4_writer())
+    log(f"[tiny] surfaces: SeededPipeline twice at one seed bit for bit, a served job's "
+        f"pixels the direct call's bit for bit, a run resumed from its DenoiseCheckpoint "
+        f"after step 1 of 4 the uninterrupted frames bit for bit: {json.dumps(res)}")
     for dtype, how in ((torch.bfloat16, "bf16"),
                        (torch.float32, "f32 compute, attention cast to bf16 on the card")):
         res = checks.check_tiny_train(device, dtype)
@@ -1626,6 +1682,229 @@ def phase_i2v_siglip(gemma, tok: Tokenizer, device) -> int:
         f"ids {toks[:8]}, text {len(text)} characters (special ids decode to nothing)")
     del model
     return launches["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# The surfaces: server, CLI, resume (phase 3g)
+# ---------------------------------------------------------------------------
+
+SURFACE_SEEDS = (7, 8, 7)
+SURFACE_ENHANCE_TOKENS = 32
+SURFACE_STOP_AFTER = 4  # the resumed run's interrupted steps
+# the first enhance request waits this long for the second to join its batch
+SURFACE_BATCH_WINDOW_S = 0.5
+
+
+class _Stop(Exception):
+    """Raised from on_progress to interrupt a run."""
+
+
+def surface_body(seed: int) -> dict:
+    """A /v1/generate body at the north star: what the CLI's defaults set."""
+    return {"prompt": PROMPT, "width": NORTH_STAR.width, "height": NORTH_STAR.height,
+            "num_frames": NORTH_STAR.num_frames, "num_steps": NORTH_STAR.num_steps,
+            "seed": seed}
+
+
+def served_job(base: str, body: dict):
+    """POST /v1/generate, polled to its end, with the launch counts read
+    around it: (job record, launches, seconds from submit to done)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    code, out = checks.http_json(f"{base}/v1/generate", body)
+    if code != 202:
+        raise AssertionError(f"POST /v1/generate: {code} {out}")
+    job = checks.wait_job(base, out["job_id"])
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if job["state"] != "done":
+        raise AssertionError(f"served job {job['state']}: {job.get('error')}")
+    return job, launches, seconds
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Kernel launches by B1's and B6's kernel names in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"flash_fwd_kernel": sum("flash_fwd_kernel" in n for n in names),
+            "rms_norm_kernel": sum("rms_norm_kernel" in n for n in names),
+            "kernels": len(names)}
+
+
+def phase_surfaces(pipe: LTXPipeline, tok: Tokenizer, device) -> dict:
+    """The port's surfaces at the north star on the phase-3 pipeline (bf16,
+    full width and depth, with its Gemma and the smoke tokenizer), its
+    components resident as a server keeps them: build_app on a
+    SeededPipeline with the north star's warmup, served on 127.0.0.1 from a
+    thread; /healthz; two concurrent /v1/enhance requests of 32 tokens
+    coalesced into one batch; three T2V jobs at seeds 7, 8, 7 (1 and 3 the
+    same pixels bit for bit, 2 not; /metrics counts three done t2v jobs);
+    one more job under profile_trace, whose Chrome trace names B1's and B6's
+    kernels as often as the counts say; the CLI's `generate` at seed 7 on
+    this pipeline (its config job 1's, its pixels job 1's, bit for bit);
+    a DenoiseCheckpoint run stopped after 4 steps and resumed: the
+    uninterrupted frames bit for bit, the DiT launched for 4 steps. Each
+    request's launches checked. Returns the launches by path."""
+    from ltx_tpu_torch.io import cli
+    from ltx_tpu_torch.io.video import frames_to_uint8
+    from ltx_tpu_torch.pipeline import loader
+    from ltx_tpu_torch.pipeline.seeded import SeededPipeline
+    from ltx_tpu_torch.serve.app import build_app, request_to_config
+    from ltx_tpu_torch.serve.server import serve_forever_threaded
+    from ltx_tpu_torch.utils.diagnostics import DenoiseCheckpoint, profile_trace
+
+    steps = len(pipe._sigmas(NORTH_STAR, pipe._shape(NORTH_STAR))) - 1
+    expected = expected_launches(pipe, steps, 1)
+    launches = {}
+    seeded = SeededPipeline(pipe)
+    pipe.tokenizer = tok
+    out_dir = build.BUILD_DIR.parent / "chip_smoke_surfaces"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        with resident(pipe, ("gemma", "text_encoder", "transformer", "vae_decoder"), device), \
+                checks.recorded_mp4(mp4_writer()) as written:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            app = build_app(seeded, output_dir=str(out_dir / "serve"), port=0,
+                            batch_window_s=SURFACE_BATCH_WINDOW_S, warmup_shapes=[(NORTH_STAR.width, NORTH_STAR.height,
+                                            NORTH_STAR.num_frames)])
+            log(f"[surfaces] build_app with the north star's warmup (one seeded step and "
+                f"its decode): warmup {app.warmup_seconds:.3f} s")
+            serve_forever_threaded(app.server)
+            base = "http://%s:%d" % app.server.server_address[:2]
+            try:
+                code, health = checks.http_json(f"{base}/healthz")
+                if (code, health) != (200, {"status": "ok"}):
+                    raise AssertionError(f"/healthz: {code} {health}")
+                replies = {}
+
+                def enhance_one(prompt):
+                    replies[prompt] = checks.http_json(
+                        f"{base}/v1/enhance",
+                        {"prompts": [prompt], "max_tokens": SURFACE_ENHANCE_TOKENS})
+
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=enhance_one, args=(p,))
+                           for p in BATCH_PROMPTS]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                enhance_s = time.perf_counter() - t0
+                stats = checks.http_json(f"{base}/v1/stats")[1]["enhance"]
+                log(f"[surfaces] two concurrent /v1/enhance requests of "
+                    f"{SURFACE_ENHANCE_TOKENS} tokens: {enhance_s:.3f} s, batch sizes "
+                    f"{stats['recent_batch_sizes']}, lengths "
+                    f"{[len(r[1]['prompts'][0]) for r in replies.values()]}")
+                if any(code != 200 or not out["prompts"][0] for code, out in replies.values()):
+                    raise AssertionError(f"/v1/enhance: {replies}")
+                if stats["recent_batch_sizes"] != [len(BATCH_PROMPTS)]:
+                    raise AssertionError(f"the enhance requests did not coalesce: {stats}")
+
+                jobs = []
+                for i, seed in enumerate(SURFACE_SEEDS):
+                    job, got, seconds = served_job(base, surface_body(seed))
+                    check_launches(f"surfaces job {i + 1}", got, expected)
+                    jobs.append((job, seconds))
+                    rec = job["result"]
+                    run_s = job["finished_at"] - job["started_at"]
+                    log(f"[surfaces] job {i + 1} (seed {seed}): {seconds:.3f} s from submit "
+                        f"to done ({run_s:.3f} s running), {rec['frames']} frames "
+                        f"{rec['width']}x{rec['height']}")
+                launches["served north star"] = got
+                pixels = [written[job["result"]["output"]] for job, _ in jobs]
+                log(f"[surfaces] job latency: first {jobs[0][1]:.3f} s (after the warmup), "
+                    f"steady {jobs[1][1]:.3f} / {jobs[2][1]:.3f} s")
+                if not np.array_equal(pixels[0], pixels[2]):
+                    raise AssertionError("jobs 1 and 3 (seed 7) gave other pixels")
+                if np.array_equal(pixels[0], pixels[1]):
+                    raise AssertionError("jobs 1 and 2 (seeds 7 and 8) gave the same pixels")
+                code, text = http_text(f"{base}/metrics")
+                done = 'ltx_job_seconds_count{kind="t2v",state="done"} 3'
+                if code != 200 or done not in text:
+                    raise AssertionError(f"/metrics lacks {done!r}")
+                log(f"[surfaces] jobs 1 and 3 bit for bit, job 2 not; /metrics: {done}")
+
+                with profile_trace(str(out_dir / "trace")) as prof:
+                    _, got, seconds = served_job(base, surface_body(9))
+                counts = trace_kernel_counts(prof.trace_path)
+                log(f"[surfaces] a profiled job: {seconds:.3f} s; its Chrome trace "
+                    f"({Path(prof.trace_path).stat().st_size / 2**20:.1f} MiB) "
+                    f"{json.dumps(counts)}")
+                check_launches("surfaces profiled job", got, expected)
+                if (counts["flash_fwd_kernel"], counts["rms_norm_kernel"]) != \
+                        (got["flash_attention"], got["rms_norm"]):
+                    raise AssertionError(f"the trace's kernels {counts} against the counts "
+                                         f"{got}")
+            finally:
+                app.close()
+
+            argv = ["generate", PROMPT, "-w", str(NORTH_STAR.width), "-H",
+                    str(NORTH_STAR.height), "-f", str(NORTH_STAR.num_frames), "--seed", "7",
+                    "-o", str(out_dir / "cli.mp4"), "--profile"]
+            cli_config = cli._generation_config(cli.build_parser().parse_args(argv))
+            job_config = request_to_config(surface_body(7))
+            if cli_config != job_config:
+                raise AssertionError(f"the CLI's config {cli_config} is not job 1's "
+                                     f"{job_config}")
+            real_load = loader.load_pipeline
+            loader.load_pipeline = lambda **kw: pipe
+            try:
+                t0 = time.perf_counter()
+                (rc, got) = run_counted(lambda: cli.main(argv))
+                cli_s = time.perf_counter() - t0
+            finally:
+                loader.load_pipeline = real_load
+            check_launches("surfaces CLI", got, expected)
+            launches["CLI north star"] = got
+            same = np.array_equal(written[str(out_dir / "cli.mp4")], pixels[0])
+            log(f"[surfaces] CLI generate --seed 7 --profile: rc {rc}, {cli_s:.3f} s; config "
+                f"field for field job 1's; pixels job 1's bit for bit {same}")
+            if rc != 0 or not same:
+                raise AssertionError(f"the CLI run: rc {rc}, pixels job 1's {same}")
+
+            config = request_to_config(surface_body(7))
+            whole = seeded.generate_video(PROMPT, config)
+            if not np.array_equal(frames_to_uint8(whole.frames), pixels[0]):
+                raise AssertionError("the direct call's pixels differ from job 1's")
+            ckpt = DenoiseCheckpoint(str(out_dir / "denoise.ckpt"), every_n_steps=2)
+
+            def stop(i, n, sigma):
+                if i == SURFACE_STOP_AFTER - 1:
+                    raise _Stop
+
+            try:
+                seeded.generate_video(PROMPT, config, on_progress=stop, checkpoint=ckpt)
+                raise AssertionError("the interrupted run ran to its end")
+            except _Stop:
+                pass
+            resumed, got = run_counted(
+                lambda: seeded.generate_video(PROMPT, config, checkpoint=ckpt))
+            check_launches("surfaces resumed", got,
+                           expected_launches(pipe, steps - SURFACE_STOP_AFTER, 1))
+            launches["resumed north star"] = got
+            same = np.array_equal(resumed.frames, whole.frames)
+            log(f"[surfaces] resumed after step {SURFACE_STOP_AFTER} of {steps}: "
+                f"{len(resumed.timings.denoise_steps)} steps run, "
+                f"{resumed.timings.total:.3f} s (uninterrupted {whole.timings.total:.3f} s); "
+                f"frames the uninterrupted run's bit for bit {same}")
+            if not same:
+                raise AssertionError("the resumed run differs from the uninterrupted one")
+            peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+            log(f"[surfaces] peak device memory {peak_gib:.2f} GiB")
+    finally:
+        pipe.tokenizer = None
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def http_text(url: str):
+    """(status, body text) of a GET."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, r.read().decode()
 
 
 def gemma_decode(tag: str, pipe: LTXPipeline, counter: str) -> int:
@@ -2821,19 +3100,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     device = torch.device("cuda", 0)
+    t_mark = [time.perf_counter()]
+
+    def mark(what: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - t_mark[0]:.2f} s")
+        t_mark[0] = now
+
     phase_environment()
+    mark("phase 1 (environment, kernel build)")
     flash = phase_flash_kernel(device)
     stats, dq, dkv = phase_flash_training_kernels(device)
     matmul, dequant = phase_int4_kernels(device)
     rms = phase_rms_kernel(device)
     phase_w8a8_products(device)
+    mark("phase 2 (kernels against their plain versions)")
     phase_tiny_agreement(device)
+    mark("phase 2 (tiny pipelines)")
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
     rms["launches_by_path"] = {"north star": launches["rms_norm"]}
     rms["launches"] = launches["rms_norm"]
+    mark("phase 3 (main path)")
     phase_two_stage(pipe, device)
+    mark("phase 3b (two-stage)")
     phase_batched(pipe, device)
     phase_norm_choice(pipe, device)
+    mark("phase 3c (batched, norm choice)")
     t_phase = time.perf_counter()
     long_paths = phase_long_video(pipe, device)
     log(f"[long] phase 3f: {time.perf_counter() - t_phase:.2f} s")
@@ -2842,17 +3134,23 @@ def main() -> int:
     phase_cycle_gemma(tok, device)
     siglip = phase_enhancement(pipe, tok, noise, steps, device)
     log(f"[enhance] phase 3e: {time.perf_counter() - t_phase:.2f} s")
+    t_phase = time.perf_counter()
+    surfaces = phase_surfaces(pipe, tok, device)
+    log(f"[surfaces] phase 3g: {time.perf_counter() - t_phase:.2f} s")
     # B1's paths: the north star (its DiT and connector), the long-video
-    # modes and the SigLIP tower
+    # modes, the surfaces and the SigLIP tower
+    paths = {**long_paths, **surfaces}
     flash["launches_by_path"] = {"north star": launches["flash_attention"],
-                                 **{k: v["flash_attention"] for k, v in long_paths.items()},
+                                 **{k: v["flash_attention"] for k, v in paths.items()},
                                  "SigLIP tower (I2V enhancement)": siglip}
-    rms["launches_by_path"].update({k: v["rms_norm"] for k, v in long_paths.items()})
+    rms["launches_by_path"].update({k: v["rms_norm"] for k, v in paths.items()})
     flash["launches"] = sum(flash["launches_by_path"].values())
     w8a8_run = phase_w8a8_main_path(pipe, noise, steps, device)
     north_star = phase_int4_main_path(pipe, noise, steps, bf16_run, device,
                                       w8a8_run)["int4_matmul"]
+    mark("phases 3f, 3e, 3g, 3d, 4 (long video, enhancement, surfaces, W8A8, int4)")
     dequant["launches"] = phase_big_m(pipe, device)["dequant_int4"]
+    mark("phase 5 (big M)")
     t_phase = time.perf_counter()
     av_pipe = audio_pipeline(pipe, device)
     del pipe, noise, bf16_run, w8a8_run
@@ -2860,10 +3158,12 @@ def main() -> int:
     av_flagship = phase_av_flagship(av_pipe, device)
     av_long = phase_av_long_video(av_pipe, device)
     log(f"[av] phase 5c: {time.perf_counter() - t_phase:.2f} s")
+    mark("phase 5c (joint audio)")
     del av_pipe
     gc.collect()
     torch.cuda.empty_cache()
     gemma_pass, gemma_decode_launches, files_av = phase_files_to_frames(device)
+    mark("phase 5b (files to frames)")
     av_paths = {"AV north star": av_north, "AV flagship 241f@1024x640": av_flagship,
                 **av_long, "AV clip from files (8 blocks)": files_av}
     for entry in (flash, rms):
@@ -2878,6 +3178,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(device)
+    mark("phase 6 (training)")
     for entry in (stats, dq, dkv):
         entry["launches"] = train[entry["name"]]
     kernels = [flash, stats, dq, dkv, matmul, dequant, rms]

@@ -1144,6 +1144,142 @@ def check_tiny_long_video(device) -> dict:
     return results
 
 
+def http_json(url: str, body: Optional[dict] = None):
+    """(status, JSON) of a GET, or of a POST of `body`, to the local server."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def wait_job(base: str, job_id: str, timeout: float = 600.0) -> dict:
+    """Poll GET /v1/jobs/<id> until the job leaves pending and running."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        code, job = http_json(f"{base}/v1/jobs/{job_id}")
+        if code != 200:
+            raise AssertionError(f"GET /v1/jobs/{job_id}: {code} {job}")
+        if job["state"] not in ("pending", "running"):
+            return job
+        time.sleep(0.01)
+    raise AssertionError(f"job {job_id} still {job['state']} after {timeout} s")
+
+
+@contextlib.contextmanager
+def recorded_mp4(write_mp4=None):
+    """io.video's MP4 writer replaced for the block by one that keeps each
+    file's uint8 pixels ({path: pixels}, yielded) and then calls
+    `write_mp4` (default: the writer it replaces)."""
+    from ltx_tpu_torch.io import video
+
+    real = video._write_mp4
+    writer = write_mp4 or real
+    pixels = {}
+
+    def recording(px, path, config):
+        pixels[str(path)] = np.array(px)
+        writer(px, path, config)
+
+    video._write_mp4 = recording
+    try:
+        yield pixels
+    finally:
+        video._write_mp4 = real
+
+
+class _Stop(Exception):
+    """Raised by an on_progress callback to interrupt a denoise loop."""
+
+
+def check_tiny_surfaces(device, write_mp4=None) -> dict:
+    """The seeded front, the server and the denoise resume on a tiny
+    pipeline on `device` (a dev schedule of 4 steps, 64x64x9): a
+    SeededPipeline T2V at one seed twice gives the same frames, bit for
+    bit; a job served over HTTP (127.0.0.1, an ephemeral port) at that seed
+    hands the MP4 writer the pixels `frames_to_uint8` gives of the direct
+    call, bit for bit (`write_mp4` writes them: the real writer by default);
+    a run interrupted after its first step and resumed from its
+    DenoiseCheckpoint gives the uninterrupted frames, bit for bit, running
+    the DiT only for the 3 steps left. Raises AssertionError otherwise."""
+    import tempfile
+    from pathlib import Path
+
+    from ltx_tpu_torch.io.video import frames_to_uint8
+    from ltx_tpu_torch.pipeline.seeded import SeededPipeline
+    from ltx_tpu_torch.serve.app import build_app
+    from ltx_tpu_torch.serve.server import serve_forever_threaded
+    from ltx_tpu_torch.utils.diagnostics import DenoiseCheckpoint
+
+    pipe = LTXPipeline.random_tiny(device=device, seed=3,
+                                   memory=MemoryConfig(offload_text_encoder=False))
+    pipe.is_distilled = False  # the dev schedule: num_steps steps
+    seeded = SeededPipeline(pipe)
+    prompt = "a lighthouse at night"
+    body = {"prompt": prompt, "width": 64, "height": 64, "num_frames": 9, "num_steps": 4,
+            "seed": 5}
+    config = GenerationConfig(**{k: v for k, v in body.items() if k != "prompt"})
+    first = seeded.generate_video(prompt, config)
+    again = seeded.generate_video(prompt, config)
+    if not np.array_equal(first.frames, again.frames):
+        raise AssertionError("SeededPipeline: one seed gave two results")
+    other = seeded.generate_video(prompt, dataclasses.replace(config, seed=6))
+    if np.array_equal(first.frames, other.frames):
+        raise AssertionError("SeededPipeline: seeds 5 and 6 gave the same frames")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with recorded_mp4(write_mp4) as written:
+            app = build_app(seeded, output_dir=tmp, port=0)
+            serve_forever_threaded(app.server)
+            base = "http://%s:%d" % app.server.server_address[:2]
+            try:
+                code, out = http_json(f"{base}/v1/generate", body)
+                if code != 202:
+                    raise AssertionError(f"POST /v1/generate: {code} {out}")
+                job = wait_job(base, out["job_id"])
+            finally:
+                app.close()
+        if job["state"] != "done":
+            raise AssertionError(f"served job {job['state']}: {job.get('error')}")
+        served = written[job["result"]["output"]]
+        if not np.array_equal(served, frames_to_uint8(first.frames)):
+            raise AssertionError("the served job's pixels differ from the direct call's")
+
+        ckpt = DenoiseCheckpoint(str(Path(tmp) / "denoise.ckpt"), every_n_steps=1)
+
+        def stop(i, n, sigma):
+            if i == 0:
+                raise _Stop
+
+        try:
+            seeded.generate_video(prompt, config, on_progress=stop, checkpoint=ckpt)
+            raise AssertionError("the interrupted run was not interrupted")
+        except _Stop:
+            pass
+        before = _tiny_counts()
+        resumed = seeded.generate_video(prompt, config, checkpoint=ckpt)
+        launches = [a - b for a, b in zip(_tiny_counts(), before)]
+    if not np.array_equal(resumed.frames, first.frames):
+        raise AssertionError("the resumed run differs from the uninterrupted one: "
+                             f"{float(np.abs(resumed.frames - first.frames).max())}")
+    expected = [flash_inference_counts(pipe.tcfg, pipe.tecfg, 3, 1),
+                *rms_inference_counts(pipe.tcfg, pipe.tecfg, 3, 1)]
+    if pipe.device.type == "cuda" and launches != expected:
+        raise AssertionError(f"resumed run: launches {launches}, expected {expected}")
+    return {"frames": list(first.frames.shape), "served_pixels": list(served.shape),
+            "resumed_steps": len(resumed.timings.denoise_steps),
+            "resumed_launches": dict(zip(_TINY_COUNTS, launches))}
+
+
 def rms_train_counts(tcfg, forwards: int = 2) -> dict:
     """{"rms_norm": kernel launches, "rms_chain_on_cuda": plain-chain calls}
     of the DiT's norms in one LoRA train step on the card, with LoRA on every

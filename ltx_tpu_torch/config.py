@@ -182,22 +182,29 @@ class GenerationConfig:
     sigmas_override: Optional[Tuple[float, ...]] = None
 
     def validate(self) -> None:
-        """The reference's checks; raises ValueError, as its error classes are."""
+        """The reference's checks, with its typed errors and messages (all
+        ValueErrors: InvalidConfigurationError and its subclasses)."""
+        from ltx_tpu_torch.errors import (
+            InvalidConfigurationError,
+            InvalidDimensionsError,
+            InvalidFrameCountError,
+        )
+
         if self.width % 32 != 0 or self.height % 32 != 0:
-            raise ValueError(f"Width and height must be divisible by 32, got "
-                             f"{self.width}x{self.height}")
+            raise InvalidDimensionsError(self.width, self.height)
         if (self.num_frames - 1) % 8 != 0:
-            raise ValueError(f"num_frames must be 8n+1, got {self.num_frames}")
-        bounds = (("width", 64, 2048), ("height", 64, 2048),
-                  ("num_frames", 9, 257), ("num_steps", 1, 100),
-                  ("cfg_scale", 1.0, 20.0))
-        for name, lo, hi in bounds:
-            if not lo <= getattr(self, name) <= hi:
-                raise ValueError(f"{name} must be in [{lo}, {hi}], "
-                                 f"got {getattr(self, name)}")
+            raise InvalidFrameCountError(self.num_frames)
+        bounds = (("Width", self.width, 64, 2048), ("Height", self.height, 64, 2048),
+                  ("num_frames", self.num_frames, 9, 257),
+                  ("num_steps", self.num_steps, 1, 100),
+                  ("cfg_scale", self.cfg_scale, 1.0, 20.0))
+        for name, value, lo, hi in bounds:
+            if not lo <= value <= hi:
+                raise InvalidConfigurationError(f"{name} must be in [{lo}, {hi}], got {value}")
         if self.two_stage and (self.width % 64 or self.height % 64):
-            raise ValueError("Two-stage requires width and height divisible by "
-                             f"64. Got {self.width}x{self.height}")
+            raise InvalidConfigurationError(
+                "Two-stage requires width and height divisible by 64. "
+                f"Got {self.width}x{self.height}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,9 +228,29 @@ class MemoryConfig:
     vae_tile_size: int = 0  # latent frames per decode tile; 0 = no tiling
     vae_tile_overlap: int = 1  # latent-frame overlap between tiles
     # what a tiled decode copies to the host: "uint8" (RGB, a quarter of
-    # f32's bytes, at most 1/255 off); "yuv420" is not ported (ROADMAP A4b)
+    # f32's bytes, at most 1/255 off) or "yuv420" (4:2:0 planes, half of
+    # uint8's bytes: the encoder's own chroma subsample)
     decode_transfer: str = "uint8"
     offload_text_encoder: bool = True  # drop Gemma weights after encoding
     # keep components on the host and place each on the device only for its
     # phase, releasing it afterwards
     phase_staging: bool = False
+
+    @classmethod
+    def preset(cls, name: str) -> "MemoryConfig":
+        """The reference's tiers over the knobs the port has (its
+        `remat_blocks` has no counterpart here): "disabled" keeps
+        everything, "light" drops the text encoder after encoding,
+        "moderate" adds phase staging and decode tiles of 8 latent frames,
+        "aggressive" tiles of 6."""
+        presets = {
+            "disabled": cls(vae_tile_size=0, offload_text_encoder=False),
+            "light": cls(vae_tile_size=0, offload_text_encoder=True),
+            "moderate": cls(vae_tile_size=8, vae_tile_overlap=1, offload_text_encoder=True,
+                            phase_staging=True),
+            "aggressive": cls(vae_tile_size=6, vae_tile_overlap=1, offload_text_encoder=True,
+                              phase_staging=True),
+        }
+        if name not in presets:
+            raise ValueError(f"unknown memory preset: {name} (choose from {sorted(presets)})")
+        return presets[name]

@@ -1,8 +1,9 @@
 """Latent-space utilities: geometry, patchify, guidance combines, AdaIN,
 per-channel statistics, noise.
 
-Port of ltx_tpu/ops/latents.py (all but its TPU memory estimates). Variances
-are the population's (jnp.var's default), not torch's sample variance.
+Port of ltx_tpu/ops/latents.py, with its memory estimate against one CUDA
+device's memory (`device_memory_gb`) in place of a TPU chip's. Variances are
+the population's (jnp.var's default), not torch's sample variance.
 """
 
 from __future__ import annotations
@@ -120,3 +121,57 @@ def normalize_latent(latent, eps: float = 1e-6):
 def denormalize_latent(latent, mean, std):
     """latent * std + mean with (C,) statistics."""
     return latent * std.reshape(1, -1, 1, 1, 1) + mean.reshape(1, -1, 1, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# Memory estimation
+# ---------------------------------------------------------------------------
+
+# parameter counts of the checkpoint's inventories (tests/weight_fixtures.py):
+# the video-only DiT and the dual audio-video DiT
+_DIT_PARAMS = 13.04e9
+_AV_DIT_PARAMS = 18.88e9
+
+
+def device_memory_gb(device=0) -> float:
+    """A CUDA device's total memory in GB (1e9 bytes): the budget the
+    estimates below are held to unless the caller passes one."""
+    return torch.cuda.get_device_properties(device).total_memory / 1e9
+
+
+def estimate_memory_gb(shape: VideoLatentShape, guidance_rows: int = 1, dit_bits=None,
+                       vae_tile_size: int = 0, audio: bool = False) -> float:
+    """A rough, conservative peak device memory (GB) of one denoise and
+    decode: the larger of the denoise phase (the DiT's weights at `dit_bits`
+    (None: bf16) and a few live (rows, tokens, 16384) f32 activations) and
+    the decode phase (~1 GB of decoder weights and its largest intermediate,
+    two tiles of it when the decode is tiled). For warnings and presets,
+    never a hard limit."""
+    bytes_per_param = {4: 0.625, 8: 1.125, None: 2.0}[dit_bits]
+    n_params = _AV_DIT_PARAMS if audio else _DIT_PARAMS
+    params_gb = n_params * bytes_per_param / 1e9
+    tokens = shape.token_count
+    act_gb = guidance_rows * tokens * 16384 * 4 * 6 / 1e9
+    denoise_gb = params_gb + act_gb
+
+    tiled = vae_tile_size > 0 and shape.frames > vae_tile_size
+    frames = min(shape.frames, vae_tile_size + 1) if tiled else shape.frames
+    px = 8 * (frames - 1) + 1
+    spatial = (shape.height * 8) * (shape.width * 8)  # quarter-resolution grid
+    tile_copies = 2 if tiled else 1
+    decode_gb = 1.0 + tile_copies * px * spatial * 128 * 2 * 4 / 1e9
+    return round(max(denoise_gb, decode_gb), 2)
+
+
+def recommended_memory_preset(shape: VideoLatentShape, guidance_rows: int = 1,
+                              dit_bits=None, audio: bool = False,
+                              budget_gb=None) -> str:
+    """The lightest MemoryConfig preset ("light", "moderate", "aggressive")
+    whose estimate fits `budget_gb` (default: CUDA device 0's memory)."""
+    if budget_gb is None:
+        budget_gb = device_memory_gb()
+    for preset, tile in (("light", 0), ("moderate", 8), ("aggressive", 6)):
+        if estimate_memory_gb(shape, guidance_rows, dit_bits, vae_tile_size=tile,
+                              audio=audio) <= budget_gb:
+            return preset
+    return "aggressive"

@@ -4,9 +4,9 @@ guidance combine -> Euler, per sigma.
 Port of ltx_tpu/pipeline/denoise.py: `GuidanceSpec`, `build_guidance_context`
 and its batched form, `make_denoise_step` and the dual audio-video
 `make_av_denoise_step` (all but their pipeline-parallel branch, ROADMAP
-A18), `run_denoise_loop` (all but the DenoiseCheckpoint resume, ROADMAP A16)
-and `run_av_denoise_loop`. The steps run eagerly; the reference compiles
-each once.
+A18), `run_denoise_loop` (with the DenoiseCheckpoint resume) and
+`run_av_denoise_loop`. The steps run eagerly; the reference compiles each
+once.
 
 Row layout (CFG order, uncond first):
   G=1: [cond]
@@ -427,12 +427,23 @@ def run_av_denoise_loop(step_fn, video_latent, audio_packed, sigmas, cond_noise=
     return video_latent, audio_packed
 
 
-def run_denoise_loop(step_fn, latent, sigmas, cond_noise=None, on_step=None):
+def run_denoise_loop(step_fn, latent, sigmas, cond_noise=None, on_step=None,
+                     checkpoint=None, seed: int = 0):
     """Drive the step over the host sigma schedule, carrying the velocity
     for guidance extrapolation. cond_noise: one re-noise draw per step (a
     sequence of len(sigmas) - 1 tensors) when the step re-noises conditioned
     frames. on_step(i, n, sigma) runs after each step, once the device has
-    finished it."""
+    finished it.
+
+    checkpoint: a utils.diagnostics.DenoiseCheckpoint. A saved state with
+    the same sigmas resumes the loop after its step (latent and velocity
+    from the file; the skipped steps run nothing, call no on_step); each
+    step then saves (every checkpoint.every_n_steps) with `seed`. The
+    per-step draws are arguments, so a resumed step takes the draw an
+    uninterrupted run takes. With LTX_DIAG=1 each step logs its latent's
+    [DIAG] line."""
+    from ltx_tpu_torch.utils.diagnostics import diag_stats
+
     num_steps = len(sigmas) - 1
     if getattr(step_fn, "needs_noise", False) and (
             cond_noise is None or len(cond_noise) != num_steps):
@@ -440,11 +451,27 @@ def run_denoise_loop(step_fn, latent, sigmas, cond_noise=None, on_step=None):
                          "(cond_noise), one per step")
     velocity = torch.zeros_like(latent)
     has_prev = False
+    resume_from = -1
+    if checkpoint is not None:
+        state = checkpoint.load()
+        if (state is not None and np.shape(state["sigmas"]) == np.shape(sigmas)
+                and np.allclose(state["sigmas"], sigmas)):
+            latent = torch.from_numpy(np.asarray(state["latent"])).to(latent.device,
+                                                                      latent.dtype)
+            velocity = torch.from_numpy(np.asarray(state["velocity"])).to(
+                velocity.device, velocity.dtype)
+            resume_from = int(state["step"])
+            has_prev = True
     for i in range(num_steps):
+        if i <= resume_from:
+            continue
         latent, velocity = step_fn(
             latent, float(sigmas[i]), float(sigmas[i + 1]), velocity, has_prev,
             None if cond_noise is None else cond_noise[i])
         has_prev = True
+        if checkpoint is not None:
+            checkpoint.save(i, latent, velocity, sigmas, seed)
+        diag_stats(f"denoise step {i} latent", latent)
         if on_step is not None:
             if latent.is_cuda:
                 torch.cuda.synchronize(latent.device)

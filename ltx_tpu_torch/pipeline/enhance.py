@@ -257,3 +257,34 @@ def enhance_prompts(gemma: gemma3.Gemma3Model, tokenizer, prompts: List[str],
             raise
         log.warning("batched prompt enhancement failed (%s); using raw prompts", e)
         return list(prompts)
+
+
+# the enhancement's cache slots a row: prompt and generated tokens together
+ENHANCE_KV_SLOTS = 1024
+
+
+def kv_row_bytes(gcfg: gemma3.Gemma3Config, kv_quant: str = "bf16",
+                 slots: int = ENHANCE_KV_SLOTS) -> int:
+    """One row's K and V caches over every layer at `slots` positions: bf16
+    values, or int8 values with an f32 scale a head and position."""
+    if kv_quant == "int8":
+        per_position = gcfg.kv_heads * (gcfg.head_dim + 4)
+    else:
+        per_position = gcfg.kv_heads * gcfg.head_dim * 2
+    return 2 * gcfg.hidden_layers * slots * per_position
+
+
+def module_bytes(module: torch.nn.Module) -> int:
+    """The bytes of a module's parameters and buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))
+
+
+def enhance_max_batch(gemma: gemma3.Gemma3Model, memory_gb: float,
+                      kv_quant: str = "bf16") -> int:
+    """Rows a micro-batch of `enhance_prompts` may hold on a device of
+    `memory_gb` GB: the memory left beside Gemma's resident weights (in
+    the format it was loaded in) over one row's cache at the 1024-slot
+    shape; at least 1."""
+    free = memory_gb * 1e9 - module_bytes(gemma)
+    return max(1, int(free // kv_row_bytes(gemma.cfg, kv_quant)))

@@ -112,6 +112,24 @@ class GenerationTimings:
     audio_decode: float = 0.0  # the audio VAE and the vocoder
     total: float = 0.0
 
+    def report(self) -> str:
+        """The phases, one a line (the reference's lines, the text phase
+        split into Gemma and the connector, staging and the upscale and
+        audio decode added)."""
+        steps = self.denoise_steps
+        return "\n".join([
+            f"Staging: {self.staging:.2f}s",
+            f"Prompt enhancement: {self.enhancement:.2f}s ({self.enhancement_tokens} tokens)",
+            f"Text encoding: {self.gemma + self.connector:.2f}s (Gemma {self.gemma:.2f}s, "
+            f"connector {self.connector:.2f}s)",
+            f"Denoise: {sum(steps):.2f}s ({len(steps)} steps, "
+            f"avg {np.mean(steps) if steps else 0:.2f}s)",
+            f"Upscale: {self.upscale:.2f}s",
+            f"VAE decode: {self.vae_decode:.2f}s",
+            f"Audio decode: {self.audio_decode:.2f}s",
+            f"Total: {self.total:.2f}s",
+        ])
+
 
 @dataclasses.dataclass
 class VideoGenerationResult:
@@ -579,8 +597,9 @@ class LTXPipeline:
     def _denoise(self, latent, sigmas, shape, guidance, context, bias,
                  conditioning_mask, cond_noise_scale, fps, cond_noise, timings,
                  on_progress, conditioned_latent=None, cond_frames: int = 1,
-                 cond_frame_idx=None):
-        """One denoise loop on the DiT, which stays on the device after it."""
+                 cond_frame_idx=None, checkpoint=None, seed: int = 0):
+        """One denoise loop on the DiT, which stays on the device after it;
+        `checkpoint` (a DenoiseCheckpoint) saves and resumes it."""
         step_fn = make_denoise_step(
             self._on_device("transformer", timings), guidance, shape, context, bias,
             conditioning_mask=conditioning_mask, conditioned_latent=conditioned_latent,
@@ -596,7 +615,7 @@ class LTXPipeline:
 
         on_step.t0 = time.perf_counter()
         return run_denoise_loop(step_fn, latent, sigmas, cond_noise=cond_noise,
-                                on_step=on_step)
+                                on_step=on_step, checkpoint=checkpoint, seed=seed)
 
     def decode_tile_frames(self, latent_frames: int):
         """Latent frames of each decode tile under this pipeline's memory
@@ -678,7 +697,7 @@ class LTXPipeline:
     def generate_video(self, prompt: str, config: GenerationConfig,
                        initial_noise, decode_noise=None, image_latent=None,
                        cond_noise=None, on_progress=None,
-                       precomputed_embeddings=None) -> VideoGenerationResult:
+                       precomputed_embeddings=None, checkpoint=None) -> VideoGenerationResult:
         """Single-stage T2V, or I2V when `image_latent` (1, C, 1, H', W'), a
         normalized latent from `encode_image`, or `config.image_path` is
         given (the hook takes precedence).
@@ -691,8 +710,10 @@ class LTXPipeline:
         decode tile (`decode_tile_frames`). precomputed_embeddings:
         {"video": (1, S, D), "mask": (1, S)} and under CFG "neg_video" /
         "neg_mask" in place of the text encoder (its rows from
-        `encode_prompt(s)`). Returns frames (F, H, W, 3) in [0, 1] on the
-        host."""
+        `encode_prompt(s)`). checkpoint: a utils.diagnostics.DenoiseCheckpoint
+        that saves the denoise loop every few steps and resumes an
+        interrupted run from its file (the same draws give the same frames).
+        Returns frames (F, H, W, 3) in [0, 1] on the host."""
         config.validate()
         total_start = time.perf_counter()
         timings = GenerationTimings()
@@ -724,16 +745,17 @@ class LTXPipeline:
             latent[:, :, :1] = image_latent
             conditioning_mask = self._conditioning_mask(shape)
 
+        seed = self._seed(config)
         latent = self._denoise(latent, sigmas, shape, guidance, context, bias,
                                conditioning_mask, config.image_cond_noise_scale,
                                config.fps, cond_noise, timings, on_progress,
-                               conditioned_latent=image_latent)
+                               conditioned_latent=image_latent, checkpoint=checkpoint,
+                               seed=seed)
 
         frames = self._decode_frames(latent, decode_noise, timings)
         frames = frames[: config.num_frames]
         timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames, timings=timings,
-                                     seed=self._seed(config))
+        return VideoGenerationResult(frames=frames, timings=timings, seed=seed)
 
     @torch.inference_mode()
     def generate_videos(self, prompts, config: GenerationConfig, initial_noise,
@@ -848,13 +870,8 @@ class LTXPipeline:
         context, bias = self._guidance_context(guidance, pos, neg)
 
         # === stage 1: half resolution ===
-        channels = self.tcfg.in_channels
-        s1_shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height // 2,
-                                                config.width // 2, channels=channels)
-        s1_sigmas = schedule.get_sigmas(
-            config.num_steps,
-            distilled=config.num_steps <= 8 and config.cfg_scale <= 1.0,
-            token_count=s1_shape.token_count)
+        s1_shape, s2_shape = self.stage_shapes(config)
+        s1_sigmas = self.stage1_sigmas(config, s1_shape)
         latent = self._initial_latent(stage1_noise, s1_shape, "stage1_noise") \
             * float(s1_sigmas[0])
         s1_cond_mask = None
@@ -880,8 +897,6 @@ class LTXPipeline:
         self._release("upscaler")
 
         # === stage 2: full resolution, 3 steps, never CFG ===
-        s2_shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
-                                                config.width, channels=channels)
         s2_sigmas = schedule.STAGE_2_SIGMAS
         noise_scale = float(s2_sigmas[0])
         noise = self._initial_latent(stage2_noise, s2_shape, "stage2_noise")
@@ -915,6 +930,37 @@ class LTXPipeline:
     def _shape(self, config: GenerationConfig) -> VideoLatentShape:
         return VideoLatentShape.from_pixels(1, config.num_frames, config.height,
                                             config.width, channels=self.tcfg.in_channels)
+
+    def stage_shapes(self, config: GenerationConfig):
+        """A two-stage run's latent shapes: stage 1 at half the width and
+        height, stage 2 at the config's."""
+        half = VideoLatentShape.from_pixels(1, config.num_frames, config.height // 2,
+                                            config.width // 2, channels=self.tcfg.in_channels)
+        return half, self._shape(config)
+
+    @staticmethod
+    def stage1_sigmas(config: GenerationConfig, shape: VideoLatentShape,
+                      audio: bool = False) -> np.ndarray:
+        """Stage 1's schedule: the distilled table for at most 8 steps
+        without CFG (always with audio), else the dev schedule, shifted by
+        the half-size token count."""
+        distilled = audio or (config.num_steps <= 8 and config.cfg_scale <= 1.0)
+        return schedule.get_sigmas(config.num_steps, distilled=distilled,
+                                   token_count=shape.token_count)
+
+    def cond_latent_shape(self, config: GenerationConfig, frames: int) -> tuple:
+        """A conditioned latent of `frames` latent frames at the config's
+        size, (1, C, frames, h, w): the shape of its re-noise draws."""
+        return dataclasses.replace(self._shape(config), frames=frames).shape
+
+    def decode_noise_shapes(self, shape: VideoLatentShape) -> list:
+        """The decode-noise tensors a latent of `shape` takes: one a decode
+        tile (`decode_tile_frames`) for a timestep-conditioned decoder, none
+        otherwise."""
+        if not self.vcfg.timestep_conditioning:
+            return []
+        return [dataclasses.replace(shape, batch=1, frames=f).shape
+                for f in self.decode_tile_frames(shape.frames)]
 
     @torch.inference_mode()
     def generate_video_from_video(self, prompt: str, config: GenerationConfig,
@@ -1130,6 +1176,20 @@ class LTXPipeline:
             raise TextEncodingFailedError("text encoder lacks the audio connector")
         return dict(zip(unique, rows)), neg
 
+    @staticmethod
+    def chain_cond_frames(segments: int, cond_frames: int, anchors=None) -> list:
+        """Each chain segment's conditioned latent frames (its cond_noise
+        draws' frame count): the carried tail's (cond_frames - 1) // 8 + 1
+        after segment 0, then the segment's anchors; None for segment 0
+        unanchored (as `_chain_segment_conditioning` lays them out)."""
+        k_lat = (cond_frames - 1) // 8 + 1
+        anchors = {int(k): v for k, v in (anchors or {}).items()}
+        out = []
+        for i in range(segments):
+            n = (k_lat if i else 0) + len(anchors.get(i, ()))
+            out.append(n or None)
+        return out
+
     def _chain_segment_conditioning(self, i: int, shape: VideoLatentShape, k_lat: int,
                                     tail, anchor):
         """Segment i's video conditioning: (the frames to set in its initial
@@ -1273,6 +1333,18 @@ class LTXPipeline:
     def audio_noise_shape(self, config: GenerationConfig) -> tuple:
         """The raw audio draw's shape, (1, 8, audio frames, mel latent bins)."""
         return (1, 8, self.audio_frames(config), self.tcfg.audio_in_channels // 8)
+
+    def packed_audio_shape(self, config: GenerationConfig, frames: Optional[int] = None):
+        """The packed audio latent's shape (1, T, C_a), or that of its first
+        `frames` frames: the two-stage path's stage-2 audio draw and an
+        audio chain's audio_cond_noise."""
+        t = self.audio_frames(config) if frames is None else frames
+        return (1, t, self.tcfg.audio_in_channels)
+
+    def audio_overlap_frames(self, config: GenerationConfig, cond_frames: int) -> int:
+        """The packed audio frames an audio chain carries with audio_cond:
+        max(1, round(audio frames * cond_frames / num_frames))."""
+        return max(1, int(round(self.audio_frames(config) * cond_frames / config.num_frames)))
 
     def _encode_text_with_audio(self, prompt: str, config: GenerationConfig,
                                 guidance: GuidanceSpec, timings: GenerationTimings):
@@ -1473,11 +1545,8 @@ class LTXPipeline:
         v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance, timings)
 
         # === stage 1: half resolution, always the distilled schedule ===
-        channels = self.tcfg.in_channels
-        s1_shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height // 2,
-                                                config.width // 2, channels=channels)
-        s1_sigmas = schedule.get_sigmas(config.num_steps, distilled=True,
-                                        token_count=s1_shape.token_count)
+        s1_shape, s2_shape = self.stage_shapes(config)
+        s1_sigmas = self.stage1_sigmas(config, s1_shape, audio=True)
         video_latent = self._initial_latent(stage1_noise, s1_shape, "stage1_noise") \
             * float(s1_sigmas[0])
         audio_packed = self._audio_latent(stage1_audio_noise, config, "stage1_audio_noise") \
@@ -1504,8 +1573,6 @@ class LTXPipeline:
         self._release("upscaler")
 
         # === stage 2: re-noise both, 3 full-resolution steps ===
-        s2_shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height,
-                                                config.width, channels=channels)
         s2_sigmas = schedule.STAGE_2_SIGMAS
         noise_scale = float(s2_sigmas[0])
         video_latent = (noise_scale * self._initial_latent(stage2_noise, s2_shape,
@@ -1565,7 +1632,7 @@ class LTXPipeline:
         self._check_chain(segments, cond_frames, prompts, config)
         k_lat = (cond_frames - 1) // 8 + 1
         af = self.audio_frames(config)
-        k_a = max(1, int(round(af * cond_frames / config.num_frames))) if audio_cond else 0
+        k_a = self.audio_overlap_frames(config, cond_frames) if audio_cond else 0
         if audio_cond and k_a >= af:
             raise InvalidConfigurationError(
                 f"audio overlap {k_a} >= audio_frames {af} (cond_frames too close to "

@@ -55,6 +55,17 @@ def _local_gemma(models_dir: Optional[str]) -> Path:
     return base
 
 
+def download_gemma(models_dir: Optional[str] = None, hf_token: Optional[str] = None) -> Path:
+    """The Gemma snapshot's local directory (`vlm-gemma` under the models
+    directory) with its config.json, tokenizer.json and *.safetensors; a
+    missing file raises DownloadFailedError naming it. `hf_token` is
+    accepted for the reference's signature."""
+    base = _local_gemma(models_dir)
+    for name in ("config.json", "tokenizer.json"):
+        _local_file(GEMMA_REPO, name, base)
+    return base
+
+
 def download_all_components(
     model: LTXModel,
     models_dir: Optional[str] = None,

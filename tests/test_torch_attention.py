@@ -35,6 +35,7 @@ from ltx_tpu_torch.kernels.flash_attention import (
 )
 from ltx_tpu_torch.ops.attention import sdpa
 from torch_parity import as_torch, assert_rel
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 F32_TOL = 2e-5
 

@@ -46,6 +46,7 @@ from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from ltx_tpu_torch.ops.latents import VideoLatentShape
 from ltx_tpu_torch.pipeline import denoise
 from torch_parity import as_np, as_torch, assert_rel, reference_int4_kernel_route, rel_err
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = TransformerConfig().tiny()
 # every linear of the dual block passes the int4 kernel route's shape rule

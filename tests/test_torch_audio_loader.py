@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 import ltx_tpu.kernels.quantization as jqz
 from ltx_tpu.core import config as jconfig

@@ -36,6 +36,7 @@ from ltx_tpu_torch.errors import (
 )
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
 from torch_parity import jax_normal, loop_draws, reference_and_port
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 FRAME_ATOL = 2e-2
@@ -71,7 +72,6 @@ def _draws(port, config, cond_shape=None):
         steps = len(port._sigmas(config, shape)) - 1
         out["cond_noise"] = loop_draws(dkey, steps, cond_shape)
     return out
-
 
 
 def _check(got, want, what, guided=False):

@@ -21,6 +21,7 @@ from ltx_tpu_torch import convert
 from ltx_tpu_torch.train import checkpoint, step
 from test_torch_train import CFG, JCFG, _batch, _draws, _lora_tree, _stacked, _torch_batch
 from torch_parity import assert_rel
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 # a warmup (so the schedule's own count is in the state) and an Adam eps
 # that keeps rounding-level gradients from moving (test_torch_train.py)

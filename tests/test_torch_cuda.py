@@ -26,7 +26,8 @@ bf16 output, half a bf16 ulp, bitwise equal from run to run and row by row;
 the tiny two-stage I2V pipeline, its norms through that kernel by the
 default route, within 2e-2; the tiny long-video modes (video-to-video,
 extension, keyframes, chains, and their audio twins) within the tiny
-tolerances; the MLX 4-bit dequantization of the loader on
+tolerances; the seeded front, a served job and a denoise resume bit for
+bit the direct call; the MLX 4-bit dequantization of the loader on
 the card bit for bit; LoRA fusion on the card against the CPU's within
 checks.check_fused_leaves' bound, and the fused DiT against the adapter as
 a side path within 5e-2; the tiny cycle Gemma's greedy generation
@@ -306,6 +307,17 @@ def test_tiny_long_video_cuda_matches_cpu(device):
     passes imply."""
     res = checks.check_tiny_long_video(device)
     assert len(res) == 7 and all(r["launches"]["flash_attention"] > 0 for r in res.values())
+
+
+def test_tiny_surfaces_cuda(device):
+    """SeededPipeline on the card twice at one seed, a job served over HTTP
+    and a DenoiseCheckpoint resume, each bit for bit the direct call
+    (checks.check_tiny_surfaces; the MP4 writer chip_smoke.py picks for
+    this machine: its .npy stand-in where no encoder is installed)."""
+    import chip_smoke
+
+    res = checks.check_tiny_surfaces(device, chip_smoke.mp4_writer())
+    assert res["resumed_steps"] == 3 and res["resumed_launches"]["flash_attention"] > 0
 
 
 def test_mlx_dequant_on_the_card_is_bit_for_bit(device):

@@ -33,6 +33,7 @@ from ltx_tpu_torch.config import TransformerConfig
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from ltx_tpu_torch.models.common import QuantizedLinear
 from torch_parity import as_torch, assert_rel, reference_int4_kernel_route, rel_err
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = TransformerConfig().tiny()
 QCFG = dataclasses.replace(CFG, head_dim=64, cross_attention_dim=256)

@@ -29,7 +29,7 @@ from ltx_tpu_torch.errors import InvalidConfigurationError
 from ltx_tpu_torch.pipeline import enhance as pe
 from ltx_tpu_torch.tokenizer import Tokenizer as PortTokenizer
 from test_torch_tokenizer import BOS, _strings, _trained_bpe
-from torch_parity import torch_threads
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 # the tiny Gemma with room for a tokenizer that spells the system prompts in
 # a few hundred tokens (the reference's sizes otherwise)
@@ -38,13 +38,6 @@ GEMMA_DECODER = {"type": "Sequence", "decoders": [
     {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
     {"type": "ByteFallback"}, {"type": "Fuse"},
     {"type": "Strip", "content": " ", "start": 1, "stop": 0}]}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small ops a token: one torch thread (`torch_parity.torch_threads`)."""
-    with torch_threads(1):
-        yield
 
 
 def tokenizer_spec(vocab_size: int = GCFG.vocab_size) -> dict:

@@ -8,6 +8,7 @@ plain Python over shapes, strides and addresses."""
 
 import pytest
 import torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 from ltx_tpu_torch.kernels import flash_attention as fa
 

@@ -50,6 +50,7 @@ from ltx_tpu_torch.models.common import (
 )
 from ltx_tpu_torch.weights import keymaps, registry
 from torch_parity import assert_rel, reference_int4_kernel_route, rel_err
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TINY = jgemma.Gemma3Config().tiny()
 WIDE = dataclasses.replace(TINY, hidden_size=256, hidden_layers=2, intermediate_size=512,

@@ -28,7 +28,8 @@ from ltx_tpu_torch import convert
 from ltx_tpu_torch.errors import InvalidConfigurationError
 from ltx_tpu_torch.models import gemma3 as pg
 from ltx_tpu_torch.weights import synthetic as psyn
-from torch_parity import assert_rel, torch_threads
+from torch_parity import assert_rel
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = jg.Gemma3Config().tiny()
 PROMPT = np.asarray([5, 9, 11, 5, 9, 11, 5, 9], np.int32)
@@ -37,13 +38,6 @@ PROMPTS = [PROMPT, np.asarray([3, 7, 2], np.int32),
 GREEDY = dict(temperature=0.0, stop_tokens=(), bucket=8)
 CYCLE = jsyn.default_cycle(CFG, period=11)
 CYCLE_PROMPT = np.asarray((5, 7, 9) + CYCLE + CYCLE[:4], np.int32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small ops a token: one torch thread (`torch_parity.torch_threads`)."""
-    with torch_threads(1):
-        yield
 
 
 def _t(x) -> torch.Tensor:

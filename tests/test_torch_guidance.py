@@ -32,6 +32,7 @@ from ltx_tpu_torch.ops.latents import VideoLatentShape
 from ltx_tpu_torch.pipeline import denoise
 from test_torch_dit import _params
 from torch_parity import as_np, as_torch, assert_rel, rel_err
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = TransformerConfig().tiny()
 JCFG = convert.port_config(CFG, jconfig.TransformerConfig)

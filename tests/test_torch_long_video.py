@@ -31,6 +31,7 @@ from torch_parity import (
     assert_rel,
     jax_normal,
     loop_draws,
+    one_torch_thread,  # noqa: F401 (autouse)
     reference_and_port,
     torch_threads,
     video_keys,

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 from ltx_tpu.core import config as jconfig
 from ltx_tpu.kernels.quantization import quantize_transformer_params

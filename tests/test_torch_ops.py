@@ -23,6 +23,7 @@ from ltx_tpu_torch.kernels import rms_norm as rms_kernel
 from ltx_tpu_torch.ops import embeddings, latents, normalization, rope, schedule
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from torch_parity import as_np, as_torch, assert_rel
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 F32_TOL = 1e-5
 BF16_TOL = 2.0**-7

@@ -41,6 +41,7 @@ from ltx_tpu_torch.models.common import QuantizedLinear
 from ltx_tpu_torch.pipeline import generate
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
 from torch_parity import torch_threads
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 GOLDEN = pathlib.Path(__file__).parent / "goldens" / "tiny_t2v.npz"
 FRAME_ATOL = 2e-2
@@ -155,8 +156,8 @@ def test_generate_video_matches_golden(runs):
 
 
 def test_frames_export_to_mp4(runs, tmp_path):
-    """The port's frames are in the layout ltx_tpu.io.video exports."""
-    from ltx_tpu.io.video import export_video
+    """The port's frames export through the port's own MP4 writer."""
+    from ltx_tpu_torch.io.video import export_video
 
     path = export_video(runs[1].frames, str(tmp_path / "clip.mp4"), fps=24.0)
     assert (tmp_path / "clip.mp4").stat().st_size > 0 and path.endswith("clip.mp4")

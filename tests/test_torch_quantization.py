@@ -44,6 +44,7 @@ from ltx_tpu_torch.kernels import quantization as tq
 from ltx_tpu_torch.models.common import QuantizedLinear
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
 from torch_parity import assert_rel, reference_int4_kernel_route
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _t(a):

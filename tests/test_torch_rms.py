@@ -20,6 +20,7 @@ import dataclasses
 
 import pytest
 import torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 from ltx_tpu_torch import checks
 from ltx_tpu_torch.kernels import rms_norm as rk

@@ -21,18 +21,12 @@ from ltx_tpu.models import siglip as js
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.models import siglip as ps
 from ltx_tpu_torch.models.common import assign_
-from torch_parity import assert_rel, torch_threads
+from torch_parity import assert_rel
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = js.SigLIPConfig().tiny()
 # SigLIP-So400m's head width at a small size: 2 heads of 72
 CFG72 = dataclasses.replace(CFG, hidden_size=144, num_heads=2, intermediate_size=96)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small ops a token: one torch thread (`torch_parity.torch_threads`)."""
-    with torch_threads(1):
-        yield
 
 
 def _f32(tree):

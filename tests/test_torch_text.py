@@ -21,6 +21,7 @@ from ltx_tpu.models import vae as jvae
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.models import gemma3, text_encoder, vae
 from torch_parity import as_torch, assert_rel, rel_err
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 GCFG = jgemma.Gemma3Config().tiny()
 TECFG = dataclasses.replace(

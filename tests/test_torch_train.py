@@ -43,6 +43,7 @@ from ltx_tpu_torch.train import checkpoint, cli, data, export, lora, step
 from ltx_tpu_torch.train.flow_match import flow_match_loss, sample_sigmas
 from test_torch_dit import _params
 from torch_parity import as_np, assert_rel
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = TransformerConfig().tiny()
 JCFG = convert.port_config(CFG, jconfig.TransformerConfig)

@@ -35,6 +35,7 @@ from ltx_tpu_torch.models import upscaler
 from ltx_tpu_torch.pipeline import generate
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
 from torch_parity import as_np, assert_rel, jax_normal, loop_draws, reference_and_port
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 FRAME_ATOL = 2e-2
@@ -43,8 +44,6 @@ GUIDED_ATOL, GUIDED_MEAN_ATOL = 8e-2, 1e-2
 
 def _jcfg(config):
     return convert.port_config(config, jconfig.GenerationConfig)
-
-
 
 
 def _shape(port, config, scale=1):

@@ -19,6 +19,7 @@ from ltx_tpu.models import vae as jvae
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.models import vae
 from torch_parity import as_torch, assert_rel, rel_err
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = jvae.VAEConfig().tiny()
 COND_CFG = dataclasses.replace(CFG, timestep_conditioning=True)

@@ -35,6 +35,7 @@ from ltx_tpu_torch.models import dit as tdit
 from ltx_tpu_torch.models.common import W8A8Linear
 from test_torch_dit import CFG, _jax_forward, _params, _port_forward
 from torch_parity import assert_rel
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _t(a):

@@ -24,6 +24,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 import tests.weight_fixtures as wf
 from ltx_tpu.core import config as jconfig

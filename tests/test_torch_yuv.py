@@ -21,16 +21,9 @@ from ltx_tpu_torch.config import GenerationConfig, MemoryConfig
 from ltx_tpu_torch.models import vae as pvae
 from ltx_tpu_torch.models.common import init_random_
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
-from torch_parity import torch_threads
+from torch_parity import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG = jvae.VAEConfig().tiny()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small ops a token: one torch thread (`torch_parity.torch_threads`)."""
-    with torch_threads(1):
-        yield
 
 
 def _luma(x):

@@ -8,6 +8,7 @@ error relative to the reference's largest magnitude.
 import contextlib
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -77,6 +78,17 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a whole test module, its module fixtures
+    included: a test file imports this fixture by name to make it autouse
+    there. The parity files run many small ops; under six test workers
+    each process's default of one thread a core oversubscribes the cores
+    (a chain file went from 40 s alone to 486 s so)."""
+    with torch_threads(1):
+        yield
 
 
 # ---------------------------------------------------------------------------
