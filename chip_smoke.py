@@ -29,9 +29,10 @@ Phases, each printing its own lines:
      joint-audio pipeline (CFG, then I2V; frames and waveform, the flash
      launches by head dim), the tiny long-video modes (video-to-video,
      extension, keyframes, an anchored two-prompt chain, and the audio
-     chain, keyframes and extension), the tiny LoRA train and the tiny cycle
-     Gemma's greedy generation on the card against the same weights and
-     draws on the CPU, the norms as the default route gives them;
+     chain, keyframes and extension), the tiny LoRA train, the tiny AV
+     QLoRA step and the tiny cycle Gemma's greedy generation on the card
+     against the same weights and draws on the CPU, the norms as the
+     default route gives them;
   3. the bf16 main path: LTXPipeline.generate_video at full width and depth
      (Gemma-3-12B, the text connector, the 48-block DiT, the VAE decoder;
      random bf16 weights from a seeded generator) at 25 frames, 768x512,
@@ -49,11 +50,13 @@ Phases, each printing its own lines:
      conditioned frame re-noised every
      step, and a temporally tiled decode (8 latent frames a tile, overlap
      2, uint8 tiles) to exactly 121 frames;
-  3c. the batched path: generate_videos with two prompts at 25f@768x512,
-     each sample against its solo generate_video on the same noise, and one
-     DiT call on two rows bit for bit its solo call; then one denoise step
-     timed under the default dispatch and under `forced_rms_chain()`, in
-     turns;
+  3c. the batched path, the phase-3 components resident on the card,
+     placed once for 3c, 3f, 3g and 3h, which run after 3e (phase 3
+     measures the staging): generate_videos with two
+     prompts at 25f@768x512, each sample against its solo generate_video on
+     the same noise, and one DiT call on two rows bit for bit its solo
+     call; then one denoise step timed under the default dispatch and under
+     `forced_rms_chain()`, in turns;
   3f. the long-video modes at 121f@768x512 (6144 tokens, 8 steps), the
      phase-3 components resident on the card for the phase (no per-phase
      staging, as a server keeps them) and the decode tiled: the README's
@@ -98,6 +101,15 @@ Phases, each printing its own lines:
      writer is chip_smoke's npy_mp4_writer stand-in, and the log says so
      (phase 1 lists the encoders found). Phase 2 runs the same identities
      on the tiny pipeline (checks.check_tiny_surfaces);
+  3h. prepare-data: four 25-frame 768x512 clips written here with OpenCV
+     (mp4v) and their captions, as a JSONL manifest and as .mp4 + .txt
+     sidecars; io/cli.py's `prepare-data` on each (load_pipeline swapped
+     for the phase-3 pipeline, its Gemma, connector and VAE resident):
+     two shards of two rows each, grid (4, 16, 24), finite tokens and
+     contexts, the two runs' shards bit for bit each other, each clip's
+     tokens bit for bit train.prepare.encode_clip of that clip alone, the
+     connector's flash and rms_norm launches of one text pass; the seconds
+     a clip and of the text pass. Phase 6 trains on these shards;
   3d. the W8A8 main path: the same bf16 DiT requantized per channel to
      W8A8 on the card into a copy (quantize_transformer(w8a8=True)), the
      same generate_video and noise; every block linear through the
@@ -111,8 +123,9 @@ Phases, each printing its own lines:
      tokens), where the 9216-row linears go through dequant_int4 and a
      plain product and the 1024-row text K/V through int4_matmul;
   5c. joint audio: the 48-block dual audio-video DiT drawn on the card
-     (kept on the host for phase staging) beside the phase-3 pipeline's
-     Gemma, VAE and upscaler, after the video DiT is dropped; then
+     beside the phase-3 pipeline's Gemma, VAE and upscaler, after the video
+     DiT is dropped, every component resident on the card for 5c and 5d
+     (as a server keeps them; phase 3 measures staging); then
      generate_video_with_audio at the north star (8 x 48 x 6 flash
      launches in the dual DiT, 1536 of them at head dim 64, and both
      connectors'; 20 rms_norm launches a dual block; the frames and the
@@ -121,11 +134,22 @@ Phases, each printing its own lines:
      241f@1024x640 (the flagship: I2V through encode_image at half and full
      resolution, 8 distilled steps at 4960 tokens, the upscaler, 3 plain
      Euler steps at 19840 tokens, 251 audio tokens, a tiled decode), each
-     with its launches, phases and peak memory; then, the components
-     resident, a 3-segment generate_video_chain_with_audio carrying the
+     with its launches, phases and peak memory; then a 3-segment
+     generate_video_chain_with_audio carrying the
      audio tail (57 frames, the waveform's crossfaded length checked),
      keyframes at frames 0 and 24 with audio, and generate_video_with_audio
      extending the chain's last 9 frames, at 25f@768x512;
+  5d. the AV QLoRA step: 5c's dual DiT, still resident on the card,
+     quantized to int4 there (quantize_transformer) and frozen, rank-16 LoRA on its 1344
+     block linears, then 4 steps of train.step.make_av_train_step with
+     per-block remat at 25f@768x512 (1536 video tokens) and 26 audio
+     tokens, 1024-token text contexts left-padded by 300 (video) and 500
+     (audio): each step's launches against checks.av_train_step_launches
+     (B2 2 x 48 x 6, B3a and B3b 48 x 6, B4 on every int4 linear twice,
+     B5 in the straight-through backward), finite losses with both streams'
+     terms above 0, the base bit for bit, every lora_b moved from 0; the
+     seconds a step, the peak memory, and the last step under
+     torch.profiler (host and device ms by kernel group, idle share);
   5b. files to frames: a models directory written under build/ in the
      layout weights.download resolves, from seeded generators on the card
      by the port's own safetensors writer: the unified file (the dual DiT's
@@ -157,24 +181,25 @@ Phases, each printing its own lines:
      for it, the caches of both written; its hidden states against the
      bf16 load's (correlation, the reference's check); loaded again, both
      caches hit with no requantization. The int4 and the W8A8 Gemma each
-     decode 64 greedy tokens with and without speculation: every forward's
+     decode 32 greedy tokens with and without speculation: every forward's
      seven linears a layer through int4_matmul (48 x 7 launches, at 1 and
      9 rows) or the int8 product. train.cli --weights on the unified
      file (W8A8, the reference's default, rank 16, one step, its launches
      checked). The directory is deleted;
   6. the training path: `python -m ltx_tpu_torch.train.cli`'s `run` at full
      width and depth (the 48-block DiT, random and seeded, quantized to
-     int4 and frozen, rank-16 LoRA on its 480 block linears) on a latent
-     shard of two 25f@768x512 rows (1536 tokens) with 1024-token,
-     left-padded text contexts: 4 steps with checkpoints, then a resume leg
-     to step 6; every attention through the statistics forward and the two
+     int4 and frozen, rank-16 LoRA on its 480 block linears) on phase 3h's
+     shards (four 25f@768x512 rows, 1536 tokens, with their 1024-token,
+     left-padded text contexts): 4 steps with checkpoints, then a resume leg
+     to step 5; every attention through the statistics forward and the two
      backward kernels, the int4 base through int4_matmul forward and
      dequant_int4 in its straight-through backward, with the launch counts
      read around every step (the norms as the route gives them under
      autograd: checks.rms_train_counts); the checkpoint and the exported
-     adapter read back. (Phase 2 also holds the tiny LoRA train on the card against the
-     CPU, and the statistics and backward kernels against their plain
-     versions.)
+     adapter read back. (Phase 2 also holds the tiny LoRA train and the
+     tiny AV QLoRA step on the card against the CPU, and the statistics
+     and backward kernels against their plain versions, the dual DiT's
+     head-dim-64 shapes among them.)
   7. a JSON line of the seven kernels: launches (each from the paths that
      run it, by path where there are several, the long-video modes' among
      them; B1's and B6's times at their shapes in `long_video_cases`), max
@@ -227,7 +252,6 @@ from ltx_tpu_torch.pipeline.generate import GenerationTimings, LTXPipeline
 from ltx_tpu_torch.profile_step import profile_steps
 from ltx_tpu_torch.tokenizer import Tokenizer
 from ltx_tpu_torch.train import cli as train_cli
-from ltx_tpu_torch.train.data import write_shard
 from ltx_tpu_torch.train.export import read_safetensors
 
 PROMPT = "A beaver builds a dam in a mountain stream at golden hour"
@@ -790,21 +814,38 @@ def phase_flash_training_kernels(device):
     (s_ms, s_plain, s_lib, s_bound, dq_ms, dkv_ms, b_plain, b_lib, dq_bound,
      dkv_bound, dq_idle, dkv_idle, s_idle) = timings["dit_self_attn"]
     src = "ltx_tpu_torch/csrc/flash_attention_bwd.cu"
+
+    def av_cases(kernel):
+        """The dual DiT's head-dim-64 shapes beside the line's
+        self-attention: the kernel's queued ms, plain, library (sdpa's
+        forward or backward, queued), bound and idle-card ms."""
+        out = {}
+        for name, t in timings.items():
+            if name.startswith("av_"):
+                row = {"stats": (t[0], t[1], t[2], *t[3], t[12]),
+                       "dq": (t[4], t[6], t[7], *t[8], t[10]),
+                       "dkv": (t[5], t[6], t[7], *t[9], t[11])}[kernel]
+                out[name] = dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                      "idle_ms"), row))
+        return out
+
     return [
         {"name": "flash_attention_stats", "route": "cuda",
          "source": "ltx_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "ltx_tpu/kernels/flash_attention.py:124", "max_abs_err": errs["stats"],
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound[0], "bound_by": s_bound[1],
-         "library_ms": s_lib, "timing": "queued", "idle_ms": s_idle},
+         "library_ms": s_lib, "timing": "queued", "idle_ms": s_idle,
+         "av_cases": av_cases("stats")},
         {"name": "flash_attention_bwd_dq", "route": "cuda", "source": src,
          "replaces": "ltx_tpu/kernels/flash_attention.py:347", "max_abs_err": errs["dq"],
          "ms": dq_ms, "plain_ms": b_plain, "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
-         "library_ms": b_lib, "timing": "queued", "idle_ms": dq_idle},
+         "library_ms": b_lib, "timing": "queued", "idle_ms": dq_idle,
+         "av_cases": av_cases("dq")},
         {"name": "flash_attention_bwd_dkv", "route": "cuda", "source": src,
          "replaces": "ltx_tpu/kernels/flash_attention.py:347", "max_abs_err": errs["dkv"],
          "ms": dkv_ms, "plain_ms": b_plain, "bound_ms": dkv_bound[0],
          "bound_by": dkv_bound[1], "library_ms": b_lib, "timing": "queued",
-         "idle_ms": dkv_idle},
+         "idle_ms": dkv_idle, "av_cases": av_cases("dkv")},
     ]
 
 
@@ -909,8 +950,9 @@ def phase_rms_kernel(device) -> dict:
 
 
 def phase_tiny_agreement(device) -> None:
-    """The tiny pipeline, the tiny two-stage I2V pipeline and the tiny LoRA
-    train on the card against the same weights on the CPU."""
+    """The tiny pipeline, the tiny two-stage I2V pipeline, the tiny LoRA
+    train and the tiny AV QLoRA step on the card against the same weights
+    on the CPU."""
     res = checks.check_tiny_pipeline(device)
     log(f"[tiny] pipeline on the card vs the CPU: max abs err "
         f"{res['max_abs_err']:.3e} (tol {checks.TINY_FRAME_ATOL:.0e}), "
@@ -944,6 +986,12 @@ def phase_tiny_agreement(device) -> None:
             f"{res['loss_rel']:.3e}, LoRA leaves after the steps {res['lora_rel']:.3e} "
             f"(relative, tol {checks.TINY_TRAIN_TOL:.0e}, the bf16 run's); launches "
             f"{json.dumps(res['launches'])}")
+    res = checks.check_tiny_av_train(device)
+    log(f"[tiny] AV QLoRA step (int4 dual DiT, head dim 64, {checks.TINY_TRAIN_STEPS} steps) "
+        f"on the card vs the CPU: first-backward LoRA gradients {res['grad_rel']:.3e}, losses "
+        f"{res['loss_rel']:.3e}, LoRA leaves {res['lora_rel']:.3e} (relative, tol "
+        f"{checks.TINY_TRAIN_TOL:.0e}); base bit for bit; launches "
+        f"{json.dumps(res['launches'])}")
 
 
 KERNELS = {"flash_attention": fa.flash_attention,
@@ -971,8 +1019,7 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {**{name: kernel.launches for name, kernel in KERNELS.items()},
-            CHAIN: normalization.rms_chain_on_cuda, INT8: qz.int8_mm.calls}
+    return {**checks.read_kernel_counts(), INT8: qz.int8_mm.calls}
 
 
 def norm_launches(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
@@ -1360,7 +1407,9 @@ def resident(pipe: LTXPipeline, names, device, **memory):
     finally:
         pipe.memory = saved
         for name, params in host.items():
-            for n, p in getattr(pipe, name).named_parameters():
+            module = getattr(pipe, name)
+            # None: the block took the component from the pipeline
+            for n, p in (() if module is None else module.named_parameters()):
                 p.data = params[n]
         torch.cuda.empty_cache()
 
@@ -1465,7 +1514,7 @@ def phase_long_video(pipe: LTXPipeline, device) -> dict:
 
 # the cycle model's generated tokens, and the drafts of the enhancement's
 # speculation (GenerationConfig.enhancement_spec_k's default)
-CYCLE_NEW_TOKENS = 128
+CYCLE_NEW_TOKENS = 64
 SPEC_K = 8
 # the share of the drafts a verify forward commits on the cycle model, at
 # least (the tiny test's: more than 3 tokens a forward of 5 at spec_k 4)
@@ -1899,6 +1948,140 @@ def phase_surfaces(pipe: LTXPipeline, tok: Tokenizer, device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training data (phase 3h): prepare-data on clips written here
+# ---------------------------------------------------------------------------
+
+PREPARE_CAPTIONS = ("A red fox runs across a snowy field",
+                    "Waves roll onto a pebble beach under grey clouds",
+                    "A cyclist climbs a winding mountain road",
+                    "Lanterns sway over a night market street")
+PREPARE_ROWS_PER_SHARD = 2
+
+
+def write_clip(path: Path, seed: int, config: GenerationConfig = NORTH_STAR) -> None:
+    """A clip of config.num_frames frames at config's size: smooth colour
+    gradients drifting with a seeded phase and speed (an easy picture for
+    the mp4v encoder), written with OpenCV at config.fps."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    phase, speed = rng.uniform(0, 1, 3), rng.uniform(0.5, 2.0)
+    y = np.linspace(0, 1, config.height)[:, None, None]
+    x = np.linspace(0, 1, config.width)[None, :, None]
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), config.fps,
+                             (config.width, config.height))
+    try:
+        for t in np.linspace(0, 1, config.num_frames):
+            rgb = 0.5 + 0.45 * np.sin(2 * np.pi * (speed * t + x + 0.7 * y + phase))
+            writer.write(cv2.cvtColor((rgb * 255).astype(np.uint8), cv2.COLOR_RGB2BGR))
+    finally:
+        writer.release()
+
+
+def phase_prepare_data(pipe: LTXPipeline, tok: Tokenizer, device):
+    """`prepare-data` through io/cli.py at the north star's 25f@768x512 on the
+    phase-3 pipeline (bf16, full width and depth, the smoke tokenizer), its
+    Gemma, connector and VAE resident, load_pipeline swapped for it: four
+    clips written here, from a JSONL manifest and again from .mp4 + .txt
+    sidecars, two rows a shard. Asserts two shards of grid TRAIN_GRID a run,
+    finite rows, the two runs bit for bit each other, each clip's tokens bit
+    for bit encode_clip of that clip alone, the launches of one text pass
+    (four captions in one batch) and none of the DiT. Returns (the launches
+    of the manifest run, the directory of its shards, which phase 6 trains
+    on)."""
+    from ltx_tpu_torch.io import cli
+    from ltx_tpu_torch.pipeline import loader
+    from ltx_tpu_torch.train import prepare
+
+    config = NORTH_STAR
+    work = build.BUILD_DIR.parent / "chip_smoke_prepare"
+    shutil.rmtree(work, ignore_errors=True)
+    clips = work / "clips"
+    clips.mkdir(parents=True)
+    items = []
+    for i, caption in enumerate(PREPARE_CAPTIONS):
+        path = clips / f"clip{i}.mp4"
+        write_clip(path, seed=30 + i)
+        path.with_suffix(".txt").write_text(caption + "\n")
+        items.append((str(path), caption))
+    manifest = work / "manifest.jsonl"
+    manifest.write_text("".join(json.dumps({"video": f"clips/clip{i}.mp4", "caption": c}) + "\n"
+                                for i, c in enumerate(PREPARE_CAPTIONS)))
+    size = ["-w", str(config.width), "-H", str(config.height), "-f", str(config.num_frames),
+            "--rows-per-shard", str(PREPARE_ROWS_PER_SHARD)]
+    expected = expected_launches(pipe, 0, 1)
+    runs = {}
+    pipe.tokenizer = tok
+    try:
+        with resident(pipe, ("gemma", "text_encoder", "vae_encoder", "vae_decoder"), device):
+            real_load = loader.load_pipeline
+            loader.load_pipeline = lambda **kw: pipe
+            try:
+                for name, source in (("manifest", manifest), ("sidecars", clips)):
+                    out = work / f"shards_{name}"
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    rc, launches = run_counted(lambda: cli.main(
+                        ["prepare-data", str(source), "--out", str(out), *size]))
+                    seconds = time.perf_counter() - t0
+                    log(f"[prepare] prepare-data from the {name} ({len(items)} clips of "
+                        f"{config.num_frames}f@{config.width}x{config.height}): rc {rc}, "
+                        f"{seconds:.3f} s")
+                    if rc != 0:
+                        raise AssertionError(f"prepare-data from the {name}: rc {rc}")
+                    check_launches(f"prepare {name}", launches, expected)
+                    runs[name] = (sorted(out.glob("*.npz")), launches)
+            finally:
+                loader.load_pipeline = real_load
+            shards, launches = runs["manifest"]
+            rows = []
+            for path in shards:
+                with np.load(path) as z:
+                    shard = {k: z[k] for k in z.files}
+                log(f"[prepare] {path.name}: tokens {shard['tokens'].shape} "
+                    f"{shard['tokens'].dtype}, context {shard['context'].shape}, mask "
+                    f"{shard['mask'].shape} ({shard['mask'].sum(axis=1).tolist()} real "
+                    f"tokens), grid {tuple(shard['grid'])}")
+                if tuple(shard["grid"]) != TRAIN_GRID or len(shard["tokens"]) != \
+                        PREPARE_ROWS_PER_SHARD or not (np.isfinite(shard["tokens"]).all()
+                                                       and np.isfinite(shard["context"]).all()):
+                    raise AssertionError(f"prepare-data: {path.name} grid {shard['grid']}, "
+                                         f"{len(shard['tokens'])} rows, or non-finite")
+                rows += list(shard["tokens"])
+            if [p.name for p in shards] != ["shard00000.npz", "shard00001.npz"]:
+                raise AssertionError(f"prepare-data wrote {[p.name for p in shards]}")
+            for a, b in zip(shards, runs["sidecars"][0]):
+                with np.load(a) as za, np.load(b) as zb:
+                    if a.name != b.name or not all(np.array_equal(za[k], zb[k])
+                                                   for k in za.files):
+                        raise AssertionError(f"prepare-data: {a.name} from the manifest "
+                                             f"differs from {b.name} from the sidecars")
+            clip_s = []
+            for (path, _), row in zip(items, rows):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                tokens, grid = prepare.encode_clip(pipe, path, config.width, config.height,
+                                                   config.num_frames)
+                clip_s.append(time.perf_counter() - t0)
+                if grid != TRAIN_GRID or not np.array_equal(tokens, row):
+                    raise AssertionError(f"prepare-data: {path}'s tokens are not encode_clip's "
+                                         "of that clip alone")
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            pipe.encode_prompts(list(PREPARE_CAPTIONS), batch=4)
+            torch.cuda.synchronize(device)
+            text_s = time.perf_counter() - t0
+        log(f"[prepare] two shards a run, grid {TRAIN_GRID}, finite; the manifest's and the "
+            f"sidecars' shards bit for bit; each clip's tokens bit for bit encode_clip alone; "
+            f"seconds a clip (decode, resize, VAE encode): "
+            + ", ".join(f"{t:.3f}" for t in clip_s)
+            + f"; the text pass of {len(items)} captions in one batch: {text_s:.3f} s")
+    finally:
+        pipe.tokenizer = None
+    return launches, work / "shards_manifest"
+
+
 def http_text(url: str):
     """(status, body text) of a GET."""
     import urllib.request
@@ -1907,8 +2090,13 @@ def http_text(url: str):
         return r.status, r.read().decode()
 
 
+# the greedy tokens each loaded quantized Gemma decodes, sequential and with
+# drafts
+FILES_DECODE_TOKENS = 32
+
+
 def gemma_decode(tag: str, pipe: LTXPipeline, counter: str) -> int:
-    """A greedy 64-token generate_tokens of the loaded Gemma, sequential and
+    """A greedy FILES_DECODE_TOKENS-token generate_tokens of the loaded Gemma, sequential and
     with 8 drafts: 48 x 7 launches of `counter` (int4_matmul, or the int8
     product of W8A8) each forward, the prefill's and every decode
     forward's (one row, or SPEC_K + 1). Returns the decode forwards'
@@ -1919,8 +2107,9 @@ def gemma_decode(tag: str, pipe: LTXPipeline, counter: str) -> int:
     runs, decode_launches = {}, 0
     for spec_k in (0, SPEC_K):
         ((toks, stats), seconds), launches = run_counted(lambda: timed_generate(
-            lambda: gemma3.generate_tokens(gemma, ids, max_new_tokens=64, temperature=0.0,
-                                           stop_tokens=(), spec_k=spec_k, return_stats=True)))
+            lambda: gemma3.generate_tokens(gemma, ids, max_new_tokens=FILES_DECODE_TOKENS,
+                                           temperature=0.0, stop_tokens=(), spec_k=spec_k,
+                                           return_stats=True)))
         runs[spec_k] = toks
         rows = 1 if spec_k == 0 else spec_k + 1
         log(f"[files] Gemma {tag} decode, {rows} row(s) a forward: {len(toks)} tokens in "
@@ -2031,10 +2220,10 @@ AV_FLAGSHIP_TILE, AV_FLAGSHIP_OVERLAP = 8, 2
 def audio_pipeline(pipe: LTXPipeline, device) -> LTXPipeline:
     """The joint-audio pipeline at full width and depth beside the phase-3
     one: its Gemma, VAE and upscaler shared, the video DiT dropped from both
-    first (its host copy is what the dual DiT's 35 GiB take the place of),
-    then the dual DiT, a text encoder with both connectors, the audio VAE
-    and the vocoder drawn from seeded generators on the card and kept on the
-    host for phase staging."""
+    first, then the dual DiT, a text encoder with both connectors, the audio
+    VAE and the vocoder drawn from seeded generators on the card; the dual
+    DiT stays there (the joint-audio phases run resident), the others are
+    kept on the host for phase staging."""
     from ltx_tpu_torch.config import AudioVAEConfig, VocoderConfig
     from ltx_tpu_torch.models.audio_vae import AudioVAE, Vocoder
     from ltx_tpu_torch.models.common import init_random_
@@ -2052,12 +2241,12 @@ def audio_pipeline(pipe: LTXPipeline, device) -> LTXPipeline:
     t0 = time.perf_counter()
     home = "cpu" if pipe.memory.phase_staging else device
 
-    def build(i, make):
+    def build(i, make, where=home):
         gen = torch.Generator(device=device).manual_seed(16 + i)
-        return init_random_(make(), gen).to(home)
+        return init_random_(make(), gen).to(where)
 
     tcfg = TransformerConfig()
-    av = build(6, lambda: LTXAVTransformer(tcfg, device, torch.bfloat16))
+    av = build(6, lambda: LTXAVTransformer(tcfg, device, torch.bfloat16), device)
     text_encoder = build(3, lambda: TextEncoder(pipe.tecfg, device, torch.bfloat16,
                                                 include_audio=True))
     out = LTXPipeline(
@@ -2067,8 +2256,9 @@ def audio_pipeline(pipe: LTXPipeline, device) -> LTXPipeline:
         av_transformer=av, audio_vae=build(7, lambda: AudioVAE(AudioVAEConfig(), device)),
         vocoder=build(8, lambda: Vocoder(VocoderConfig(), device)))
     log(f"[av] random full-size dual DiT ({sum(p.numel() for p in av.parameters()) / 1e9:.3f}"
-        f" G parameters, {module_sizes(av)[1] / 2**30:.2f} GiB), text encoder with the audio "
-        f"connector, audio VAE, vocoder (seeded, on the card, kept on the {home}): "
+        f" G parameters, {module_sizes(av)[1] / 2**30:.2f} GiB, kept on the card), text "
+        f"encoder with the audio connector, audio VAE, vocoder (seeded, on the card, kept on "
+        f"the {home}): "
         f"{time.perf_counter() - t0:.2f} s; host RSS {host_rss_gib():.2f} GiB")
     return out
 
@@ -2249,6 +2439,13 @@ def phase_av_flagship(pipe: LTXPipeline, device) -> dict:
     return launches
 
 
+# the joint-audio components placed on the card for phases 5c and 5d; the
+# dual DiT is there from its draw (`audio_pipeline`), and nothing may hold
+# its bf16 weights once 5d has quantized it
+AV_RESIDENT = ("gemma", "text_encoder", "vae_decoder", "vae_encoder", "upscaler",
+               "audio_vae", "vocoder")
+
+
 def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
     """The long-video modes on the dual DiT at the north star's 25f@768x512:
     a 3-segment generate_video_chain_with_audio carrying the audio tail
@@ -2278,9 +2475,7 @@ def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
     log(f"[av long] {config.num_frames}f@{config.width}x{config.height} with audio: chain of "
         f"{segments} segments carrying {max(1, round(af * cond / config.num_frames))} of "
         f"{af} audio latent frames, keyframes at 0 and 24, extension of 9 frames")
-    names = ("gemma", "text_encoder", "av_transformer", "vae_decoder", "vae_encoder",
-             "audio_vae", "vocoder")
-    with resident(pipe, names, device):
+    with resident(pipe, AV_RESIDENT, device):
         chain, launches["AV chain 3x25f audio_cond"], peak = av_run(
             "av chain", lambda: pipe.generate_video_chain_with_audio(
                 PROMPT, config, segments, [generate_noise(shape, gen) for _ in range(segments)],
@@ -2313,6 +2508,156 @@ def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
             check_frames(tag, result.frames, config)
             check_waveform(tag, result.audio, config, pipe.vocoder_config)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The AV QLoRA step (phase 5d): 5c's dual DiT, int4 and frozen, rank-16 LoRA
+# ---------------------------------------------------------------------------
+
+AV_TRAIN_STEPS, AV_TRAIN_RANK = 4, 16
+
+
+def profile_one(fn):
+    """fn() once under torch.profiler (after the steps that warmed it),
+    recording the device's activity only (a train step runs some 10^5
+    PyTorch ops). Returns (fn's result, {host ms, device ms by kernel group
+    (profile_step's groups), the device's idle share})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ltx_tpu_torch.profile_step import GROUPS, group_of
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = {name: 0.0 for name, _ in GROUPS}
+    device_ms["other"] = 0.0
+    # the recorded events as they are: key_averages() would first build a
+    # Python object for each of them, which takes half a minute here
+    for event in prof.profiler.kineto_results.events():
+        if event.device_type() == DeviceType.CUDA:
+            device_ms[group_of(event.name())] += event.duration_ns() / 1e6
+    busy = sum(device_ms.values())
+    if busy <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    return out, {"host_ms": host_ms, "device_ms": device_ms, "device_busy_ms": busy,
+                 "idle_share": 1.0 - busy / host_ms}
+
+
+def phase_av_train(pipe: LTXPipeline, device) -> dict:
+    """The joint audio-video QLoRA step at full width and depth on phase
+    5c's dual DiT (taken from the pipeline, which keeps none; resident on
+    the card from 5c): quantized to int4 on the card and frozen, rank-16
+    LoRA on its block linears; AV_TRAIN_STEPS steps of make_av_train_step (per-block remat,
+    the flash kernels: sdpa_impl "pallas") at 25f@768x512 (1536 video
+    tokens) and the north star's 26 audio tokens, 1024-token text contexts
+    left-padded by TRAIN_PADS (video, audio), the draws from a generator in
+    the reference's order. Asserts each step's launches
+    (checks.av_train_step_launches), finite losses with both streams' terms
+    above 0, the frozen parameters bit for bit, every lora_b moved from 0;
+    prints the seconds a step, the peak memory and the last step profiled.
+    Returns the launches summed over the steps."""
+    from ltx_tpu_torch.models.dit_av import prepare_av_ropes
+    from ltx_tpu_torch.ops.attention import prepare_additive_mask
+    from ltx_tpu_torch.train.flow_match import sample_sigmas
+    from ltx_tpu_torch.train.lora import add_lora
+    from ltx_tpu_torch.train.step import TrainConfig, init_train_state, make_av_train_step
+
+    t_phase = time.perf_counter()
+    model, pipe.av_transformer = pipe.av_transformer, None
+    t0 = time.perf_counter()
+    model.to(device)  # nothing to copy where the phase runs it resident
+    torch.cuda.synchronize(device)
+    placed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quantize_transformer(model, bits=4)
+    torch.cuda.synchronize(device)
+    quantized = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(21)
+    add_lora(model, gen, rank=AV_TRAIN_RANK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    int4 = sum(isinstance(m, QuantizedLinear) for m in model.blocks.modules())
+    log(f"[av train] dual DiT on the card ({placed:.2f} s to place), quantized to int4 there in "
+        f"{quantized:.2f} s ({int4} block linears), rank-{AV_TRAIN_RANK} LoRA; "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB on the card")
+
+    f, h, w = TRAIN_GRID
+    frames = pipe.audio_frames(NORTH_STAR)
+    video = torch.randn(1, f * h * w, cfg.in_channels, generator=gen, device=device)
+    audio = torch.randn(1, frames, cfg.audio_in_channels, generator=gen, device=device)
+    contexts = [torch.randn(1, TRAIN_TEXT, cfg.caption_channels, generator=gen, device=device)
+                for _ in TRAIN_PADS]
+    biases = []
+    for pad in TRAIN_PADS:
+        mask = torch.ones(1, TRAIN_TEXT, dtype=torch.int64, device=device)
+        mask[:, :pad] = 0
+        biases.append(prepare_additive_mask(mask))
+    ropes = prepare_av_ropes(cfg, f, h, w, frames, fps=NORTH_STAR.fps, device=device)
+    tc = TrainConfig(lora_only=True, sdpa_impl="pallas")
+    trainable, frozen, opt_state = init_train_state(model, tc)
+    base = {n: p.detach().clone() for n, p in frozen.items()}
+    step = make_av_train_step(model, tc)
+    expected = {**NO_LAUNCHES, **checks.av_train_step_launches(model)}
+    log(f"[av train] {cfg.num_layers} dual blocks, {f * h * w} video and {frames} audio "
+        f"tokens, {TRAIN_TEXT} text tokens (pads {TRAIN_PADS}), {len(trainable)} LoRA "
+        f"leaves; expected launches per step {json.dumps(expected)}")
+
+    def draws():
+        return (sample_sigmas(gen, 1), sample_sigmas(gen, 1),
+                torch.randn(video.shape, generator=gen, device=device),
+                torch.randn(audio.shape, generator=gen, device=device))
+
+    def run(d):
+        return step(trainable, opt_state, video, audio, *contexts, ropes, *d, *biases)
+
+    totals = dict.fromkeys(expected, 0)
+    seconds = []
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(AV_TRAIN_STEPS):
+        d = draws()
+        # the last step under the profiler, its launches counted as the others'
+        profiled = i == AV_TRAIN_STEPS - 1
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out, launches = run_counted(lambda: profile_one(lambda: run(d)) if profiled
+                                    else (run(d), None))
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+        (trainable, opt_state, aux), prof = out
+        metrics = {k: float(v) for k, v in aux.items()}
+        log(f"[av train] step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in metrics.items())
+            + f", {seconds[-1]:.3f} s (synchronised{', profiled' if profiled else ''})")
+        check_launches(f"av train step {i}", launches, expected)
+        if not (all(np.isfinite(v) for v in metrics.values())
+                and metrics["loss_video"] > 0 and metrics["loss_audio"] > 0):
+            raise AssertionError(f"av train step {i}: metrics {metrics}")
+        totals = {k: totals[k] + launches[k] for k in totals}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    still = [n for n, p in trainable.items() if n.endswith("lora_b") and not p.abs().max() > 0]
+    moved = [n for n, p in frozen.items() if not torch.equal(p, base[n])]
+    log(f"[av train] seconds a step: {', '.join(f'{t:.3f}' for t in seconds[:-1])} (the "
+        f"profiled step {seconds[-1]:.3f} with the profiler's summary); peak {peak:.2f} GiB; "
+        f"lora_b still 0: {len(still)} of {sum(n.endswith('lora_b') for n in trainable)}; "
+        f"frozen parameters moved: {len(moved)} of {len(frozen)}")
+    if still or moved:
+        raise AssertionError(f"av train: lora_b still 0 {still[:4]}, base moved {moved[:4]}")
+    del base
+    steady = sorted(seconds[1:-1])[len(seconds[1:-1]) // 2] * 1e3
+    log(f"[av train] the last step, profiled (the device's activity only): host "
+        f"{prof['host_ms']:.1f} ms, device {prof['device_busy_ms']:.1f} ms "
+        f"({json.dumps({k: round(v, 2) for k, v in prof['device_ms'].items()})}), idle share "
+        f"{prof['idle_share']:.3f}; against the unprofiled steps' median {steady:.1f} ms: "
+        f"{1.0 - prof['device_busy_ms'] / steady:.3f} (the video QLoRA step's: device 787 ms, "
+        f"idle 0.71-0.73)")
+    log(f"[av train] launches over the {AV_TRAIN_STEPS} steps: {json.dumps(totals)}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return totals
 
 
 def phase_big_m(pipe: LTXPipeline, device) -> dict:
@@ -2804,7 +3149,7 @@ def phase_files_audio(base, files, noise, device) -> dict:
     return launches
 
 
-def phase_files_to_frames(device) -> int:
+def phase_files_to_frames(device, data) -> int:
     """Write a models directory, load it with load_pipeline (bf16; int4
     with the LoRA fused and Gemma in "int4", the quantized caches missed
     then hit; the defaults, W8A8 Gemma, with a W8A8 DiT and no phase
@@ -2814,7 +3159,8 @@ def phase_files_to_frames(device) -> int:
     against the adapter as a side path, each quantized Gemma's hidden
     states against the bf16 one's and its greedy decode (`gemma_decode`),
     and train one step from the unified file with train.cli --weights
-    --quant w8a8; between the bf16 and the int4 loads, the joint-audio load
+    --quant w8a8 on the shards in `data` (phase 3h's); between the bf16 and
+    the int4 loads, the joint-audio load
     and clip (`phase_files_audio`). Returns the int4_matmul launches of the
     int4 Gemma's text pass and of its decode forwards, and the joint-audio
     clip's launches."""
@@ -2956,11 +3302,10 @@ def phase_files_to_frames(device) -> int:
     # --- train.cli --weights on the unified file: W8A8 (the reference's
     # default), rank 16, one step
     work = base / "train"
-    (work / "data").mkdir(parents=True)
-    write_train_shard(work / "data")
+    work.mkdir(parents=True)
     cfg = dataclasses.replace(TransformerConfig(), num_layers=FILES_DIT_BLOCKS)
     train_leg("files train", [
-        "--data", str(work / "data"), "--out", str(work / "adapter.safetensors"),
+        "--data", str(data), "--out", str(work / "adapter.safetensors"),
         "--weights", str(unified), "--quant", "w8a8", "--rank", "16", "--sdpa", "pallas",
         "--steps", "1", "--log-every", "1", "--device", str(device)],
         train_step_launches(cfg, "w8a8"))
@@ -2971,8 +3316,8 @@ def phase_files_to_frames(device) -> int:
 
 TRAIN_GRID = (4, 16, 24)   # 25f@768x512: 1536 latent tokens
 TRAIN_TEXT = 1024
-TRAIN_PADS = (300, 500)    # left padding of each row's text context
-TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY, TRAIN_RANK = 4, 6, 2, 16
+TRAIN_PADS = (300, 500)    # left padding of the AV step's text contexts (video, audio)
+TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY, TRAIN_RANK = 4, 5, 2, 16
 
 
 def train_step_launches(cfg: TransformerConfig, quant: str = "int4") -> dict:
@@ -2996,21 +3341,6 @@ def train_step_launches(cfg: TransformerConfig, quant: str = "int4") -> dict:
     return {**NO_LAUNCHES, "flash_attention_stats": 2 * 2 * layers,
             "flash_attention_bwd_dq": 2 * layers, "flash_attention_bwd_dkv": 2 * layers,
             **quantized, **checks.rms_train_counts(cfg, forwards=2)}
-
-
-def write_train_shard(directory) -> None:
-    """Two rows of 1536 latent tokens x 128 channels and 1024 x 3840 text
-    contexts with left-padded masks, from a seed."""
-    cfg = TransformerConfig()
-    rng = np.random.default_rng(0)
-    f, h, w = TRAIN_GRID
-    mask = np.ones((2, TRAIN_TEXT), np.int64)
-    for row, pad in enumerate(TRAIN_PADS):
-        mask[row, :pad] = 0
-    write_shard(directory / "shard0.npz",
-                rng.standard_normal((2, f * h * w, cfg.in_channels), dtype=np.float32),
-                rng.standard_normal((2, TRAIN_TEXT, cfg.caption_channels),
-                                    dtype=np.float32), TRAIN_GRID, mask)
 
 
 def train_leg(tag: str, argv, expected: dict) -> list:
@@ -3041,25 +3371,26 @@ def train_leg(tag: str, argv, expected: dict) -> list:
     return reports
 
 
-def phase_train(device) -> dict:
-    """The training path at full width and depth through train.cli: 4 steps
-    with a checkpoint every 2, then a resume leg to step 6. Asserts the
-    launches of every step, finite losses, lora_b moved from 0 by the first
-    steps, the resume starting at step 4 and an adapter of 480 x 3 tensors
-    that reads back. Returns the summed launches of the first leg."""
+def phase_train(device, data) -> dict:
+    """The training path at full width and depth through train.cli on the
+    shards in `data` (phase 3h's): 4 steps with a checkpoint every 2, then
+    a resume leg to step 5. Asserts the launches of every step, finite
+    losses, lora_b moved from 0 by the first steps, the resume starting at
+    step 4 and an adapter of 480 x 3 tensors that reads back. Returns the
+    summed launches of the first leg."""
     cfg = TransformerConfig()
     work = build.BUILD_DIR.parent / "chip_smoke_train"
     shutil.rmtree(work, ignore_errors=True)
-    (work / "data").mkdir(parents=True)
-    write_train_shard(work / "data")
+    work.mkdir(parents=True)
     ckpt, out = work / "train.npz", work / "adapter.safetensors"
-    argv = ["--data", str(work / "data"), "--out", str(out), "--random-init", "full",
+    argv = ["--data", str(data), "--out", str(out), "--random-init", "full",
             "--quant", "int4", "--rank", str(TRAIN_RANK), "--sdpa", "pallas",
             "--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_CKPT_EVERY),
             "--log-every", "1", "--ckpt", str(ckpt), "--device", str(device)]
     expected = train_step_launches(cfg)
-    log(f"[train] {cfg.num_layers} blocks, int4 base, rank {TRAIN_RANK} LoRA, grid "
-        f"{TRAIN_GRID}, {TRAIN_TEXT} text tokens; expected launches per step "
+    log(f"[train] {cfg.num_layers} blocks, int4 base, rank {TRAIN_RANK} LoRA, on "
+        f"{', '.join(p.name for p in sorted(Path(data).glob('*.npz')))} (grid {TRAIN_GRID}, "
+        f"{TRAIN_TEXT} text tokens); expected launches per step "
         f"{json.dumps(expected)}")
     first = train_leg("train", argv, expected)
     with np.load(ckpt) as z:
@@ -3110,11 +3441,14 @@ def main() -> int:
     phase_environment()
     mark("phase 1 (environment, kernel build)")
     flash = phase_flash_kernel(device)
+    mark("phase 2 (B1 against its plain version)")
     stats, dq, dkv = phase_flash_training_kernels(device)
+    mark("phase 2 (B2, B3a, B3b against their plain versions)")
     matmul, dequant = phase_int4_kernels(device)
+    mark("phase 2 (B4, B5 against their plain versions)")
     rms = phase_rms_kernel(device)
     phase_w8a8_products(device)
-    mark("phase 2 (kernels against their plain versions)")
+    mark("phase 2 (B6 and the W8A8 products against their plain versions)")
     phase_tiny_agreement(device)
     mark("phase 2 (tiny pipelines)")
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
@@ -3123,23 +3457,33 @@ def main() -> int:
     mark("phase 3 (main path)")
     phase_two_stage(pipe, device)
     mark("phase 3b (two-stage)")
-    phase_batched(pipe, device)
-    phase_norm_choice(pipe, device)
-    mark("phase 3c (batched, norm choice)")
-    t_phase = time.perf_counter()
-    long_paths = phase_long_video(pipe, device)
-    log(f"[long] phase 3f: {time.perf_counter() - t_phase:.2f} s")
     t_phase = time.perf_counter()
     tok = Tokenizer.from_str(json.dumps(smoke_tokenizer()))
     phase_cycle_gemma(tok, device)
     siglip = phase_enhancement(pipe, tok, noise, steps, device)
     log(f"[enhance] phase 3e: {time.perf_counter() - t_phase:.2f} s")
-    t_phase = time.perf_counter()
-    surfaces = phase_surfaces(pipe, tok, device)
-    log(f"[surfaces] phase 3g: {time.perf_counter() - t_phase:.2f} s")
+    mark("phase 3e (enhancement)")
+    # the phase-3 components placed on the card once for the phases that run
+    # them resident, as a server keeps them (each phase's own `resident`
+    # then places nothing); phase 3 measures the staging
+    with resident(pipe, ("gemma", "text_encoder", "transformer", "vae_decoder",
+                         "vae_encoder"), device):
+        phase_batched(pipe, device)
+        phase_norm_choice(pipe, device)
+        mark("phase 3c (batched, norm choice)")
+        t_phase = time.perf_counter()
+        long_paths = phase_long_video(pipe, device)
+        log(f"[long] phase 3f: {time.perf_counter() - t_phase:.2f} s")
+        t_phase = time.perf_counter()
+        surfaces = phase_surfaces(pipe, tok, device)
+        log(f"[surfaces] phase 3g: {time.perf_counter() - t_phase:.2f} s")
+        t_phase = time.perf_counter()
+        prepared, shards = phase_prepare_data(pipe, tok, device)
+        log(f"[prepare] phase 3h: {time.perf_counter() - t_phase:.2f} s")
+    mark("phases 3f, 3g, 3h (long video, surfaces, prepare-data; resident)")
     # B1's paths: the north star (its DiT and connector), the long-video
-    # modes, the surfaces and the SigLIP tower
-    paths = {**long_paths, **surfaces}
+    # modes, the surfaces, prepare-data's text pass and the SigLIP tower
+    paths = {**long_paths, **surfaces, "prepare-data": prepared}
     flash["launches_by_path"] = {"north star": launches["flash_attention"],
                                  **{k: v["flash_attention"] for k, v in paths.items()},
                                  "SigLIP tower (I2V enhancement)": siglip}
@@ -3148,21 +3492,27 @@ def main() -> int:
     w8a8_run = phase_w8a8_main_path(pipe, noise, steps, device)
     north_star = phase_int4_main_path(pipe, noise, steps, bf16_run, device,
                                       w8a8_run)["int4_matmul"]
-    mark("phases 3f, 3e, 3g, 3d, 4 (long video, enhancement, surfaces, W8A8, int4)")
+    mark("phases 3d, 4 (W8A8, int4)")
     dequant["launches"] = phase_big_m(pipe, device)["dequant_int4"]
     mark("phase 5 (big M)")
     t_phase = time.perf_counter()
     av_pipe = audio_pipeline(pipe, device)
     del pipe, noise, bf16_run, w8a8_run
-    av_north = phase_av_north_star(av_pipe, device)
-    av_flagship = phase_av_flagship(av_pipe, device)
-    av_long = phase_av_long_video(av_pipe, device)
-    log(f"[av] phase 5c: {time.perf_counter() - t_phase:.2f} s")
-    mark("phase 5c (joint audio)")
+    # the joint-audio components resident on the card for 5c and 5d, as a
+    # server keeps them (phase 3 measures staging); the AV QLoRA step takes
+    # the dual DiT from the pipeline
+    with resident(av_pipe, AV_RESIDENT, device):
+        av_north = phase_av_north_star(av_pipe, device)
+        av_flagship = phase_av_flagship(av_pipe, device)
+        av_long = phase_av_long_video(av_pipe, device)
+        log(f"[av] phase 5c: {time.perf_counter() - t_phase:.2f} s")
+        mark("phase 5c (joint audio)")
+        av_train = phase_av_train(av_pipe, device)
+    mark("phase 5d (AV QLoRA step)")
     del av_pipe
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_pass, gemma_decode_launches, files_av = phase_files_to_frames(device)
+    gemma_pass, gemma_decode_launches, files_av = phase_files_to_frames(device, shards)
     mark("phase 5b (files to frames)")
     av_paths = {"AV north star": av_north, "AV flagship 241f@1024x640": av_flagship,
                 **av_long, "AV clip from files (8 blocks)": files_av}
@@ -3170,17 +3520,28 @@ def main() -> int:
         entry["launches_by_path"].update({k: v[entry["name"]] for k, v in av_paths.items()})
         entry["launches"] = sum(entry["launches_by_path"].values())
     # B4's paths: the int4 north star, the int4 Gemma's text pass and its
-    # decode (64 greedy tokens, sequential and with 8 drafts)
+    # decode (FILES_DECODE_TOKENS greedy tokens, sequential and with 8 drafts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(device, shards)
+    shutil.rmtree(shards.parent, ignore_errors=True)
+    mark("phase 6 (training)")
+    # B2-B5's paths: the video QLoRA steps of the trainer and the AV QLoRA
+    # steps; B4's the int4 north star and the int4 Gemma's text pass and
+    # decode too, B5's the big-M call
+    trained = {f"QLoRA train x{TRAIN_STEPS} (video)": train,
+               f"AV QLoRA step x{AV_TRAIN_STEPS}": av_train}
+    for entry in (stats, dq, dkv):
+        entry["launches_by_path"] = {k: v[entry["name"]] for k, v in trained.items()}
     matmul["launches_by_path"] = {"int4 north star": north_star,
                                   "int4 Gemma text pass": gemma_pass,
                                   "int4 Gemma decode forwards": gemma_decode_launches}
-    matmul["launches"] = sum(matmul["launches_by_path"].values())
-    gc.collect()
-    torch.cuda.empty_cache()
-    train = phase_train(device)
-    mark("phase 6 (training)")
-    for entry in (stats, dq, dkv):
-        entry["launches"] = train[entry["name"]]
+    dequant["launches_by_path"] = {"9216-token int4 call": dequant["launches"]}
+    for entry in (matmul, dequant):
+        entry["launches_by_path"].update({k: v[entry["name"]] for k, v in trained.items()})
+    rms["launches_by_path"][f"AV QLoRA step x{AV_TRAIN_STEPS}"] = av_train["rms_norm"]
+    for entry in (stats, dq, dkv, matmul, dequant, rms):
+        entry["launches"] = sum(entry["launches_by_path"].values())
     kernels = [flash, stats, dq, dkv, matmul, dequant, rms]
     for entry in kernels:
         # which clock read ms, plain_ms and library_ms: `cuda_ms` on an idle

@@ -106,17 +106,23 @@ from ltx_tpu_torch.config import GenerationConfig, MemoryConfig, TransformerConf
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
-from ltx_tpu_torch.models.common import init_random_
-from ltx_tpu_torch.models.dit import LTXTransformer
+from ltx_tpu_torch.models.common import QuantizedLinear, init_random_
+from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
+from ltx_tpu_torch.models.dit_av import LTXAVTransformer, prepare_av_ropes
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from ltx_tpu_torch.ops import schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape
 from ltx_tpu_torch.ops import normalization
 from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
-from ltx_tpu_torch.train.flow_match import flow_match_loss
+from ltx_tpu_torch.train.flow_match import av_flow_match_loss, flow_match_loss
 from ltx_tpu_torch.train.lora import add_lora
-from ltx_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
+from ltx_tpu_torch.train.step import (
+    TrainConfig,
+    init_train_state,
+    make_av_train_step,
+    make_train_step,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -451,6 +457,16 @@ BWD_CASES = (
     BackwardCase("dit_self_attn_view", 1, 32, 1536, 1536, 128, layout="bthd"),
     # batch * heads past 65535 at tiny T, a bias per batch row masking -1e30
     BackwardCase("many_heads_masked", 35000, 2, 5, 9, 16, bias=("masked", 6)),
+    # the dual DiT's head-dim-64 attentions in the AV train step at 25f@768x512
+    # (1536 video and 26 audio tokens), views of its projections: audio
+    # self-attention and audio text cross-attention (keys shorter than, and
+    # many times, one key tile), audio-to-video (26 keys) and video-to-audio
+    # (26 queries)
+    BackwardCase("av_audio_self_26", 1, 32, 26, 26, 64, layout="bthd"),
+    BackwardCase("av_audio_cross_26", 1, 32, 26, 1024, 64, bias=("left", 300),
+                 layout="bthd"),
+    BackwardCase("av_a2v", 1, 32, 1536, 26, 64, layout="bthd"),
+    BackwardCase("av_v2a", 1, 32, 26, 1536, 64, layout="bthd"),
 )
 # the cases whose gradients must be bitwise equal from run to run (the
 # training path's shapes)
@@ -1461,6 +1477,168 @@ def check_tiny_train(device, dtype=torch.bfloat16) -> dict:
     if not worst <= TINY_TRAIN_TOL:
         raise AssertionError(f"tiny train: device vs CPU {out}")
     return out
+
+
+# the dual block's attentions, and the int4 linears of a LoRA step whose
+# input carries no gradient: block 0's self-attention q, k, v read the frozen
+# patchify projections, every text cross-attention's k, v the frozen caption
+# projections
+AV_ATTENTIONS = ("attn1", "attn2", "audio_attn1", "audio_attn2", "audio_to_video_attn",
+                 "video_to_audio_attn")
+AV_FROZEN_INPUTS = tuple(f"blocks.0.{a}.{p}" for a in ("attn1", "audio_attn1")
+                         for p in ("to_q", "to_k", "to_v"))
+AV_FROZEN_CONTEXT = tuple(f"{a}.{p}" for a in ("attn2", "audio_attn2") for p in ("to_k", "to_v"))
+# norms of a dual block: the eight block norms and each attention's q and k norms
+AV_BLOCK_NORMS = 8 + 2 * len(AV_ATTENTIONS)
+
+
+def av_train_step_launches(model: torch.nn.Module, forwards: int = 2) -> dict:
+    """Launches of one LoRA step of an LTXAVTransformer on the card, with
+    LoRA on every block linear, fewer than BIG_M_DEQUANT_THRESHOLD rows, and
+    `forwards` DiT forwards while autograd records (2 with per-block remat:
+    the step's forward, then each block's recompute in the backward).
+
+    Every attention runs the statistics forward once a forward, and dq and
+    dkv once in the backward (its q has LoRA, so its inputs need gradients).
+    Every int4 block linear that passes `use_int4_kernel` runs int4_matmul
+    once a forward, and dequant_int4 once in its straight-through backward
+    where its input needs a gradient: all but AV_FROZEN_INPUTS and the text
+    cross-attentions' k and v. The norms go as `rms_route` gives them: block
+    0's norm1 and audio_norm1 read the frozen patchify projections and take
+    the kernel where their width is a multiple of 128; the other norms read
+    hidden states that a LoRA branch has fed, and take the chain."""
+    layers = len(model.blocks)
+    routed = [name for name, m in model.blocks.named_modules(prefix="blocks")
+              if isinstance(m, QuantizedLinear) and hasattr(m, "w_q4")
+              and qz.use_int4_kernel({"w_q4": m.w_q4}, torch.empty(0, m.dims[0], device="meta"))]
+    frozen = [n for n in routed
+              if n in AV_FROZEN_INPUTS or n.split(".", 2)[2] in AV_FROZEN_CONTEXT]
+    cfg = model.cfg
+    kernel = forwards * sum(d % rk.LANES == 0 for d in (cfg.inner_dim, cfg.audio_inner_dim))
+    return {"flash_attention_stats": forwards * len(AV_ATTENTIONS) * layers,
+            "flash_attention_bwd_dq": len(AV_ATTENTIONS) * layers,
+            "flash_attention_bwd_dkv": len(AV_ATTENTIONS) * layers,
+            "flash_attention": 0,
+            "int4_matmul": forwards * len(routed),
+            "dequant_int4": len(routed) - len(frozen),
+            "rms_norm": kernel,
+            "rms_chain_on_cuda": forwards * AV_BLOCK_NORMS * layers - kernel}
+
+
+# the tiny AV QLoRA step: the dual DiT at widths where every block linear
+# quantizes to int4 and passes the kernel route's shape rule (head dims 64:
+# 256 wide), so that the card runs B2, B3, B4 and B5 at head dim 64
+TINY_AV_CFG = dataclasses.replace(TransformerConfig().tiny(), head_dim=64,
+                                  cross_attention_dim=256, audio_head_dim=64)
+TINY_AV_GRID, TINY_AV_AUDIO, TINY_AV_TEXT = (2, 4, 6), 7, 16
+
+
+def _tiny_av_train_case(seed: int = 7):
+    """The tiny dual DiT in bf16, its block linears int4 (quantized on the
+    CPU), rank-4 LoRA (lora_b drawn nonzero), a 2-row batch with a
+    left-padded text mask per row, the RoPE tables and each step's draws
+    (sigma_v, sigma_a, noise_v, noise_a); on the CPU."""
+    cfg = TINY_AV_CFG
+    gen = torch.Generator().manual_seed(seed)
+    model = init_random_(LTXAVTransformer(cfg, device="cpu", dtype=torch.bfloat16), gen)
+    quantize_transformer(model, 4)
+    add_lora(model, gen, rank=4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    f, h, w = TINY_AV_GRID
+    video = torch.randn(2, f * h * w, cfg.in_channels, generator=gen)
+    audio = torch.randn(2, TINY_AV_AUDIO, cfg.audio_in_channels, generator=gen)
+    vctx, actx = (torch.randn(2, TINY_AV_TEXT, cfg.caption_channels, generator=gen)
+                  for _ in range(2))
+    mask = torch.ones(2, TINY_AV_TEXT, dtype=torch.int64)
+    mask[0, :5] = 0
+    mask[1, :9] = 0
+    bias = prepare_additive_mask(mask)
+    ropes = prepare_av_ropes(cfg, f, h, w, TINY_AV_AUDIO)
+    draws = [(torch.rand(2, generator=gen) * 0.98 + 0.01,
+              torch.rand(2, generator=gen) * 0.98 + 0.01,
+              torch.randn(video.shape, generator=gen), torch.randn(audio.shape, generator=gen))
+             for _ in range(TINY_TRAIN_STEPS)]
+    return model, (video, audio, vctx, actx, ropes, bias), draws
+
+
+def _to(x, device):
+    return tuple(_to(t, device) for t in x) if isinstance(x, tuple) else x.to(device)
+
+
+def _tiny_av_train_run(model, batch, draws, device):
+    video, audio, vctx, actx, ropes, bias = _to(batch, device)
+    tc = TrainConfig(lora_only=True, learning_rate=1e-3)
+    trainable, _, opt_state = init_train_state(model, tc)
+    inputs = (video, audio, vctx, actx, ropes)
+    loss, _ = av_flow_match_loss(model, *inputs, *_to(draws[0], device), bias, bias)
+    names = list(trainable)
+    grads = dict(zip(names, torch.autograd.grad(loss, [trainable[n] for n in names])))
+    step = make_av_train_step(model, tc)
+    metrics = []
+    for draw in draws:
+        trainable, opt_state, aux = step(trainable, opt_state, *inputs, *_to(draw, device),
+                                         bias, bias)
+        metrics.append(aux)
+    return grads, metrics, trainable
+
+
+def check_tiny_av_train(device) -> dict:
+    """The tiny AV QLoRA step on `device` (B2, B3a and B3b at head dim 64,
+    B4 forward and B5 in the int4 straight-through backward) against the
+    same int4 weights, batch and draws on the CPU (the plain versions, held
+    against the reference by the CPU tests), bf16 compute, per-block remat:
+    one loss and its LoRA gradients, then TINY_TRAIN_STEPS steps. Raises
+    AssertionError beyond TINY_TRAIN_TOL, on a non-finite or non-positive
+    stream loss, a base weight that moved, or a wrong launch count; returns
+    the errors and the launches."""
+    model, batch, draws = _tiny_av_train_case()
+    base = {n: p.detach().clone() for n, p in model.named_parameters()
+            if not n.endswith(("lora_a", "lora_b", "lora_s"))}
+    want = _tiny_av_train_run(copy.deepcopy(model), batch, draws, "cpu")
+    expected = av_train_step_launches(model)
+    before = read_kernel_counts()
+    got = _tiny_av_train_run(model.to(device), batch, draws, device)
+    launches = {k: v - before[k] for k, v in read_kernel_counts().items()}
+    calls = 1 + TINY_TRAIN_STEPS
+    expected = {k: calls * v for k, v in expected.items()}
+    out = {
+        "grad_rel": _rel(torch.cat([g.flatten() for g in got[0].values()]),
+                         torch.cat([g.flatten() for g in want[0].values()])),
+        "loss_rel": max(_rel(g[k], w[k]) for g, w in zip(got[1], want[1])
+                        for k in ("loss", "loss_video", "loss_audio")),
+        "lora_rel": _rel(torch.cat([p.flatten() for p in got[2].values()]),
+                         torch.cat([p.flatten() for p in want[2].values()])),
+        "launches": launches,
+    }
+    for aux in got[1]:
+        if not all(torch.isfinite(v).all() for v in aux.values()) \
+                or not (aux["loss_video"] > 0 and aux["loss_audio"] > 0):
+            raise AssertionError(f"tiny AV train: metrics {aux}")
+    moved = [n for n, p in model.named_parameters() if n in base
+             and not torch.equal(p.detach().cpu(), base[n])]
+    if moved:
+        raise AssertionError(f"tiny AV train: base parameters moved: {moved[:4]}")
+    if launches != expected:
+        raise AssertionError(f"tiny AV train: launches {launches}, expected {expected}")
+    worst = max(out["grad_rel"], out["loss_rel"], out["lora_rel"])
+    if not worst <= TINY_TRAIN_TOL:
+        raise AssertionError(f"tiny AV train: device vs CPU {out}")
+    return out
+
+
+def read_kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, and the CUDA calls of rms_norm
+    that took the plain chain."""
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_stats": fa.flash_attention_stats.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+            "int4_matmul": qz.int4_matmul.launches, "dequant_int4": qz.dequant_int4.launches,
+            "rms_norm": rk.rms_norm.launches,
+            "rms_chain_on_cuda": normalization.rms_chain_on_cuda}
 
 
 # --------------------------------------------------------------------------

@@ -362,12 +362,14 @@ def text_encoder(tree, cfg, device=None):
 
 def av_transformer(tree, cfg, device=None):
     """dit_av.init_params tree, plain or quantized by
-    quantize_transformer_params -> LTXAVTransformer (cfg: TransformerConfig)."""
+    quantize_transformer_params, with or without LoRA side paths from
+    train.lora.add_lora -> LTXAVTransformer (cfg: TransformerConfig)."""
     from ltx_tpu_torch.models.dit_av import LTXAVTransformer
 
     tree = _to_numpy(tree)
     model = LTXAVTransformer(cfg, device=device, dtype=tree_dtype(tree["patchify_proj"]["w"]))
     _swap_quantized(model, tree)
+    _add_lora_slots(model, tree)
     return load_tree(model, tree)
 
 

@@ -8,8 +8,7 @@ generation goes through `SeededPipeline`, which draws the noise from
 for the same seed on the same device). Weights come from the local models
 directory (nothing is downloaded); `--dry-run` validates the configuration
 without loading. `--mesh`, `--mesh-pp`, `--coordinator` and
-`--num-processes` raise NotImplementedError (ROADMAP A18), `prepare-data`
-too (A17).
+`--num-processes` raise NotImplementedError (ROADMAP A18).
 
 Run it as `python -m ltx_tpu_torch.io.cli ...` or `ltx-video-torch ...`.
 """
@@ -277,38 +276,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     pd = sub.add_parser(
         "prepare-data",
-        help="Encode video clips + captions into latent training shards "
-             "(not ported yet: ROADMAP A17)")
-    _add_prepare_arguments(pd)
+        help="Encode video clips + captions into latent training shards")
+    from ltx_tpu_torch.train.prepare import add_prepare_arguments
+
+    add_prepare_arguments(pd)
     pd.add_argument("--debug", action="store_true")
 
     return p
-
-
-def _add_prepare_arguments(ap) -> None:
-    """The reference's prepare-data flags (ltx_tpu/train/prepare.py)."""
-    ap.add_argument("source",
-                    help="JSONL manifest ({'video','caption'} per line) or "
-                         "a directory of .mp4 clips with .txt sidecars")
-    ap.add_argument("--out", required=True, help="shard output directory")
-    ap.add_argument("-w", "--width", type=int, default=768)
-    ap.add_argument("-H", "--height", type=int, default=512)
-    ap.add_argument("-f", "--frames", type=int, default=25)
-    ap.add_argument("--rows-per-shard", type=int, default=8)
-    ap.add_argument("--text-group", type=int, default=8,
-                    help="captions encoded per text-encoder staging cycle")
-    ap.add_argument("--text-batch", type=int, default=4,
-                    help="captions per tower/connector batch")
-    ap.add_argument("--skip-errors", action="store_true",
-                    help="log-and-continue on undecodable clips")
-    ap.add_argument("--gemma-quant", choices=["int4", "w8a8", "bf16"],
-                    default="w8a8")
-    ap.add_argument("--memory", choices=["disabled", "light", "moderate",
-                                         "aggressive"], default="moderate")
-    ap.add_argument("--gemma-path", default=None)
-    ap.add_argument("--ltx-weights", default=None)
-    ap.add_argument("--models-dir", default=None)
-    ap.add_argument("--hf-token", default=None)
 
 
 def _effective_model(args):
@@ -856,8 +830,12 @@ def cmd_train(args) -> int:
 
 
 def cmd_prepare_data(args) -> int:
-    raise NotImplementedError("prepare-data: encoding clips and captions into latent "
-                              "shards is not ported yet (ROADMAP A17)")
+    """Clips + captions -> latent shards (ltx_tpu_torch/train/prepare.py):
+    each clip VAE-encoded, normalized and patchified, each caption through
+    Gemma and the connector, written as LatentShardDataset shards."""
+    from ltx_tpu_torch.train.prepare import run
+
+    return run(args)
 
 
 def main(argv=None) -> int:

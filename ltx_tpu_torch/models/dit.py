@@ -241,7 +241,8 @@ class LTXTransformer(nn.Module):
                                  f"num_layers {len(blocks)}")
             per = len(blocks) // remat_segments
             for i in range(0, len(blocks), per):
-                x = _remat(_run_blocks, blocks[i:i + per], extras[i:i + per], x, *args,
+                # each block inside the segment checkpointed too
+                x = _remat(_run_blocks, blocks[i:i + per], extras[i:i + per], x, *args, True,
                            remat=True)
         else:
             x = _run_blocks(blocks, extras, x, *args, remat=remat)

@@ -15,11 +15,14 @@ the card where the width allows) and every attention through
 `ops.attention.sdpa` (the flash-attention kernel on the card: head dim 128
 for the video self and text attentions, 64 for the other four). The blocks
 are an nn.ModuleList run in a Python loop; parameter names follow
-ltx_tpu.models.dit_av.init_params. The reference's rematerialisation serves
-its AV train step (ROADMAP A17) and is not ported with inference.
+ltx_tpu.models.dit_av.init_params. The reference's rematerialisation is
+ported for the AV train step (`forward(remat=, remat_segments=)`, as the
+video DiT's); both default to off, so inference records nothing extra.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 from torch import nn
@@ -31,6 +34,7 @@ from ltx_tpu_torch.models.dit import (
     Attention,
     FeedForward,
     TwoLinear,
+    _remat,
     output_head,
 )
 from ltx_tpu_torch.ops import rope as rope_ops
@@ -216,13 +220,19 @@ class LTXAVTransformer(nn.Module):
         return cross_v, cross_a
 
     def forward(self, video_latent, audio_latent, video_context, audio_context,
-                video_timesteps, audio_timesteps, ropes, video_bias=None, audio_bias=None):
+                video_timesteps, audio_timesteps, ropes, video_bias=None, audio_bias=None,
+                remat: bool = False, remat_segments: int = 0):
         """(video velocity (B, Tv, C), audio velocity (B, Ta, C_audio)).
 
         video_latent (B, Tv, C) patchified; audio_latent (B, Ta, C_audio)
         packed (`pack_audio_latents`); contexts (B, S, caption channels);
         timesteps (B,) or (B, T) sigmas per stream; ropes from
-        `prepare_av_ropes`; biases (B, 1, 1, S) additive key biases or None."""
+        `prepare_av_ropes`; biases (B, 1, 1, S) additive key biases or None.
+
+        While autograd records: remat=True checkpoints each dual block;
+        remat_segments=S > 1 (which wins over remat) checkpoints S groups of
+        num_layers / S blocks, each block inside checkpointed too, as the
+        video DiT's `LTXTransformer.forward` (S must divide num_layers)."""
         b = video_latent.shape[0]
         dt = video_latent.dtype
         dv, da = self.cfg.inner_dim, self.cfg.audio_inner_dim
@@ -233,13 +243,30 @@ class LTXAVTransformer(nn.Module):
             self.audio_patchify_proj, self.audio_adaln_single, self.audio_caption_projection,
             audio_latent, audio_context, audio_timesteps, da, b, dt)
         cross_v, cross_a = self.cross_modal_modulation(scaled_v, scaled_a, b, dt)
-        for block in self.blocks:
-            video_x, audio_x = block(video_x, audio_x, ctx_v, ctx_a, ts_v, ts_a, cross_v,
-                                     cross_a, ropes, video_bias, audio_bias)
+        args = (ctx_v, ctx_a, ts_v, ts_a, cross_v, cross_a, ropes, video_bias, audio_bias)
+        blocks = list(self.blocks)
+        if remat_segments and remat_segments > 1:
+            if len(blocks) % remat_segments:
+                raise ValueError(f"remat_segments {remat_segments} must divide "
+                                 f"num_layers {len(blocks)}")
+            per = len(blocks) // remat_segments
+            for i in range(0, len(blocks), per):
+                video_x, audio_x = _remat(partial(_run_av_blocks, remat=True),
+                                          blocks[i:i + per], video_x, audio_x, *args,
+                                          remat=True)
+        else:
+            video_x, audio_x = _run_av_blocks(blocks, video_x, audio_x, *args, remat=remat)
         eps = self.cfg.norm_eps
         return (output_head(video_x, self.scale_shift_table, emb_v, self.proj_out, eps),
                 output_head(audio_x, self.audio_scale_shift_table, emb_a,
                             self.audio_proj_out, eps))
+
+
+def _run_av_blocks(blocks, video_x, audio_x, *args, remat: bool = False):
+    """The dual blocks in order, each checkpointed when `remat`."""
+    for block in blocks:
+        video_x, audio_x = _remat(block, video_x, audio_x, *args, remat=remat)
+    return video_x, audio_x
 
 
 def pack_audio_latents(audio):

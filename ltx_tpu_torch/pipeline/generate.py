@@ -416,11 +416,13 @@ class LTXPipeline:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def encode_image(self, pixels, timings: Optional[GenerationTimings] = None):
+    def encode_image(self, pixels, timings: Optional[GenerationTimings] = None,
+                     release: bool = True):
         """(1, 3, 1, H, W) pixels in [-1, 1] (numpy or tensor) -> the
         normalized f32 latent (1, C, 1, H/32, W/32) for I2V conditioning:
         the VAE encoder's mean, normalized with the decoder's per-channel
-        statistics."""
+        statistics. release=False leaves a staged encoder on the device for
+        the caller's next encode (the caller releases it)."""
         timings = timings if timings is not None else GenerationTimings()
         if self.vae_encoder is None:
             raise ModelNotLoadedError("vae_encoder")
@@ -435,14 +437,16 @@ class LTXPipeline:
         out = (latent - mean.reshape(1, -1, 1, 1, 1)) / std.reshape(1, -1, 1, 1, 1)
         _sync(self.device)
         timings.image_encode += time.perf_counter() - t0
-        self._release("vae_encoder")
+        if release:
+            self._release("vae_encoder")
         return out
 
-    def encode_video(self, pixels, timings: Optional[GenerationTimings] = None):
+    def encode_video(self, pixels, timings: Optional[GenerationTimings] = None,
+                     release: bool = True):
         """(1, 3, F, H, W) pixels in [-1, 1], F = 8k + 1 -> the normalized f32
         latent (1, C, k + 1, H/32, W/32): the multi-frame twin of
         `encode_image` (the causal encoder takes any 8k + 1 frames)."""
-        return self.encode_image(pixels, timings)
+        return self.encode_image(pixels, timings, release)
 
     def _encode_image_at(self, image_path: str, width: int, height: int,
                          timings: GenerationTimings):

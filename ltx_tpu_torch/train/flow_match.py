@@ -1,12 +1,13 @@
 """Rectified-flow (flow-matching) training objective for the DiT.
 
-Port of ltx_tpu/train/flow_match.py (the video loss; the AV loss waits for
-the AV DiT). The inference scheduler's conventions: x_t = (1 - t) x_0 +
-t noise (ops/schedule.py::add_noise) and the velocity target v* = noise -
-x_0 (ops/schedule.py::velocity_target). The noise levels and the noise are
-explicit tensor arguments: the trainer draws them from a torch.Generator
-(`sample_sigmas`, `torch.randn`), the parity tests feed the reference's own
-jax.random draws.
+Port of ltx_tpu/train/flow_match.py: the video loss on the DiT and the
+joint loss on the dual audio-video DiT. The inference scheduler's
+conventions: x_t = (1 - t) x_0 + t noise (ops/schedule.py::add_noise) and
+the velocity target v* = noise - x_0 (ops/schedule.py::velocity_target).
+The noise levels and the noise are explicit tensor arguments: the trainer
+draws them from a torch.Generator (`sample_sigmas`, `torch.randn`), the
+parity tests feed the reference's own jax.random draws. Pipeline
+parallelism (`pp_mesh`) waits for ROADMAP A18.
 """
 
 from __future__ import annotations
@@ -62,3 +63,36 @@ def flow_match_loss(model, tokens, context, rope, sigma, noise, context_bias=Non
                    remat=remat, remat_segments=remat_segments).float()
     loss = torch.mean(torch.square(v_pred - target))
     return loss, {"loss": loss, "sigma_mean": torch.mean(sigma.float())}
+
+
+def av_flow_match_loss(model, video_tokens, audio_tokens, video_context, audio_context,
+                       ropes, sigma_v, sigma_a, noise_v, noise_a, video_bias=None,
+                       audio_bias=None, audio_loss_weight: float = 1.0,
+                       sdpa_impl: str = "auto", remat: bool = True, remat_segments: int = 0,
+                       compute_dtype=torch.bfloat16, pp_mesh=None):
+    """The joint rectified-flow loss of `model` (an LTXAVTransformer):
+    mse_video + audio_loss_weight * mse_audio, each reduced in f32. Returns
+    (loss, aux dict with "loss", "loss_video", "loss_audio").
+
+    video_tokens (B, Tv, C) patchified and audio_tokens (B, Ta, C_audio)
+    packed clean latents; contexts (B, S, caption channels); ropes from
+    `models.dit_av.prepare_av_ropes`; the streams' own noise levels sigma_v,
+    sigma_a (B,) and noise noise_v, noise_a (the streams' shapes), f32
+    (the reference draws them from one key split four ways, in that order:
+    each stream's velocity must be right at any pair of levels); biases
+    (B, 1, 1, S) additive or None."""
+    if pp_mesh is not None:
+        raise NotImplementedError("pipeline-parallel training is not ported yet "
+                                  "(ROADMAP A18)")
+    check_sdpa_impl(sdpa_impl)
+    v0, a0 = video_tokens.float(), audio_tokens.float()
+    noise_v, noise_a = noise_v.float(), noise_a.float()
+    v_t = add_noise(v0, noise_v, sigma_v.float()[:, None, None])
+    a_t = add_noise(a0, noise_a, sigma_a.float()[:, None, None])
+    v_pred, a_pred = model(v_t.to(compute_dtype), a_t.to(compute_dtype), video_context,
+                           audio_context, sigma_v, sigma_a, ropes, video_bias, audio_bias,
+                           remat=remat, remat_segments=remat_segments)
+    loss_v = torch.mean(torch.square(v_pred.float() - velocity_target(v0, noise_v)))
+    loss_a = torch.mean(torch.square(a_pred.float() - velocity_target(a0, noise_a)))
+    loss = loss_v + audio_loss_weight * loss_a
+    return loss, {"loss": loss, "loss_video": loss_v, "loss_audio": loss_a}

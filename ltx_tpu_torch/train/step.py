@@ -1,5 +1,6 @@
-"""The flow-matching train step, full fine-tune or LoRA-only, and its
-optimizer.
+"""The flow-matching train steps, of the video DiT (`make_train_step`) and
+of the dual audio-video DiT (`make_av_train_step`), full fine-tune or
+LoRA-only, and their optimizer.
 
 Port of ltx_tpu/train/step.py. The reference's step is a jitted pure
 function over parameter trees; here the model is an nn.Module, the trainable
@@ -34,7 +35,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ltx_tpu_torch.train.flow_match import check_sdpa_impl, flow_match_loss
+from ltx_tpu_torch.train.flow_match import (
+    av_flow_match_loss,
+    check_sdpa_impl,
+    flow_match_loss,
+)
 from ltx_tpu_torch.train.lora import lora_param_mask
 
 Params = Dict[str, torch.Tensor]
@@ -203,6 +208,31 @@ def init_train_state(model: nn.Module, tc: TrainConfig,
     return trainable, frozen, tx.init(trainable)
 
 
+def _check_parallel(tc: TrainConfig) -> None:
+    if tc.pp_mesh is not None or tc.pp_microbatches is not None:
+        raise NotImplementedError("pipeline-parallel training is not ported yet "
+                                  "(ROADMAP A18)")
+    check_sdpa_impl(tc.sdpa_impl)
+
+
+def _apply_gradients(tx: GradientTransformation, trainable: Params, opt_state: dict,
+                     loss, aux: dict):
+    """The gradients of `loss` in the trainable parameters (zero where one
+    is unused), the optimizer's update written into them in place, and the
+    detached metrics with the gradients' global norm."""
+    names = list(trainable)
+    grads = torch.autograd.grad(loss, [trainable[n] for n in names], allow_unused=True)
+    grads = {n: torch.zeros_like(trainable[n]) if g is None else g
+             for n, g in zip(names, grads)}
+    updates, opt_state = tx.update(grads, opt_state, trainable)
+    with torch.no_grad():
+        for n in names:
+            trainable[n].add_(updates[n].to(trainable[n].dtype))
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux["grad_norm"] = global_norm(grads)
+    return trainable, opt_state, aux
+
+
 def make_train_step(model: nn.Module, tc: TrainConfig,
                     optimizer: Optional[GradientTransformation] = None):
     """Build the step:
@@ -215,10 +245,7 @@ def make_train_step(model: nn.Module, tc: TrainConfig,
     The trainable parameters are updated in place and returned; metrics
     hold the loss, the mean sigma and the gradients' global norm, as
     device tensors."""
-    if tc.pp_mesh is not None or tc.pp_microbatches is not None:
-        raise NotImplementedError("pipeline-parallel training is not ported yet "
-                                  "(ROADMAP A18)")
-    check_sdpa_impl(tc.sdpa_impl)
+    _check_parallel(tc)
     tx = optimizer if optimizer is not None else make_optimizer(tc)
 
     def step(trainable: Params, opt_state: dict, tokens, context, rope, sigma, noise,
@@ -227,17 +254,39 @@ def make_train_step(model: nn.Module, tc: TrainConfig,
             model, tokens, context, rope, sigma, noise, context_bias=context_bias,
             sdpa_impl=tc.sdpa_impl, remat=tc.remat, remat_segments=tc.remat_segments,
             compute_dtype=tc.compute_dtype)
-        names = list(trainable)
-        grads = torch.autograd.grad(loss, [trainable[n] for n in names], allow_unused=True)
-        grads = {n: torch.zeros_like(trainable[n]) if g is None else g
-                 for n, g in zip(names, grads)}
-        updates, opt_state = tx.update(grads, opt_state, trainable)
-        with torch.no_grad():
-            for n in names:
-                trainable[n].add_(updates[n].to(trainable[n].dtype))
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["grad_norm"] = global_norm(grads)
-        return trainable, opt_state, aux
+        return _apply_gradients(tx, trainable, opt_state, loss, aux)
+
+    return step
+
+
+def make_av_train_step(model: nn.Module, tc: TrainConfig,
+                       optimizer: Optional[GradientTransformation] = None,
+                       audio_loss_weight: float = 1.0):
+    """The joint audio-video variant of `make_train_step`, on an
+    LTXAVTransformer:
+
+        step(trainable, opt_state, video_tokens, audio_tokens,
+             video_context, audio_context, ropes, sigma_v, sigma_a,
+             noise_v, noise_a, video_bias=None, audio_bias=None)
+          -> (trainable, opt_state, metrics)
+
+    The loss is `av_flow_match_loss` (each stream its own noise level);
+    the draws are arguments, taken in the reference's order (video sigma,
+    audio sigma, video noise, audio noise). Metrics hold "loss",
+    "loss_video", "loss_audio" and "grad_norm"."""
+    _check_parallel(tc)
+    tx = optimizer if optimizer is not None else make_optimizer(tc)
+
+    def step(trainable: Params, opt_state: dict, video_tokens, audio_tokens, video_context,
+             audio_context, ropes, sigma_v, sigma_a, noise_v, noise_a, video_bias=None,
+             audio_bias=None):
+        loss, aux = av_flow_match_loss(
+            model, video_tokens, audio_tokens, video_context, audio_context, ropes,
+            sigma_v, sigma_a, noise_v, noise_a, video_bias=video_bias,
+            audio_bias=audio_bias, audio_loss_weight=audio_loss_weight,
+            sdpa_impl=tc.sdpa_impl, remat=tc.remat, remat_segments=tc.remat_segments,
+            compute_dtype=tc.compute_dtype)
+        return _apply_gradients(tx, trainable, opt_state, loss, aux)
 
     return step
 

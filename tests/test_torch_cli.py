@@ -6,9 +6,10 @@ combination of `cmd_generate` exits with the reference's code and message;
 each `cmd_generate` branch calls the SeededPipeline method the reference's
 branch calls on its pipeline, with the same arguments (recording fakes);
 real tiny runs on the CPU write their MP4 (and WAV) with the pixels of a
-direct SeededPipeline call; the parallel flags and `prepare-data` raise
-NotImplementedError naming ROADMAP A18 and A17. Also the memory estimate and
-the enhancement micro-batch bound."""
+direct SeededPipeline call; the parallel flags raise NotImplementedError
+naming ROADMAP A18, and `prepare-data` reaches
+ltx_tpu_torch.train.prepare.run with its parsed arguments. Also the memory
+estimate and the enhancement micro-batch bound."""
 
 import argparse
 import dataclasses
@@ -40,7 +41,8 @@ def test_parsers_match_reference():
     assert list(port) == list(ref)
     for name in ref:
         want, got = _options(ref[name]), _options(port[name])
-        extra = {"device"} if name in ("generate", "enhance", "serve", "train") else set()
+        extra = {"device"} if name in ("generate", "enhance", "serve", "train",
+                                       "prepare-data") else set()
         assert set(got) - set(want) == extra, name
         for dest, option in want.items():
             assert got[dest] == option, (name, dest)
@@ -269,11 +271,25 @@ def test_generate_branches_call_the_reference_entry_points(name, monkeypatch, tm
     (["generate", "x", "--mesh-pp", "1,8"], "A18"),
     (["generate", "x", "--coordinator", "h:1"], "A18"),
     (["generate", "x", "--num-processes", "2"], "A18"),
-    (["prepare-data", "clips/", "--out", "shards"], "A17"),
-], ids=["mesh", "mesh_pp", "coordinator", "num_processes", "prepare_data"])
+], ids=["mesh", "mesh_pp", "coordinator", "num_processes"])
 def test_unported_surfaces_raise(argv, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
         pcli.main(argv)
+
+
+def test_prepare_data_calls_the_port(monkeypatch):
+    """`prepare-data` hands its parsed arguments to
+    ltx_tpu_torch.train.prepare.run and returns its code."""
+    calls = []
+    monkeypatch.setattr("ltx_tpu_torch.train.prepare.run",
+                        lambda args: calls.append(vars(args)) or 7)
+    assert pcli.main(["prepare-data", "clips/", "--out", "shards", "-f", "9",
+                      "--rows-per-shard", "4", "--skip-errors", "--device", "cpu"]) == 7
+    (args,) = calls
+    assert args["command"] == "prepare-data" and args["source"] == "clips/"
+    assert (args["out"], args["frames"], args["rows_per_shard"], args["skip_errors"],
+            args["device"], args["width"], args["height"]) == ("shards", 9, 4, True, "cpu",
+                                                                768, 512)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ Gemma's shapes; the W8A8 product's activation codes, int32 accumulator and
 bf16 output bit for bit the CPU's (and the accumulator the exact one);
 dequant_int4 and quantize_weight on the card bit for bit; the tiny
 pipeline's frames within 2e-2; the tiny LoRA train within 5e-2 relative,
-in bf16 and with a float32 compute dtype;
+in bf16 and with a float32 compute dtype; the tiny AV QLoRA step (int4
+dual DiT, head dim 64) within 5e-2 relative, with its launches;
 rms_norm within 16 f32 ulps of the plain version's f32 value plus, for a
 bf16 output, half a bf16 ulp, bitwise equal from run to run and row by row;
 the tiny two-stage I2V pipeline, its norms through that kernel by the
@@ -298,6 +299,15 @@ def test_tiny_av_pipeline_cuda_matches_cpu(device):
     against the CPU: frames and waveform, and the launches by head dim."""
     res = checks.check_tiny_av_pipeline(device)
     assert set(res) == {"t2v_cfg", "i2v"}
+
+
+def test_tiny_av_qlora_train_cuda_matches_cpu(device):
+    """The tiny AV QLoRA step on the card (B2, B3a, B3b at head dim 64, B4
+    and B5 on the int4 dual DiT) against the CPU: one loss and its LoRA
+    gradients, then the steps, with the launches av_train_step_launches
+    derives; the base bit for bit."""
+    res = checks.check_tiny_av_train(device)
+    assert res["launches"]["int4_matmul"] > 0 and res["launches"]["dequant_int4"] > 0
 
 
 def test_tiny_long_video_cuda_matches_cpu(device):
