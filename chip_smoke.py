@@ -200,14 +200,38 @@ Phases, each printing its own lines:
      tiny AV QLoRA step on the card against the CPU, and the statistics
      and backward kernels against their plain versions, the dual DiT's
      head-dim-64 shapes among them.)
-  7. a JSON line of the seven kernels: launches (each from the paths that
-     run it, by path where there are several, the long-video modes' among
-     them; B1's and B6's times at their shapes in `long_video_cases`), max
+  7. parallelism (ltx_tpu_torch.parallel). 7.1, right after phase 3: a
+     world of one over NCCL (`initialize_distributed` on a localhost
+     address), the bf16 north star through `LTXPipeline.shard(make_mesh(1,
+     1))` bit for bit the plain run, with the same launches. 7.2, after
+     phase 6, with the parent's components freed: the world-of-one
+     references first (one denoise step of a seeded full-size DiT, whole,
+     in bf16 and quantized to int4; the tiled decode of the north star's
+     latent with tile_size = stride + overlap), kept small, and the flat
+     QK norm's plain chain (`sharded_rms_norm`) timed at a rank's shard on
+     the idle card beside B6 and its bound; then two
+     spawned ranks sharing the card over gloo (NCCL refuses two ranks on
+     one device), each drawing only its own shard of the DiT, block by
+     block: (a) ring attention forward and backward at `checks.RING_CASES`
+     (the north star's and the flagship stage 2's self-attention, with and
+     without a key bias), held head by head to the ring bounds around the
+     exact output and plain gradients, with B1 and the B3 pair on the whole
+     sequence held to theirs; (b) one TP-2 denoise step at the north star,
+     the ranks' velocities bit for bit equal and within 5e-2 of the
+     world-of-one step, B1, B6, `sharded_rms_norm` and the all-reduces
+     counted per rank (336 a DiT call); (c) the same step on the shards
+     quantized to int4 (B5 per rank, no B4); (d) the sharded decode, bit
+     for bit the tiled one. A rank that fails fails the phase; times taken while
+     the two ranks share the card are printed as such;
+  8. a JSON line of the seven kernels: launches (each from the paths that
+     run it, by path where there are several, the long-video modes' and
+     phase 7's among them; B1's and B6's times at their shapes in
+     `long_video_cases`), max
      error, kernel, plain and library ms, the bound and what sets
      it, and `timing`, the clock that read the times ("idle": CUDA events
      around each call on an idle card; "queued": the launches queued behind
      other work, over buffers rotated past the L2's size);
-  8. the last line, {"ok": true, "device": {...}}.
+  9. the last line, {"ok": true, "device": {...}}.
 
 There is no fallback: without CUDA, or when a kernel fails to build, launch
 or agree, the script raises and exits non-zero before the last line.
@@ -221,6 +245,7 @@ import dataclasses
 import gc
 import json
 import logging
+import os
 import re
 import resource
 import shutil
@@ -1100,6 +1125,218 @@ def phase_main_path(device):
     steps = len(pipe._sigmas(NORTH_STAR, shape)) - 1
     return pipe, noise, steps, north_star_run("main", pipe, noise,
                                               expected_launches(pipe, steps, 1), device)
+
+
+# ---------------------------------------------------------------------------
+# Parallelism (phase 7)
+# ---------------------------------------------------------------------------
+
+# predicted before the first card run (PERF.md): one TP-2 DiT call, per
+# rank, at the north star (one guidance row): 48 blocks x (attn1's and
+# attn2's to_out and the FF's project_out summed over the model group, and
+# the four flat QK norms' sums of squares)
+TP_ALL_REDUCES = 48 * (3 + 4)
+TP_B1 = 48 * 2          # self- and cross-attention on 16 of the 32 heads
+TP_B6 = 48 * 2          # the two adaln norms: whole rows on each rank
+TP_SHARDED_NORMS = 48 * 4
+TP_B5 = 48 * 10         # every quantized block linear, dequantized on its shard
+# the TP-2 step against the world-of-one step (PERF.md §6's bf16 bound)
+TP_STEP_REL = 5e-2
+PARALLEL_TIMEOUT_S = 900
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_world_of_one(pipe: LTXPipeline, noise, steps: int, bf16_run, device) -> None:
+    """7.1: a world of one over NCCL; the bf16 north star through
+    pipe.shard(make_mesh(1, 1)) must be bit for bit the plain run (phase
+    3's), with the same launches."""
+    import torch.distributed as dist
+
+    from ltx_tpu_torch.parallel import runtime
+
+    runtime.initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"world of one: backend {dist.get_backend()}, not nccl")
+    pipe.shard(runtime.make_mesh(1, 1))
+    launches, (result, _) = north_star_run("world of one", pipe, noise,
+                                           expected_launches(pipe, steps, 1), device)
+    want = bf16_run[0].frames
+    if not np.array_equal(result.frames, want):
+        raise AssertionError(f"world of one: frames differ from the plain run by "
+                             f"{np.abs(result.frames - want).max():.3e}")
+    log(f"[parallel] world of one (nccl, make_mesh(1, 1)): frames bit for bit the plain "
+        f"run; launches {launches}")
+    pipe.mesh = None
+    dist.destroy_process_group()
+
+
+def world_of_one_references(spec: dict, device) -> dict:
+    """7.2's references, computed first and kept small: one denoise step of
+    the seeded full-size DiT (bf16, then quantized to int4 in place), the
+    tiled decode of the north star's latent; the models freed after."""
+    from ltx_tpu_torch.models.dit import LTXTransformer
+    from ltx_tpu_torch.models.vae import decode_video, sharded_tiles
+
+    tcfg, config = spec["tcfg"], spec["config"]
+    model = checks.seeded_module_(LTXTransformer(tcfg, device="meta"), device,
+                                  checks.PARALLEL_DIT_SEED)
+    inputs = checks.tp_step_inputs(tcfg, config, device)
+    refs = {"bf16": checks.tp_step_velocity(model, config, inputs)}
+    quantize_transformer(model, bits=4, group_size=64)
+    checks.reset_tp_counts()
+    refs["int4"] = checks.tp_step_velocity(model, config, inputs)
+    refs["int4_b4"] = qz.int4_matmul.launches
+    del model, inputs
+    torch.cuda.empty_cache()
+    decoder, latent = checks.parallel_decode_inputs(spec, device)
+    f = latent.shape[2]
+    stride, ov = sharded_tiles(f, 2, 1)
+    padded = torch.cat([latent, latent[:, :, -1:].expand(-1, -1, 2 * stride + ov - f, -1, -1)],
+                       dim=2)
+    with torch.inference_mode():
+        refs["frames"] = decode_video(decoder, padded, None, tile_size=stride + ov,
+                                      tile_overlap=ov)[:8 * (f - 1) + 1]
+    del decoder, latent, padded
+    torch.cuda.empty_cache()
+    return refs
+
+
+def run_ranks(world: int, spec: dict) -> list:
+    """checks.parallel_rank on `world` spawned processes that share the card
+    over gloo (`parallel.spawn.run_world`): raises with a rank's traceback if
+    any fails, or if the world does not finish in PARALLEL_TIMEOUT_S."""
+    from ltx_tpu_torch.parallel.spawn import run_world
+
+    Path("build").mkdir(exist_ok=True)
+    try:
+        return run_world(checks.parallel_rank, world, Path("build"), spec, backend="gloo",
+                         device=spec["device"], timeout=PARALLEL_TIMEOUT_S)
+    except RuntimeError as e:
+        raise AssertionError(f"phase 7: {e}") from None
+
+
+def time_sharded_norm(spec: dict, device) -> dict:
+    """The DiT's flat QK norm as a TP-2 rank runs it (`sharded_rms_norm`, a
+    plain PyTorch chain: the reference's XLA takes it on a mesh, no TPU
+    kernel), timed on the idle card at one rank's shard of the north star:
+    the three (rows, tokens, inner / 2) norms and the (rows, context,
+    inner / 2) one of each block. The local arithmetic only, on a model axis
+    of 1 (its all-reduce of one f32 a row is a no-op there); beside it the
+    rms_norm kernel (B6) on the same tensor, a whole-row norm of the same
+    bytes, and the bound by bytes: x read once, the weight once, the output
+    written once. Returns {shape: (chain ms, B6 ms, bound ms, bound by)}."""
+    from ltx_tpu_torch.parallel.runtime import make_mesh
+    from ltx_tpu_torch.parallel.sharding import sharded_rms_norm
+
+    tcfg, config = spec["tcfg"], spec["config"]
+    rows = GuidanceSpec.from_config(config).num_rows
+    tokens = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                          channels=tcfg.in_channels).token_count
+    d = tcfg.inner_dim // 2
+    mesh = make_mesh(1, 1)
+    gen = torch.Generator(device=device).manual_seed(43)
+    w = (torch.rand(d, generator=gen, device=device) + 0.5).bfloat16()
+    out = {}
+    with torch.inference_mode():
+        for t in (tokens, 1024):
+            x = torch.randn(rows, t, d, generator=gen, device=device).bfloat16()
+            xs = [s[0] for s in rotated_sets((x,), x.numel() * x.element_size())]
+            chain = queued_ms([lambda s=s: sharded_rms_norm(s, w, mesh) for s in xs])
+            b6 = queued_ms([lambda s=s: rk.rms_norm(s, w) for s in xs])
+            nbytes = 2.0 * x.numel() * x.element_size() + w.numel() * w.element_size()
+            bound_ms, bound_by = bound(4.0 * x.numel(), nbytes, PEAK_F32_FLOPS)
+            out[f"{rows}x{t}x{d}"] = (chain, b6, bound_ms, bound_by)
+            log(f"[parallel] sharded_rms_norm chain at one TP-2 rank's ({rows}, {t}, {d}) bf16, "
+                f"the card idle: {chain:.4f} ms (local arithmetic; B6 on the same tensor "
+                f"{b6:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}; "
+                f"{bound_ms / chain:.3f} of the bound)")
+            del x, xs
+    (c_t, b_t, m_t, _), (c_s, b_s, m_s, _) = out.values()
+    log(f"[parallel] sharded_rms_norm a DiT call on a TP-2 rank (48 x (3 at {tokens} tokens + "
+        f"1 at 1024)): chain {48 * (3 * c_t + c_s):.3f} ms, B6 at those shapes "
+        f"{48 * (3 * b_t + b_s):.3f} ms, bound {48 * (3 * m_t + m_s):.3f} ms")
+    return out
+
+
+def phase_parallel(device) -> dict:
+    """7.2 (module docstring). Returns the launches by kernel for the
+    kernels line: the ring's (all cases, rank 0), the TP steps' per rank."""
+    spec = checks.parallel_spec("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs = world_of_one_references(spec, device)
+    log(f"[parallel] world-of-one references (bf16 and int4 step, tiled decode): "
+        f"{time.perf_counter() - t0:.2f} s")
+    time_sharded_norm(spec, device)
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, spec)
+    log(f"[parallel] two ranks on one card over gloo: {time.perf_counter() - t0:.2f} s "
+        f"(spawn, build, checks; the ranks share the card)")
+    r0, r1 = ranks
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"rank {r['rank']}: backend {r['backend']}")
+        log(f"[parallel] rank {r['rank']}: {r['device']}, {r['device_mesh']}, half DiT "
+            f"{r['dit_bytes'] / 2**30:.2f} GiB drawn in {r['build_seconds']:.2f} s, "
+            f"peak {r['peak_gib']:.2f} GiB")
+    launches = {"flash_attention_stats": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0}
+    for a, b in zip(r0["ring"], r1["ring"]):
+        if a["digest"] != b["digest"]:
+            raise AssertionError(f"ring {a['case']}: the ranks' outputs or gradients differ")
+        for name in launches:
+            launches[name] += int(a["per_ring_step"][name] * 2)
+        log(f"[parallel] ring {a['case']}: per ring step {a['per_ring_step']}; shares "
+            + ", ".join(f"{k} {v:.3f}" for k, v in a["shares"].items())
+            + f"; max abs err {a['max_abs_err']}; ring vs B1 {a['ring_vs_whole']:.3e}; "
+            f"{a['shared_card_seconds']:.3f} s with two ranks sharing the card")
+        if a["per_ring_step"] != {"flash_attention_stats": 1.0, "flash_attention_bwd_dq": 1.0,
+                                  "flash_attention_bwd_dkv": 1.0}:
+            raise AssertionError(f"ring {a['case']}: launches per step {a['per_ring_step']}")
+    want = {"bf16": {"flash_attention": TP_B1, "rms_norm": TP_B6,
+                     "sharded_rms_norm": TP_SHARDED_NORMS, "collective_all_reduce": TP_ALL_REDUCES,
+                     "int4_matmul": 0, "dequant_int4": 0, "rms_chain_on_cuda": 0},
+            "int4": {"flash_attention": TP_B1, "rms_norm": TP_B6,
+                     "sharded_rms_norm": TP_SHARDED_NORMS, "collective_all_reduce": TP_ALL_REDUCES,
+                     "int4_matmul": 0, "dequant_int4": TP_B5, "rms_chain_on_cuda": 0}}
+    for tag in ("bf16", "int4"):
+        a, b = r0[tag], r1[tag]
+        if not np.array_equal(a["velocity"], b["velocity"]):
+            raise AssertionError(f"TP-2 {tag} step: the ranks' velocities differ")
+        rel = checks._rel(torch.from_numpy(a["velocity"]), refs[tag])
+        for r in ranks:
+            counts = r[tag]["counts"]
+            got = {k: counts[k] for k in want[tag]}
+            log(f"[parallel] TP-2 {tag} step, rank {r['rank']}: {got}, all-gathers "
+                f"{counts['collective_all_gather']}, host-staged {counts['collective_host_staged']}; "
+                f"{r[tag]['shared_card_seconds']:.3f} s with two ranks sharing the card")
+            if got != want[tag]:
+                raise AssertionError(f"TP-2 {tag} step, rank {r['rank']}: {got} != {want[tag]}")
+        log(f"[parallel] TP-2 {tag} step: ranks bit for bit; against the world of one "
+            f"{rel:.3e} of the max (bound {TP_STEP_REL})")
+        if not rel <= TP_STEP_REL:
+            raise AssertionError(f"TP-2 {tag} step: {rel:.3e} of the max from the world of one")
+    if refs["int4_b4"] != TP_B5:
+        raise AssertionError(f"world-of-one int4 step: {refs['int4_b4']} int4_matmul launches")
+    if r0["frames_digest"] != r1["frames_digest"]:
+        raise AssertionError("sharded decode: the ranks' frames differ")
+    diff = float(np.abs(r0["frames"] - refs["frames"]).max())
+    log(f"[parallel] sharded decode {r0['frames'].shape}: against the tiled decode "
+        f"(tile_size = stride + overlap) max {diff:.3e}, bit for bit: {diff == 0.0}")
+    if diff != 0.0:
+        raise AssertionError(f"sharded decode: {diff:.3e} from the tiled decode, not bit for bit")
+    launches.update({f"{k} (TP-2 {tag} step, per rank)": r0[tag]["counts"][k]
+                     for tag in ("bf16", "int4")
+                     for k in ("flash_attention", "rms_norm", "dequant_int4")})
+    return launches
 
 
 def phase_two_stage(pipe: LTXPipeline, device) -> dict:
@@ -3455,6 +3692,8 @@ def main() -> int:
     rms["launches_by_path"] = {"north star": launches["rms_norm"]}
     rms["launches"] = launches["rms_norm"]
     mark("phase 3 (main path)")
+    phase_world_of_one(pipe, noise, steps, bf16_run, device)
+    mark("phase 7.1 (world of one, nccl)")
     phase_two_stage(pipe, device)
     mark("phase 3b (two-stage)")
     t_phase = time.perf_counter()
@@ -3526,6 +3765,8 @@ def main() -> int:
     train = phase_train(device, shards)
     shutil.rmtree(shards.parent, ignore_errors=True)
     mark("phase 6 (training)")
+    parallel = phase_parallel(device)
+    mark("phase 7.2 (two ranks on one card, gloo)")
     # B2-B5's paths: the video QLoRA steps of the trainer and the AV QLoRA
     # steps; B4's the int4 north star and the int4 Gemma's text pass and
     # decode too, B5's the big-M call
@@ -3540,7 +3781,17 @@ def main() -> int:
     for entry in (matmul, dequant):
         entry["launches_by_path"].update({k: v[entry["name"]] for k, v in trained.items()})
     rms["launches_by_path"][f"AV QLoRA step x{AV_TRAIN_STEPS}"] = av_train["rms_norm"]
-    for entry in (stats, dq, dkv, matmul, dequant, rms):
+    # phase 7: the ring's launches (B2, B3a, B3b: every case, rank 0) and the
+    # TP-2 steps' per rank (B1, B5, B6)
+    for entry in (stats, dq, dkv):
+        entry["launches_by_path"]["ring attention, rank 0 (checks.RING_CASES)"] = \
+            parallel[entry["name"]]
+    for entry in (flash, dequant, rms):
+        entry["launches_by_path"].update(
+            {f"TP-2 {tag} step, per rank": parallel[f"{entry['name']} (TP-2 {tag} step, "
+                                                      f"per rank)"]
+             for tag in ("bf16", "int4")})
+    for entry in (flash, stats, dq, dkv, matmul, dequant, rms):
         entry["launches"] = sum(entry["launches_by_path"].values())
     kernels = [flash, stats, dq, dkv, matmul, dequant, rms]
     for entry in kernels:

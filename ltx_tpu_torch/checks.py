@@ -90,6 +90,44 @@ half a bf16 ulp to a value compared with the plain version's f32 one:
 so a bf16 output differs from the plain bf16 output by at most one bf16 ulp,
 and only where the two f32 values straddle a rounding boundary; the share of
 such elements is reported.
+
+Ring tolerances (ring attention over n ranks, `check_ring`), derived before
+the first card run of the ring.
+
+Forward. Each of the n ring steps runs B2 on the query shard against one
+key block: its normalised output out_i is within the attention bound of
+the block's exact product, and is rounded to bf16 (at most 2**-8 of
+itself, round to nearest). The merge weights w_i = l_i e^(m_i - m) / l
+sum to 1 and are f32, so the merged output's error is at most
+sum_i w_i (bound_i + 2**-8 |out_i|), where sum_i w_i P_i @ |V_i| = P @ |V|
+(the blocks partition the keys) and |out_i| <= P_i @ |V_i|. With the
+final rounding:
+
+    |ring - exact| <= 2 * 2**-8 * (P @ |V|) + (Tk_local/16 + 16) * 2**-23
+                      * (P @ |V|) + 2 ulp_bf16(|exact|)
+
+the attention bound with its probability term doubled (RING_ROUNDINGS = 2).
+
+Backward, against the plain backward at the exact output and lse (f32).
+Each visit's dQ_i, dK_i, dV_i is B3's, within the backward bound of the
+module docstring for its key block, and is rounded to bf16 before the f32
+accumulation (2**-8 of itself, and |dQ_i| <= |dS_i| @ |K_i|): summed over
+the visits that doubles the 2**-8 terms, as the forward. Both the ring
+and the whole-sequence B3 take their output and lse from a forward that
+is not exact: lse = m + log(l) carries l's 2**-12 (the statistics bound,
+STATS_L_REL), which moves P by at most 2**-12 of itself, and delta =
+rowsum(dO * O) moves by at most rowsum(|dO| * fwd_bound) (the forward's
+own bound), which enters dS as P * scale * that. So, with f = 2 for the
+ring and 1 for B3 on the whole sequence:
+
+    eps_P' = eps_P + 2**-12 * P
+    eps_S' = eps_S(eps_P') + P * scale * rowsum(|dO| * fwd_bound)
+    |dV - dV_p| <= (f * 2**-8 * P + eps_P')^T @ |dO| + 2 ulp_bf16(|dV_p|)
+    |dQ - dQ_p| <= (f * 2**-8 * |dS| + eps_S') @ |K| + 2 ulp_bf16(|dQ_p|)
+    |dK - dK_p| <= (f * 2**-8 * |dS| + eps_S')^T @ |Q| + 2 ulp_bf16(|dK_p|)
+
+The ring and B3 on the whole sequence are each held to their bound around
+the plain gradients, so they are within the sum of the two of each other.
 """
 
 from __future__ import annotations
@@ -97,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -1876,3 +1915,346 @@ def check_siglip(model, pixels) -> dict:
                              f"{err}, soft tokens {tuple(soft.shape)}")
     return {"rel_err": err, "launches": launches, "soft_tokens": tuple(soft.shape),
             "features": got}
+
+
+# --------------------------------------------------------------------------
+# Parallelism: ring attention, TP denoise steps, the sharded decode
+# --------------------------------------------------------------------------
+
+# the ring bounds' roundings of each partial (module docstring)
+RING_ROUNDINGS = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class RingCase:
+    name: str
+    b: int
+    h: int
+    t: int
+    d: int
+    # None; ("left", n): the first n keys -10000, as the tokenizer pads;
+    # ("masked", n): keys from n on -1e30, as sdpa pads to the ring
+    bias: Optional[tuple] = None
+
+
+RING_CASES = (
+    # the north star's self-attention (25f@768x512, 1536 tokens) and the
+    # flagship stage 2's (19840 tokens), with and without a key bias
+    RingCase("north_star_self", 1, 32, 1536, 128),
+    RingCase("north_star_self_bias", 1, 32, 1536, 128, bias=("left", 300)),
+    RingCase("flagship_stage2_self", 1, 32, 19840, 128),
+    RingCase("flagship_stage2_self_bias", 1, 32, 19840, 128, bias=("masked", 19776)),
+)
+
+
+def ring_inputs(case: RingCase, device, seed: int = 31):
+    """q, k, v, dO (bf16, contiguous (B, H, T, D)) and the (B, T) f32 key
+    bias or None, the same on every rank."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(case.b, case.h, case.t, case.d, generator=gen,
+                               device=device).bfloat16() for _ in range(4))
+    bias = None
+    if case.bias is not None:
+        bias = torch.zeros(case.b, case.t, device=device)
+        if case.bias[0] == "left":
+            bias[:, :case.bias[1]] = -10000.0
+        else:
+            bias[:, case.bias[1]:] = -1e30
+    return q, k, v, do, bias
+
+
+def _ring_head_bounds(q, k, v, bias, do, scale, t_local: int, rounds: int):
+    """One head's exact output and plain gradients (f32, at the exact output
+    and lse) and the ring bounds around them (the derivation above) with
+    `rounds` roundings of each partial: (exact, fwd_bound, (dq, dk, dv),
+    (tol_dq, tol_dk, tol_dv))."""
+    logits = fa.attention_logits(q, k, bias, scale)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    del logits
+    l = p.sum(dim=-1)
+    p /= l[..., None]
+    vf, qf, kf, dof = v.float(), q.float(), k.float(), do.float()
+    exact, pv = torch.matmul(p, vf), torch.matmul(p, vf.abs())
+    lse = m + torch.log(l)
+    fwd = (rounds * ATTN_P_ROUNDING + (t_local / 16 + 16) * 2.0**-23) * pv \
+        + 2 * bf16_ulp(exact)
+    want = fa.flash_attention_backward_reference(qf, kf, vf, bias, exact, lse, dof, scale)
+    delta = (dof * exact).sum(dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None]
+    eps_p = (2.0**-16 * scale * torch.matmul(qf.abs(), kf.abs().transpose(-1, -2))
+             + STATS_L_REL) * p
+    ddelta = (dof.abs() * fwd).sum(dim=-1)
+    eps_s = (2.0**-16 * scale * torch.matmul(dof.abs(), vf.abs().transpose(-1, -2)) * p
+             + eps_p * dp.abs() * scale + p * scale * ddelta[..., None])
+    s_term = rounds * ATTN_P_ROUNDING * (p * dp * scale).abs() + eps_s
+    del dp, eps_s
+    dq_w, dk_w, dv_w = want
+    tols = (torch.matmul(s_term, kf.abs()) + 2 * bf16_ulp(dq_w),
+            torch.matmul(s_term.transpose(-1, -2), qf.abs()) + 2 * bf16_ulp(dk_w),
+            torch.matmul((rounds * ATTN_P_ROUNDING * p + eps_p).transpose(-1, -2), dof.abs())
+            + 2 * bf16_ulp(dv_w))
+    return exact, fwd, want, tols
+
+
+def check_ring(case: RingCase, mesh, device, judge: bool) -> dict:
+    """Ring attention forward and backward (`parallel.ring_attention.
+    sequence_parallel_sdpa`) over `mesh`'s model axis, called by every rank
+    of it alike; the rank with `judge` also runs B1 and the B3 pair on the
+    whole sequence and holds both, head by head, to their bounds around the
+    exact output and the plain gradients (the derivation above): the ring
+    with RING_ROUNDINGS, the whole-sequence kernels with one. Raises
+    AssertionError beyond them. Returns the launches per ring step, the
+    ring's seconds (two ranks on one card share it: not a time of the ring
+    apart) and, on the judge, the shares and errors."""
+    from ltx_tpu_torch.parallel.ring_attention import sequence_parallel_sdpa
+
+    n = mesh.shape["model"]
+    q, k, v, do, bias = ring_inputs(case, device)
+    scale = case.d**-0.5
+    sync = torch.cuda.synchronize if q.is_cuda else (lambda d: None)
+    before = read_kernel_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = sequence_parallel_sdpa(qr, kr, vr, mesh, bias=bias)
+    out.backward(do)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    after = read_kernel_counts()
+    res = {"case": case.name, "shared_card_seconds": seconds,
+           "per_ring_step": {name: (after[name] - before[name]) / n
+                             for name in ("flash_attention_stats", "flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv")},
+           "out": out.detach(), "grads": (qr.grad, kr.grad, vr.grad)}
+    if not judge:
+        return res
+    whole = fa.flash_attention(q, k, v, bias, scale)
+    o2, m2, l2 = fa.flash_attention_stats(q, k, v, bias, scale)
+    whole_g = fa.flash_attention_backward(q, k, v, bias, o2, fa.softmax_lse(m2, l2), do, scale)
+    del o2, m2, l2
+    shares = {"out": 0.0, "whole_out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0,
+              "whole_dq": 0.0, "whole_dk": 0.0, "whole_dv": 0.0}
+    err = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for h in range(case.h):
+        hs = slice(h, h + 1)
+        args = (q[:, hs], k[:, hs], v[:, hs], bias, do[:, hs], scale)
+        for rounds, tag, o, grads in ((RING_ROUNDINGS, "", out, res["grads"]),
+                                      (1, "whole_", whole, whole_g)):
+            exact, fwd, want, tols = _ring_head_bounds(*args, case.t // (n if tag == "" else 1),
+                                                       rounds)
+            shares[tag + "out"] = max(shares[tag + "out"],
+                                      tolerance_share(o[:, hs].detach(), exact, fwd))
+            for name, g, w, tol in zip(("dq", "dk", "dv"), grads, want, tols):
+                shares[tag + name] = max(shares[tag + name],
+                                         tolerance_share(g[:, hs], w, tol))
+                if tag == "":
+                    err[name] = max(err[name], (g[:, hs].float() - w).abs().max().item())
+            if tag == "":
+                err["out"] = max(err["out"], (o[:, hs].float() - exact).abs().max().item())
+            del exact, fwd, want, tols
+    res.update(shares=shares, max_abs_err=err,
+               ring_vs_whole=(out.float() - whole.float()).abs().max().item())
+    if not max(shares.values()) <= 1.0:
+        raise AssertionError(f"ring {case.name}: shares of the tolerance {shares}")
+    return res
+
+
+def seeded_module_(module: torch.nn.Module, device, seed: int, mesh=None):
+    """Materialise `module` (built on "meta") on `device`, submodule by
+    submodule: each submodule with `reset_parameters` draws its own
+    parameters from a generator seeded with (seed, its index in
+    `modules()`), so that any rank can draw any part alone. With `mesh`
+    each DiT block is sliced to this rank's shard as soon as it is drawn
+    (`parallel.sharding.shard_transformer`), so no rank holds the whole
+    model, then the model is marked for the mesh. The same seed gives the
+    same weights, whole or sharded."""
+    from ltx_tpu_torch.parallel import sharding
+
+    blocks = getattr(module, "blocks", None)
+    owner = {id(m): b for b in (blocks or []) for m in b.modules()}
+    done = set()
+    for i, mod in enumerate(module.modules()):
+        if any(p.is_meta for p in mod.parameters(recurse=False)):
+            mod.to_empty(device=device, recurse=False)
+        reset = getattr(mod, "reset_parameters", None)
+        if reset is not None:
+            with torch.no_grad():
+                reset(torch.Generator(device=device).manual_seed(seed * 1_000_003 + i))
+        block = owner.get(id(mod))
+        if mesh is not None and block is not None and id(block) not in done \
+                and all(not p.is_meta for p in block.parameters()):
+            sharding.shard_transformer(block, mesh)
+            done.add(id(block))
+    if mesh is not None:
+        sharding.shard_transformer(module, mesh)
+    return module
+
+
+# the TP denoise step at the north star: one step, sigma 0.9 -> 0.5, the
+# text context of 1024 keys left-padded by 300 as the tokenizer pads
+TP_STEP_SIGMAS = (0.9, 0.5)
+TP_CONTEXT_PAD = 300
+
+
+def tp_step_inputs(tcfg: TransformerConfig, config: GenerationConfig, device, seed: int = 41):
+    """(shape, latent, context, bias): the north star's latent and a text
+    context of its width, drawn on `device` from one seeded generator."""
+    shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                         channels=tcfg.in_channels)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    latent = torch.randn(shape.shape, generator=gen, device=device)
+    context = torch.randn(1, 1024, tcfg.caption_channels, generator=gen,
+                          device=device).bfloat16()
+    mask = torch.ones(1, 1024, dtype=torch.int64, device=device)
+    mask[:, :TP_CONTEXT_PAD] = 0
+    return shape, latent, context, prepare_additive_mask(mask)
+
+
+def tp_step_velocity(model, config: GenerationConfig, inputs) -> torch.Tensor:
+    """One denoise step of `model` (whole, or this rank's shard) at
+    `inputs`; returns the velocity, f32 on the host."""
+    from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
+
+    shape, latent, context, bias = inputs
+    guidance = GuidanceSpec.from_config(config)
+    step = make_denoise_step(model, guidance, shape, context, bias)
+    with torch.inference_mode():
+        _, velocity = step(latent, *TP_STEP_SIGMAS)
+    return velocity.float().cpu()
+
+
+def tp_counts() -> dict:
+    """The kernels' launches, the sharded QK norms and the collectives."""
+    from ltx_tpu_torch.parallel import collectives, sharding
+
+    return {**read_kernel_counts(), "sharded_rms_norm": sharding.sharded_rms_norm.calls,
+            **{f"collective_{k}": v for k, v in collectives.counts.items()}}
+
+
+def reset_tp_counts() -> None:
+    from ltx_tpu_torch.parallel import collectives, sharding
+
+    for fn in (fa.flash_attention, fa.flash_attention_stats, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, qz.int4_matmul, qz.dequant_int4, rk.rms_norm):
+        fn.launches = 0
+    normalization.rms_chain_on_cuda = 0
+    sharding.sharded_rms_norm.calls = 0
+    collectives.reset_counts()
+
+
+def check_tp_world_one(device) -> dict:
+    """A world of one on the card: the tiny DiT sharded over a (1, 1) mesh
+    (`shard_transformer`) gives the unsharded step's velocity bit for bit,
+    and runs no collective."""
+    from ltx_tpu_torch.parallel import collectives, runtime, sharding
+
+    cfg = TransformerConfig().tiny()
+    config = GenerationConfig(width=256, height=128, num_frames=9)
+    whole = seeded_module_(LTXTransformer(cfg, device="meta"), device, seed=3)
+    inputs = tp_step_inputs(cfg, config, device)
+    want = tp_step_velocity(whole, config, inputs)
+    sharding.shard_transformer(whole, runtime.make_mesh(1, 1))
+    collectives.reset_counts()
+    got = tp_step_velocity(whole, config, inputs)
+    if not torch.equal(got, want) or any(collectives.counts.values()):
+        raise AssertionError(f"world of one: max diff {(got - want).abs().max().item()}, "
+                             f"collectives {collectives.counts}")
+    return {"bitwise": True}
+
+
+# the two-rank phase: the DiT's and the decoder's seeds, the north star
+PARALLEL_DIT_SEED = 17
+PARALLEL_VAE_SEED = 19
+PARALLEL_LATENT_SEED = 23
+PARALLEL_CONFIG = GenerationConfig(width=768, height=512, num_frames=25, num_steps=8, seed=0)
+
+
+def parallel_spec(device_type: str = "cuda") -> dict:
+    """What the two-rank phase runs: the ring cases, the DiT's and the
+    decoder's configs (full width and depth) and the north star."""
+    from ltx_tpu_torch.models.vae import VAEConfig
+
+    return {"device": device_type, "ring_cases": RING_CASES, "tcfg": TransformerConfig(),
+            "vcfg": VAEConfig(), "config": PARALLEL_CONFIG}
+
+
+def parallel_decode_inputs(spec: dict, device):
+    """(decoder, latent): the VAE decoder (bf16) seeded submodule by
+    submodule and the north star's latent, the same on every process."""
+    from ltx_tpu_torch.models.vae import VideoDecoder
+
+    decoder = seeded_module_(VideoDecoder(spec["vcfg"], device="meta", dtype=torch.bfloat16),
+                             device, PARALLEL_VAE_SEED)
+    config = spec["config"]
+    shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                         channels=decoder.cfg.latent_channels)
+    gen = torch.Generator(device=device).manual_seed(PARALLEL_LATENT_SEED)
+    return decoder, torch.randn(shape.shape, generator=gen, device=device).bfloat16()
+
+
+def _digest(t) -> str:
+    """A hash of a tensor's or an array's bytes: equal digests, equal bits."""
+    import hashlib
+
+    if torch.is_tensor(t):
+        t = t.detach().cpu().contiguous()
+        t = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    return hashlib.sha1(np.ascontiguousarray(t).tobytes()).hexdigest()
+
+
+def parallel_rank(rank: int, spec: dict) -> dict:
+    """One rank of a gloo world (chip_smoke's phase 7, through
+    `parallel.spawn.run_world`): ring attention over RING_CASES, one TP
+    denoise step of the seeded full-size DiT in bf16 and quantized to int4
+    on its shards, and the sharded decode of the north star's latent."""
+    import torch.distributed as dist
+
+    from ltx_tpu_torch.models.vae import decode_video_sharded
+    from ltx_tpu_torch.parallel import runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = dist.get_world_size()
+    device = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
+              else torch.device("cpu"))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda d: None)
+    mesh = runtime.make_mesh(1, world)
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(device),
+           "device_mesh": type(mesh.device_mesh).__name__}
+    # (a) ring attention, forward and backward
+    out["ring"] = []
+    for case in spec["ring_cases"]:
+        res = check_ring(case, mesh, device, judge=rank == 0)
+        res["digest"] = [_digest(res.pop("out"))] + [_digest(g) for g in res.pop("grads")]
+        out["ring"].append(res)
+    # (b) one TP denoise step of the full-width, full-depth bf16 DiT
+    tcfg, config = spec["tcfg"], spec["config"]
+    t0 = time.perf_counter()
+    model = seeded_module_(LTXTransformer(tcfg, device="meta"), device, PARALLEL_DIT_SEED, mesh)
+    sync(device)
+    out["build_seconds"] = time.perf_counter() - t0
+    out["dit_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    inputs = tp_step_inputs(tcfg, config, device)
+    for tag in ("bf16", "int4"):
+        if tag == "int4":  # (c) the same step on the shards quantized to int4
+            quantize_transformer(model, bits=4, group_size=64)
+        tp_step_velocity(model, config, inputs)  # warm-up
+        reset_tp_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        vel = tp_step_velocity(model, config, inputs)
+        out[tag] = {"velocity": vel.numpy(), "counts": tp_counts(),
+                    "shared_card_seconds": time.perf_counter() - t0}
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del model, inputs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # (d) the sharded decode of the north star's latent
+    decoder, latent = parallel_decode_inputs(spec, device)
+    with torch.inference_mode():
+        frames = decode_video_sharded(decoder, latent, mesh, timestep=None, tile_overlap=1)
+    out["frames_digest"] = _digest(frames)
+    out["frames"] = frames if rank == 0 else None
+    return out
+

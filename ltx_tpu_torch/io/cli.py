@@ -7,8 +7,11 @@ generation goes through `SeededPipeline`, which draws the noise from
 `--seed` (other numbers than the reference's for a seed; the same frames
 for the same seed on the same device). Weights come from the local models
 directory (nothing is downloaded); `--dry-run` validates the configuration
-without loading. `--mesh`, `--mesh-pp`, `--coordinator` and
-`--num-processes` raise NotImplementedError (ROADMAP A18).
+without loading. `--mesh DATA,MODEL` shards the pipeline over a mesh of
+processes (`LTXPipeline.shard`): every process runs the same command,
+started by torchrun or with `--coordinator HOST:PORT --num-processes N
+--process-id I`, and rank 0 writes the outputs. `--mesh-pp` (pipeline
+parallelism) raises NotImplementedError (ROADMAP A18b).
 
 Run it as `python -m ltx_tpu_torch.io.cli ...` or `ltx-video-torch ...`.
 """
@@ -16,6 +19,7 @@ Run it as `python -m ltx_tpu_torch.io.cli ...` or `ltx-video-torch ...`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -143,16 +147,17 @@ def build_parser() -> argparse.ArgumentParser:
                                         "aggressive"], default=None,
                    help="Memory preset (overrides the vae-tile flags)")
     g.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                   help="Shard over a (data, model) device mesh; not ported "
-                        "yet (ROADMAP A18)")
+                   help="Shard over a (data, model) mesh of processes: TP "
+                        "over the model axis, guidance rows over the data axis")
     g.add_argument("--mesh-pp", default=None, metavar="DATA,PIPE",
                    help="Pipeline-parallel (data, pipe) mesh; not ported "
-                        "yet (ROADMAP A18)")
+                        "yet (ROADMAP A18b)")
     g.add_argument("--mesh-slices", type=int, default=None, metavar="N",
-                   help="Slices of a --mesh / --mesh-pp (ROADMAP A18)")
+                   help="Slices of a --mesh: contiguous rank groups the model "
+                        "axis may not cross")
     g.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="Multi-host coordinator address; not ported yet "
-                        "(ROADMAP A18)")
+                   help="Process-group address (tcp://HOST:PORT or HOST:PORT); "
+                        "torchrun's environment needs none")
     g.add_argument("--num-processes", type=int, default=None)
     g.add_argument("--process-id", type=int, default=None)
     g.add_argument("--no-quant-cache", action="store_true",
@@ -412,15 +417,32 @@ def _resolve_memory(args, config, budget_gb=None):
     return memory
 
 
-def _check_not_parallel(args) -> None:
-    """The parallel flags: ROADMAP A18."""
-    for flag, val in (("--mesh", args.mesh), ("--mesh-pp", args.mesh_pp),
-                      ("--coordinator", args.coordinator),
-                      ("--num-processes", args.num_processes)):
-        if val:
-            raise NotImplementedError(
-                f"{flag}: multi-device and multi-host generation is not "
-                "ported yet (ROADMAP A18)")
+def _check_not_pp(args) -> None:
+    """--mesh-pp: pipeline parallelism, ROADMAP A18b."""
+    if args.mesh_pp:
+        raise NotImplementedError("--mesh-pp: pipeline-parallel generation is not "
+                                  "ported yet (ROADMAP A18b)")
+
+
+def _shared_seed(seed):
+    """One seed for every process of the group: the given one, or rank 0's
+    clock."""
+    import torch.distributed as dist
+
+    if seed is not None or not dist.is_initialized():
+        return seed if seed is not None else int(time.time())
+    box = [int(time.time())]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _parse_mesh(spec: str):
+    """"DATA,MODEL" -> (data, model), or None if malformed."""
+    try:
+        data, model = (int(x) for x in spec.split(","))
+    except ValueError:
+        return None
+    return data, model
 
 
 def _check_generate_flags(args):
@@ -565,7 +587,13 @@ def cmd_generate(args) -> int:
         print(f"  {config}")
         return 0
 
-    _check_not_parallel(args)
+    _check_not_pp(args)
+    mesh_shape = None
+    if args.mesh:
+        mesh_shape = _parse_mesh(args.mesh)
+        if mesh_shape is None:
+            print(f"error: --mesh expects DATA,MODEL, got {args.mesh!r}", file=sys.stderr)
+            return 2
     # the reference checks these after the load; same messages and code,
     # before minutes of loading
     err = _check_generate_flags(args)
@@ -574,9 +602,16 @@ def cmd_generate(args) -> int:
         return 2
 
     from ltx_tpu_torch.config import QuantizationConfig
+    from ltx_tpu_torch.parallel import runtime
     from ltx_tpu_torch.pipeline import loader
     from ltx_tpu_torch.pipeline.seeded import SeededPipeline
 
+    # before any device use: the flags, or a launcher's environment
+    runtime.initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                   device=args.device)
+    rank = runtime.world()[0]
+    if mesh_shape is not None:
+        config = dataclasses.replace(config, seed=_shared_seed(config.seed))
     memory = _resolve_memory(args, config)
     pipe = SeededPipeline(loader.load_pipeline(
         model=_effective_model(args),
@@ -595,9 +630,14 @@ def cmd_generate(args) -> int:
         quant_cache=not args.no_quant_cache,
         device=args.device,
     ))
+    if mesh_shape is not None:
+        data, model = mesh_shape
+        pipe.shard(runtime.make_hybrid_mesh(data=data, model=model,
+                                            slices=args.mesh_slices))
 
     def on_progress(step, total, sigma):
-        print(f"  step {step + 1}/{total}  sigma={sigma:.4f}", flush=True)
+        if rank == 0:
+            print(f"  step {step + 1}/{total}  sigma={sigma:.4f}", flush=True)
 
     # I2V image encoding happens INSIDE the pipeline entry points (at each
     # stage's resolution) via config.image_path
@@ -609,6 +649,8 @@ def cmd_generate(args) -> int:
         trace = profile_trace(args.output + ".trace")
     with trace:
         result = _run_generate(pipe, args, config, on_progress)
+    if rank != 0:  # every rank holds the same frames; rank 0 writes them
+        return 0
 
     from ltx_tpu_torch.io.video import VideoExportConfig, export_video, export_wav
 

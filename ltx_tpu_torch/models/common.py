@@ -38,7 +38,13 @@ def silu(x):
 
 
 class _LoRAHost(nn.Module):
-    """The LoRA side path's parameters, None until `add_lora_params`."""
+    """The LoRA side path's parameters, None until `add_lora_params`. A
+    linear that `parallel.sharding` sliced carries its style ("column" or
+    "row") and mesh, and its forward runs the collectives
+    (`parallel.sharding.linear_forward`)."""
+
+    tp_style = None
+    tp_mesh = None
 
     def __init__(self):
         super().__init__()
@@ -85,6 +91,12 @@ class Linear(_LoRAHost):
         return self.weight.shape[1], self.weight.shape[0]
 
     def forward(self, x):
+        if self.tp_style is not None:
+            return _tensor_parallel().linear_forward(self, x)
+        return self.local_forward(x)
+
+    def local_forward(self, x):
+        """The product on this module's own weights (a shard's, under TP)."""
         lora = (lora_delta({k: getattr(self, k) for k in LORA_KEYS}, x)
                 if self.has_lora else None)
         return f32_linear(x, self.weight.t(), self.bias, lora)
@@ -104,6 +116,11 @@ class _LeafLinear(_LoRAHost):
     under their JAX names."""
 
     def forward(self, x):
+        if self.tp_style is not None:
+            return _tensor_parallel().linear_forward(self, x)
+        return self.local_forward(x)
+
+    def local_forward(self, x):
         return linear_any(self.leaves(), x)
 
     def leaves(self) -> dict:
@@ -321,7 +338,14 @@ class Embedding(nn.Module):
             torch.empty(vocab, dim, device=device, dtype=dtype),
             requires_grad=False)
 
+    tp_mesh = None
+
     def forward(self, ids):
+        if self.tp_mesh is not None:
+            return _tensor_parallel().embedding_forward(self, ids)
+        return self.local_forward(ids)
+
+    def local_forward(self, ids):
         return self.weight[ids.long()]
 
     def reset_parameters(self, gen: torch.Generator):
@@ -338,9 +362,24 @@ class Int8Embedding(nn.Module):
         self.w8r = param(vocab, dim, device=device, dtype=torch.int8)
         self.sr = param(vocab, device=device)
 
+    tp_mesh = None
+
     def forward(self, ids):
+        if self.tp_mesh is not None:
+            return _tensor_parallel().embedding_forward(self, ids)
+        return self.local_forward(ids)
+
+    def local_forward(self, ids):
         ids = ids.long()
         return (self.w8r[ids].float() * self.sr[ids][..., None]).to(torch.bfloat16)
+
+
+def _tensor_parallel():
+    """parallel.sharding, imported where a sharded module first runs (it
+    imports this module)."""
+    from ltx_tpu_torch.parallel import sharding
+
+    return sharding
 
 
 def for_leaves(module: nn.Module, leaves: dict) -> nn.Module:

@@ -35,9 +35,19 @@ from ltx_tpu_torch.ops.attention import sdpa
 from ltx_tpu_torch.ops.embeddings import get_timestep_embedding
 from ltx_tpu_torch.ops.normalization import adaln, layer_norm_no_affine, rms_norm
 from ltx_tpu_torch.ops.rope import apply_rope_split
+from ltx_tpu_torch.parallel.collectives import chunk_of
+from ltx_tpu_torch.parallel.sharding import sharded_rms_norm
 
 
 class Attention(nn.Module):
+    """Under tensor parallelism (`parallel.sharding.shard_transformer`) the
+    module holds num_heads / model heads, its flat QK norms a shard of the
+    flat dim (normalised over the whole dim by `sharded_rms_norm`), and
+    `tp_mesh` is set. Its attention then runs on those heads of every
+    token, whatever the route: sdpa_impl="ring" takes the plain route."""
+
+    tp_mesh = None
+
     def __init__(self, query_dim, context_dim, inner_dim, num_heads, head_dim,
                  norm_eps, device, dtype):
         super().__init__()
@@ -49,17 +59,23 @@ class Attention(nn.Module):
         self.q_norm = NormWeight(inner_dim, 1.0, device=device, dtype=dtype)
         self.k_norm = NormWeight(inner_dim, 1.0, device=device, dtype=dtype)
 
-    def forward(self, x, context, bias=None, rope=None, k_rope=None):
+    def forward(self, x, context, bias=None, rope=None, k_rope=None, sdpa_impl: str = "auto"):
         """QK RMSNorm on the flat tensor, RoPE on the flat tensor, then the
         head split and attention. k_rope: the keys' own (cos, sin) tables
-        (the dual block's cross-modal attentions), else `rope`'s."""
+        (the dual block's cross-modal attentions), else `rope`'s. sdpa_impl
+        goes to `ops.attention.sdpa` ("ring": sequence-parallel
+        self-attention)."""
         b, tq, _ = x.shape
         tk = context.shape[1]
         h, d = self.num_heads, self.head_dim
-        q = rms_norm(self.to_q(x), self.q_norm.weight, eps=self.norm_eps)
-        k = rms_norm(self.to_k(context), self.k_norm.weight, eps=self.norm_eps)
+        tp = self.tp_mesh is not None and self.tp_mesh.shape["model"] > 1
+        q = self._qk_norm(self.to_q(x), self.q_norm.weight, tp)
+        k = self._qk_norm(self.to_k(context), self.k_norm.weight, tp)
         v = self.to_v(context)
         if rope is not None:
+            if tp:  # this rank's heads' columns of the flat tables
+                rope = _head_columns(rope, self.tp_mesh)
+                k_rope = None if k_rope is None else _head_columns(k_rope, self.tp_mesh)
             q = apply_rope_split(q, *rope)
             k = apply_rope_split(k, *(k_rope if k_rope is not None else rope))
         # (B, H, T, D) views of the (B, T, H*D) projections: the forward
@@ -68,9 +84,23 @@ class Attention(nn.Module):
         q = q.reshape(b, tq, h, d).transpose(1, 2)
         k = k.reshape(b, tk, h, d).transpose(1, 2)
         v = v.reshape(b, tk, h, d).transpose(1, 2)
-        out = sdpa(q, k, v, bias=bias)
+        if tp and sdpa_impl == "ring":
+            # this rank's heads of every token: the whole attention of those
+            # heads, with no collective (the ring serves a replicated model)
+            sdpa_impl = "auto"
+        out = sdpa(q, k, v, bias=bias, impl=sdpa_impl)
         out = out.transpose(1, 2).reshape(b, tq, h * d)
         return self.to_out(out)
+
+    def _qk_norm(self, x, weight, tp: bool):
+        if tp:
+            return sharded_rms_norm(x, weight, self.tp_mesh, eps=self.norm_eps)
+        return rms_norm(x, weight, eps=self.norm_eps)
+
+
+def _head_columns(rope, mesh):
+    """The (H, T, D/2) RoPE tables' rows of this rank's heads."""
+    return tuple(chunk_of(t, mesh, "model", 0) if t.shape[0] > 1 else t for t in rope)
 
 
 class FeedForward(nn.Module):
@@ -131,25 +161,26 @@ class Block(nn.Module):
         self.scale_shift_table.zero_()
 
     def forward(self, x, context, ts_emb, rope, bias, skip_self_attn=None,
-                skip_ff=None, cross_attn_scale=None):
+                skip_ff=None, cross_attn_scale=None, sdpa_impl: str = "auto"):
         """skip_self_attn / skip_ff: None or (B,) bool, the rows whose
         self-attention (feed-forward) this block skips (STG). The skipped
         row's branch is still computed and then replaced by its input, so
         the work does not depend on the skips. cross_attn_scale: None or a
-        scalar that multiplies the cross-attention's output."""
+        scalar that multiplies the cross-attention's output. sdpa_impl: the
+        attentions' `sdpa` route."""
         eps = self.norm_eps
         table = self.scale_shift_table.float()
         dtype = x.dtype
 
         shift, scale, gate = _ada_values(table, ts_emb, 0)
         normed = adaln(x, scale.to(dtype), shift.to(dtype), eps=eps)
-        x_attn = x + self.attn1(normed, normed, rope=rope) * gate.to(dtype)
+        x_attn = x + self.attn1(normed, normed, rope=rope, sdpa_impl=sdpa_impl) * gate.to(dtype)
         if skip_self_attn is not None:
             x_attn = torch.where(skip_self_attn[:, None, None], x, x_attn)
         x = x_attn
 
         # cross-attention has no pre-norm (q_norm inside handles Q)
-        cross = self.attn2(x, context, bias=bias)
+        cross = self.attn2(x, context, bias=bias, sdpa_impl=sdpa_impl)
         if cross_attn_scale is not None:
             cross = cross * torch.as_tensor(cross_attn_scale, dtype=dtype,
                                             device=cross.device)
@@ -200,7 +231,8 @@ class LTXTransformer(nn.Module):
 
     def forward(self, latent, context, timesteps, rope, context_bias=None,
                 remat: bool = False, remat_segments: int = 0,
-                skip_self_attn=None, skip_ff=None, cross_attn_scale=None):
+                skip_self_attn=None, skip_ff=None, cross_attn_scale=None,
+                sdpa_impl: str = "auto"):
         """Velocity prediction.
 
         latent: (B, T, C) patchified tokens; context: (B, S, caption
@@ -215,7 +247,8 @@ class LTXTransformer(nn.Module):
         remat_segments=S > 1 (which wins over remat) checkpoints S groups of
         num_layers / S blocks with each block inside checkpointed too, as
         the reference's segmented remat (two extra forwards; S must divide
-        num_layers)."""
+        num_layers). sdpa_impl: the attentions' `ops.attention.sdpa` route
+        ("ring": sequence-parallel self-attention)."""
         b = latent.shape[0]
         dtype = latent.dtype
         x = self.patchify_proj(latent)
@@ -243,9 +276,9 @@ class LTXTransformer(nn.Module):
             for i in range(0, len(blocks), per):
                 # each block inside the segment checkpointed too
                 x = _remat(_run_blocks, blocks[i:i + per], extras[i:i + per], x, *args, True,
-                           remat=True)
+                           remat=True, sdpa_impl=sdpa_impl)
         else:
-            x = _run_blocks(blocks, extras, x, *args, remat=remat)
+            x = _run_blocks(blocks, extras, x, *args, remat=remat, sdpa_impl=sdpa_impl)
         return self.output_head(x, embedded_ts)
 
 
@@ -260,17 +293,18 @@ def output_head(x, table, embedded_ts, proj_out, eps: float):
     return proj_out(out)
 
 
-def _remat(fn, *args, remat: bool = False):
-    """fn(*args), checkpointed when `remat` and autograd records."""
+def _remat(fn, *args, remat: bool = False, **kwargs):
+    """fn(*args, **kwargs), checkpointed when `remat` and autograd records."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
-def _run_blocks(blocks, extras, x, ctx, ts_emb, rope, bias, remat: bool = False):
+def _run_blocks(blocks, extras, x, ctx, ts_emb, rope, bias, remat: bool = False,
+                sdpa_impl: str = "auto"):
     """extras: per block, () or its (skip_self_attn, skip_ff, cross_attn_scale)."""
     for block, extra in zip(blocks, extras):
-        x = _remat(block, x, ctx, ts_emb, rope, bias, *extra, remat=remat)
+        x = _remat(block, x, ctx, ts_emb, rope, bias, *extra, remat=remat, sdpa_impl=sdpa_impl)
     return x
 
 
@@ -314,6 +348,10 @@ def quantize_linears(root: nn.Module, bits: int, group_size: int = 64,
                and child.weight.numel() >= _MIN_QUANT_SIZE
                and child.weight.shape[1] % group_size == 0]
     for parent, name, child in targets:
-        setattr(parent, name, W8A8Linear.from_linear(child, device) if w8a8 else
-                QuantizedLinear.from_linear(child, bits, group_size, device))
+        new = (W8A8Linear.from_linear(child, device) if w8a8 else
+               QuantizedLinear.from_linear(child, bits, group_size, device))
+        # a tensor-parallel shard stays one: quantizing a shard is quantizing
+        # the whole weight and slicing (whole groups, whole packing planes)
+        new.tp_style, new.tp_mesh = child.tp_style, child.tp_mesh
+        setattr(parent, name, new)
     return root

@@ -116,8 +116,9 @@ class AVBlock(nn.Module):
             table.zero_()
 
     def forward(self, video_x, audio_x, ctx_v, ctx_a, ts_v, ts_a, cross_v_ss, cross_a_ss,
-                ropes, bias_v, bias_a):
-        """One dual block, its 8 phases in the reference's order."""
+                ropes, bias_v, bias_a, sdpa_impl: str = "auto"):
+        """One dual block, its 8 phases in the reference's order; sdpa_impl:
+        the attentions' `sdpa` route."""
         eps = self.norm_eps
         video_rope, audio_rope, cross_v_rope, cross_a_rope = ropes
         dt = video_x.dtype
@@ -127,15 +128,16 @@ class AVBlock(nn.Module):
 
         # 1-2: self-attention
         normed = _modulated(self.norm1, video_x, v_sc, v_sh, eps)
-        video_x = video_x + v_g * self.attn1(normed, normed, rope=video_rope)
+        video_x = video_x + v_g * self.attn1(normed, normed, rope=video_rope, sdpa_impl=sdpa_impl)
         normed = _modulated(self.audio_norm1, audio_x, a_sc, a_sh, eps)
-        audio_x = audio_x + a_g * self.audio_attn1(normed, normed, rope=audio_rope)
+        audio_x = audio_x + a_g * self.audio_attn1(normed, normed, rope=audio_rope,
+                                               sdpa_impl=sdpa_impl)
 
         # 3-4: text cross-attention (the norm without modulation)
         normed = rms_norm(video_x, self.norm2.weight, eps=eps)
-        video_x = video_x + self.attn2(normed, ctx_v, bias=bias_v)
+        video_x = video_x + self.attn2(normed, ctx_v, bias=bias_v, sdpa_impl=sdpa_impl)
         normed = rms_norm(audio_x, self.audio_norm2.weight, eps=eps)
-        audio_x = audio_x + self.audio_attn2(normed, ctx_a, bias=bias_a)
+        audio_x = audio_x + self.audio_attn2(normed, ctx_a, bias=bias_a, sdpa_impl=sdpa_impl)
 
         # 5-6: cross-modal, from 5-value tables and the global cross-modal
         # modulation
@@ -148,11 +150,13 @@ class AVBlock(nn.Module):
 
         a2v = self.audio_to_video_attn(norm_v * (1 + v_a2v_sc) + v_a2v_sh,
                                        norm_a * (1 + a_a2v_sc) + a_a2v_sh,
-                                       rope=cross_v_rope, k_rope=cross_a_rope)
+                                       rope=cross_v_rope, k_rope=cross_a_rope,
+                                       sdpa_impl=sdpa_impl)
         video_x = video_x + a2v * v_a2v_g
         v2a = self.video_to_audio_attn(norm_a * (1 + a_v2a_sc) + a_v2a_sh,
                                        norm_v * (1 + v_v2a_sc) + v_v2a_sh,
-                                       rope=cross_a_rope, k_rope=cross_v_rope)
+                                       rope=cross_a_rope, k_rope=cross_v_rope,
+                                       sdpa_impl=sdpa_impl)
         audio_x = audio_x + v2a * a_v2a_g
 
         # 7-8: feed-forward
@@ -221,7 +225,7 @@ class LTXAVTransformer(nn.Module):
 
     def forward(self, video_latent, audio_latent, video_context, audio_context,
                 video_timesteps, audio_timesteps, ropes, video_bias=None, audio_bias=None,
-                remat: bool = False, remat_segments: int = 0):
+                remat: bool = False, remat_segments: int = 0, sdpa_impl: str = "auto"):
         """(video velocity (B, Tv, C), audio velocity (B, Ta, C_audio)).
 
         video_latent (B, Tv, C) patchified; audio_latent (B, Ta, C_audio)
@@ -232,7 +236,9 @@ class LTXAVTransformer(nn.Module):
         While autograd records: remat=True checkpoints each dual block;
         remat_segments=S > 1 (which wins over remat) checkpoints S groups of
         num_layers / S blocks, each block inside checkpointed too, as the
-        video DiT's `LTXTransformer.forward` (S must divide num_layers)."""
+        video DiT's `LTXTransformer.forward` (S must divide num_layers).
+        sdpa_impl: the attentions' `ops.attention.sdpa` route ("ring":
+        sequence-parallel self-attention where the token count allows)."""
         b = video_latent.shape[0]
         dt = video_latent.dtype
         dv, da = self.cfg.inner_dim, self.cfg.audio_inner_dim
@@ -251,21 +257,25 @@ class LTXAVTransformer(nn.Module):
                                  f"num_layers {len(blocks)}")
             per = len(blocks) // remat_segments
             for i in range(0, len(blocks), per):
-                video_x, audio_x = _remat(partial(_run_av_blocks, remat=True),
+                video_x, audio_x = _remat(partial(_run_av_blocks, remat=True,
+                                                  sdpa_impl=sdpa_impl),
                                           blocks[i:i + per], video_x, audio_x, *args,
                                           remat=True)
         else:
-            video_x, audio_x = _run_av_blocks(blocks, video_x, audio_x, *args, remat=remat)
+            video_x, audio_x = _run_av_blocks(blocks, video_x, audio_x, *args, remat=remat,
+                                              sdpa_impl=sdpa_impl)
         eps = self.cfg.norm_eps
         return (output_head(video_x, self.scale_shift_table, emb_v, self.proj_out, eps),
                 output_head(audio_x, self.audio_scale_shift_table, emb_a,
                             self.audio_proj_out, eps))
 
 
-def _run_av_blocks(blocks, video_x, audio_x, *args, remat: bool = False):
+def _run_av_blocks(blocks, video_x, audio_x, *args, remat: bool = False,
+                   sdpa_impl: str = "auto"):
     """The dual blocks in order, each checkpointed when `remat`."""
     for block in blocks:
-        video_x, audio_x = _remat(block, video_x, audio_x, *args, remat=remat)
+        video_x, audio_x = _remat(block, video_x, audio_x, *args, remat=remat,
+                                  sdpa_impl=sdpa_impl)
     return video_x, audio_x
 
 

@@ -191,11 +191,17 @@ def _write_cache(cache, new, index) -> None:
 
 
 class DecoderLayer(nn.Module):
-    """Pre/post sandwich norms around attention and the GELU-gated MLP."""
+    """Pre/post sandwich norms around attention and the GELU-gated MLP.
+    n_heads / n_kv are the query and key/value heads this module holds:
+    the config's, or a model-axis share of them under tensor parallelism
+    (`parallel.sharding.shard_gemma`, which sets `tp_mesh`)."""
+
+    tp_mesh = None
 
     def __init__(self, cfg: Gemma3Config, device, dtype):
         super().__init__()
         self.cfg = cfg
+        self.n_heads, self.n_kv = cfg.attention_heads, cfg.kv_heads
         d, hd = cfg.hidden_size, cfg.head_dim
 
         def dense(d_in, d_out):
@@ -226,7 +232,7 @@ class DecoderLayer(nn.Module):
         (B, 1, T, cache slots); an int8 cache is dequantized to x's dtype."""
         cfg = self.cfg
         b, t, _ = x.shape
-        nh, nkv, hd = cfg.attention_heads, cfg.kv_heads, cfg.head_dim
+        nh, nkv, hd = self.n_heads, self.n_kv, cfg.head_dim
         q, k, v = linear_many((self.q_proj, self.k_proj, self.v_proj), x)
         q = q.reshape(b, t, nh, hd).transpose(1, 2)
         k = k.reshape(b, t, nkv, hd).transpose(1, 2)
@@ -329,8 +335,20 @@ def lm_head(model: Gemma3Model, h):
     with f32 accumulation for a dense table (on CUDA a bf16 product written
     in f32, which reads the 2 GB table once; elsewhere the same products in
     f32); for an int8 table, h quantized per row, the exact int32 product
-    with the rows, then acc * sx * sr, left to right in f32."""
+    with the rows, then acc * sx * sr, left to right in f32. A table sharded
+    over the vocabulary (`shard_gemma`) gives its shard's logits, gathered
+    whole on every rank."""
     e = model.embed_tokens
+    logits = _lm_head_local(e, h)
+    if e.tp_mesh is not None:
+        from ltx_tpu_torch.parallel.sharding import gather_logits
+
+        logits = gather_logits(logits, e.tp_mesh)
+    return logits
+
+
+def _lm_head_local(e, h):
+    """The tied head on this module's own table rows."""
     lead, d = h.shape[:-1], h.shape[-1]
     if hasattr(e, "w8r"):
         h8, sx = quantize_act_int8(h)
@@ -509,7 +527,8 @@ class KVDecoder:
         self.dtype = embed_dtype(model)
         self.pads = torch.as_tensor(np.asarray(pads), dtype=torch.long, device=self.device)
         b = self.pads.shape[0]
-        shape = (b, cfg.kv_heads, cache_len, cfg.head_dim)
+        # this rank's key/value heads under tensor parallelism
+        shape = (b, model.layers[0].n_kv, cache_len, cfg.head_dim)
         self.caches = [tuple(kv_cache_init(kv_quant, shape, self.dtype, self.device)
                              for _ in range(2)) for _ in range(cfg.hidden_layers)]
         self.tables = {}
@@ -728,6 +747,17 @@ def _generate(model: "Gemma3Model", rows, input_embeds, *, max_new_tokens: int,
     return state.tokens(), fwds
 
 
+def _check_mesh(model: "Gemma3Model", mesh) -> None:
+    """A decode given `mesh` runs on a model sharded over that mesh."""
+    if mesh is None:
+        return
+    have = getattr(model, "tp_mesh", None)
+    if have is None or have.ranks.shape != mesh.ranks.shape or (have.ranks != mesh.ranks).any():
+        raise InvalidConfigurationError(
+            "generate_tokens(mesh=): shard the model over that mesh first "
+            "(parallel.sharding.shard_gemma)")
+
+
 def generate_tokens(model: "Gemma3Model", input_ids, max_new_tokens: int = 512,
                     temperature: float = 0.7, top_p: float = 0.95,
                     repetition_penalty: float = 1.1, repetition_context: int = 64,
@@ -746,12 +776,12 @@ def generate_tokens(model: "Gemma3Model", input_ids, max_new_tokens: int = 512,
     above. spec_k: prompt-lookup speculation with spec_k drafts a verify
     forward (0 off; off as well for a prompt shorter than spec_ngram + 1 or
     fewer than 2 new tokens). kv_quant "int8" keeps the cache in int8 with
-    per-position scales. `mesh` (tensor parallelism) is ROADMAP A18.
-    Returns the generated ids (without the prompt); with return_stats also
-    {"forwards": decode forwards}."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel decode (mesh) is not ported yet "
-                                  "(ROADMAP A18)")
+    per-position scales. `mesh`: the model is sharded over it
+    (`shard_gemma`): the decode runs tensor parallel, every rank with its
+    key/value heads' cache, the logits gathered whole, every rank drawing
+    the same tokens. Returns the generated ids (without the prompt); with
+    return_stats also {"forwards": decode forwards}."""
+    _check_mesh(model, mesh)
     if top_k <= 0:
         top_k = 64 if temperature <= 1.0 else 512
     input_ids = np.asarray(input_ids)
@@ -788,10 +818,8 @@ def generate_tokens_batched(model: "Gemma3Model", prompts, max_new_tokens: int =
     stop state and, under speculation, its own cache offsets; a row's
     greedy output is its solo `generate_tokens` output. input_embeds: None
     or one entry per prompt, each None (a text row) or a (1, T_i, D)
-    pre-scaled row. Returns B token lists."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel decode (mesh) is not ported yet "
-                                  "(ROADMAP A18)")
+    pre-scaled row. `mesh` as `generate_tokens`'. Returns B token lists."""
+    _check_mesh(model, mesh)
     if top_k <= 0:
         top_k = 64 if temperature <= 1.0 else 512
     rows = [np.asarray(p).reshape(-1).astype(np.int64) for p in prompts]

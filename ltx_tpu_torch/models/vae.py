@@ -1,8 +1,8 @@
 """Video VAE: causal-3D-conv decoder to pixels, and the encoder for image
 and video conditioning.
 
-Port of ltx_tpu/models/vae.py (all but the mesh-sharded decode, ROADMAP
-A18), with the tiled decode's uint8 and yuv420 transfers. The reference runs
+Port of ltx_tpu/models/vae.py, with the tiled decode's uint8 and yuv420
+transfers and the decode sharded over a mesh axis (`decode_video_sharded`). The reference runs
 channels-last (NDHWC, DHWIO weights); this port runs torch's NCDHW with
 (O, I, D, H, W) weights, converted once in convert.py. The public layout is
 the same in both: latents (B, C, F, H, W) in, pixels (B, 3, T, H, W) out.
@@ -494,6 +494,87 @@ def decode_video(decoder: VideoDecoder, latent, timestep: Optional[float] = None
         frames = out.astype(np.float32) / 255.0
     else:
         frames = np.clip((out + 1.0) / 2.0, 0.0, 1.0)
+    return frames[0].transpose(1, 2, 3, 0)
+
+
+def sharded_tiles(latent_frames: int, ranks: int, tile_overlap: int = 1):
+    """(stride, overlap) of `decode_video_sharded` over `ranks`: each rank
+    owns stride = ceil(F / ranks) latent frames and decodes stride + overlap
+    of them (its own and a right halo)."""
+    return -(-latent_frames // ranks), max(tile_overlap, 1)
+
+
+def decode_video_sharded(decoder: VideoDecoder, latent, mesh, timestep: Optional[float] = None,
+                         noise=None, tile_overlap: int = 1, axis: str = "model",
+                         transfer_uint8=False) -> np.ndarray:
+    """The temporal tiled decode with its tiles spread over a mesh axis, all
+    decoding at once (the reference's `decode_video_sharded`) -> frames
+    (F, H, W, 3) in [0, 1], a float32 numpy array, the same on every rank.
+
+    Rank i of the n ranks along `axis` decodes latent frames
+    [i * stride, i * stride + stride + overlap) of the latent edge-padded
+    (last frame repeated) to n * stride + overlap frames: its own stride
+    frames and a right halo of `overlap` frames, its right neighbour's
+    first ones. The latent is whole on every rank (the denoise replicates
+    it), so the halo is read from it and no bytes move for it. Rank i then
+    sends the 8 * (overlap - 1) seam pixel frames its right neighbour
+    blends to that neighbour (one ring hop) and blends the ones it receives
+    from its left with its own, linearly, as the host loop does; rank 0
+    keeps its own. Each rank's 8 * stride + 1 pixel frames are gathered on
+    every rank and stitched (every rank after the first drops its
+    re-anchored first frame), cut to 8 * (F - 1) + 1 frames.
+
+    Equal to `decode_video(tile_size=stride + overlap, tile_overlap=overlap)`
+    of the edge-padded latent cut to the true frame count, bit for bit with
+    timestep None. `noise`: with a timestep, one tensor per rank of its
+    tile's latent shape (the reference folds the rank into its key).
+    transfer_uint8: True rounds each rank's blended pixels to uint8 before
+    the gather, "yuv420" packs them as I420 (`rgb_to_yuv420_u8`) and the
+    host converts after the stitch."""
+    from ltx_tpu_torch.parallel import collectives as col
+
+    if latent.ndim == 4:
+        latent = latent[None]
+    f = latent.shape[2]
+    n = mesh.shape[axis]
+    stride, ov = sharded_tiles(f, n, tile_overlap)
+    ext = torch.cat([latent, latent[:, :, -1:].expand(-1, -1, n * stride + ov - f, -1, -1)],
+                    dim=2)
+    i = mesh.index(axis)
+    if noise is not None and (not isinstance(noise, (list, tuple)) or len(noise) != n):
+        raise ValueError(f"a sharded decode takes one noise tensor per rank: {n} ranks")
+    pixels = decoder(ext[:, :, i * stride:i * stride + stride + ov], timestep,
+                     None if noise is None else noise[i])
+    own = 8 * stride + 1
+    pb = 8 * (ov - 1)
+    out = pixels[:, :, :own]
+    if pb > 0:
+        seam = pixels[:, :, own:own + pb]  # what the right neighbour blends
+        (prev_tail,) = col.ring_shift([seam], mesh, axis)
+        w = (torch.arange(1, pb + 1, dtype=torch.float32, device=out.device)
+             / (pb + 1)).reshape(1, 1, -1, 1, 1)
+        mine = out[:, :, 1:1 + pb].float()
+        blended = mine if i == 0 else prev_tail.float() * (1 - w) + mine * w
+        out = torch.cat([out[:, :, :1].float(), blended, out[:, :, 1 + pb:].float()], dim=2)
+    if transfer_uint8 == "yuv420":
+        out = rgb_to_yuv420_u8(out)  # (B, F, 3H/2, W)
+    elif transfer_uint8:
+        out = torch.round(torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0)
+                          * 255.0).to(torch.uint8)
+    chunks = col.all_gather(out[None].contiguous(), mesh, axis, dim=0)
+    chunks = chunks.numpy(force=True) if chunks.dtype == torch.uint8 \
+        else chunks.float().numpy(force=True)
+    total = 8 * (f - 1) + 1
+    frame_axis = 1 if transfer_uint8 == "yuv420" else 2
+    parts = [chunks[0]] + [np.take(chunks[r], np.arange(1, chunks.shape[frame_axis + 1]),
+                                   axis=frame_axis) for r in range(1, n)]
+    full = np.take(np.concatenate(parts, axis=frame_axis), np.arange(total), axis=frame_axis)
+    if transfer_uint8 == "yuv420":
+        return yuv420_to_rgb_np(full)[0].transpose(1, 2, 3, 0)
+    if transfer_uint8:
+        frames = full.astype(np.float32) / 255.0
+    else:
+        frames = np.clip((full + 1.0) / 2.0, 0.0, 1.0)
     return frames[0].transpose(1, 2, 3, 0)
 
 

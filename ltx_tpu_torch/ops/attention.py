@@ -14,6 +14,14 @@ and any attention whose bias is a full (Tq, Tk) mask rather than a key bias
 stays plain PyTorch (`_gqa_sdpa`, one query head a group when the heads are
 equal), as the reference's kernel refuses a full mask and XLA takes it.
 
+`impl="ring"` (the reference's sdpa_impl "ring") sends a self-attention
+with at most a key bias through sequence-parallel ring attention over the
+mesh that `set_sequence_parallel` registered (parallel/ring_attention.py):
+a key bias rotates with K and V, a sequence that does not divide the ring
+is padded with keys of bias -1e30 and the padded query rows are cut, and a
+full mask, a cross-attention, no registered mesh or a ring of one rank take
+the route above. "auto", "xla" and "pallas" name that route.
+
 The card's kernels take bfloat16 only. On CUDA, q, k and v of another
 floating dtype (a float32 compute dtype) are cast to bfloat16 at the kernel
 boundary and the output is cast back to the caller's dtype; gradients flow
@@ -29,6 +37,50 @@ from typing import Optional
 import torch
 
 from ltx_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_vjp
+
+SDPA_IMPLS = ("auto", "xla", "pallas", "ring")
+
+# The sequence-parallel mesh of sdpa(impl="ring"): set by the caller that
+# shards the token axis (the trainer's --sdpa ring), as the reference's
+# _SP_CONTEXT, so the mesh need not be threaded through every model.
+_SP_CONTEXT = {"mesh": None, "axis": "model"}
+
+
+def set_sequence_parallel(mesh, axis: str = "model") -> None:
+    """Register (mesh) or clear (None) the ring-attention mesh of
+    sdpa(impl="ring"); the token axis shards over the mesh's `axis`."""
+    _SP_CONTEXT["mesh"] = mesh
+    _SP_CONTEXT["axis"] = axis
+
+
+def _ring_sdpa(q, k, v, bias, scale):
+    """The ring route of `sdpa`, or None where it does not apply."""
+    mesh, axis = _SP_CONTEXT["mesh"], _SP_CONTEXT["axis"]
+    if mesh is None or q.shape[2] != k.shape[2] or k.shape[1] != q.shape[1]:
+        return None
+    n = mesh.shape[axis]
+    if n < 2:
+        return None
+    key_bias = None
+    if bias is not None:
+        if bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1:
+            key_bias = bias[:, 0, 0].float()
+        elif bias.ndim == 2:
+            key_bias = bias.float()
+        else:
+            return None
+    from ltx_tpu_torch.parallel.ring_attention import sequence_parallel_sdpa
+
+    t = q.shape[2]
+    pad = (-t) % n
+    if pad:
+        widths = (0, 0, 0, pad)
+        q, k, v = (torch.nn.functional.pad(x, widths) for x in (q, k, v))
+        if key_bias is None:
+            key_bias = torch.zeros(q.shape[0], t, dtype=torch.float32, device=q.device)
+        key_bias = torch.nn.functional.pad(key_bias, (0, pad), value=-1e30)
+    out = sequence_parallel_sdpa(q, k, v, mesh, bias=key_bias, scale=scale, seq_axis=axis)
+    return out[:, :, :t] if pad else out
 
 
 def _gqa_sdpa(q, k, v, bias=None, scale: Optional[float] = None):
@@ -62,7 +114,7 @@ def _is_key_bias(bias) -> bool:
                                                and bias.shape[2] == 1)
 
 
-def sdpa(q, k, v, bias=None, scale: Optional[float] = None):
+def sdpa(q, k, v, bias=None, scale: Optional[float] = None, impl: str = "auto"):
     """q: (B, H, Tq, D); k, v: (B, Hkv, Tk, D) with H % Hkv == 0; bias an
     additive float mask. Hkv < H, or a bias that is not a key bias (its
     query axis longer than 1), goes to `_gqa_sdpa`; Hkv == H with no bias
@@ -70,10 +122,19 @@ def sdpa(q, k, v, bias=None, scale: Optional[float] = None):
     routes hand the kernels strided (B, H, T, D) views as they are (the
     DiT's views of its (B, T, H * D) projections): no copy. On CUDA a dtype
     other than bfloat16 is cast to it for the kernels and the output back
-    (the module docstring)."""
+    (the module docstring). impl="ring": the sequence-parallel route
+    where it applies (module docstring)."""
+    if impl not in SDPA_IMPLS:
+        raise ValueError(f"unknown sdpa impl: {impl}")
+    dtype = q.dtype
+    if impl == "ring":
+        cast = q.device.type == "cuda" and dtype != torch.bfloat16
+        out = _ring_sdpa(*((t.to(torch.bfloat16) for t in (q, k, v)) if cast else (q, k, v)),
+                         bias, scale)
+        if out is not None:
+            return out.to(dtype)
     if k.shape[1] != q.shape[1] or not _is_key_bias(bias):
         return _gqa_sdpa(q, k, v, bias=bias, scale=scale)
-    dtype = q.dtype
     if q.device.type == "cuda" and dtype != torch.bfloat16:
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

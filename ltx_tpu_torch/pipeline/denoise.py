@@ -4,7 +4,7 @@ guidance combine -> Euler, per sigma.
 Port of ltx_tpu/pipeline/denoise.py: `GuidanceSpec`, `build_guidance_context`
 and its batched form, `make_denoise_step` and the dual audio-video
 `make_av_denoise_step` (all but their pipeline-parallel branch, ROADMAP
-A18), `run_denoise_loop` (with the DenoiseCheckpoint resume) and
+A18b), `run_denoise_loop` (with the DenoiseCheckpoint resume) and
 `run_av_denoise_loop`. The steps run eagerly; the reference compiles each
 once.
 
@@ -42,6 +42,7 @@ from ltx_tpu_torch.ops.latents import (
 )
 from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.ops.schedule import euler_step
+from ltx_tpu_torch.parallel.sharding import data_rows, gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,11 +160,18 @@ def _check_draw(noise, like, what: str):
     return noise.to(like.device, torch.float32)
 
 
+def _no_pp(pp_mesh) -> None:
+    if pp_mesh is not None:
+        raise NotImplementedError("pipeline-parallel denoise is not ported yet "
+                                  "(ROADMAP A18b)")
+
+
 def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
                       shape: VideoLatentShape, context, context_bias,
                       conditioning_mask=None, conditioned_latent=None,
                       image_cond_noise_scale: float = 0.0, cond_frames: int = 1,
-                      cond_frame_idx=None, fps: float = 24.0):
+                      cond_frame_idx=None, fps: float = 24.0, sdpa_impl: str = "auto",
+                      pp_mesh=None):
     """The per-sigma step:
 
         step(latent, sigma, sigma_next, prev_velocity=None, has_prev=False,
@@ -179,7 +187,15 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
     cond + scale * noise * sigma**2, `noise` being the step's argument
     (conditioned_latent's shape, standard normal), so the injected noise
     never accumulates. cond_frames leading frames are conditioned, or the
-    frames named by cond_frame_idx (strictly increasing) at any positions."""
+    frames named by cond_frame_idx (strictly increasing) at any positions.
+
+    sdpa_impl: the DiT's attention route ("ring": sequence-parallel
+    self-attention over `ops.attention.set_sequence_parallel`'s mesh). A
+    DiT sharded over a mesh (`parallel.sharding.shard_transformer`) with a
+    data axis that divides the B*G rows runs this rank's rows only; the
+    velocities are gathered whole before the guidance combine. pp_mesh
+    (pipeline parallelism) is ROADMAP A18b."""
+    _no_pp(pp_mesh)
     tcfg = transformer.cfg
     g = guidance.num_rows
     b = shape.batch
@@ -201,6 +217,13 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
 
     cas = (guidance.cross_attention_scale
            if guidance.cross_attention_scale != 1.0 else None)
+    dp = data_rows(transformer, b * g)
+    if dp is not None:  # this rank's guidance rows
+        _, lo, hi = dp
+        context = context[lo:hi]
+        context_bias = None if context_bias is None else context_bias[lo:hi]
+        skip_sa = None if skip_sa is None else skip_sa[:, lo:hi]
+        skip_ff = None if skip_ff is None else skip_ff[:, lo:hi]
 
     def step(latent, sigma: float, sigma_next: float, prev_velocity=None,
              has_prev: bool = False, noise=None):
@@ -226,9 +249,13 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
         else:
             timesteps = torch.full((b * g,), sigma, dtype=torch.float32, device=device)
 
+        if dp is not None:
+            tokens_g, timesteps = tokens_g[dp[1]:dp[2]], timesteps[dp[1]:dp[2]]
         vel_tokens = transformer(tokens_g, context, timesteps, pe,
                                  context_bias=context_bias, skip_self_attn=skip_sa,
-                                 skip_ff=skip_ff, cross_attn_scale=cas)
+                                 skip_ff=skip_ff, cross_attn_scale=cas, sdpa_impl=sdpa_impl)
+        if dp is not None:
+            vel_tokens = gather_rows(vel_tokens, dp[0])
         rows = unpatchify(vel_tokens, dataclasses.replace(shape, batch=b * g)).float()
         if b == 1:
             def row(j):
@@ -278,7 +305,8 @@ def make_av_denoise_step(transformer: LTXAVTransformer, guidance: GuidanceSpec,
                          conditioned_latent=None, image_cond_noise_scale: float = 0.0,
                          cond_frames: int = 1, cond_frame_idx=None,
                          audio_cond_frames: int = 0, audio_conditioned_latent=None,
-                         fps: float = 24.0, video_euler: str = "scheduler", pp_mesh=None):
+                         fps: float = 24.0, video_euler: str = "scheduler",
+                         sdpa_impl: str = "auto", pp_mesh=None):
     """The dual video + audio step, guidance rows batched:
 
         step(video_latent, audio_packed, sigma, sigma_next, noise=None,
@@ -299,9 +327,9 @@ def make_av_denoise_step(transformer: LTXAVTransformer, guidance: GuidanceSpec,
     video_euler: "scheduler" (f32 Euler with the bf16 round trip) or
     "plain" (x += (sigma_next - sigma) * v, the reference's video step in
     stage 2 of the two-stage audio path). The audio step is always plain.
-    pp_mesh (the reference's pipeline-parallel blocks) is ROADMAP A18."""
-    if pp_mesh is not None:
-        raise NotImplementedError("pipeline-parallel denoise is not ported (ROADMAP A18)")
+    sdpa_impl and the guidance rows over a data axis as make_denoise_step's.
+    pp_mesh (the reference's pipeline-parallel blocks) is ROADMAP A18b."""
+    _no_pp(pp_mesh)
     if guidance.use_stg:
         raise ValueError("STG is not supported on the audio+video path")
     if video_euler not in ("scheduler", "plain"):
@@ -331,6 +359,12 @@ def make_av_denoise_step(transformer: LTXAVTransformer, guidance: GuidanceSpec,
             if a_cond_lat.shape[1] != a_k:
                 raise ValueError(f"audio_conditioned_latent has {a_cond_lat.shape[1]} "
                                  f"frames, audio_cond_frames is {a_k}")
+
+    dp = data_rows(transformer, g)
+    if dp is not None:  # this rank's guidance rows
+        _, lo, hi = dp
+        video_context, audio_context = video_context[lo:hi], audio_context[lo:hi]
+        context_bias = None if context_bias is None else context_bias[lo:hi]
 
     def vstep(lat, vel, sigma: float, sigma_next: float, dt):
         if video_euler == "plain":
@@ -367,9 +401,14 @@ def make_av_denoise_step(transformer: LTXAVTransformer, guidance: GuidanceSpec,
         else:
             ts_a = torch.full((g,), sigma, dtype=torch.float32, device=device)
 
+        if dp is not None:
+            v_tokens, a_tokens = v_tokens[dp[1]:dp[2]], a_tokens[dp[1]:dp[2]]
+            ts_v, ts_a = ts_v[dp[1]:dp[2]], ts_a[dp[1]:dp[2]]
         v_vel_tok, a_vel_tok = transformer(v_tokens, a_tokens, video_context, audio_context,
                                            ts_v, ts_a, ropes, video_bias=context_bias,
-                                           audio_bias=context_bias)
+                                           audio_bias=context_bias, sdpa_impl=sdpa_impl)
+        if dp is not None:
+            v_vel_tok, a_vel_tok = gather_rows(v_vel_tok, dp[0]), gather_rows(a_vel_tok, dp[0])
         v_rows = unpatchify(v_vel_tok, dataclasses.replace(shape, batch=g)).float()
         a_rows = a_vel_tok.float()
         if guidance.use_cfg:

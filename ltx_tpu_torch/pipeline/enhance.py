@@ -145,12 +145,6 @@ def _stop_ids(tokenizer) -> tuple:
     return tuple(sorted(stop_ids))
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel enhancement (mesh) is not ported yet "
-                                  "(ROADMAP A18)")
-
-
 @torch.inference_mode()
 def enhance_prompt(gemma: gemma3.Gemma3Model, tokenizer, prompt: str, is_i2v: bool = False,
                    max_tokens: int = 512, temperature: float = 0.7, seed: int = 42,
@@ -165,8 +159,9 @@ def enhance_prompt(gemma: gemma3.Gemma3Model, tokenizer, prompt: str, is_i2v: bo
     I2V with `image_path`: with the tower the image is embedded as soft
     tokens; without it the I2V system prompt runs text-only, with a
     warning. `stats`, when given, receives the generated token count and
-    the decode forwards ("tokens", "forwards")."""
-    _no_mesh(mesh)
+    the decode forwards ("tokens", "forwards"). `mesh`: Gemma is sharded
+    over it (`shard_gemma`) and the decode runs tensor parallel
+    (`gemma3.generate_tokens(mesh=)`)."""
     system = I2V_SYSTEM_PROMPT if is_i2v else T2V_SYSTEM_PROMPT
     chat = build_chat_prompt(system, prompt)
     image_embeds = None
@@ -190,7 +185,7 @@ def enhance_prompt(gemma: gemma3.Gemma3Model, tokenizer, prompt: str, is_i2v: bo
             gemma, [ids], max_new_tokens=max_tokens, temperature=temperature, top_p=0.95,
             repetition_penalty=1.1, stop_tokens=_stop_ids(tokenizer),
             input_embeds=input_embeds, spec_k=spec_k, spec_ngram=spec_ngram,
-            return_stats=True, seed=seed)
+            return_stats=True, seed=seed, mesh=mesh)
         if stats is not None:
             stats.update(tokens=len(tokens), **counts)
         cleaned = clean_enhanced_prompt(tokenizer.decode(tokens))
@@ -215,8 +210,8 @@ def enhance_prompts(gemma: gemma3.Gemma3Model, tokenizer, prompts: List[str],
     tower `vision`: each image row spliced as `enhance_prompt` does and
     decoded from those embeddings. kv_quant="int8" halves the cache.
     strict=False returns the raw prompts on any failure, with a warning;
-    strict=True raises (also for image rows without the tower)."""
-    _no_mesh(mesh)
+    strict=True raises (also for image rows without the tower). `mesh` as
+    `enhance_prompt`'s."""
     system = I2V_SYSTEM_PROMPT if is_i2v else T2V_SYSTEM_PROMPT
     if image_paths is not None and any(p for p in image_paths) and vision is None:
         msg = ("enhance_prompts got image_paths but no vision tower: the SigLIP tower is "
@@ -250,7 +245,7 @@ def enhance_prompts(gemma: gemma3.Gemma3Model, tokenizer, prompts: List[str],
                 top_p=0.95, repetition_penalty=1.1, stop_tokens=_stop_ids(tokenizer),
                 spec_k=spec_k, kv_quant=kv_quant,
                 input_embeds=None if input_embeds is None else input_embeds[i:i + step],
-                draws=draws)
+                draws=draws, mesh=mesh)
         return [clean_enhanced_prompt(tokenizer.decode(t)) or p for t, p in zip(outs, prompts)]
     except Exception as e:  # enhancement must never break generation
         if strict:

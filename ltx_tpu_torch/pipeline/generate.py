@@ -75,6 +75,8 @@ from ltx_tpu_torch.models.vae import (
     VideoDecoder,
     VideoEncoder,
     decode_video,
+    decode_video_sharded,
+    sharded_tiles,
     tile_latent_frames,
 )
 from ltx_tpu_torch.ops import schedule
@@ -144,6 +146,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _on_host(module) -> bool:
+    """The module's parameters live on the CPU (a staged component)."""
+    p = next(module.parameters(), None)
+    return p is not None and p.device.type == "cpu"
+
+
 def tiny_configs():
     """The reference's LTXPipeline.random_tiny configs, field for field."""
     tcfg = TransformerConfig().tiny()
@@ -202,6 +210,8 @@ class LTXPipeline:
         self.gcfg = gemma.cfg if gemma is not None else None
         self.tecfg = text_encoder.cfg if text_encoder is not None else None
         self._host_store = {}  # name -> host tensors of a staged component
+        self.mesh = None  # the (data, model) mesh of `shard`
+        self._to_shard = set()  # staged components sharded when their phase starts
 
     @classmethod
     def random(cls, tcfg: TransformerConfig, vcfg: VAEConfig, gcfg: Gemma3Config,
@@ -293,6 +303,9 @@ class LTXPipeline:
         if module is None:
             raise ModelNotLoadedError(name)
         t0 = time.perf_counter()
+        if name in self._to_shard:
+            self._to_shard.discard(name)
+            self._shard_component(name, module)
         if self.memory.phase_staging and name not in self._host_store:
             self._host_store[name] = {n: p.data for n, p in module.named_parameters()}
         module.to(self.device)
@@ -310,6 +323,55 @@ class LTXPipeline:
             p.data = host[n]
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # Parallelism
+    # ------------------------------------------------------------------
+
+    _TP_SHARDED = ("transformer", "av_transformer", "gemma")
+
+    def shard(self, mesh):
+        """Place the components on a (data, model) mesh (the reference's
+        `shard`): the video DiT, the dual DiT and Gemma get megatron tensor
+        parallelism over the model axis (`parallel.sharding`, bf16 and
+        quantized linears alike), the guidance rows of a denoise step split
+        over the data axis, the VAE decode splits its frames over the model
+        axis (`models.vae.decode_video_sharded`), and every other component
+        stays whole on every rank. A component on the device is sharded
+        now; one staged on the host (phase staging) when its phase starts
+        (`_on_device`). Every process of the mesh builds the same pipeline
+        and calls this. Returns the pipeline."""
+        self.mesh = mesh
+        for name in self._TP_SHARDED:
+            module = getattr(self, name)
+            if module is None:
+                continue
+            if self.memory.phase_staging and _on_host(module):
+                self._to_shard.add(name)
+            else:
+                self._shard_component(name, module)
+        return self
+
+    def shard_pp(self, mesh, n_microbatches=None):
+        """Pipeline-parallel placement: ROADMAP A18b."""
+        if self.mesh is not None:
+            raise InvalidConfigurationError("shard() and shard_pp() are mutually exclusive")
+        raise NotImplementedError("pipeline parallelism (shard_pp) is not ported yet "
+                                  "(ROADMAP A18b)")
+
+    def _sharded_decode(self, latent_frames: int) -> bool:
+        """The decode splits its frames over the mesh's model axis: a model
+        axis of more than one rank and at least as many latent frames."""
+        return (self.mesh is not None and self.mesh.shape["model"] > 1
+                and latent_frames >= self.mesh.shape["model"])
+
+    def _shard_component(self, name: str, module) -> None:
+        from ltx_tpu_torch.parallel import sharding
+
+        if name == "gemma":
+            sharding.shard_gemma(module, self.mesh)
+        else:
+            sharding.shard_transformer(module, self.mesh)
 
     # ------------------------------------------------------------------
     # Text encoding
@@ -623,8 +685,13 @@ class LTXPipeline:
 
     def decode_tile_frames(self, latent_frames: int):
         """Latent frames of each decode tile under this pipeline's memory
-        config: a timestep-conditioned decoder takes one noise tensor of
-        shape (1, C, that many, H', W') per tile."""
+        config, or of each rank's tile when the decode is sharded over the
+        mesh's model axis (`_decode_frames`): a timestep-conditioned decoder
+        takes one noise tensor of shape (1, C, that many, H', W') per tile."""
+        if self._sharded_decode(latent_frames):
+            n = self.mesh.shape["model"]
+            stride, ov = sharded_tiles(latent_frames, n, self.memory.vae_tile_overlap)
+            return [stride + ov] * n
         return tile_latent_frames(latent_frames, self.memory.vae_tile_size,
                                   self.memory.vae_tile_overlap)
 
@@ -651,10 +718,17 @@ class LTXPipeline:
         transfer = False
         if self.memory.vae_tile_size > 0:
             transfer = "yuv420" if self.memory.decode_transfer == "yuv420" else True
-        frames = decode_video(decoder, latent, timestep=ts, noise=noise,
-                              tile_size=self.memory.vae_tile_size,
-                              tile_overlap=self.memory.vae_tile_overlap,
-                              transfer_uint8=transfer)
+        if self._sharded_decode(latent.shape[2]):
+            # the frames decode across the model axis, one tile a rank
+            frames = decode_video_sharded(
+                decoder, latent, self.mesh, timestep=ts, noise=noise,
+                tile_overlap=max(self.memory.vae_tile_overlap, 1),
+                transfer_uint8="yuv420" if self.memory.decode_transfer == "yuv420" else True)
+        else:
+            frames = decode_video(decoder, latent, timestep=ts, noise=noise,
+                                  tile_size=self.memory.vae_tile_size,
+                                  tile_overlap=self.memory.vae_tile_overlap,
+                                  transfer_uint8=transfer)
         if torch.is_tensor(frames):
             frames = frames.float().cpu().numpy()
         timings.vae_decode += time.perf_counter() - t0
@@ -684,7 +758,8 @@ class LTXPipeline:
         enhanced = enhance_prompt(gemma, self.tokenizer, prompt, is_i2v=is_i2v,
                                   image_path=config.image_path, vision=vision,
                                   vision_config=self.vision_config,
-                                  spec_k=config.enhancement_spec_k, stats=stats)
+                                  spec_k=config.enhancement_spec_k, stats=stats,
+                                  mesh=self.mesh)
         _sync(self.device)
         timings.enhancement += time.perf_counter() - t0
         timings.enhancement_tokens += stats.get("tokens", 0)

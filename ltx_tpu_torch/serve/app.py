@@ -334,7 +334,7 @@ def build_app(
                     gemma, base.tokenizer, [p["prompt"] for p in payloads],
                     is_i2v=bool(p0["i2v"]), max_tokens=int(p0["max_tokens"]),
                     temperature=float(p0["temperature"]), seed=int(p0["seed"]),
-                    spec_k=spec_k, strict=True, kv_quant=kv_quant)
+                    spec_k=spec_k, strict=True, kv_quant=kv_quant, mesh=base.mesh)
             finally:
                 base._release("gemma")
 

@@ -13,9 +13,20 @@ a unified checkpoint (--weights: `keymaps.split_unified`, then
 `keymaps.load_transformer_params`, as the reference; the depth and widths
 come from the file's tensors, so a checkpoint cut to fewer blocks trains
 too). The frozen base is quantized unless --quant none or --random-init
-tiny: W8A8 (the reference's default) or int4. Not ported yet, each raising
-NotImplementedError: --mesh / --coordinator / --num-processes and --sdpa
-ring (ROADMAP A18).
+tiny: W8A8 (the reference's default) or int4.
+
+Parallel training, as the reference: --coordinator / --num-processes /
+--process-id (or torchrun's environment) join the process group, --mesh
+DATA,MODEL shards the LoRA'd base under the inference rules
+(`parallel.sharding.shard_transformer`: dp+tp, the data ranks each on
+their own rows, seeded with seed + data rank * 100003, each process with
+its own dataset cursor), --mesh-slices lays the mesh out over slices, and --sdpa
+ring registers the mesh's model axis for sequence-parallel attention (it
+needs --mesh). A model that --mesh shards over heads runs each attention on
+its rank's heads of every token, which is the whole attention of those heads
+with no collective, so the ring itself runs only for a model that stays
+whole on its ranks. Checkpoints and the adapter are written once, by
+rank 0, in the reference's whole layout; a resume re-shards them.
 
 Each step's noise levels and noise come from a torch.Generator seeded with
 (seed + 2, step), and the checkpoint's dataset cursor is that of the last
@@ -33,6 +44,9 @@ import time
 
 import numpy as np
 import torch
+
+from ltx_tpu_torch.ops.attention import set_sequence_parallel
+from ltx_tpu_torch.parallel import runtime, sharding
 
 _SEED_STRIDE = 1_000_003
 
@@ -68,12 +82,15 @@ def add_train_arguments(ap) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="dp+tp over a device mesh; not ported yet")
+                    help="dp+tp train over a (data, model) mesh of processes "
+                         "(params sharded by the inference rules)")
     ap.add_argument("--sdpa", choices=("xla", "pallas", "ring"), default="xla",
                     help="attention for the loss: xla and pallas compute the "
                          "same function here (the flash forward and backward "
                          "kernels on the card, their plain versions on the "
-                         "CPU); ring is not ported yet")
+                         "CPU); ring = sequence-parallel over the mesh's model "
+                         "axis (needs --mesh; a model sharded over heads "
+                         "attends on its local heads instead)")
     ap.add_argument("--mesh-slices", type=int, default=None, metavar="N")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     ap.add_argument("--num-processes", type=int, default=None)
@@ -82,12 +99,7 @@ def add_train_arguments(ap) -> None:
                     help="torch device to train on (default cuda)")
 
 
-def _check_ported(args) -> None:
-    if args.mesh or args.coordinator or args.num_processes:
-        raise NotImplementedError("--mesh / --coordinator / --num-processes: "
-                                  "parallel training is not ported yet (ROADMAP A18)")
-    if args.sdpa == "ring":
-        raise NotImplementedError("--sdpa ring is not ported yet (ROADMAP A18)")
+def _check_args(args) -> None:
     if not args.random_init and not args.weights:
         raise SystemExit("pass --weights UNIFIED.safetensors or --random-init {tiny,full}")
 
@@ -148,11 +160,16 @@ def run(args, report=None) -> int:
         make_train_step,
     )
 
-    def log(msg):
-        print(f"[train_lora] {msg}", file=sys.stderr, flush=True)
-
-    _check_ported(args)
+    _check_args(args)
     device = torch.device(args.device)
+    mesh = _mesh(args)
+    rank = runtime.world()[0]
+    data_index = mesh.index("data") if mesh is not None else 0
+
+    def log(msg):
+        if rank == 0:  # rank 0 speaks for the mesh
+            print(f"[train_lora] {msg}", file=sys.stderr, flush=True)
+
     compute_dtype = torch.float32 if args.compute == "f32" else torch.bfloat16
     setup = {}
     base_state = None
@@ -165,7 +182,9 @@ def run(args, report=None) -> int:
         log(f"base DiT from {args.weights}: {cfg.num_layers} blocks, inner "
             f"{cfg.inner_dim}, {setup['load_s']:.2f} s")
 
-    ds = LatentShardDataset(args.data, args.batch, seed=args.seed)
+    # each data rank samples its own rows (the reference's per-process seed,
+    # by the process's index on the data axis: a model group shares rows)
+    ds = LatentShardDataset(args.data, args.batch, seed=args.seed + data_index * 100003)
     f, h, w = ds.grid
     if ds.batch_size * (f * h * w) * cfg.in_channels == 0:
         raise SystemExit("empty dataset")
@@ -201,6 +220,16 @@ def run(args, report=None) -> int:
         log(f"frozen base quantized: {args.quant}, {setup['quantize_s']:.2f} s")
     add_lora(model, torch.Generator(device=device).manual_seed(args.seed + 1),
              rank=args.rank, alpha=args.alpha)
+    if mesh is not None:
+        sharding.shard_transformer(model, mesh)
+        log(f"params sharded over {mesh} (tp over heads/FFN; LoRA leaves outer dims)")
+    if args.sdpa == "ring":
+        if mesh is None:
+            raise SystemExit("--sdpa ring needs --mesh (the token axis shards over the "
+                             "mesh model axis)")
+        set_sequence_parallel(mesh)
+        log("sequence-parallel attention registered over the model axis (a model sharded "
+            "over heads attends on its local heads: no ring)")
 
     cos, sin = video_rope(f, h, w, cfg.inner_dim, cfg.num_heads)
     rope = (torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device))
@@ -214,10 +243,13 @@ def run(args, report=None) -> int:
     log(f"LoRA rank {args.rank}: {len(trainable)} trainable tensors, "
         f"{sum(p.numel() for p in trainable.values())} values")
 
-    cursor_path = args.ckpt + ".data.0.npy" if args.ckpt else None
+    # the dataset cursor is per process: each samples its own rows
+    cursor_path = f"{args.ckpt}.data.{rank}.npy" if args.ckpt else None
     start = 0
     if args.resume and args.ckpt and os.path.exists(args.ckpt):
-        trainable, opt_state, start = load_train_checkpoint(args.ckpt, trainable, opt_state)
+        whole_t, whole_o = _whole_state(model, trainable, opt_state)
+        whole_t, whole_o, start = load_train_checkpoint(args.ckpt, whole_t, whole_o)
+        _reshard_state(model, trainable, opt_state, whole_t, whole_o)
         if os.path.exists(cursor_path):
             ds.restore(np.load(cursor_path, allow_pickle=True).item())
         if ema is not None:
@@ -233,7 +265,8 @@ def run(args, report=None) -> int:
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         batch = next(it)
-        gen = _step_generator(args.seed, i, device)
+        # the model group's ranks share rows and draws; data ranks differ
+        gen = _step_generator(args.seed + data_index * 100003, i, device)
         sigma = sample_sigmas(gen, batch.tokens.shape[0], tc.sigma_scheme)
         noise = torch.randn(batch.tokens.shape, generator=gen, dtype=torch.float32,
                             device=device)
@@ -254,14 +287,70 @@ def run(args, report=None) -> int:
             log(f"step {i + 1}/{args.steps} loss={loss:.4f} gnorm={gnorm:.3f} "
                 f"({(time.perf_counter() - t_run) / (i + 1 - start):.2f} s/step)")
         if args.ckpt and (i + 1) % args.ckpt_every == 0:
-            save_train_checkpoint(args.ckpt, trainable, opt_state, i + 1)
+            whole_t, whole_o = _whole_state(model, trainable, opt_state)
+            if rank == 0:
+                save_train_checkpoint(args.ckpt, whole_t, whole_o, i + 1)
             _atomic_np_save(cursor_path, batch.cursor)
+            _barrier(mesh)
             log(f"checkpoint @ step {i + 1} -> {args.ckpt}")
 
-    n = save_lora(ema if ema is not None else trainable, args.out)
-    log(f"exported {'EMA ' if ema is not None else ''}adapter: {n} tensors -> {args.out}")
+    set_sequence_parallel(None)
+    adapter = sharding.gather_params(ema if ema is not None else trainable, model)
+    if rank == 0:
+        n = save_lora(adapter, args.out)
+        log(f"exported {'EMA ' if ema is not None else ''}adapter: {n} tensors -> {args.out}")
+    _barrier(mesh)
     print(f"TRAIN LORA OK: {args.steps - start} steps, adapter {args.out}")
     return 0
+
+
+def _mesh(args):
+    """Join the process group when asked (the flags, or a launcher's
+    environment), then the --mesh, or None."""
+    runtime.initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                   device=args.device)
+    if not args.mesh:
+        return None
+    d, m = (int(x) for x in args.mesh.split(","))
+    mesh = runtime.make_hybrid_mesh(data=d, model=m, slices=args.mesh_slices)
+    if runtime.world()[0] == 0:
+        print(f"[train_lora] mesh: ({d},{m}) over {d * m} ranks, {runtime.world()[1]} "
+              "process(es)", file=sys.stderr, flush=True)
+    return mesh
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None and mesh.size > 1:
+        torch.distributed.barrier()
+
+
+def _state_map(state: dict, fn) -> dict:
+    """The optimizer state with fn applied to each {parameter: tensor} dict."""
+    return {k: (fn(v) if k in ("mu", "nu", "acc_grads") else _state_map(v, fn))
+            if isinstance(v, dict) else v for k, v in state.items()}
+
+
+def _whole_state(model, trainable, opt_state):
+    """(trainable, opt_state) with every sharded leaf gathered whole: the
+    reference's layout, the same on every rank."""
+    def whole(d):
+        return sharding.gather_params(d, model)
+
+    return whole(trainable), _state_map(opt_state, whole)
+
+
+def _reshard_state(model, trainable, opt_state, whole_t, whole_o) -> None:
+    """Copy a whole checkpoint's values into this rank's shards, in place."""
+    sharding.scatter_params_(trainable, whole_t, model)
+    for key in opt_state:
+        value, src = opt_state[key], whole_o[key]
+        if isinstance(value, dict):
+            if key in ("mu", "nu", "acc_grads"):
+                sharding.scatter_params_(value, src, model)
+            else:
+                _reshard_state(model, {}, value, {}, src)
+        else:
+            opt_state[key] = src
 
 
 def main(argv=None, report=None) -> int:

@@ -6,17 +6,19 @@ conventions: x_t = (1 - t) x_0 + t noise (ops/schedule.py::add_noise) and
 the velocity target v* = noise - x_0 (ops/schedule.py::velocity_target).
 The noise levels and the noise are explicit tensor arguments: the trainer
 draws them from a torch.Generator (`sample_sigmas`, `torch.randn`), the
-parity tests feed the reference's own jax.random draws. Pipeline
-parallelism (`pp_mesh`) waits for ROADMAP A18.
+parity tests feed the reference's own jax.random draws. sdpa_impl "ring"
+runs the self-attentions sequence-parallel over the mesh registered with
+`ops.attention.set_sequence_parallel`. Pipeline parallelism (`pp_mesh`)
+waits for ROADMAP A18b.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ltx_tpu_torch.ops.attention import SDPA_IMPLS
 from ltx_tpu_torch.ops.schedule import add_noise, velocity_target
 
-SDPA_IMPLS = ("auto", "xla", "pallas")
 
 
 def sample_sigmas(generator: torch.Generator, batch: int, scheme: str = "logit_normal",
@@ -35,10 +37,8 @@ def sample_sigmas(generator: torch.Generator, batch: int, scheme: str = "logit_n
 
 def check_sdpa_impl(sdpa_impl: str) -> None:
     """"auto", "xla" and "pallas" name one function here (the flash kernels
-    on the card, their plain versions on the CPU); "ring" is not ported."""
-    if sdpa_impl == "ring":
-        raise NotImplementedError("sequence-parallel ring attention is not ported "
-                                  "yet (ROADMAP A18)")
+    on the card, their plain versions on the CPU); "ring" is the
+    sequence-parallel route (`ops.attention.sdpa`)."""
     if sdpa_impl not in SDPA_IMPLS:
         raise ValueError(f"unknown sdpa impl: {sdpa_impl}")
 
@@ -60,7 +60,7 @@ def flow_match_loss(model, tokens, context, rope, sigma, noise, context_bias=Non
     x_t = add_noise(x0, noise.float(), sigma.float()[:, None, None])
     target = velocity_target(x0, noise.float())
     v_pred = model(x_t.to(compute_dtype), context, sigma, rope, context_bias,
-                   remat=remat, remat_segments=remat_segments).float()
+                   remat=remat, remat_segments=remat_segments, sdpa_impl=sdpa_impl).float()
     loss = torch.mean(torch.square(v_pred - target))
     return loss, {"loss": loss, "sigma_mean": torch.mean(sigma.float())}
 
@@ -83,7 +83,7 @@ def av_flow_match_loss(model, video_tokens, audio_tokens, video_context, audio_c
     (B, 1, 1, S) additive or None."""
     if pp_mesh is not None:
         raise NotImplementedError("pipeline-parallel training is not ported yet "
-                                  "(ROADMAP A18)")
+                                  "(ROADMAP A18b)")
     check_sdpa_impl(sdpa_impl)
     v0, a0 = video_tokens.float(), audio_tokens.float()
     noise_v, noise_a = noise_v.float(), noise_a.float()
@@ -91,7 +91,7 @@ def av_flow_match_loss(model, video_tokens, audio_tokens, video_context, audio_c
     a_t = add_noise(a0, noise_a, sigma_a.float()[:, None, None])
     v_pred, a_pred = model(v_t.to(compute_dtype), a_t.to(compute_dtype), video_context,
                            audio_context, sigma_v, sigma_a, ropes, video_bias, audio_bias,
-                           remat=remat, remat_segments=remat_segments)
+                           remat=remat, remat_segments=remat_segments, sdpa_impl=sdpa_impl)
     loss_v = torch.mean(torch.square(v_pred.float() - velocity_target(v0, noise_v)))
     loss_a = torch.mean(torch.square(a_pred.float() - velocity_target(a0, noise_a)))
     loss = loss_v + audio_loss_weight * loss_a

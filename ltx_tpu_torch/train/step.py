@@ -20,6 +20,14 @@ params) -> (updates, state)`:
   * `MultiSteps(accum_steps)`: the running mean of k gradients, zero
     updates in between, the inner optimizer stepped with the mean.
 
+On a model sharded over a (data, model) mesh (`parallel.sharding.
+shard_transformer`: dp+tp under the inference rules) the step keeps the
+reference's arithmetic: the whole LoRA leaves of sharded linears sum their
+partial gradients over the model group, every gradient is averaged over
+the data group (each data rank trains on its own rows), the global norm
+counts a sharded leaf's squares once per shard and a whole leaf's once, and
+the reported loss is the data group's mean.
+
 State counters are int32 tensors on the host; moments live beside the
 parameters. The state mirrors optax's tree, so that a checkpoint holds it
 under optax's key paths (`train/checkpoint.py`): adam's count, mu and nu, a
@@ -50,8 +58,9 @@ class TrainConfig:
     """Hyperparameters for make_optimizer / make_train_step: the reference's
     fields and defaults, with compute_dtype a torch dtype. sdpa_impl "xla"
     and "pallas" are one function here (the flash kernels on the card, their
-    plain versions on the CPU); "ring", pp_mesh and pp_microbatches wait for
-    parallel training (ROADMAP A18)."""
+    plain versions on the CPU); "ring" is sequence-parallel attention;
+    pp_mesh and pp_microbatches wait for pipeline parallelism (ROADMAP
+    A18b)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
@@ -110,8 +119,9 @@ def _learning_rate(tc: TrainConfig, count: torch.Tensor) -> torch.Tensor:
     return torch.where(count < tc.warmup_steps, warm, lr)
 
 
-def _adamw(tc: TrainConfig) -> GradientTransformation:
-    """clip_by_global_norm then adamw with the warmup schedule."""
+def _adamw(tc: TrainConfig, norm_fn=global_norm) -> GradientTransformation:
+    """clip_by_global_norm then adamw with the warmup schedule; norm_fn
+    computes the gradients' global norm."""
 
     def init(params: Params) -> dict:
         state = {"count": _i32(0),
@@ -123,7 +133,7 @@ def _adamw(tc: TrainConfig) -> GradientTransformation:
         return state
 
     def update(grads: Params, state: dict, params: Params):
-        g_norm = global_norm(grads)
+        g_norm = norm_fn(grads)
         keep = g_norm < tc.grad_clip
         grads = {n: torch.where(keep, g, (g / g_norm) * tc.grad_clip)
                  for n, g in grads.items()}
@@ -175,8 +185,10 @@ def _multi_steps(inner: GradientTransformation, k: int) -> GradientTransformatio
     return GradientTransformation(init, update)
 
 
-def make_optimizer(tc: TrainConfig) -> GradientTransformation:
-    tx = _adamw(tc)
+def make_optimizer(tc: TrainConfig, norm_fn=global_norm) -> GradientTransformation:
+    """The reference's chain; `norm_fn` computes the global norm of the
+    gradients (`sharded_global_norm` on a sharded model)."""
+    tx = _adamw(tc, norm_fn)
     if tc.accum_steps > 1:
         tx = _multi_steps(tx, tc.accum_steps)
     return tx
@@ -211,25 +223,79 @@ def init_train_state(model: nn.Module, tc: TrainConfig,
 def _check_parallel(tc: TrainConfig) -> None:
     if tc.pp_mesh is not None or tc.pp_microbatches is not None:
         raise NotImplementedError("pipeline-parallel training is not ported yet "
-                                  "(ROADMAP A18)")
+                                  "(ROADMAP A18b)")
     check_sdpa_impl(tc.sdpa_impl)
 
 
-def _apply_gradients(tx: GradientTransformation, trainable: Params, opt_state: dict,
-                     loss, aux: dict):
+def sharded_global_norm(model: nn.Module):
+    """The global norm of a model sharded over a mesh: the squares of its
+    sharded leaves (`model.tp_dims`) summed over the model group, a whole
+    leaf's counted once. `global_norm` for a model without a mesh."""
+    mesh = getattr(model, "tp_mesh", None)
+    if mesh is None or not model.tp_dims:
+        return global_norm
+    from ltx_tpu_torch.parallel import collectives as col
+
+    def norm(tree: Params) -> torch.Tensor:
+        device = next(iter(tree.values())).device
+        shards = torch.zeros((), device=device)
+        whole = torch.zeros((), device=device)
+        for n, t in tree.items():
+            sq = torch.sum(torch.square(t.float()))
+            if n in model.tp_dims:
+                shards = shards + sq
+            else:
+                whole = whole + sq
+        return torch.sqrt(whole + col.all_reduce(shards, mesh, "model"))
+
+    return norm
+
+
+def _reduce_gradients(model: nn.Module, grads: Params) -> Params:
+    """On a mesh: partial gradients of whole leaves summed over the model
+    group, then every gradient averaged over the data group."""
+    mesh = getattr(model, "tp_mesh", None)
+    if mesh is None:
+        return grads
+    from ltx_tpu_torch.parallel import collectives as col
+
+    for n in sorted(model.tp_partial & set(grads)):
+        col.all_reduce(grads[n], mesh, "model")
+    d = mesh.shape["data"]
+    if d > 1:
+        for n in sorted(grads):
+            col.all_reduce(grads[n], mesh, "data").div_(d)
+    return grads
+
+
+def _data_mean(model: nn.Module, aux: dict) -> dict:
+    """The metrics averaged over the data group (each rank's own rows)."""
+    mesh = getattr(model, "tp_mesh", None)
+    if mesh is None or mesh.shape["data"] == 1:
+        return aux
+    from ltx_tpu_torch.parallel import collectives as col
+
+    d = mesh.shape["data"]
+    return {k: col.all_reduce(v.float().clone(), mesh, "data") / d for k, v in aux.items()}
+
+
+def _apply_gradients(model: nn.Module, tx: GradientTransformation, trainable: Params,
+                     opt_state: dict, loss, aux: dict):
     """The gradients of `loss` in the trainable parameters (zero where one
-    is unused), the optimizer's update written into them in place, and the
-    detached metrics with the gradients' global norm."""
+    is unused; reduced over the mesh, `_reduce_gradients`), the optimizer's
+    update written into them in place, and the detached metrics with the
+    gradients' global norm."""
     names = list(trainable)
     grads = torch.autograd.grad(loss, [trainable[n] for n in names], allow_unused=True)
-    grads = {n: torch.zeros_like(trainable[n]) if g is None else g
+    grads = {n: torch.zeros_like(trainable[n]) if g is None else g.contiguous()
              for n, g in zip(names, grads)}
+    grads = _reduce_gradients(model, grads)
     updates, opt_state = tx.update(grads, opt_state, trainable)
     with torch.no_grad():
         for n in names:
             trainable[n].add_(updates[n].to(trainable[n].dtype))
-    aux = {k: v.detach() for k, v in aux.items()}
-    aux["grad_norm"] = global_norm(grads)
+    aux = _data_mean(model, {k: v.detach() for k, v in aux.items()})
+    aux["grad_norm"] = sharded_global_norm(model)(grads)
     return trainable, opt_state, aux
 
 
@@ -246,7 +312,7 @@ def make_train_step(model: nn.Module, tc: TrainConfig,
     hold the loss, the mean sigma and the gradients' global norm, as
     device tensors."""
     _check_parallel(tc)
-    tx = optimizer if optimizer is not None else make_optimizer(tc)
+    tx = optimizer if optimizer is not None else make_optimizer(tc, sharded_global_norm(model))
 
     def step(trainable: Params, opt_state: dict, tokens, context, rope, sigma, noise,
              context_bias=None):
@@ -254,7 +320,7 @@ def make_train_step(model: nn.Module, tc: TrainConfig,
             model, tokens, context, rope, sigma, noise, context_bias=context_bias,
             sdpa_impl=tc.sdpa_impl, remat=tc.remat, remat_segments=tc.remat_segments,
             compute_dtype=tc.compute_dtype)
-        return _apply_gradients(tx, trainable, opt_state, loss, aux)
+        return _apply_gradients(model, tx, trainable, opt_state, loss, aux)
 
     return step
 
@@ -275,7 +341,7 @@ def make_av_train_step(model: nn.Module, tc: TrainConfig,
     audio sigma, video noise, audio noise). Metrics hold "loss",
     "loss_video", "loss_audio" and "grad_norm"."""
     _check_parallel(tc)
-    tx = optimizer if optimizer is not None else make_optimizer(tc)
+    tx = optimizer if optimizer is not None else make_optimizer(tc, sharded_global_norm(model))
 
     def step(trainable: Params, opt_state: dict, video_tokens, audio_tokens, video_context,
              audio_context, ropes, sigma_v, sigma_a, noise_v, noise_a, video_bias=None,
@@ -286,7 +352,7 @@ def make_av_train_step(model: nn.Module, tc: TrainConfig,
             audio_bias=audio_bias, audio_loss_weight=audio_loss_weight,
             sdpa_impl=tc.sdpa_impl, remat=tc.remat, remat_segments=tc.remat_segments,
             compute_dtype=tc.compute_dtype)
-        return _apply_gradients(tx, trainable, opt_state, loss, aux)
+        return _apply_gradients(model, tx, trainable, opt_state, loss, aux)
 
     return step
 

@@ -363,7 +363,8 @@ class StandInAV(torch.nn.Module):
         super().__init__()
         self.cfg = CFG
 
-    def forward(self, v, a, vctx, actx, ts_v, ts_a, ropes, video_bias=None, audio_bias=None):
+    def forward(self, v, a, vctx, actx, ts_v, ts_a, ropes, video_bias=None, audio_bias=None,
+                sdpa_impl="auto"):
         assert ropes[0][0].shape[1] == v.shape[1] and ropes[1][0].shape[1] == a.shape[1]
         assert video_bias is audio_bias
         return _standin(torch, v, a, vctx, actx, ts_v, ts_a, video_bias)

@@ -6,8 +6,8 @@ combination of `cmd_generate` exits with the reference's code and message;
 each `cmd_generate` branch calls the SeededPipeline method the reference's
 branch calls on its pipeline, with the same arguments (recording fakes);
 real tiny runs on the CPU write their MP4 (and WAV) with the pixels of a
-direct SeededPipeline call; the parallel flags raise NotImplementedError
-naming ROADMAP A18, and `prepare-data` reaches
+direct SeededPipeline call; --mesh-pp raises NotImplementedError naming
+ROADMAP A18b, and `prepare-data` reaches
 ltx_tpu_torch.train.prepare.run with its parsed arguments. Also the memory
 estimate and the enhancement micro-batch bound."""
 
@@ -266,15 +266,24 @@ def test_generate_branches_call_the_reference_entry_points(name, monkeypatch, tm
     assert (tmp_path / "p.mp4.wav").exists() == ("--audio" in BRANCHES[name])
 
 
-@pytest.mark.parametrize("argv, roadmap", [
-    (["generate", "x", "--mesh", "1,8"], "A18"),
-    (["generate", "x", "--mesh-pp", "1,8"], "A18"),
-    (["generate", "x", "--coordinator", "h:1"], "A18"),
-    (["generate", "x", "--num-processes", "2"], "A18"),
+@pytest.mark.parametrize("argv, error", [
+    (["generate", "x", "--mesh", "1x8"], "--mesh expects DATA,MODEL"),
+    (["generate", "x", "--mesh-pp", "1,8"], "A18b"),
+    (["generate", "x", "--coordinator", "h:1", "--mesh-pp", "1,2"], "A18b"),
+    (["generate", "x", "--num-processes", "2", "--mesh", "2"], "--mesh expects DATA,MODEL"),
 ], ids=["mesh", "mesh_pp", "coordinator", "num_processes"])
-def test_unported_surfaces_raise(argv, roadmap):
-    with pytest.raises(NotImplementedError, match=roadmap):
-        pcli.main(argv)
+def test_unported_surfaces_raise(argv, error, capsys):
+    """Pipeline parallelism (--mesh-pp) raises NotImplementedError naming
+    ROADMAP A18b; the mesh flags are checked before the process group is
+    joined and before any load (a malformed --mesh exits 2). A run with
+    --mesh, --coordinator and --num-processes is in
+    test_torch_parallel_pipeline.py."""
+    if "A18b" in error:
+        with pytest.raises(NotImplementedError, match=error):
+            pcli.main(argv)
+    else:
+        assert pcli.main(argv) == 2
+        assert error in capsys.readouterr().err
 
 
 def test_prepare_data_calls_the_port(monkeypatch):

@@ -34,7 +34,10 @@ checks.check_fused_leaves' bound, and the fused DiT against the adapter as
 a side path within 5e-2; the tiny cycle Gemma's greedy generation
 (sequential, speculative, int8 cache, batched) token for token the CPU's;
 a SigLIP tower at head dim 72 through the flash kernel within 5e-2 of the
-same tower on the plain attention.
+same tower on the plain attention; ring attention on a one-rank mesh within
+the ring bounds (checks' derivation: the attention and backward bounds with
+their rounding terms doubled, the lse and delta of a rounded forward); a
+tiny DiT sharded over a (1, 1) mesh bit for bit the unsharded one.
 """
 
 import pytest
@@ -376,3 +379,24 @@ def test_lora_fusion_on_the_card_matches_the_cpu(device):
     res = checks.lora_side_path_check(model, layers, 0.8, tokens=(2, 4, 4), text_tokens=16,
                                       device=device)
     assert res["finite"] and res["rel_err"] <= checks.LORA_SIDE_PATH_TOL
+
+
+@pytest.mark.parametrize("case", checks.RING_CASES[:2], ids=lambda c: c.name)
+def test_ring_of_one_rank_within_its_bounds(device, case):
+    """Ring attention on a one-rank mesh (one ring step: B2, then the B3
+    pair at the merged lse) within the ring bounds, beside B1 and the B3
+    pair on the whole sequence within theirs (checks' derivation); the two
+    ranks' rings at every RING_CASES shape run in chip_smoke's phase 7."""
+    from ltx_tpu_torch.parallel import runtime
+
+    res = checks.check_ring(case, runtime.make_mesh(1, 1), device, judge=True)
+    assert max(res["shares"].values()) <= 1.0
+    assert res["per_ring_step"] == {"flash_attention_stats": 1.0,
+                                    "flash_attention_bwd_dq": 1.0,
+                                    "flash_attention_bwd_dkv": 1.0}
+
+
+def test_tp_world_of_one_is_the_plain_step(device):
+    """A tiny DiT sharded over a (1, 1) mesh: the step's velocity bit for bit
+    the unsharded one's, no collective run."""
+    assert checks.check_tp_world_one(device)["bitwise"]

@@ -235,8 +235,11 @@ def test_enhance_prompt_falls_back_and_warns(gemma, toks, image_file, caplog):
         pe.enhance_prompt(model, toks[1], "a dog", is_i2v=True, image_path=image_file,
                           max_tokens=2, temperature=0.0)
     assert "TEXT-ONLY" in caplog.text
-    with pytest.raises(NotImplementedError, match="A18"):
-        pe.enhance_prompt(model, toks[1], "a dog", mesh=object())
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="ltx_tpu_torch"):
+        # a mesh the model is not sharded over: refused, and the raw prompt
+        assert pe.enhance_prompt(model, toks[1], "a dog", mesh=object()) == "a dog"
+    assert "shard the model" in caplog.text
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(max_batch=1, kv_quant="int8", spec_k=4)],

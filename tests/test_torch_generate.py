@@ -457,7 +457,9 @@ def test_argument_checks(tiny):
     with pytest.raises(InvalidConfigurationError, match="non-empty"):
         pg.generate_tokens_batched(model, [PROMPT, []], max_new_tokens=2)
     for fn, arg in ((pg.generate_tokens, PROMPT), (pg.generate_tokens_batched, [PROMPT])):
-        with pytest.raises(NotImplementedError, match="A18"):
+        # a mesh the model is not sharded over (TP decodes:
+        # tests/test_torch_parallel.py)
+        with pytest.raises(InvalidConfigurationError, match="shard the model"):
             fn(model, arg, max_new_tokens=2, mesh=object())
 
 

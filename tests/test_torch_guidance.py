@@ -186,7 +186,7 @@ class StandInTransformer(torch.nn.Module):
         self.cfg = CFG
 
     def forward(self, tokens, context, timesteps, rope, context_bias=None,
-                skip_self_attn=None, skip_ff=None, cross_attn_scale=None):
+                skip_self_attn=None, skip_ff=None, cross_attn_scale=None, sdpa_impl="auto"):
         assert rope[0].shape[1] == tokens.shape[1]
         return _standin(torch, tokens, context, timesteps, context_bias, skip_self_attn,
                         skip_ff, cross_attn_scale)

@@ -1,6 +1,8 @@
 """The port's boundaries, checked without running it.
 
-* No file of ltx_tpu_torch/ (nor chip_smoke.py) imports jax or any module
+* No file of ltx_tpu_torch/ (nor chip_smoke.py, nor the parallel tests'
+  rank-side helpers tests/torch_dist.py and tests/torch_parallel_cases.py)
+  imports jax or any module
   of ltx_tpu, nor the packages the reference reads checkpoints with
   (safetensors, tokenizers, ml_dtypes, huggingface_hub), which the card's
   machine does not have. The check parses the sources with `ast`: a
@@ -29,7 +31,9 @@ from ltx_tpu_torch.models.dit import LTXTransformer
 from ltx_tpu_torch.models.vae import VAEConfig, VideoDecoder
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "ltx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "ltx_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist.py",
+    ROOT / "tests" / "torch_parallel_cases.py"]
 
 
 def _imported_modules(path: pathlib.Path):

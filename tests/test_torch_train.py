@@ -540,8 +540,8 @@ def test_train_cli_cpu_and_resume(tmp_path):
     """The trainer on the CPU: 4 steps with checkpoints, then a resume leg
     to 6 steps, exports what an uninterrupted 6-step run exports, bit for
     bit; --quant w8a8 on the tiny base trains it unquantized, as the
-    reference; the unported options raise, naming their ROADMAP item, and
-    --weights reads the file it names."""
+    reference; a one-rank --mesh trains what the plain run trains, --sdpa
+    ring without a mesh exits, and --weights reads the file it names."""
     shards = tmp_path / "shards"
     shards.mkdir()
     _write_shards(shards, n_shards=1, rows=3)
@@ -566,10 +566,16 @@ def test_train_cli_cpu_and_resume(tmp_path):
                               "--quant", "w8a8"]) == 0
     w8a8 = export.read_safetensors(tmp_path / "w.safetensors")
     assert sorted(w8a8) == sorted(full) and all(np.array_equal(full[k], w8a8[k]) for k in full)
-    for extra, item in ((["--mesh", "1,1"], "A18"), (["--sdpa", "ring"], "A18")):
-        argv = common + ["--out", str(tmp_path / "x.safetensors"), "--steps", "1"] + extra
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(argv)
+    # a one-rank mesh is the plain run, bit for bit; the ring needs a mesh
+    # (multi-rank runs: tests/test_torch_parallel_pipeline.py)
+    assert cli.main(common + ["--out", str(tmp_path / "m.safetensors"), "--steps", "6",
+                              "--mesh", "1,1"]) == 0
+    meshed = export.read_safetensors(tmp_path / "m.safetensors")
+    assert sorted(meshed) == sorted(full) and all(np.array_equal(full[k], meshed[k])
+                                                  for k in full)
+    with pytest.raises(SystemExit, match="needs --mesh"):
+        cli.main(common + ["--out", str(tmp_path / "x.safetensors"), "--steps", "1",
+                           "--sdpa", "ring"])
     # --weights is ported (tests/test_torch_loader.py trains from a file)
     argv = [a for a in common if a not in ("--random-init", "tiny")]
     with pytest.raises(FileNotFoundError):

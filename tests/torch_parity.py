@@ -66,6 +66,24 @@ def reference_int4_kernel_route(monkeypatch) -> list:
 
 
 @contextlib.contextmanager
+def jitted_shard_map():
+    """For the duration, every jax.shard_map the reference builds is jitted:
+    its decode_video_sharded calls one eagerly, which on the CPU runs op by
+    op (about 23 s a call at the tiny decoder, 2 s jitted). The program is
+    the same; only its dispatch changes."""
+    import jax
+
+    plain = jax.shard_map
+
+    def jitted(*args, **kwargs):
+        return jax.jit(plain(*args, **kwargs))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "shard_map", jitted)
+        yield
+
+
+@contextlib.contextmanager
 def torch_threads(n: int):
     """torch's intra-op threads set to `n` for the duration. The generation
     loops run thousands of small ops a token; when six test workers share
