@@ -141,7 +141,7 @@ Phases, each printing its own lines:
      extending the chain's last 9 frames, at 25f@768x512;
   5d. the AV QLoRA step: 5c's dual DiT, still resident on the card,
      quantized to int4 there (quantize_transformer) and frozen, rank-16 LoRA on its 1344
-     block linears, then 4 steps of train.step.make_av_train_step with
+     block linears, then 3 steps of train.step.make_av_train_step with
      per-block remat at 25f@768x512 (1536 video tokens) and 26 audio
      tokens, 1024-token text contexts left-padded by 300 (video) and 500
      (audio): each step's launches against checks.av_train_step_launches
@@ -153,13 +153,13 @@ Phases, each printing its own lines:
   5b. files to frames: a models directory written under build/ in the
      layout weights.download resolves, from seeded generators on the card
      by the port's own safetensors writer: the unified file (the dual DiT's
-     keys at full width with 8 of its 48 blocks, the one cut; the
+     keys at full width with 4 of its 48 blocks, the one cut; the
      connectors in format 2, the audio one too; the VAE decoder), the audio
      VAE's and the vocoder's files, the standalone VAE file with the encoder,
      the Gemma-3-12B snapshot at full width and depth in MLX 4-bit with the
      `language_model.` prefix (four shards, config.json, a byte-fallback
      BPE tokenizer.json), the upscaler in f32 and a rank-384 LoRA over the
-     8 blocks' linears; its bytes and seconds printed. load_pipeline in
+     4 blocks' linears; its bytes and seconds printed. load_pipeline in
      bf16, its seconds by part and the host's resident memory printed, then
      the north star from it (launches checked); one Gemma linear's MLX
      dequantization against numpy from the file's arrays, bit for bit;
@@ -181,7 +181,7 @@ Phases, each printing its own lines:
      for it, the caches of both written; its hidden states against the
      bf16 load's (correlation, the reference's check); loaded again, both
      caches hit with no requantization. The int4 and the W8A8 Gemma each
-     decode 32 greedy tokens with and without speculation: every forward's
+     decode 16 greedy tokens with and without speculation: every forward's
      seven linears a layer through int4_matmul (48 x 7 launches, at 1 and
      9 rows) or the int8 product. train.cli --weights on the unified
      file (W8A8, the reference's default, rank 16, one step, its launches
@@ -190,8 +190,8 @@ Phases, each printing its own lines:
      width and depth (the 48-block DiT, random and seeded, quantized to
      int4 and frozen, rank-16 LoRA on its 480 block linears) on phase 3h's
      shards (four 25f@768x512 rows, 1536 tokens, with their 1024-token,
-     left-padded text contexts): 4 steps with checkpoints, then a resume leg
-     to step 5; every attention through the statistics forward and the two
+     left-padded text contexts): 2 steps with a checkpoint, then a resume
+     leg to step 3; every attention through the statistics forward and the two
      backward kernels, the int4 base through int4_matmul forward and
      dequant_int4 in its straight-through backward, with the launch counts
      read around every step (the norms as the route gives them under
@@ -200,10 +200,12 @@ Phases, each printing its own lines:
      tiny AV QLoRA step on the card against the CPU, and the statistics
      and backward kernels against their plain versions, the dual DiT's
      head-dim-64 shapes among them.)
-  7. parallelism (ltx_tpu_torch.parallel). 7.1, right after phase 3: a
+  7. parallelism (ltx_tpu_torch.parallel). 7.1, right after phase 3, its
+     components staged on the host and each split when its phase starts: a
      world of one over NCCL (`initialize_distributed` on a localhost
      address), the bf16 north star through `LTXPipeline.shard(make_mesh(1,
-     1))` bit for bit the plain run, with the same launches. 7.2, after
+     1))` and then `LTXPipeline.shard_pp(make_pp_mesh(1, 1))` bit for bit
+     the plain run, with the same launches and no collective. 7.2, after
      phase 6, with the parent's components freed: the world-of-one
      references first (one denoise step of a seeded full-size DiT, whole,
      in bf16 and quantized to int4; the tiled decode of the north star's
@@ -221,8 +223,19 @@ Phases, each printing its own lines:
      world-of-one step, B1, B6, `sharded_rms_norm` and the all-reduces
      counted per rank (336 a DiT call); (c) the same step on the shards
      quantized to int4 (B5 per rank, no B4); (d) the sharded decode, bit
-     for bit the tiled one. A rank that fails fails the phase; times taken while
-     the two ranks share the card are printed as such;
+     for bit the tiled one; (e) pipeline parallelism over two stages, each
+     rank drawing only its 24 of the 48 blocks: one denoise step of one
+     row (one microbatch), the guided step (CFG, two rows, two
+     microbatches) and the int4 step on the stage's blocks quantized in
+     place, each within 5e-2 of its world-of-one reference (bit for bit
+     for one row predicted), the ranks bit for bit, B1, B6, B4 and the hops
+     counted per rank; (f) a PP-2 LoRA train step's forward and backward
+     (rank 16, bf16, per-block remat, two rows, two microbatches) of the
+     DiT cut to 4 blocks at full width: loss and grad norm within 1e-3 of
+     the world of one's, each LoRA gradient within 5e-2 of its own largest
+     value, B2, B3a and B3b counted per rank.
+     A rank that fails fails the phase; times taken while the two ranks
+     share the card are printed as such;
   8. a JSON line of the seven kernels: launches (each from the paths that
      run it, by path where there are several, the long-video modes' and
      phase 7's among them; B1's and B6's times at their shapes in
@@ -1143,6 +1156,34 @@ TP_B5 = 48 * 10         # every quantized block linear, dequantized on its shard
 # the TP-2 step against the world-of-one step (PERF.md §6's bf16 bound)
 TP_STEP_REL = 5e-2
 PARALLEL_TIMEOUT_S = 900
+# predicted before the first card run (PERF.md): per rank of a PP-2 step, a
+# stage of 24 blocks; M microbatches of one row; M + S - 2 hops and one
+# broadcast of the outputs, each host-staged over gloo
+PP_BLOCKS = 24
+PP_STEP = {m: {"flash_attention": 2 * PP_BLOCKS * m, "rms_norm": 6 * PP_BLOCKS * m,
+               "collective_send_recv": m, "collective_broadcast": 1,
+               "collective_all_reduce": 0, "collective_all_gather": 0,
+               "collective_host_staged": m + 1, "rms_chain_on_cuda": 0}
+           for m in (1, 2)}
+PP_INT4 = {"int4_matmul": 10 * PP_BLOCKS, "dequant_int4": 0}
+# the PP-2 LoRA train step, per rank: 2 of the 4 blocks, two microbatches,
+# each block's forward twice (per-block remat); the hops of the forward and
+# of the backward, the broadcast and the global norm's all-reduce
+PP_TRAIN_BLOCKS_A_STAGE = checks.PP_TRAIN_BLOCKS // 2
+# the PP-2 train step's loss and grad norm against the world of one's
+# (relative): the same bf16 kernels on the same rows, summed in another
+# order (measured 2.1e-6 and 2.3e-5 on an H100; PERF.md)
+PP_TRAIN_SCALAR_REL = 1e-3
+
+
+def pp_train_launches(stage: int) -> dict:
+    layers, mb = PP_TRAIN_BLOCKS_A_STAGE, checks.PP_TRAIN_ROWS
+    kernel = 2 * mb if stage == 0 else 0  # block 0's first adaln, both forwards
+    return {"flash_attention_stats": 2 * 2 * layers * mb, "flash_attention_bwd_dq": 2 * layers * mb,
+            "flash_attention_bwd_dkv": 2 * layers * mb, "flash_attention": 0,
+            "rms_norm": kernel, "rms_chain_on_cuda": 6 * layers * 2 * mb - kernel,
+            "collective_send_recv": 2 * mb, "collective_broadcast": 1,
+            "collective_all_reduce": 1, "collective_host_staged": 2 * mb + 2}
 
 
 def free_port() -> int:
@@ -1153,34 +1194,73 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_world_of_one(pipe: LTXPipeline, noise, steps: int, bf16_run, device) -> None:
+def staged_split(pipe: LTXPipeline, names: set, mark: str) -> None:
+    """The components `names` are on the host, waiting to be split when their
+    phase starts, and not split yet (no `mark`)."""
+    waiting = set(pipe._to_shard)
+    early = [n for n in names if getattr(getattr(pipe, n), mark, None) is not None]
+    if waiting != names or early:
+        raise AssertionError(f"7.1: waiting to be split {waiting}, expected {names}; "
+                             f"split already {early}")
+    log(f"[parallel] {sorted(names)} staged on the host, split when their phase starts")
+
+
+def phase_world_of_one(pipe: LTXPipeline, noise, steps: int, bf16_run, device) -> dict:
     """7.1: a world of one over NCCL; the bf16 north star through
-    pipe.shard(make_mesh(1, 1)) must be bit for bit the plain run (phase
-    3's), with the same launches."""
+    pipe.shard(make_mesh(1, 1)), then through pipe.shard_pp(make_pp_mesh(1,
+    1)), must be bit for bit the plain run (phase 3's), with the same
+    launches. The components are staged on the host, so each is split when
+    its phase starts (`LTXPipeline._on_device`), and that is checked.
+    Returns the pipeline stage of one's launches."""
     import torch.distributed as dist
 
-    from ltx_tpu_torch.parallel import runtime
+    from ltx_tpu_torch.parallel import collectives, runtime
 
     runtime.initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
     if dist.get_backend() != "nccl":
         raise AssertionError(f"world of one: backend {dist.get_backend()}, not nccl")
     pipe.shard(runtime.make_mesh(1, 1))
+    staged_split(pipe, {"transformer", "gemma"}, "tp_mesh")
     launches, (result, _) = north_star_run("world of one", pipe, noise,
                                            expected_launches(pipe, steps, 1), device)
     want = bf16_run[0].frames
     if not np.array_equal(result.frames, want):
         raise AssertionError(f"world of one: frames differ from the plain run by "
                              f"{np.abs(result.frames - want).max():.3e}")
+    if pipe._to_shard or getattr(pipe.transformer, "tp_mesh", None) is None:
+        raise AssertionError(f"shard: {pipe._to_shard} still waiting to be split")
     log(f"[parallel] world of one (nccl, make_mesh(1, 1)): frames bit for bit the plain "
         f"run; launches {launches}")
     pipe.mesh = None
+    # a (1, 1) mesh sliced nothing: its marks go, and the same pipeline is
+    # split into one pipeline stage
+    for module in (pipe.transformer, pipe.gemma):
+        module.tp_mesh = None
+    pipe.shard_pp(runtime.make_pp_mesh(1, 1))
+    staged_split(pipe, {"transformer"}, "pp_plan")
+    collectives.reset_counts()
+    launches, (result, _) = north_star_run("pipeline stage of one", pipe, noise,
+                                           expected_launches(pipe, steps, 1), device)
+    if not np.array_equal(result.frames, want) or any(collectives.counts.values()):
+        raise AssertionError(f"shard_pp(make_pp_mesh(1, 1)): frames differ from the plain run "
+                             f"by {np.abs(result.frames - want).max():.3e}, collectives "
+                             f"{collectives.counts}")
+    if pipe._to_shard or pipe.transformer.pp_plan is None:
+        raise AssertionError(f"shard_pp: {pipe._to_shard} still waiting to be split")
+    log(f"[parallel] world of one (nccl, make_pp_mesh(1, 1)): frames bit for bit the plain "
+        f"run, no collective; launches {launches}")
+    pipe.pp_mesh = None
+    del pipe.transformer.pp_plan
     dist.destroy_process_group()
+    return launches
 
 
 def world_of_one_references(spec: dict, device) -> dict:
     """7.2's references, computed first and kept small: one denoise step of
-    the seeded full-size DiT (bf16, then quantized to int4 in place), the
-    tiled decode of the north star's latent; the models freed after."""
+    the seeded full-size DiT (bf16, guided bf16, then quantized to int4 in
+    place), the tiled decode of the north star's latent, the LoRA train
+    step's loss, norm and gradients of the DiT cut to 4 blocks; the models
+    freed after."""
     from ltx_tpu_torch.models.dit import LTXTransformer
     from ltx_tpu_torch.models.vae import decode_video, sharded_tiles
 
@@ -1189,6 +1269,9 @@ def world_of_one_references(spec: dict, device) -> dict:
                                   checks.PARALLEL_DIT_SEED)
     inputs = checks.tp_step_inputs(tcfg, config, device)
     refs = {"bf16": checks.tp_step_velocity(model, config, inputs)}
+    guided = spec["guided"]
+    refs["guided"] = checks.tp_step_velocity(model, guided,
+                                             checks.tp_step_inputs(tcfg, guided, device, rows=2))
     quantize_transformer(model, bits=4, group_size=64)
     checks.reset_tp_counts()
     refs["int4"] = checks.tp_step_velocity(model, config, inputs)
@@ -1204,6 +1287,10 @@ def world_of_one_references(spec: dict, device) -> dict:
         refs["frames"] = decode_video(decoder, padded, None, tile_size=stride + ov,
                                       tile_overlap=ov)[:8 * (f - 1) + 1]
     del decoder, latent, padded
+    model = checks.pp_train_model(tcfg, device)
+    refs["train"] = checks.pp_train_gradients(model, checks.pp_train_inputs(tcfg, config,
+                                                                              device))
+    del model
     torch.cuda.empty_cache()
     return refs
 
@@ -1273,7 +1360,8 @@ def phase_parallel(device) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     refs = world_of_one_references(spec, device)
-    log(f"[parallel] world-of-one references (bf16 and int4 step, tiled decode): "
+    log(f"[parallel] world-of-one references (bf16, guided and int4 step, tiled decode, "
+        f"4-block LoRA train step): "
         f"{time.perf_counter() - t0:.2f} s")
     time_sharded_norm(spec, device)
     t0 = time.perf_counter()
@@ -1336,7 +1424,81 @@ def phase_parallel(device) -> dict:
     launches.update({f"{k} (TP-2 {tag} step, per rank)": r0[tag]["counts"][k]
                      for tag in ("bf16", "int4")
                      for k in ("flash_attention", "rms_norm", "dequant_int4")})
+    launches.update(check_pp(ranks, refs))
     return launches
+
+
+def check_pp(ranks: list, refs: dict) -> dict:
+    """7.2 (e) and (f) (module docstring). Returns the PP paths' launches by
+    kernel, per rank (rank 0's; the ranks' are checked against the
+    prediction one by one)."""
+    r0, r1 = ranks
+    for r in ranks:
+        first, blocks, seconds = r["pp_stage"]
+        log(f"[parallel] PP-2 rank {r['rank']}: blocks {first}..{first + blocks - 1} of 48 "
+            f"drawn alone in {seconds:.2f} s; peak {r['pp_peak_gib']:.2f} GiB")
+        if (first, blocks) != (PP_BLOCKS * r["rank"], PP_BLOCKS):
+            raise AssertionError(f"PP-2 rank {r['rank']}: blocks {first}+{blocks}")
+    cases = (("pp_bf16", "bf16", {**PP_STEP[1], "int4_matmul": 0}),
+             ("pp_guided", "guided", {**PP_STEP[2], "int4_matmul": 0}),
+             ("pp_int4", "int4", {**PP_STEP[1], **PP_INT4}))
+    for tag, ref, want in cases:
+        if not np.array_equal(r0[tag]["velocity"], r1[tag]["velocity"]):
+            raise AssertionError(f"PP-2 {tag} step: the ranks' velocities differ")
+        got = torch.from_numpy(r0[tag]["velocity"])
+        rel = checks._rel(got, refs[ref])
+        for r in ranks:
+            counts = {k: r[tag]["counts"][k] for k in want}
+            log(f"[parallel] PP-2 {tag} step, rank {r['rank']}: {counts}; "
+                f"{r[tag]['shared_card_seconds']:.3f} s with two ranks sharing the card")
+            if counts != want:
+                raise AssertionError(f"PP-2 {tag} step, rank {r['rank']}: {counts} != {want}")
+        log(f"[parallel] PP-2 {tag} step: ranks bit for bit; against the world of one "
+            f"{rel:.3e} of the max (bound {TP_STEP_REL}), bit for bit: "
+            f"{torch.equal(got, refs[ref])}")
+        if not rel <= TP_STEP_REL:
+            raise AssertionError(f"PP-2 {tag} step: {rel:.3e} of the max from the world of one")
+    want_t = refs["train"]
+    grads = {**r0["pp_train"]["grads"], **r1["pp_train"]["grads"]}
+    if sorted(grads) != sorted(want_t["grads"]):
+        raise AssertionError("PP-2 train step: the stages' LoRA gradients are not the DiT's")
+    # each LoRA gradient against its own largest value (a leaf of all zeros
+    # must come out all zeros)
+    leaves = {n: float(np.abs(grads[n] - g).max()) / max(float(np.abs(g).max()), 1e-30)
+              for n, g in want_t["grads"].items()}
+    worst = max(leaves, key=leaves.get)
+    rels = {"loss": abs(r0["pp_train"]["loss"] - want_t["loss"]) / abs(want_t["loss"]),
+            "grad_norm": abs(r0["pp_train"]["grad_norm"] - want_t["grad_norm"])
+            / want_t["grad_norm"]}
+    for r in ranks:
+        want = pp_train_launches(r["rank"])
+        counts = {k: r["pp_train"]["counts"][k] for k in want}
+        log(f"[parallel] PP-2 LoRA train step, rank {r['rank']}: loss "
+            f"{r['pp_train']['loss']:.6f}, grad norm {r['pp_train']['grad_norm']:.6f}; "
+            f"{counts}; {r['pp_train']['shared_card_seconds']:.3f} s with two ranks sharing "
+            f"the card")
+        if counts != want:
+            raise AssertionError(f"PP-2 train step, rank {r['rank']}: {counts} != {want}")
+        if (r["pp_train"]["loss"], r["pp_train"]["grad_norm"]) != (
+                r0["pp_train"]["loss"], r0["pp_train"]["grad_norm"]):
+            raise AssertionError("PP-2 train step: the ranks' loss or norm differ")
+    log(f"[parallel] PP-2 LoRA train step against the world of one (loss "
+        f"{want_t['loss']:.6f}, grad norm {want_t['grad_norm']:.6f}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+        + f" (bound {PP_TRAIN_SCALAR_REL}); the worst of {len(leaves)} LoRA gradients "
+        f"{leaves[worst]:.3e} of its own largest value ({worst}; bound {TP_STEP_REL})")
+    if not max(rels.values()) <= PP_TRAIN_SCALAR_REL:
+        raise AssertionError(f"PP-2 train step: {rels} from the world of one")
+    if not leaves[worst] <= TP_STEP_REL:
+        raise AssertionError(f"PP-2 train step: LoRA gradient {worst} {leaves[worst]:.3e} of "
+                             f"its largest value from the world of one")
+    out = {f"{k} (PP-2 {tag[3:]} step, per rank)": r0[tag]["counts"][k]
+           for tag in ("pp_bf16", "pp_guided", "pp_int4")
+           for k in ("flash_attention", "rms_norm", "int4_matmul")}
+    out.update({f"{k} (PP-2 LoRA train step, per rank)": r0["pp_train"]["counts"][k]
+                for k in ("flash_attention_stats", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv", "rms_norm")})
+    return out
 
 
 def phase_two_stage(pipe: LTXPipeline, device) -> dict:
@@ -1749,10 +1911,11 @@ def phase_long_video(pipe: LTXPipeline, device) -> dict:
 # Prompt enhancement (phase 3e)
 # ---------------------------------------------------------------------------
 
-# the cycle model's generated tokens, and the drafts of the enhancement's
-# speculation (GenerationConfig.enhancement_spec_k's default)
-CYCLE_NEW_TOKENS = 64
+# the drafts of the enhancement's speculation
+# (GenerationConfig.enhancement_spec_k's default), and the cycle model's
+# generated tokens: the prefill's and four full bundles of SPEC_K + 1
 SPEC_K = 8
+CYCLE_NEW_TOKENS = 1 + 4 * (SPEC_K + 1)
 # the share of the drafts a verify forward commits on the cycle model, at
 # least (the tiny test's: more than 3 tokens a forward of 5 at spec_k 4)
 CYCLE_ACCEPTANCE = 0.9
@@ -2329,12 +2492,12 @@ def http_text(url: str):
 
 # the greedy tokens each loaded quantized Gemma decodes, sequential and with
 # drafts
-FILES_DECODE_TOKENS = 32
+FILES_DECODE_TOKENS = 16
 
 
 def gemma_decode(tag: str, pipe: LTXPipeline, counter: str) -> int:
     """A greedy FILES_DECODE_TOKENS-token generate_tokens of the loaded Gemma, sequential and
-    with 8 drafts: 48 x 7 launches of `counter` (int4_matmul, or the int8
+    with 8 drafts: 7 launches a layer of `counter` (int4_matmul, or the int8
     product of W8A8) each forward, the prefill's and every decode
     forward's (one row, or SPEC_K + 1). Returns the decode forwards'
     launches of both runs."""
@@ -2685,12 +2848,12 @@ AV_RESIDENT = ("gemma", "text_encoder", "vae_decoder", "vae_encoder", "upscaler"
 
 def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
     """The long-video modes on the dual DiT at the north star's 25f@768x512:
-    a 3-segment generate_video_chain_with_audio carrying the audio tail
+    a 2-segment generate_video_chain_with_audio carrying the audio tail
     (audio_cond), keyframes at pixel frames 0 and 24 with audio (seeded
     pixel arrays), and generate_video_with_audio extending the chain's last
     9 frames, the components resident on the card (`resident`). The
     launches, phases, peak, frames, and the waveform's length and stitch
-    (segments of S samples crossfaded over round(S * 9 / 25): 3 S - 2 k in
+    (segments of S samples crossfaded over round(S * 9 / 25): 2 S - k in
     all). Returns the launches by path."""
     from ltx_tpu_torch.models.dit_av import audio_frame_count
 
@@ -2699,7 +2862,7 @@ def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
                                          channels=pipe.tcfg.in_channels)
     steps = len(pipe._sigmas(config, shape)) - 1
     gen = torch.Generator(device=device).manual_seed(12)
-    segments, cond = 3, CHAIN_COND_FRAMES
+    segments, cond = 2, CHAIN_COND_FRAMES
     af = pipe.audio_frames(config)
     samples = (4 * audio_frame_count(config.num_frames / config.fps) - 3) \
         * int(np.prod(pipe.vocoder_config.upsample_factors))
@@ -2713,7 +2876,7 @@ def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
         f"{segments} segments carrying {max(1, round(af * cond / config.num_frames))} of "
         f"{af} audio latent frames, keyframes at 0 and 24, extension of 9 frames")
     with resident(pipe, AV_RESIDENT, device):
-        chain, launches["AV chain 3x25f audio_cond"], peak = av_run(
+        chain, launches[f"AV chain {segments}x25f audio_cond"], peak = av_run(
             "av chain", lambda: pipe.generate_video_chain_with_audio(
                 PROMPT, config, segments, [generate_noise(shape, gen) for _ in range(segments)],
                 [audio_noise() for _ in range(segments)], cond_frames=cond, audio_cond=True),
@@ -2751,7 +2914,7 @@ def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
 # The AV QLoRA step (phase 5d): 5c's dual DiT, int4 and frozen, rank-16 LoRA
 # ---------------------------------------------------------------------------
 
-AV_TRAIN_STEPS, AV_TRAIN_RANK = 4, 16
+AV_TRAIN_STEPS, AV_TRAIN_RANK = 3, 16
 
 
 def profile_one(fn):
@@ -2938,10 +3101,12 @@ def phase_big_m(pipe: LTXPipeline, device) -> dict:
 # Files to frames: a models directory written here, loaded by load_pipeline
 # ---------------------------------------------------------------------------
 
-# the one cut of the checkpoint written below: the video DiT keeps 8 of its
-# 48 blocks (about 4.6 GB of bf16 instead of 26 GB, for disk and time on a
-# machine whose free disk is unknown); every other component is full size
-FILES_DIT_BLOCKS = 8
+# the one cut of the checkpoint written below: the DiTs keep 4 of their 48
+# blocks (about 2.3 GB of the video DiT's bf16 instead of 26 GB, for disk
+# and the script's time on a machine whose free disk is unknown); every
+# other component is full size (Gemma's 49 hidden states feed the full-size
+# connector)
+FILES_DIT_BLOCKS = 4
 FILES_LORA_RANK = 384
 FILES_GEMMA_SHARD_LAYERS = 12
 # the DiT linears a distilled-style LoRA adapts, as the checkpoint spells them
@@ -3554,7 +3719,7 @@ def phase_files_to_frames(device, data) -> int:
 TRAIN_GRID = (4, 16, 24)   # 25f@768x512: 1536 latent tokens
 TRAIN_TEXT = 1024
 TRAIN_PADS = (300, 500)    # left padding of the AV step's text contexts (video, audio)
-TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY, TRAIN_RANK = 4, 5, 2, 16
+TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY, TRAIN_RANK = 2, 3, 2, 16
 
 
 def train_step_launches(cfg: TransformerConfig, quant: str = "int4") -> dict:
@@ -3610,11 +3775,12 @@ def train_leg(tag: str, argv, expected: dict) -> list:
 
 def phase_train(device, data) -> dict:
     """The training path at full width and depth through train.cli on the
-    shards in `data` (phase 3h's): 4 steps with a checkpoint every 2, then
-    a resume leg to step 5. Asserts the launches of every step, finite
-    losses, lora_b moved from 0 by the first steps, the resume starting at
-    step 4 and an adapter of 480 x 3 tensors that reads back. Returns the
-    summed launches of the first leg."""
+    shards in `data` (phase 3h's): TRAIN_STEPS steps with a checkpoint every
+    TRAIN_CKPT_EVERY, then a resume leg to step TRAIN_RESUMED_STEPS. Asserts
+    the launches of every step, finite losses, lora_b moved from 0 by the
+    first steps, the resume starting at the checkpoint's step and an adapter
+    of 480 x 3 tensors that reads back. Returns the summed launches of the
+    first leg."""
     cfg = TransformerConfig()
     work = build.BUILD_DIR.parent / "chip_smoke_train"
     shutil.rmtree(work, ignore_errors=True)
@@ -3692,8 +3858,8 @@ def main() -> int:
     rms["launches_by_path"] = {"north star": launches["rms_norm"]}
     rms["launches"] = launches["rms_norm"]
     mark("phase 3 (main path)")
-    phase_world_of_one(pipe, noise, steps, bf16_run, device)
-    mark("phase 7.1 (world of one, nccl)")
+    pp_one = phase_world_of_one(pipe, noise, steps, bf16_run, device)
+    mark("phase 7.1 (world of one, nccl; staged)")
     phase_two_stage(pipe, device)
     mark("phase 3b (two-stage)")
     t_phase = time.perf_counter()
@@ -3754,7 +3920,7 @@ def main() -> int:
     gemma_pass, gemma_decode_launches, files_av = phase_files_to_frames(device, shards)
     mark("phase 5b (files to frames)")
     av_paths = {"AV north star": av_north, "AV flagship 241f@1024x640": av_flagship,
-                **av_long, "AV clip from files (8 blocks)": files_av}
+                **av_long, f"AV clip from files ({FILES_DIT_BLOCKS} blocks)": files_av}
     for entry in (flash, rms):
         entry["launches_by_path"].update({k: v[entry["name"]] for k, v in av_paths.items()})
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -3791,6 +3957,14 @@ def main() -> int:
             {f"TP-2 {tag} step, per rank": parallel[f"{entry['name']} (TP-2 {tag} step, "
                                                       f"per rank)"]
              for tag in ("bf16", "int4")})
+    # the pipeline-parallel paths: 7.1's stage of one, 7.2's PP-2 steps and
+    # train step (per rank: rank 0's)
+    for entry in (flash, rms):
+        entry["launches_by_path"]["PP-1 north star (7.1)"] = pp_one[entry["name"]]
+    for entry in (flash, matmul, rms, stats, dq, dkv):
+        entry["launches_by_path"].update(
+            {key.split(" (", 1)[1][:-1]: n for key, n in parallel.items()
+             if key.startswith(entry["name"] + " (PP-2")})
     for entry in (flash, stats, dq, dkv, matmul, dequant, rms):
         entry["launches"] = sum(entry["launches_by_path"].values())
     kernels = [flash, stats, dq, dkv, matmul, dequant, rms]

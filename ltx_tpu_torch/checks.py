@@ -2060,21 +2060,27 @@ def check_ring(case: RingCase, mesh, device, judge: bool) -> dict:
     return res
 
 
-def seeded_module_(module: torch.nn.Module, device, seed: int, mesh=None):
+def seeded_module_(module: torch.nn.Module, device, seed: int, mesh=None, pp_mesh=None):
     """Materialise `module` (built on "meta") on `device`, submodule by
     submodule: each submodule with `reset_parameters` draws its own
-    parameters from a generator seeded with (seed, its index in
-    `modules()`), so that any rank can draw any part alone. With `mesh`
-    each DiT block is sliced to this rank's shard as soon as it is drawn
-    (`parallel.sharding.shard_transformer`), so no rank holds the whole
-    model, then the model is marked for the mesh. The same seed gives the
-    same weights, whole or sharded."""
-    from ltx_tpu_torch.parallel import sharding
+    parameters from a generator seeded with (seed, its index in the whole
+    module's `modules()`), so that any rank can draw any part alone. With
+    `mesh` each DiT block is sliced to this rank's shard as soon as it is
+    drawn (`parallel.sharding.shard_transformer`), so no rank holds the
+    whole model, then the model is marked for the mesh. With `pp_mesh` the
+    model keeps this stage's blocks (`parallel.pipeline.shard_pp`) before
+    anything is drawn, and only they are. The same seed gives the same
+    weights, whole, sharded or split into stages."""
+    from ltx_tpu_torch.parallel import pipeline, sharding
 
+    index = {id(m): i for i, m in enumerate(module.modules())}
+    if pp_mesh is not None:
+        pipeline.shard_pp(module, pp_mesh)
     blocks = getattr(module, "blocks", None)
     owner = {id(m): b for b in (blocks or []) for m in b.modules()}
     done = set()
-    for i, mod in enumerate(module.modules()):
+    for mod in module.modules():
+        i = index[id(mod)]
         if any(p.is_meta for p in mod.parameters(recurse=False)):
             mod.to_empty(device=device, recurse=False)
         reset = getattr(mod, "reset_parameters", None)
@@ -2097,16 +2103,23 @@ TP_STEP_SIGMAS = (0.9, 0.5)
 TP_CONTEXT_PAD = 300
 
 
-def tp_step_inputs(tcfg: TransformerConfig, config: GenerationConfig, device, seed: int = 41):
+def tp_step_inputs(tcfg: TransformerConfig, config: GenerationConfig, device, seed: int = 41,
+                   rows: int = 1):
     """(shape, latent, context, bias): the north star's latent and a text
-    context of its width, drawn on `device` from one seeded generator."""
+    context of its width, drawn on `device` from one seeded generator. With
+    rows=2 a negative prompt's row, drawn after, comes first (CFG's order:
+    uncond, cond)."""
     shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
                                          channels=tcfg.in_channels)
     gen = torch.Generator(device=device).manual_seed(seed)
     latent = torch.randn(shape.shape, generator=gen, device=device)
     context = torch.randn(1, 1024, tcfg.caption_channels, generator=gen,
                           device=device).bfloat16()
-    mask = torch.ones(1, 1024, dtype=torch.int64, device=device)
+    if rows == 2:
+        negative = torch.randn(1, 1024, tcfg.caption_channels, generator=gen,
+                               device=device).bfloat16()
+        context = torch.cat([negative, context])
+    mask = torch.ones(rows, 1024, dtype=torch.int64, device=device)
     mask[:, :TP_CONTEXT_PAD] = 0
     return shape, latent, context, prepare_additive_mask(mask)
 
@@ -2170,13 +2183,93 @@ PARALLEL_LATENT_SEED = 23
 PARALLEL_CONFIG = GenerationConfig(width=768, height=512, num_frames=25, num_steps=8, seed=0)
 
 
+# pipeline parallelism: the guided step (CFG, two rows) and the LoRA train
+# step of a DiT cut to PP_TRAIN_BLOCKS blocks at full width
+PP_GUIDED_CONFIG = dataclasses.replace(PARALLEL_CONFIG, cfg_scale=3.0)
+PP_TRAIN_BLOCKS = 4
+PP_TRAIN_ROWS = 2
+PP_LORA_RANK = 16
+PP_TRAIN_SEED = 29
+
+
 def parallel_spec(device_type: str = "cuda") -> dict:
     """What the two-rank phase runs: the ring cases, the DiT's and the
-    decoder's configs (full width and depth) and the north star."""
+    decoder's configs (full width and depth) and the north star (guided
+    too, for the pipeline's two microbatches)."""
     from ltx_tpu_torch.models.vae import VAEConfig
 
     return {"device": device_type, "ring_cases": RING_CASES, "tcfg": TransformerConfig(),
-            "vcfg": VAEConfig(), "config": PARALLEL_CONFIG}
+            "vcfg": VAEConfig(), "config": PARALLEL_CONFIG, "guided": PP_GUIDED_CONFIG}
+
+
+def pp_train_model(tcfg: TransformerConfig, device, pp_mesh=None) -> LTXTransformer:
+    """The seeded bf16 DiT cut to PP_TRAIN_BLOCKS blocks (this stage's with
+    `pp_mesh`), rank-16 LoRA on every block linear, each block's LoRA drawn
+    from its own seed (its index in the whole DiT): the same adapters whole
+    or split. lora_b is drawn nonzero (a LoRA's init zeroes it, and with it
+    lora_a's gradient)."""
+    from ltx_tpu_torch.train import lora
+
+    model = seeded_module_(LTXTransformer(dataclasses.replace(tcfg, num_layers=PP_TRAIN_BLOCKS),
+                                          device="meta"), device, PARALLEL_DIT_SEED,
+                           pp_mesh=pp_mesh)
+    first = model.pp_plan.first if model.pp_plan is not None else 0
+    for i, block in enumerate(model.blocks):
+        gen = torch.Generator(device=device).manual_seed(PP_TRAIN_SEED * 1000 + first + i)
+        lora.add_lora(block, gen, rank=PP_LORA_RANK)
+        with torch.no_grad():
+            for _, linear in lora.lora_targets(block):
+                b = torch.randn(linear.lora_b.shape, generator=gen, device=device)
+                linear.lora_b.copy_(b * 0.02)
+    return model
+
+
+def pp_train_inputs(tcfg: TransformerConfig, config: GenerationConfig, device,
+                    seed: int = PP_TRAIN_SEED):
+    """(tokens, context, rope, sigma, noise, bias): PP_TRAIN_ROWS rows of the
+    north star's clean tokens, text contexts of 1024 keys left-padded by
+    300, the step's draws; all from one seeded generator on `device`."""
+    shape = VideoLatentShape.from_pixels(PP_TRAIN_ROWS, config.num_frames, config.height,
+                                         config.width, channels=tcfg.in_channels)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows, tokens = PP_TRAIN_ROWS, shape.token_count
+    latent = torch.randn(rows, tokens, tcfg.in_channels, generator=gen, device=device)
+    context = torch.randn(rows, 1024, tcfg.caption_channels, generator=gen,
+                          device=device).bfloat16()
+    sigma = torch.sigmoid(torch.randn(rows, generator=gen, device=device))
+    noise = torch.randn(rows, tokens, tcfg.in_channels, generator=gen, device=device)
+    mask = torch.ones(rows, 1024, dtype=torch.int64, device=device)
+    mask[:, :TP_CONTEXT_PAD] = 0
+    cos, sin = video_rope(shape.frames, shape.height, shape.width, tcfg.inner_dim,
+                          tcfg.num_heads, theta=tcfg.rope_theta, max_pos=tcfg.max_pos)
+    rope = (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
+    return latent, context, rope, sigma, noise, prepare_additive_mask(mask)
+
+
+def pp_train_gradients(model, inputs) -> dict:
+    """The LoRA train step's forward and backward on `model` (whole, or this
+    stage's with its plan; bf16, per-block remat): {"loss", "grad_norm",
+    "grads": {name in the whole DiT: f32 host array}}, the gradients reduced
+    as the step reduces them (`train.step.step_gradients`) and normed as it
+    norms them. The optimizer's update, the same elementwise arithmetic on
+    every rank, is left out."""
+    from ltx_tpu_torch.train import step as tstep
+
+    tc = TrainConfig(lora_only=True, remat=True, compute_dtype=torch.bfloat16)
+    trainable, _, _ = init_train_state(model, tc)
+    tokens, context, rope, sigma, noise, bias = inputs
+    loss, _ = flow_match_loss(model, tokens, context, rope, sigma, noise, context_bias=bias,
+                              remat=tc.remat, compute_dtype=tc.compute_dtype)
+    grads = tstep.step_gradients(model, trainable, loss)
+    norm = tstep.sharded_global_norm(model)(grads)
+    first = model.pp_plan.first if model.pp_plan is not None else 0
+
+    def whole(name):
+        _, i, rest = name.split(".", 2)
+        return f"blocks.{int(i) + first}.{rest}"
+
+    return {"loss": float(loss.detach()), "grad_norm": float(norm),
+            "grads": {whole(n): g.float().cpu().numpy() for n, g in grads.items()}}
 
 
 def parallel_decode_inputs(spec: dict, device):
@@ -2207,7 +2300,8 @@ def parallel_rank(rank: int, spec: dict) -> dict:
     """One rank of a gloo world (chip_smoke's phase 7, through
     `parallel.spawn.run_world`): ring attention over RING_CASES, one TP
     denoise step of the seeded full-size DiT in bf16 and quantized to int4
-    on its shards, and the sharded decode of the north star's latent."""
+    on its shards, the sharded decode of the north star's latent, and the
+    pipeline-parallel steps (`pp_rank`)."""
     import torch.distributed as dist
 
     from ltx_tpu_torch.models.vae import decode_video_sharded
@@ -2238,7 +2332,6 @@ def parallel_rank(rank: int, spec: dict) -> dict:
     for tag in ("bf16", "int4"):
         if tag == "int4":  # (c) the same step on the shards quantized to int4
             quantize_transformer(model, bits=4, group_size=64)
-        tp_step_velocity(model, config, inputs)  # warm-up
         reset_tp_counts()
         sync(device)
         t0 = time.perf_counter()
@@ -2256,5 +2349,53 @@ def parallel_rank(rank: int, spec: dict) -> dict:
         frames = decode_video_sharded(decoder, latent, mesh, timestep=None, tile_overlap=1)
     out["frames_digest"] = _digest(frames)
     out["frames"] = frames if rank == 0 else None
+    del decoder, latent, frames
+    out.update(pp_rank(spec, device, sync))
+    return out
+
+
+def pp_rank(spec: dict, device, sync) -> dict:
+    """Pipeline parallelism on a (1, world) mesh: (e) this stage's blocks of
+    the seeded full-size DiT drawn alone, one denoise step of one row (one
+    microbatch), the guided step (two rows, two microbatches), the int4
+    step on the stage's blocks quantized in place; (f) the LoRA train
+    step's forward and backward of the DiT cut to PP_TRAIN_BLOCKS blocks,
+    two rows, two microbatches."""
+    import torch.distributed as dist
+
+    from ltx_tpu_torch.parallel import runtime
+
+    pp_mesh = runtime.make_pp_mesh(1, dist.get_world_size())
+    tcfg, out = spec["tcfg"], {}
+    t0 = time.perf_counter()
+    model = seeded_module_(LTXTransformer(tcfg, device="meta"), device, PARALLEL_DIT_SEED,
+                           pp_mesh=pp_mesh)
+    sync(device)
+    out["pp_stage"] = (model.pp_plan.first, len(model.blocks), time.perf_counter() - t0)
+    steps = (("pp_bf16", spec["config"], 1), ("pp_guided", spec["guided"], 2),
+             ("pp_int4", spec["config"], 1))
+    for tag, config, rows in steps:
+        if tag == "pp_int4":
+            quantize_transformer(model, bits=4, group_size=64)
+        inputs = tp_step_inputs(tcfg, config, device, rows=rows)
+        reset_tp_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        vel = tp_step_velocity(model, config, inputs)
+        out[tag] = {"velocity": vel.numpy(), "counts": tp_counts(),
+                    "shared_card_seconds": time.perf_counter() - t0}
+    del model, inputs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    model = pp_train_model(tcfg, device, pp_mesh)
+    inputs = pp_train_inputs(tcfg, spec["config"], device)
+    reset_tp_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    res = pp_train_gradients(model, inputs)
+    out["pp_train"] = {**res, "counts": tp_counts(),
+                       "shared_card_seconds": time.perf_counter() - t0}
+    if device.type == "cuda":
+        out["pp_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     return out
 

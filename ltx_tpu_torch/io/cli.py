@@ -8,10 +8,10 @@ generation goes through `SeededPipeline`, which draws the noise from
 for the same seed on the same device). Weights come from the local models
 directory (nothing is downloaded); `--dry-run` validates the configuration
 without loading. `--mesh DATA,MODEL` shards the pipeline over a mesh of
-processes (`LTXPipeline.shard`): every process runs the same command,
-started by torchrun or with `--coordinator HOST:PORT --num-processes N
---process-id I`, and rank 0 writes the outputs. `--mesh-pp` (pipeline
-parallelism) raises NotImplementedError (ROADMAP A18b).
+processes (`LTXPipeline.shard`), `--mesh-pp DATA,PIPE` splits its DiTs
+into pipeline stages (`LTXPipeline.shard_pp`): every process runs the same
+command, started by torchrun or with `--coordinator HOST:PORT
+--num-processes N --process-id I`, and rank 0 writes the outputs.
 
 Run it as `python -m ltx_tpu_torch.io.cli ...` or `ltx-video-torch ...`.
 """
@@ -150,8 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Shard over a (data, model) mesh of processes: TP "
                         "over the model axis, guidance rows over the data axis")
     g.add_argument("--mesh-pp", default=None, metavar="DATA,PIPE",
-                   help="Pipeline-parallel (data, pipe) mesh; not ported "
-                        "yet (ROADMAP A18b)")
+                   help="Pipeline-parallel (data, pipe) mesh of processes: "
+                        "the DiTs' blocks in stages over the pipe axis, "
+                        "guidance rows over the data axis")
     g.add_argument("--mesh-slices", type=int, default=None, metavar="N",
                    help="Slices of a --mesh: contiguous rank groups the model "
                         "axis may not cross")
@@ -393,6 +394,8 @@ def _resolve_memory(args, config, budget_gb=None):
     est = estimate_memory_gb(shape, rows, bits,
                              vae_tile_size=memory.vae_tile_size,
                              audio=args.audio)
+    # --mesh-pp does not suppress it: only the DiTs' blocks split, Gemma and
+    # the VAE stay whole on every rank (TP shards Gemma too)
     if est > budget_gb and not args.mesh:
         rec = recommended_memory_preset(shape, rows, bits, audio=args.audio,
                                         budget_gb=budget_gb)
@@ -415,13 +418,6 @@ def _resolve_memory(args, config, budget_gb=None):
         # format choice
         memory = _dc.replace(memory, decode_transfer=args.decode_transfer)
     return memory
-
-
-def _check_not_pp(args) -> None:
-    """--mesh-pp: pipeline parallelism, ROADMAP A18b."""
-    if args.mesh_pp:
-        raise NotImplementedError("--mesh-pp: pipeline-parallel generation is not "
-                                  "ported yet (ROADMAP A18b)")
 
 
 def _shared_seed(seed):
@@ -587,12 +583,12 @@ def cmd_generate(args) -> int:
         print(f"  {config}")
         return 0
 
-    _check_not_pp(args)
     mesh_shape = None
-    if args.mesh:
-        mesh_shape = _parse_mesh(args.mesh)
+    if args.mesh or args.mesh_pp:
+        mesh_shape = _parse_mesh(args.mesh or args.mesh_pp)
         if mesh_shape is None:
-            print(f"error: --mesh expects DATA,MODEL, got {args.mesh!r}", file=sys.stderr)
+            print(f"error: --mesh expects DATA,MODEL, got {args.mesh!r}" if args.mesh else
+                  f"error: --mesh-pp expects DATA,PIPE, got {args.mesh_pp!r}", file=sys.stderr)
             return 2
     # the reference checks these after the load; same messages and code,
     # before minutes of loading
@@ -630,10 +626,15 @@ def cmd_generate(args) -> int:
         quant_cache=not args.no_quant_cache,
         device=args.device,
     ))
-    if mesh_shape is not None:
+    if args.mesh:
         data, model = mesh_shape
         pipe.shard(runtime.make_hybrid_mesh(data=data, model=model,
                                             slices=args.mesh_slices))
+    elif args.mesh_pp:
+        data, stages = mesh_shape
+        pipe.shard_pp(runtime.make_hybrid_mesh(data=data, model=stages,
+                                               axis_names=("data", "pipe"),
+                                               slices=args.mesh_slices))
 
     def on_progress(step, total, sigma):
         if rank == 0:

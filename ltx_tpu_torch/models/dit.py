@@ -11,6 +11,8 @@ linears for int8 / int4 `QuantizedLinear`s or `W8A8Linear`s, as the reference's
 `quantize_transformer_params` quantizes the tree. For training, `remat`
 and `remat_segments` rematerialise the blocks with
 torch.utils.checkpoint, as the reference's jax.checkpoint over its scan.
+A module split into pipeline stages (`parallel.pipeline.shard_pp`) holds
+its stage's blocks and runs them through the GPipe schedule.
 """
 
 from __future__ import annotations
@@ -229,10 +231,12 @@ class LTXTransformer(nn.Module):
         return output_head(x, self.scale_shift_table, embedded_ts, self.proj_out,
                            self.cfg.norm_eps)
 
+    pp_plan = None  # set by parallel.pipeline.shard_pp
+
     def forward(self, latent, context, timesteps, rope, context_bias=None,
                 remat: bool = False, remat_segments: int = 0,
                 skip_self_attn=None, skip_ff=None, cross_attn_scale=None,
-                sdpa_impl: str = "auto"):
+                sdpa_impl: str = "auto", pp_microbatches=None):
         """Velocity prediction.
 
         latent: (B, T, C) patchified tokens; context: (B, S, caption
@@ -248,37 +252,69 @@ class LTXTransformer(nn.Module):
         num_layers / S blocks with each block inside checkpointed too, as
         the reference's segmented remat (two extra forwards; S must divide
         num_layers). sdpa_impl: the attentions' `ops.attention.sdpa` route
-        ("ring": sequence-parallel self-attention)."""
+        ("ring": sequence-parallel self-attention).
+
+        Split into pipeline stages (`pp_plan`): the reference's
+        dit_forward_pp. The prepare part runs on this data rank's rows, the
+        stage's blocks through the GPipe schedule in pp_microbatches
+        microbatches (default the plan's; `parallel.pipeline.run_stage`),
+        the head once (`head_once`), the rows gathered back; the masks and
+        scales stay indexed by the whole module's block; remat per block and
+        remat_segments unused, as the reference's."""
+        plan, blocks = self.pp_plan, list(self.blocks)
+        first, layers = 0, len(blocks)
+        if plan is not None:
+            from ltx_tpu_torch.parallel import pipeline
+
+            rows, n_mb = pipeline.data_rows(plan, latent.shape[0], pp_microbatches)
+            latent, context, timesteps = latent[rows], context[rows], timesteps[rows]
+            context_bias = pipeline.rows_of(context_bias, rows)
+            skip_self_attn = None if skip_self_attn is None else skip_self_attn[:, rows]
+            skip_ff = None if skip_ff is None else skip_ff[:, rows]
+            first, layers = plan.first, plan.layers
         b = latent.shape[0]
         dtype = latent.dtype
         x = self.patchify_proj(latent)
         ts_emb, embedded_ts = self.prepare_timestep(timesteps, b, dtype)
         ctx = self.caption_projection_forward(context.to(dtype))
         ctx = ctx.reshape(b, -1, self.cfg.inner_dim)
+        scales = None
+        if cross_attn_scale is not None:
+            # indexed by the whole module's block, as the masks are
+            scales = torch.as_tensor(cross_attn_scale, dtype=torch.float32,
+                                     device=x.device).broadcast_to(layers)
+        per_block = skip_self_attn is not None or skip_ff is not None or scales is not None
+
+        def extras(cols=slice(None)):
+            """Per block, () or its (skip_self_attn, skip_ff, cross_attn_scale)
+            of the rows `cols`."""
+            if not per_block:
+                return [()] * len(blocks)
+            return [(None if skip_self_attn is None else skip_self_attn[first + i, cols],
+                     None if skip_ff is None else skip_ff[first + i, cols],
+                     None if scales is None else scales[first + i]) for i in range(len(blocks))]
+
+        if plan is not None:
+            (x,) = pipeline.run_stage(
+                plan, blocks, lambda xs, aux, cols: (_run_blocks(
+                    blocks, extras(cols), xs[0], *aux, rope,
+                    pipeline.rows_of(context_bias, cols), remat=remat, sdpa_impl=sdpa_impl),),
+                (x,), (ctx, ts_emb), n_mb)
+            return pipeline.head_once(plan, lambda y: (self.output_head(y, embedded_ts),),
+                                      (x,))[0]
         args = (ctx, ts_emb, rope, context_bias)
-        blocks = list(self.blocks)
-        extras = [()] * len(blocks)
-        if skip_self_attn is not None or skip_ff is not None \
-                or cross_attn_scale is not None:
-            scales = None
-            if cross_attn_scale is not None:
-                scales = torch.as_tensor(cross_attn_scale, dtype=torch.float32,
-                                         device=x.device).broadcast_to(len(blocks))
-            extras = [(None if skip_self_attn is None else skip_self_attn[i],
-                       None if skip_ff is None else skip_ff[i],
-                       None if scales is None else scales[i])
-                      for i in range(len(blocks))]
         if remat_segments and remat_segments > 1:
             if len(blocks) % remat_segments:
                 raise ValueError(f"remat_segments {remat_segments} must divide "
                                  f"num_layers {len(blocks)}")
             per = len(blocks) // remat_segments
+            every = extras()
             for i in range(0, len(blocks), per):
                 # each block inside the segment checkpointed too
-                x = _remat(_run_blocks, blocks[i:i + per], extras[i:i + per], x, *args, True,
+                x = _remat(_run_blocks, blocks[i:i + per], every[i:i + per], x, *args, True,
                            remat=True, sdpa_impl=sdpa_impl)
         else:
-            x = _run_blocks(blocks, extras, x, *args, remat=remat, sdpa_impl=sdpa_impl)
+            x = _run_blocks(blocks, extras(), x, *args, remat=remat, sdpa_impl=sdpa_impl)
         return self.output_head(x, embedded_ts)
 
 

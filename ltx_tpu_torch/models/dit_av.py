@@ -18,6 +18,8 @@ are an nn.ModuleList run in a Python loop; parameter names follow
 ltx_tpu.models.dit_av.init_params. The reference's rematerialisation is
 ported for the AV train step (`forward(remat=, remat_segments=)`, as the
 video DiT's); both default to off, so inference records nothing extra.
+A module split into pipeline stages (`parallel.pipeline.shard_pp`) holds
+its stage's dual blocks and runs them through the GPipe schedule.
 """
 
 from __future__ import annotations
@@ -223,9 +225,12 @@ class LTXAVTransformer(nn.Module):
                              gate_a.reshape(batch, -1, 1, da)], dim=2).to(dtype)
         return cross_v, cross_a
 
+    pp_plan = None  # set by parallel.pipeline.shard_pp
+
     def forward(self, video_latent, audio_latent, video_context, audio_context,
                 video_timesteps, audio_timesteps, ropes, video_bias=None, audio_bias=None,
-                remat: bool = False, remat_segments: int = 0, sdpa_impl: str = "auto"):
+                remat: bool = False, remat_segments: int = 0, sdpa_impl: str = "auto",
+                pp_microbatches=None):
         """(video velocity (B, Tv, C), audio velocity (B, Ta, C_audio)).
 
         video_latent (B, Tv, C) patchified; audio_latent (B, Ta, C_audio)
@@ -238,7 +243,24 @@ class LTXAVTransformer(nn.Module):
         num_layers / S blocks, each block inside checkpointed too, as the
         video DiT's `LTXTransformer.forward` (S must divide num_layers).
         sdpa_impl: the attentions' `ops.attention.sdpa` route ("ring":
-        sequence-parallel self-attention where the token count allows)."""
+        sequence-parallel self-attention where the token count allows).
+
+        Split into pipeline stages (`pp_plan`): the reference's
+        dit_av_forward_pp, as the video DiT's `forward` (the prepare part
+        on this data rank's rows, the (video, audio) pair through the
+        stage's blocks in pp_microbatches microbatches, the heads once, the
+        rows gathered back); remat per block and remat_segments unused, as
+        the reference's."""
+        plan = self.pp_plan
+        if plan is not None:
+            from ltx_tpu_torch.parallel import pipeline
+
+            rows, n_mb = pipeline.data_rows(plan, video_latent.shape[0], pp_microbatches)
+            video_latent, audio_latent, video_context, audio_context, video_timesteps, \
+                audio_timesteps = (t[rows] for t in (video_latent, audio_latent, video_context,
+                                                     audio_context, video_timesteps,
+                                                     audio_timesteps))
+            video_bias, audio_bias = (pipeline.rows_of(t, rows) for t in (video_bias, audio_bias))
         b = video_latent.shape[0]
         dt = video_latent.dtype
         dv, da = self.cfg.inner_dim, self.cfg.audio_inner_dim
@@ -249,8 +271,21 @@ class LTXAVTransformer(nn.Module):
             self.audio_patchify_proj, self.audio_adaln_single, self.audio_caption_projection,
             audio_latent, audio_context, audio_timesteps, da, b, dt)
         cross_v, cross_a = self.cross_modal_modulation(scaled_v, scaled_a, b, dt)
-        args = (ctx_v, ctx_a, ts_v, ts_a, cross_v, cross_a, ropes, video_bias, audio_bias)
+        eps = self.cfg.norm_eps
+
+        def head(v, a):
+            return (output_head(v, self.scale_shift_table, emb_v, self.proj_out, eps),
+                    output_head(a, self.audio_scale_shift_table, emb_a, self.audio_proj_out, eps))
+
         blocks = list(self.blocks)
+        if plan is not None:
+            xs = pipeline.run_stage(
+                plan, blocks, lambda x, aux, cols: _run_av_blocks(
+                    blocks, *x, *aux, ropes, pipeline.rows_of(video_bias, cols),
+                    pipeline.rows_of(audio_bias, cols), remat=remat, sdpa_impl=sdpa_impl),
+                (video_x, audio_x), (ctx_v, ctx_a, ts_v, ts_a, cross_v, cross_a), n_mb)
+            return pipeline.head_once(plan, head, xs)
+        args = (ctx_v, ctx_a, ts_v, ts_a, cross_v, cross_a, ropes, video_bias, audio_bias)
         if remat_segments and remat_segments > 1:
             if len(blocks) % remat_segments:
                 raise ValueError(f"remat_segments {remat_segments} must divide "
@@ -264,10 +299,7 @@ class LTXAVTransformer(nn.Module):
         else:
             video_x, audio_x = _run_av_blocks(blocks, video_x, audio_x, *args, remat=remat,
                                               sdpa_impl=sdpa_impl)
-        eps = self.cfg.norm_eps
-        return (output_head(video_x, self.scale_shift_table, emb_v, self.proj_out, eps),
-                output_head(audio_x, self.audio_scale_shift_table, emb_a,
-                            self.audio_proj_out, eps))
+        return head(video_x, audio_x)
 
 
 def _run_av_blocks(blocks, video_x, audio_x, *args, remat: bool = False,

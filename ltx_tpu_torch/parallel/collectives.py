@@ -10,14 +10,17 @@ run, read), by operation:
   activation scale of a row-parallel linear);
 * "all_gather": the group's tensors concatenated along a dim (`all_gather`);
 * "send_recv": one ring hop, a send to the next rank and a receive from the
-  previous (`ring_shift`);
+  previous (`ring_shift`; a pipeline stage's hop is one, by +1, and its
+  adjoint in the backward one by -1);
+* "broadcast": one rank's tensor copied to every rank of the group
+  (`broadcast`: the last pipeline stage's outputs);
 * "host_staged": the calls above that went through host memory.
 
 Two ranks that share one card run over gloo, which moves every CUDA tensor
 through host memory. It takes CUDA tensors for an all-reduce and copies
-them to the host and back itself; it does not take them for an all-gather
-or a point-to-point transfer, so those calls copy the tensor to pinned host
-memory here, run there and copy back. Every such call counts in
+them to the host and back itself; it does not take them for an all-gather,
+a broadcast or a point-to-point transfer, so those calls copy the tensor to
+pinned host memory here, run there and copy back. Every such call counts in
 "host_staged" as well: named and counted, never silent.
 
 The autograd functions carry the collectives' adjoints: `reduce_from`
@@ -35,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 counts = {"all_reduce": 0, "all_reduce_max": 0, "all_gather": 0, "send_recv": 0,
-          "host_staged": 0}
+          "broadcast": 0, "host_staged": 0}
 
 
 def reset_counts() -> None:
@@ -120,6 +123,28 @@ def ring_shift(tensors, mesh, axis: str, step: int = 1) -> list:
     for w in ops:
         w.wait()
     return [r.to(device, non_blocking=False) if staged else r for r, staged, device in out]
+
+
+def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+    """The tensor of the rank at index `src` along `axis`, written into `t`
+    on every rank of the group (all of t's shape and dtype); returns `t`.
+    The bytes travel, whatever the dtype."""
+    group = mesh.group(axis)
+    if group is None:
+        return t
+    counts["broadcast"] += 1
+    root = mesh.axis_ranks(axis)[src]
+    if _staged(t, group):
+        counts["host_staged"] += 1
+        host = _to_host(t)
+        dist.broadcast(host.reshape(-1).view(torch.uint8), root, group=group)
+        t.copy_(host)
+        return t
+    buf = t if t.is_contiguous() else t.contiguous()
+    dist.broadcast(buf.reshape(-1).view(torch.uint8), root, group=group)
+    if buf is not t:
+        t.copy_(buf)
+    return t
 
 
 def chunk_of(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:

@@ -10,7 +10,8 @@ rank is one process (torchrun, or `--coordinator` / `--num-processes` /
   gloo for CPU ones unless `backend=` names one (two ranks that share one
   card must use gloo: NCCL refuses two ranks on one device). The choice is
   printed, never changed behind the caller's back.
-* `Mesh` is a (data, model) grid of ranks. When the process group spans
+* `Mesh` is a (data, model) grid of ranks (("data", "pipe") for pipeline
+  parallelism, `make_pp_mesh`). When the process group spans
   more than one rank it is backed by a `torch.distributed.device_mesh.
   DeviceMesh`, whose per-axis process groups the collectives use; a mesh
   whose axes all have size 1 needs no process group and runs no collective.
@@ -182,6 +183,19 @@ def make_mesh(data: int = 1, model: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(np.asarray(ranks[:need]).reshape(data, model), ("data", "model"))
 
 
+def make_pp_mesh(data: int = 1, pipe: Optional[int] = None, devices=None) -> Mesh:
+    """A ("data", "pipe") mesh over the first data * pipe ranks, row-major
+    (the reference's parallel/pipeline.py::make_pp_mesh). Default: every
+    rank on the pipe axis."""
+    ranks = _rank_list(devices)
+    n = len(ranks)
+    if pipe is None:
+        pipe = n // data
+    if data * pipe > n:
+        raise InvalidConfigurationError(f"mesh {data}x{pipe} needs {data * pipe} devices, have {n}")
+    return Mesh(np.asarray(ranks[:data * pipe]).reshape(data, pipe), ("data", "pipe"))
+
+
 def _group_by_slice(ranks: list, slices: Optional[int]) -> list:
     """-> the per-slice rank lists, contiguous within each. Without
     `slices` every rank is one slice (the port knows no slice topology)."""
@@ -203,7 +217,7 @@ def make_hybrid_mesh(data: int = 1, model: Optional[int] = None,
     data/slices rows of `model` ranks, rows ordered slice-major, so only the
     data axis's outer stride crosses slices. With one slice this is
     `make_mesh`'s layout. axis_names=("data", "pipe") names the
-    pipeline-parallel variant's axes (its use is ROADMAP A18b)."""
+    pipeline-parallel variant's axes (`--mesh-pp`, `parallel.pipeline`)."""
     groups = _group_by_slice(_rank_list(devices), slices)
     n_slice = len(groups)
     per_slice = len(groups[0])

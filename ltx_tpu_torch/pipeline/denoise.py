@@ -3,9 +3,10 @@ guidance combine -> Euler, per sigma.
 
 Port of ltx_tpu/pipeline/denoise.py: `GuidanceSpec`, `build_guidance_context`
 and its batched form, `make_denoise_step` and the dual audio-video
-`make_av_denoise_step` (all but their pipeline-parallel branch, ROADMAP
-A18b), `run_denoise_loop` (with the DenoiseCheckpoint resume) and
-`run_av_denoise_loop`. The steps run eagerly; the reference compiles each
+`make_av_denoise_step` (with their pipeline-parallel branch: a DiT split
+by `parallel.pipeline.shard_pp` runs the GPipe schedule, the guidance rows
+its microbatches), `run_denoise_loop` (with the DenoiseCheckpoint resume)
+and `run_av_denoise_loop`. The steps run eagerly; the reference compiles each
 once.
 
 Row layout (CFG order, uncond first):
@@ -42,6 +43,7 @@ from ltx_tpu_torch.ops.latents import (
 )
 from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.ops.schedule import euler_step
+from ltx_tpu_torch.parallel.pipeline import check_plan
 from ltx_tpu_torch.parallel.sharding import data_rows, gather_rows
 
 
@@ -160,12 +162,6 @@ def _check_draw(noise, like, what: str):
     return noise.to(like.device, torch.float32)
 
 
-def _no_pp(pp_mesh) -> None:
-    if pp_mesh is not None:
-        raise NotImplementedError("pipeline-parallel denoise is not ported yet "
-                                  "(ROADMAP A18b)")
-
-
 def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
                       shape: VideoLatentShape, context, context_bias,
                       conditioning_mask=None, conditioned_latent=None,
@@ -193,9 +189,14 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
     self-attention over `ops.attention.set_sequence_parallel`'s mesh). A
     DiT sharded over a mesh (`parallel.sharding.shard_transformer`) with a
     data axis that divides the B*G rows runs this rank's rows only; the
-    velocities are gathered whole before the guidance combine. pp_mesh
-    (pipeline parallelism) is ROADMAP A18b."""
-    _no_pp(pp_mesh)
+    velocities are gathered whole before the guidance combine.
+
+    A DiT split into pipeline stages (`parallel.pipeline.shard_pp`) runs
+    the GPipe schedule, the guidance rows its microbatches (the plan's
+    count; default one a row), the rows over the mesh's data axis, the
+    velocities whole on every rank. pp_mesh, the reference's argument, must
+    be that mesh (InvalidConfigurationError otherwise)."""
+    check_plan(transformer, pp_mesh)
     tcfg = transformer.cfg
     g = guidance.num_rows
     b = shape.batch
@@ -327,9 +328,10 @@ def make_av_denoise_step(transformer: LTXAVTransformer, guidance: GuidanceSpec,
     video_euler: "scheduler" (f32 Euler with the bf16 round trip) or
     "plain" (x += (sigma_next - sigma) * v, the reference's video step in
     stage 2 of the two-stage audio path). The audio step is always plain.
-    sdpa_impl and the guidance rows over a data axis as make_denoise_step's.
-    pp_mesh (the reference's pipeline-parallel blocks) is ROADMAP A18b."""
-    _no_pp(pp_mesh)
+    sdpa_impl, the guidance rows over a data axis and a DiT split into
+    pipeline stages (pp_mesh) as make_denoise_step's; the (video, audio)
+    activation pair hops between stages together."""
+    check_plan(transformer, pp_mesh)
     if guidance.use_stg:
         raise ValueError("STG is not supported on the audio+video path")
     if video_euler not in ("scheduler", "plain"):

@@ -211,6 +211,8 @@ class LTXPipeline:
         self.tecfg = text_encoder.cfg if text_encoder is not None else None
         self._host_store = {}  # name -> host tensors of a staged component
         self.mesh = None  # the (data, model) mesh of `shard`
+        self.pp_mesh = None  # the (data, pipe) mesh of `shard_pp`
+        self.pp_microbatches = None
         self._to_shard = set()  # staged components sharded when their phase starts
 
     @classmethod
@@ -341,8 +343,33 @@ class LTXPipeline:
         now; one staged on the host (phase staging) when its phase starts
         (`_on_device`). Every process of the mesh builds the same pipeline
         and calls this. Returns the pipeline."""
+        if self.pp_mesh is not None:
+            raise InvalidConfigurationError("shard() and shard_pp() are mutually exclusive")
         self.mesh = mesh
-        for name in self._TP_SHARDED:
+        self._place(self._TP_SHARDED)
+        return self
+
+    def shard_pp(self, mesh, n_microbatches=None):
+        """Pipeline-parallel placement over a (data, pipe) mesh (the
+        reference's `shard_pp`): the video DiT and the dual DiT keep this
+        stage's contiguous blocks (`parallel.pipeline.shard_pp`), every
+        other component stays whole on every rank and the decode is not
+        split; every denoise step runs the GPipe schedule with the guidance
+        rows as its microbatches (n_microbatches of them, default one a
+        row) and the rows over the data axis. A DiT on the device is split
+        now; one staged on the host (phase staging) when its phase starts
+        (`_on_device`). Every process of the mesh builds the same pipeline
+        and calls this. Returns the pipeline."""
+        if self.mesh is not None:
+            raise InvalidConfigurationError("shard() and shard_pp() are mutually exclusive")
+        self.pp_mesh, self.pp_microbatches = mesh, n_microbatches
+        self._place(("transformer", "av_transformer"))
+        return self
+
+    def _place(self, names) -> None:
+        """Split the named components over the mesh: now, or when their
+        phase starts for one staged on the host."""
+        for name in names:
             module = getattr(self, name)
             if module is None:
                 continue
@@ -350,14 +377,6 @@ class LTXPipeline:
                 self._to_shard.add(name)
             else:
                 self._shard_component(name, module)
-        return self
-
-    def shard_pp(self, mesh, n_microbatches=None):
-        """Pipeline-parallel placement: ROADMAP A18b."""
-        if self.mesh is not None:
-            raise InvalidConfigurationError("shard() and shard_pp() are mutually exclusive")
-        raise NotImplementedError("pipeline parallelism (shard_pp) is not ported yet "
-                                  "(ROADMAP A18b)")
 
     def _sharded_decode(self, latent_frames: int) -> bool:
         """The decode splits its frames over the mesh's model axis: a model
@@ -366,9 +385,11 @@ class LTXPipeline:
                 and latent_frames >= self.mesh.shape["model"])
 
     def _shard_component(self, name: str, module) -> None:
-        from ltx_tpu_torch.parallel import sharding
+        from ltx_tpu_torch.parallel import pipeline, sharding
 
-        if name == "gemma":
+        if self.pp_mesh is not None:
+            pipeline.shard_pp(module, self.pp_mesh, self.pp_microbatches)
+        elif name == "gemma":
             sharding.shard_gemma(module, self.mesh)
         else:
             sharding.shard_transformer(module, self.mesh)
@@ -670,7 +691,7 @@ class LTXPipeline:
             self._on_device("transformer", timings), guidance, shape, context, bias,
             conditioning_mask=conditioning_mask, conditioned_latent=conditioned_latent,
             image_cond_noise_scale=cond_noise_scale, cond_frames=cond_frames,
-            cond_frame_idx=cond_frame_idx, fps=fps)
+            cond_frame_idx=cond_frame_idx, fps=fps, pp_mesh=self.pp_mesh)
 
         def on_step(i, n, sigma):
             now = time.perf_counter()
@@ -1466,7 +1487,7 @@ class LTXPipeline:
             cond_frames=cond_frames, cond_frame_idx=cond_frame_idx,
             audio_cond_frames=audio_cond_frames,
             audio_conditioned_latent=audio_conditioned_latent, fps=config.fps,
-            video_euler=video_euler)
+            video_euler=video_euler, pp_mesh=self.pp_mesh)
 
         def on_step(i, n, sigma):
             now = time.perf_counter()

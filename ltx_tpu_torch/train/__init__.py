@@ -1,7 +1,7 @@
 """Training: flow-matching LoRA fine-tuning of the DiT.
 
-Port of ltx_tpu/train/ (pipeline-parallel training is not ported yet, see
-ROADMAP A18b; dp+tp and ring training run through the mesh, train/step.py):
+Port of ltx_tpu/train/ (dp+tp, ring and pipeline-parallel training run
+through the mesh, train/step.py):
 
 * flow_match.py: the rectified-flow objective, the scheduler's conventions,
   for the video DiT and the dual audio-video DiT;

@@ -26,7 +26,12 @@ reference's arithmetic: the whole LoRA leaves of sharded linears sum their
 partial gradients over the model group, every gradient is averaged over
 the data group (each data rank trains on its own rows), the global norm
 counts a sharded leaf's squares once per shard and a whole leaf's once, and
-the reported loss is the data group's mean.
+the reported loss is the data group's mean. On a model split into pipeline
+stages (`parallel.pipeline.shard_pp`) every rank computes the whole batch's
+loss; a whole leaf's gradient is summed over the pipe group (the stages'
+parts, the head's counted once), every gradient over the data group, and
+the global norm counts each stage's blocks once
+(`parallel.pipeline.reduce_gradients`, `global_norm`).
 
 State counters are int32 tensors on the host; moments live beside the
 parameters. The state mirrors optax's tree, so that a checkpoint holds it
@@ -43,6 +48,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
+from ltx_tpu_torch.parallel import pipeline as pp
 from ltx_tpu_torch.train.flow_match import (
     av_flow_match_loss,
     check_sdpa_impl,
@@ -59,8 +65,8 @@ class TrainConfig:
     fields and defaults, with compute_dtype a torch dtype. sdpa_impl "xla"
     and "pallas" are one function here (the flash kernels on the card, their
     plain versions on the CPU); "ring" is sequence-parallel attention;
-    pp_mesh and pp_microbatches wait for pipeline parallelism (ROADMAP
-    A18b)."""
+    pp_mesh (the mesh `parallel.pipeline.shard_pp` split the model over)
+    and pp_microbatches (default the plan's) run the GPipe schedule."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
@@ -220,17 +226,18 @@ def init_train_state(model: nn.Module, tc: TrainConfig,
     return trainable, frozen, tx.init(trainable)
 
 
-def _check_parallel(tc: TrainConfig) -> None:
-    if tc.pp_mesh is not None or tc.pp_microbatches is not None:
-        raise NotImplementedError("pipeline-parallel training is not ported yet "
-                                  "(ROADMAP A18b)")
+def _check_parallel(model: nn.Module, tc: TrainConfig) -> None:
+    pp.check_plan(model, tc.pp_mesh)
     check_sdpa_impl(tc.sdpa_impl)
 
 
 def sharded_global_norm(model: nn.Module):
     """The global norm of a model sharded over a mesh: the squares of its
     sharded leaves (`model.tp_dims`) summed over the model group, a whole
-    leaf's counted once. `global_norm` for a model without a mesh."""
+    leaf's counted once; a pipelined model's by `parallel.pipeline.
+    global_norm`. `global_norm` for a model without a mesh."""
+    if getattr(model, "pp_plan", None) is not None:
+        return pp.global_norm(model)
     mesh = getattr(model, "tp_mesh", None)
     if mesh is None or not model.tp_dims:
         return global_norm
@@ -253,7 +260,10 @@ def sharded_global_norm(model: nn.Module):
 
 def _reduce_gradients(model: nn.Module, grads: Params) -> Params:
     """On a mesh: partial gradients of whole leaves summed over the model
-    group, then every gradient averaged over the data group."""
+    group, then every gradient averaged over the data group; a pipelined
+    model's by `parallel.pipeline.reduce_gradients`."""
+    if getattr(model, "pp_plan", None) is not None:
+        return pp.reduce_gradients(model, grads)
     mesh = getattr(model, "tp_mesh", None)
     if mesh is None:
         return grads
@@ -279,17 +289,24 @@ def _data_mean(model: nn.Module, aux: dict) -> dict:
     return {k: col.all_reduce(v.float().clone(), mesh, "data") / d for k, v in aux.items()}
 
 
-def _apply_gradients(model: nn.Module, tx: GradientTransformation, trainable: Params,
-                     opt_state: dict, loss, aux: dict):
-    """The gradients of `loss` in the trainable parameters (zero where one
-    is unused; reduced over the mesh, `_reduce_gradients`), the optimizer's
-    update written into them in place, and the detached metrics with the
-    gradients' global norm."""
+def step_gradients(model: nn.Module, trainable: Params, loss) -> Params:
+    """The gradients of `loss` in the trainable parameters, zero where one
+    is unused, reduced over the model's mesh (`_reduce_gradients`): what
+    the step hands its optimizer."""
     names = list(trainable)
     grads = torch.autograd.grad(loss, [trainable[n] for n in names], allow_unused=True)
     grads = {n: torch.zeros_like(trainable[n]) if g is None else g.contiguous()
              for n, g in zip(names, grads)}
-    grads = _reduce_gradients(model, grads)
+    return _reduce_gradients(model, grads)
+
+
+def _apply_gradients(model: nn.Module, tx: GradientTransformation, trainable: Params,
+                     opt_state: dict, loss, aux: dict):
+    """The step's gradients (`step_gradients`), the optimizer's update
+    written into the parameters in place, and the detached metrics with the
+    gradients' global norm."""
+    names = list(trainable)
+    grads = step_gradients(model, trainable, loss)
     updates, opt_state = tx.update(grads, opt_state, trainable)
     with torch.no_grad():
         for n in names:
@@ -311,7 +328,7 @@ def make_train_step(model: nn.Module, tc: TrainConfig,
     The trainable parameters are updated in place and returned; metrics
     hold the loss, the mean sigma and the gradients' global norm, as
     device tensors."""
-    _check_parallel(tc)
+    _check_parallel(model, tc)
     tx = optimizer if optimizer is not None else make_optimizer(tc, sharded_global_norm(model))
 
     def step(trainable: Params, opt_state: dict, tokens, context, rope, sigma, noise,
@@ -319,7 +336,8 @@ def make_train_step(model: nn.Module, tc: TrainConfig,
         loss, aux = flow_match_loss(
             model, tokens, context, rope, sigma, noise, context_bias=context_bias,
             sdpa_impl=tc.sdpa_impl, remat=tc.remat, remat_segments=tc.remat_segments,
-            compute_dtype=tc.compute_dtype)
+            compute_dtype=tc.compute_dtype, pp_mesh=tc.pp_mesh,
+            pp_microbatches=tc.pp_microbatches)
         return _apply_gradients(model, tx, trainable, opt_state, loss, aux)
 
     return step
@@ -340,7 +358,7 @@ def make_av_train_step(model: nn.Module, tc: TrainConfig,
     the draws are arguments, taken in the reference's order (video sigma,
     audio sigma, video noise, audio noise). Metrics hold "loss",
     "loss_video", "loss_audio" and "grad_norm"."""
-    _check_parallel(tc)
+    _check_parallel(model, tc)
     tx = optimizer if optimizer is not None else make_optimizer(tc, sharded_global_norm(model))
 
     def step(trainable: Params, opt_state: dict, video_tokens, audio_tokens, video_context,
@@ -351,7 +369,8 @@ def make_av_train_step(model: nn.Module, tc: TrainConfig,
             sigma_v, sigma_a, noise_v, noise_a, video_bias=video_bias,
             audio_bias=audio_bias, audio_loss_weight=audio_loss_weight,
             sdpa_impl=tc.sdpa_impl, remat=tc.remat, remat_segments=tc.remat_segments,
-            compute_dtype=tc.compute_dtype)
+            compute_dtype=tc.compute_dtype, pp_mesh=tc.pp_mesh,
+            pp_microbatches=tc.pp_microbatches)
         return _apply_gradients(model, tx, trainable, opt_state, loss, aux)
 
     return step

@@ -36,6 +36,7 @@ from ltx_tpu.pipeline import denoise as jdenoise
 from ltx_tpu_torch import convert
 from ltx_tpu_torch.config import (AudioVAEConfig, GenerationConfig, TransformerConfig,
                                   VocoderConfig)
+from ltx_tpu_torch.errors import InvalidConfigurationError
 from ltx_tpu_torch.io.video import export_wav
 from ltx_tpu_torch.models import audio_vae, dit_av
 from ltx_tpu_torch.models import dit as tdit
@@ -509,7 +510,7 @@ def test_av_step_refuses_what_the_reference_refuses():
     with pytest.raises(ValueError, match="STG"):
         denoise.make_av_denoise_step(StandInAV(), g, shape, AUDIO_FRAMES, ctx, ctx, None)
     g = denoise.GuidanceSpec.from_config(GenerationConfig())
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(InvalidConfigurationError, match="pp_mesh"):
         denoise.make_av_denoise_step(StandInAV(), g, shape, AUDIO_FRAMES, ctx, ctx, None,
                                      pp_mesh=object())
     with pytest.raises(ValueError, match="audio_cond_frames"):

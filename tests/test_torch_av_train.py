@@ -178,15 +178,6 @@ def test_av_segmented_remat_rejects_a_non_divisor(loss_case):
                            compute_dtype=torch.float32)
 
 
-def test_av_pipeline_parallel_raises(loss_case):
-    tree, batch, draws, _, _ = loss_case
-    model = convert.av_transformer(tree, CFG)
-    with pytest.raises(NotImplementedError, match="A18"):
-        av_flow_match_loss(model, *_port_inputs(batch), *draws, pp_mesh=object())
-    with pytest.raises(NotImplementedError, match="A18"):
-        step.make_av_train_step(model, step.TrainConfig(pp_mesh=object()))
-
-
 def test_av_train_steps_match_reference(lora_tree):
     """4 LoRA-only steps of the reference's test_av_lora_train_step in
     float32, fed the reference's draws (keys 100, 101, 100, 101); the port

@@ -6,8 +6,8 @@ combination of `cmd_generate` exits with the reference's code and message;
 each `cmd_generate` branch calls the SeededPipeline method the reference's
 branch calls on its pipeline, with the same arguments (recording fakes);
 real tiny runs on the CPU write their MP4 (and WAV) with the pixels of a
-direct SeededPipeline call; --mesh-pp raises NotImplementedError naming
-ROADMAP A18b, and `prepare-data` reaches
+direct SeededPipeline call; a --mesh-pp of more stages than processes
+fails as the reference's, and `prepare-data` reaches
 ltx_tpu_torch.train.prepare.run with its parsed arguments. Also the memory
 estimate and the enhancement micro-batch bound."""
 
@@ -187,8 +187,9 @@ def _run_port(argv, monkeypatch, tmp_path):
     from ltx_tpu_torch.pipeline import seeded
 
     calls, loads = [], []
+    stand_in = argparse.Namespace(shard_pp=lambda mesh: pytest.fail("a mesh of one process"))
     monkeypatch.setattr("ltx_tpu_torch.pipeline.loader.load_pipeline",
-                        lambda **kw: loads.append(kw) or object())
+                        lambda **kw: loads.append(kw) or stand_in)
     monkeypatch.setattr(seeded, "SeededPipeline", lambda pipe: _Recorder(calls))
     rc = pcli.main(["generate", *argv, "-o", str(tmp_path / "p.mp4"), "--device", "cpu"])
     return rc, calls, loads
@@ -266,24 +267,36 @@ def test_generate_branches_call_the_reference_entry_points(name, monkeypatch, tm
     assert (tmp_path / "p.mp4.wav").exists() == ("--audio" in BRANCHES[name])
 
 
-@pytest.mark.parametrize("argv, error", [
-    (["generate", "x", "--mesh", "1x8"], "--mesh expects DATA,MODEL"),
-    (["generate", "x", "--mesh-pp", "1,8"], "A18b"),
-    (["generate", "x", "--coordinator", "h:1", "--mesh-pp", "1,2"], "A18b"),
-    (["generate", "x", "--num-processes", "2", "--mesh", "2"], "--mesh expects DATA,MODEL"),
+@pytest.mark.parametrize("argv, rc, error", [
+    (["generate", "x", "--mesh", "1x8"], 2, "--mesh expects DATA,MODEL"),
+    (["generate", "x", "--mesh-pp", "1,8"], 1, "mesh 1x8 needs 8 devices, have 1"),
+    (["generate", "x", "--coordinator", "h:1", "--mesh-pp", "1,2"], 1,
+     "mesh 1x2 needs 2 devices, have 1"),
+    (["generate", "x", "--num-processes", "2", "--mesh", "2"], 2, "--mesh expects DATA,MODEL"),
 ], ids=["mesh", "mesh_pp", "coordinator", "num_processes"])
-def test_unported_surfaces_raise(argv, error, capsys):
-    """Pipeline parallelism (--mesh-pp) raises NotImplementedError naming
-    ROADMAP A18b; the mesh flags are checked before the process group is
-    joined and before any load (a malformed --mesh exits 2). A run with
-    --mesh, --coordinator and --num-processes is in
-    test_torch_parallel_pipeline.py."""
-    if "A18b" in error:
-        with pytest.raises(NotImplementedError, match=error):
-            pcli.main(argv)
+def test_unported_surfaces_raise(argv, rc, error, capsys, monkeypatch):
+    """A malformed --mesh exits 2 before the process group is joined and
+    before any load. A --mesh-pp of more stages than processes ends as the
+    reference's does for the same argv: its mesh raises
+    InvalidConfigurationError once the pipeline is loaded (exit 1, the
+    message on stderr). The load and the join are recorded, not made (no
+    address is contacted); --coordinator reaches the join. A run with
+    --mesh-pp on two processes is in test_torch_pp_pipeline.py, with --mesh
+    in test_torch_parallel_pipeline.py."""
+    joins, loads = [], []
+    monkeypatch.setattr("ltx_tpu_torch.parallel.runtime.initialize_distributed",
+                        lambda *a, **kw: joins.append(a) or False)
+    stand_in = argparse.Namespace(shard_pp=lambda mesh: pytest.fail("a mesh of one process"))
+    monkeypatch.setattr("ltx_tpu_torch.pipeline.loader.load_pipeline",
+                        lambda **kw: loads.append(kw) or stand_in)
+    monkeypatch.setattr(pcli, "memory_budget_gb", lambda device="cuda": REFERENCE_BUDGET_GB)
+    assert pcli.main(argv) == rc
+    assert error in capsys.readouterr().err
+    if rc == 1:
+        assert len(loads) == 1
+        assert joins == [("h:1" if "--coordinator" in argv else None, None, None)]
     else:
-        assert pcli.main(argv) == 2
-        assert error in capsys.readouterr().err
+        assert not loads and not joins
 
 
 def test_prepare_data_calls_the_port(monkeypatch):

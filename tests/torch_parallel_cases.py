@@ -366,3 +366,239 @@ def mesh_cases(rank: int, plan: dict) -> dict:
     out.update(_train_cli(plan, rank))
     out.update(_generate_cli(plan, rank))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: a world of 4 on (1, 4) and (2, 2) meshes, a world of
+# 2 for the pipeline and the CLI
+# ---------------------------------------------------------------------------
+
+
+def _global_name(plan, name: str) -> str:
+    """A stage's parameter name in the whole module (its blocks counted
+    from the stage's first)."""
+    if not name.startswith("blocks."):
+        return name
+    _, i, rest = name.split(".", 2)
+    return f"blocks.{int(i) + plan.first}.{rest}"
+
+
+def _stage_leaves(model, tensors: dict) -> dict:
+    return {_global_name(model.pp_plan, n): _np(t) for n, t in tensors.items()}
+
+
+def _pp_forwards(plan, col, pipeline, runtime):
+    from ltx_tpu_torch import convert
+
+    out = {}
+    args = (_t(plan["pp_x"]), _t(plan["pp_ctx"]), _t(plan["pp_t"]),
+            tuple(_t(a) for a in plan["pp_rope"]))
+    stg = dict(context_bias=_t(plan["pp_bias"]), skip_self_attn=torch.from_numpy(plan["pp_sa"]),
+               skip_ff=torch.from_numpy(plan["pp_ff"]), cross_attn_scale=_t(plan["pp_cas"]))
+    for data, pipe, n_mb in plan["pp_cases"]:
+        mesh = runtime.make_pp_mesh(data, pipe)
+        model = pipeline.shard_pp(convert.transformer(plan["pp_tree"], plan["pp_cfg"]), mesh,
+                                  n_mb)
+        col.reset_counts()
+        with torch.no_grad():
+            out[f"fwd_{data}x{pipe}_m{n_mb}"] = _np(pipeline.dit_forward_pp(model, *args, **stg))
+        out[f"fwd_{data}x{pipe}_m{n_mb}_counts"] = dict(col.counts)
+    model = pipeline.shard_pp(convert.transformer(plan["pp_tree"], plan["pp_cfg"]),
+                              runtime.make_pp_mesh(2, 2))
+    with torch.no_grad():
+        out["fwd_defaults"] = _np(model(*args, context_bias=_t(plan["pp_bias1"])))
+    av = pipeline.shard_pp(convert.av_transformer(plan["ppav_tree"], plan["pp_cfg"]),
+                           runtime.make_pp_mesh(2, 2), 2)
+    ropes = tuple(tuple(_t(a) for a in pair) for pair in plan["ppav_ropes"])
+    col.reset_counts()
+    with torch.no_grad():
+        v, a = pipeline.dit_av_forward_pp(
+            av, _t(plan["ppav_v"]), _t(plan["ppav_a"]), _t(plan["ppav_vctx"]),
+            _t(plan["ppav_actx"]), _t(plan["ppav_t"]), _t(plan["ppav_t"]) * 0.9, ropes,
+            video_bias=_t(plan["ppav_bias"]))
+    out["fwd_av"] = [_np(v), _np(a)]
+    out["fwd_av_counts"] = dict(col.counts)
+    return out
+
+
+def _pp_gradients(plan, col, pipeline, runtime):
+    """The latent's and every leaf's gradient of mean(v^2) through a (1, 4)
+    pipeline, two microbatches, each block rematerialised."""
+    from ltx_tpu_torch import convert
+
+    mesh = runtime.make_pp_mesh(1, 4)
+    model = pipeline.shard_pp(convert.transformer(plan["pp_tree"], plan["pp_cfg"]), mesh, 2)
+    model.requires_grad_(True)
+    lat = _t(plan["pp_x"]).requires_grad_(True)
+    v = model(lat, _t(plan["pp_ctx"]), _t(plan["pp_t"]), tuple(_t(a) for a in plan["pp_rope"]),
+              context_bias=_t(plan["pp_bias"]), remat=True)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(v.float().square().mean(), [lat, *params.values()],
+                                allow_unused=True)
+    leaves = {n: torch.zeros_like(params[n]) if g is None else g.clone()
+              for n, g in zip(params, grads[1:])}
+    pipeline.reduce_gradients(model, leaves)
+    # the latent feeds stage 0 alone: its gradient lives there
+    g_lat = torch.zeros_like(lat) if grads[0] is None else grads[0].clone()
+    return {"grad_leaves": _stage_leaves(model, leaves),
+            "grad_latent": _np(col.all_reduce(g_lat, mesh, "pipe"))}
+
+
+def _pp_train_steps(plan, pipeline, runtime):
+    """One full fine-tune step of the video DiT and of the dual DiT on a
+    (1, 4) pipeline, two microbatches."""
+    import dataclasses
+
+    from ltx_tpu_torch import convert
+    from ltx_tpu_torch.train import step as tstep
+
+    out = {}
+    mesh = runtime.make_pp_mesh(1, 4)
+    tc = dataclasses.replace(plan["pp_tc"], pp_mesh=mesh, pp_microbatches=2)
+    model = pipeline.shard_pp(convert.transformer(plan["pp_tree"], plan["pp_cfg"]), mesh)
+    trainable, _, opt = tstep.init_train_state(model, tc)
+    trainable, opt, aux = tstep.make_train_step(model, tc)(
+        trainable, opt, _t(plan["pp_x"]), _t(plan["pp_ctx"]),
+        tuple(_t(a) for a in plan["pp_rope"]), _t(plan["pp_sigma"]), _t(plan["pp_noise"]),
+        _t(plan["pp_bias"]))
+    out["step"] = (float(aux["loss"]), float(aux["grad_norm"]))
+    out["step_leaves"] = _stage_leaves(model, trainable)
+    av = pipeline.shard_pp(convert.av_transformer(plan["ppav_tree"], plan["pp_cfg"]), mesh)
+    tc = dataclasses.replace(plan["ppav_tc"], pp_mesh=mesh, pp_microbatches=2)
+    trainable, _, opt = tstep.init_train_state(av, tc)
+    ropes = tuple(tuple(_t(a) for a in pair) for pair in plan["ppav_ropes"])
+    b = 2
+    trainable, opt, aux = tstep.make_av_train_step(av, tc)(
+        trainable, opt, _t(plan["ppav_v"][:b]), _t(plan["ppav_a"][:b]),
+        _t(plan["ppav_vctx"][:b]), _t(plan["ppav_actx"][:b]), ropes,
+        *(_t(plan[k]) for k in ("ppav_sigma_v", "ppav_sigma_a", "ppav_noise_v",
+                                "ppav_noise_a")))
+    out["av_step"] = (float(aux["loss"]), float(aux["grad_norm"]))
+    out["av_step_leaves"] = _stage_leaves(av, trainable)
+    return out
+
+
+def _pp_denoise(plan, pipeline, runtime):
+    """The guided video step (CFG + STG: three rows, three microbatches) and
+    the guided dual step (CFG: two rows) of bf16 DiTs, whole and on a (1, 4)
+    pipeline."""
+    from ltx_tpu_torch import convert
+    from ltx_tpu_torch.pipeline import denoise
+
+    out = {}
+    mesh = runtime.make_pp_mesh(1, 4)
+    model = convert.transformer(plan["dn_tree"], plan["pp_cfg"])
+    lat = _t(plan["dn_latent"])
+    for tag in ("denoise_whole", "denoise"):
+        if tag == "denoise":
+            pipeline.shard_pp(model, mesh)
+        step = denoise.make_denoise_step(model, plan["dn_guidance"], plan["dn_shape"],
+                                         _t(plan["dn_ctx"]), _t(plan["dn_bias"]),
+                                         pp_mesh=model.pp_plan and mesh)
+        with torch.no_grad():
+            out[tag] = [_np(t) for t in step(lat, 0.9, 0.5, torch.zeros_like(lat))]
+    av = convert.av_transformer(plan["dnav_tree"], plan["pp_cfg"])
+    for tag in ("denoise_av_whole", "denoise_av"):
+        if tag == "denoise_av":
+            pipeline.shard_pp(av, mesh)
+        step = denoise.make_av_denoise_step(av, plan["dnav_guidance"], plan["dn_shape"],
+                                            plan["dnav_frames"], _t(plan["dnav_ctx"]),
+                                            _t(plan["dnav_ctx"]) * 0.9, None,
+                                            pp_mesh=av.pp_plan and mesh)
+        with torch.no_grad():
+            out[tag] = [_np(t) for t in step(_t(plan["dn_latent"]), _t(plan["dnav_audio"]),
+                                             0.9, 0.5)]
+    return out
+
+
+def pp_cases(rank: int, plan: dict) -> dict:
+    """Every world-of-4 pipeline-parallel case."""
+    from ltx_tpu_torch.parallel import collectives as col
+    from ltx_tpu_torch.parallel import pipeline, runtime
+
+    out = {"rank": rank}
+    out.update(_pp_forwards(plan, col, pipeline, runtime))
+    out.update(_pp_gradients(plan, col, pipeline, runtime))
+    out.update(_pp_train_steps(plan, pipeline, runtime))
+    out.update(_pp_denoise(plan, pipeline, runtime))
+    return out
+
+
+def _pp_pipeline(plan, memory):
+    """The tiny pipeline with audio from the reference's trees, on the CPU."""
+    from ltx_tpu_torch import convert
+    from ltx_tpu_torch.pipeline.generate import LTXPipeline
+
+    trees, cfgs = plan["pipe_trees"], plan["pipe_cfgs"]
+    return LTXPipeline(
+        transformer=convert.transformer(trees["transformer"], cfgs["transformer"]),
+        vae_decoder=convert.vae_decoder(trees["vae_decoder"], cfgs["vae"]),
+        gemma=convert.gemma(trees["gemma"], cfgs["gemma"]),
+        text_encoder=convert.text_encoder(trees["text_encoder"], cfgs["text_encoder"]),
+        av_transformer=convert.av_transformer(trees["av_transformer"], cfgs["transformer"]),
+        audio_vae=convert.audio_vae(trees["audio_vae"], cfgs["audio_vae"]),
+        vocoder=convert.vocoder(trees["vocoder"], cfgs["vocoder"]),
+        memory=memory, device="cpu")
+
+
+def _pp_runs(plan, pipe, col, audio: bool = True) -> dict:
+    """generate_video (with the collectives it ran) and, with `audio`,
+    generate_video_with_audio on `pipe`."""
+    col.reset_counts()
+    res = pipe.generate_video("pp e2e", plan["t2v_config"], _t(plan["t2v_noise"]))
+    out = {"t2v": np.asarray(res.frames), "t2v_counts": dict(col.counts),
+           "t2v_steps": len(res.timings.denoise_steps)}
+    if audio:
+        res = pipe.generate_video_with_audio("pp av", plan["av_config"], _t(plan["av_noise"]),
+                                             _t(plan["av_audio_noise"]))
+        out["av"] = (np.asarray(res.frames), np.asarray(res.audio))
+    return out
+
+
+def _pp_generate_cli(plan, rank):
+    from ltx_tpu_torch.io import cli as gcli
+    from ltx_tpu_torch.io import video
+    from ltx_tpu_torch.pipeline import loader
+
+    holder = {}
+
+    def fake_load(**kw):
+        holder["pipe"] = _tiny_pipe(plan)
+        return holder["pipe"]
+
+    loader.load_pipeline = fake_load
+    frames = {}
+    video.export_video = lambda f, path, **kw: frames.setdefault("f", np.asarray(f))
+    rc = gcli.main(plan["cli_argv"] + ["--mesh-pp", "1,2"])
+    dit = holder["pipe"].transformer
+    return {"gen_rc": rc, "gen_frames": frames.get("f"),
+            "gen_stage": (dit.pp_plan.stage, dit.pp_plan.first, len(dit.blocks))}
+
+
+def pp_pipeline_cases(rank: int, plan: dict) -> dict:
+    """LTXPipeline.shard_pp on a (1, 2) mesh: the tiny T2V and audio runs
+    whole and split, a staged run and a resident one, and generate
+    --mesh-pp 1,2."""
+    import dataclasses
+
+    from ltx_tpu_torch.config import MemoryConfig
+    from ltx_tpu_torch.parallel import collectives as col
+    from ltx_tpu_torch.parallel import runtime
+
+    mesh = runtime.make_pp_mesh(1, 2)
+    out = {"rank": rank}
+    pipe = _pp_pipeline(plan, MemoryConfig(offload_text_encoder=False))
+    out.update({k + "_whole": v for k, v in _pp_runs(plan, pipe, col).items()})
+    pipe.shard_pp(mesh)
+    out.update(_pp_runs(plan, pipe, col))
+    out["stages"] = [(m.pp_plan.first, len(m.blocks)) for m in (pipe.transformer,
+                                                                 pipe.av_transformer)]
+    moderate = MemoryConfig.preset("moderate")
+    staged = _pp_pipeline(plan, moderate).shard_pp(mesh)
+    out["staged_blocks_before"] = len(staged.transformer.blocks)
+    out["t2v_staged"] = _pp_runs(plan, staged, col, audio=False)["t2v"]
+    out["staged_blocks_after"] = len(staged.transformer.blocks)
+    resident = _pp_pipeline(plan, dataclasses.replace(moderate, phase_staging=False))
+    out["t2v_resident"] = _pp_runs(plan, resident.shard_pp(mesh), col, audio=False)["t2v"]
+    out.update(_pp_generate_cli(plan, rank))
+    return out
