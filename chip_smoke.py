@@ -287,6 +287,7 @@ from ltx_tpu_torch.ops.normalization import forced_rms_chain
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 from ltx_tpu_torch.pipeline import enhance
 from ltx_tpu_torch.pipeline.generate import GenerationTimings, LTXPipeline
+from ltx_tpu_torch.utils.diagnostics import recording
 from ltx_tpu_torch.profile_step import profile_steps
 from ltx_tpu_torch.tokenizer import Tokenizer
 from ltx_tpu_torch.train import cli as train_cli
@@ -1535,9 +1536,9 @@ def phase_two_stage(pipe: LTXPipeline, device) -> dict:
     try:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-        enc = GenerationTimings()
-        half = pipe.encode_image(half_image, enc)
-        full = pipe.encode_image(image, enc)
+        with recording(GenerationTimings()) as enc:
+            half = pipe.encode_image(half_image)
+            full = pipe.encode_image(image)
         draws = dict(
             stage1_noise=generate_noise(s1, gen), stage2_noise=generate_noise(s2, gen),
             stage1_cond_noise=[torch.randn(half.shape, generator=gen, device=device)
@@ -1690,7 +1691,7 @@ def first_differing_sublayer(pipe: LTXPipeline, config: GenerationConfig, device
     bias = torch.zeros(2, 1, 1, 1024, device=device)
     bias[0, ..., :300] = -10000.0
     bias[1, ..., :500] = -10000.0
-    transformer = pipe._on_device("transformer", GenerationTimings())
+    transformer = pipe._on_device("transformer")
     guidance = GuidanceSpec.from_config(config)
     try:
         first, (_, v_solo), (_, v_both) = first_difference(
@@ -1726,7 +1727,7 @@ def phase_norm_choice(pipe: LTXPipeline, device) -> dict:
                           device=device).bfloat16()
     bias = torch.zeros(1, 1, 1, 1024, device=device)
     bias[..., :300] = -10000.0
-    transformer = pipe._on_device("transformer", GenerationTimings())
+    transformer = pipe._on_device("transformer")
     step = make_denoise_step(transformer, GuidanceSpec.from_config(config), shape,
                              context, bias, fps=config.fps)
     norms = checks.rms_launches_per_dit_call(pipe.tcfg)
@@ -2075,7 +2076,7 @@ def phase_enhancement(pipe: LTXPipeline, tok: Tokenizer, noise, steps: int, devi
                 or tm.enhancement_tokens == 0:
             raise AssertionError(f"enhancement fell back: {failed or enhanced}")
 
-        gemma = pipe._on_device("gemma", GenerationTimings())
+        gemma = pipe._on_device("gemma")
         res = profile_decode(gemma, tok)
         groups = ", ".join(f"{k} {v:.2f}" for k, v in res["device_ms"].items() if v)
         log(f"[enhance] decode forward of {DECODE_PROFILED_BUNDLE} tokens (profiled): host "
@@ -2501,7 +2502,7 @@ def gemma_decode(tag: str, pipe: LTXPipeline, counter: str) -> int:
     product of W8A8) each forward, the prefill's and every decode
     forward's (one row, or SPEC_K + 1). Returns the decode forwards'
     launches of both runs."""
-    gemma = pipe._on_device("gemma", GenerationTimings())
+    gemma = pipe._on_device("gemma")
     ids = pipe.tokenizer.encode(PROMPT).ids
     per_forward = pipe.gcfg.hidden_layers * 7
     runs, decode_launches = {}, 0
@@ -2755,7 +2756,7 @@ def profile_av_step(pipe: LTXPipeline, shape, noise, device) -> None:
     a random 1024-token context for both streams with 300 padded keys."""
     from ltx_tpu_torch.pipeline.denoise import make_av_denoise_step
 
-    transformer = pipe._on_device("av_transformer", GenerationTimings())
+    transformer = pipe._on_device("av_transformer")
     gen = torch.Generator(device=device).manual_seed(5)
     context = torch.randn(1, 1024, pipe.tcfg.caption_channels, generator=gen,
                           device=device).bfloat16()
@@ -2803,9 +2804,9 @@ def phase_av_flagship(pipe: LTXPipeline, device) -> dict:
     pipe.memory = dataclasses.replace(memory, vae_tile_size=AV_FLAGSHIP_TILE,
                                       vae_tile_overlap=AV_FLAGSHIP_OVERLAP)
     try:
-        enc = GenerationTimings()
-        half = pipe.encode_image(half_image, enc)
-        full = pipe.encode_image(image, enc)
+        with recording(GenerationTimings()) as enc:
+            half = pipe.encode_image(half_image)
+            full = pipe.encode_image(image)
         draws = dict(
             stage1_noise=generate_noise(s1, gen),
             stage1_audio_noise=torch.randn(pipe.audio_noise_shape(config), generator=gen,
@@ -3073,7 +3074,7 @@ def phase_big_m(pipe: LTXPipeline, device) -> dict:
                           device=device).bfloat16()
     bias = torch.zeros(1, 1, 1, 1024, device=device)
     bias[..., :300] = -10000.0  # left padding, as the tokenizer pads
-    transformer = pipe._on_device("transformer", GenerationTimings())
+    transformer = pipe._on_device("transformer")
     step = make_denoise_step(transformer, GuidanceSpec.from_config(BIG_M), shape,
                              context, bias, fps=BIG_M.fps)
     torch.cuda.synchronize(device)
@@ -3451,7 +3452,7 @@ def gemma_states(tag: str, pipe: LTXPipeline, expected: dict) -> torch.Tensor:
     launch counts read around the pass and checked against `expected`
     (Gemma's own norms are plain PyTorch: no rms_norm launch)."""
     ids, mask = pipe.tokenize(PROMPT)
-    gemma = pipe._on_device("gemma", GenerationTimings())
+    gemma = pipe._on_device("gemma")
     with torch.inference_mode():
         states, launches = run_counted(lambda: gemma.forward_hidden_states(ids, mask))
         states = states.cpu()

@@ -32,6 +32,7 @@ from torch import nn
 
 from ltx_tpu_torch.models.common import Conv3d, Linear, param, silu
 from ltx_tpu_torch.ops.embeddings import get_timestep_embedding
+from ltx_tpu_torch.utils.diagnostics import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,7 +342,8 @@ def _stitch_tiled_yuv(launch, starts, f: int, pixel_blend: int) -> np.ndarray:
     path's frame-aligned loop on the packed I420 frames (B, F_tile, 3H/2,
     W), one copy a tile. Seam blending weighs every packed row of a frame
     alike, which blends each plane: blending commutes with the packing.
-    Returns frames (F, H, W, 3) float32 in [0, 1]."""
+    Returns frames (F, H, W, 3) float32 in [0, 1]. Spans as
+    `decode_video`'s; `decode.widen` is the conversion to RGB."""
     total = 8 * (f - 1) + 1
     out = None
     filled = 0
@@ -351,24 +353,27 @@ def _stitch_tiled_yuv(launch, starts, f: int, pixel_blend: int) -> np.ndarray:
         if idx + 1 < len(starts):
             pending = launch(idx + 1)
         chunk = wait()  # (B, F_tile, 3H/2, W) uint8
-        if idx == 0:
-            b, _, rows, ww = chunk.shape
-            out = np.empty((b, total, rows, ww), np.uint8)
-            out[:, :chunk.shape[1]] = chunk
-            filled = chunk.shape[1]
-            continue
-        nxt = chunk[:, 1:]  # drop the re-anchored first pixel frame
-        n_new = nxt.shape[1]
-        blend = pixel_blend if 0 < pixel_blend < filled and pixel_blend < n_new else 0
-        if blend:
-            wts = (np.arange(1, blend + 1, dtype=np.float32) / (blend + 1)).reshape(1, -1, 1, 1)
-            out[:, filled - blend:filled] = np.round(out[:, filled - blend:filled] * (1 - wts)
-                                                     + nxt[:, :blend] * wts)
-        out[:, filled:filled + n_new - blend] = nxt[:, blend:]
-        filled += n_new - blend
+        with span("decode.stitch"):
+            if idx == 0:
+                b, _, rows, ww = chunk.shape
+                out = np.empty((b, total, rows, ww), np.uint8)
+                out[:, :chunk.shape[1]] = chunk
+                filled = chunk.shape[1]
+                continue
+            nxt = chunk[:, 1:]  # drop the re-anchored first pixel frame
+            n_new = nxt.shape[1]
+            blend = pixel_blend if 0 < pixel_blend < filled and pixel_blend < n_new else 0
+            if blend:
+                wts = (np.arange(1, blend + 1, dtype=np.float32)
+                       / (blend + 1)).reshape(1, -1, 1, 1)
+                out[:, filled - blend:filled] = np.round(
+                    out[:, filled - blend:filled] * (1 - wts) + nxt[:, :blend] * wts)
+            out[:, filled:filled + n_new - blend] = nxt[:, blend:]
+            filled += n_new - blend
     if filled != total:
         raise AssertionError(f"tiled decode filled {filled} of {total} frames")
-    return yuv420_to_rgb_np(out)[0].transpose(1, 2, 3, 0)
+    with span("decode.widen"):
+        return yuv420_to_rgb_np(out)[0].transpose(1, 2, 3, 0)
 
 
 def _tile_starts(frames: int, tile_size: int, stride: int):
@@ -383,8 +388,9 @@ def _tile_starts(frames: int, tile_size: int, stride: int):
 
 def _pull(t):
     """Start the device -> host copy of `t`; returns wait() -> numpy array
-    (bf16 widened to f32 on the host). On CUDA the copy is asynchronous into
-    pinned memory, so what is launched after it overlaps the host's work."""
+    (bf16 widened to f32 on the host, a `decode.widen` span). On CUDA the
+    copy is asynchronous into pinned memory, so what is launched after it
+    overlaps the host's work; wait() blocks on it in a `decode.wait` span."""
     if t.is_cuda:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
@@ -395,8 +401,12 @@ def _pull(t):
 
     def wait():
         if done is not None:
-            done.synchronize()
-        return (host if host.dtype == torch.uint8 else host.float()).numpy()
+            with span("decode.wait"):
+                done.synchronize()
+        if host.dtype == torch.uint8:
+            return host.numpy()
+        with span("decode.widen"):
+            return host.float().numpy()
 
     return wait
 
@@ -425,7 +435,12 @@ def decode_video(decoder: VideoDecoder, latent, timestep: Optional[float] = None
     I420 on the device (`rgb_to_yuv420_u8`, an eighth of f32's bytes),
     blends the packed frames as the uint8 path does and converts to RGB on
     the host (`yuv420_to_rgb_np`). Untiled, every mode decodes to the exact
-    frames, as the reference's."""
+    frames, as the reference's.
+
+    Spans of a tiled decode (utils.diagnostics.span): `decode.wait` where
+    the host blocks on a tile's copy (CUDA only), one `decode.stitch` a
+    tile (its blend and copy into the clip), and `decode.widen` (the
+    clip's conversion to f32)."""
     if latent.ndim == 4:
         latent = latent[None]
     f = latent.shape[2]
@@ -468,32 +483,34 @@ def decode_video(decoder: VideoDecoder, latent, timestep: Optional[float] = None
         if idx + 1 < len(starts):
             pending = launch(idx + 1)
         chunk = wait()
-        if idx == 0:
-            b, _, _, hh, ww = chunk.shape
-            out = np.empty((b, 3, 8 * (f - 1) + 1, hh, ww), chunk.dtype)
-            out[:, :, :chunk.shape[2]] = chunk
-            filled = chunk.shape[2]
-            continue
-        nxt = chunk[:, :, 1:]  # drop the re-anchored first pixel frame
-        if 0 < pixel_blend < filled and pixel_blend < nxt.shape[2]:
-            wts = (np.arange(1, pixel_blend + 1, dtype=np.float32)
-                   / (pixel_blend + 1)).reshape(1, 1, -1, 1, 1)
-            blended = (out[:, :, filled - pixel_blend:filled] * (1 - wts)
-                       + nxt[:, :, :pixel_blend] * wts)
-            if transfer_uint8:
-                blended = np.round(blended)
-            out[:, :, filled - pixel_blend:filled] = blended
-            rest = nxt[:, :, pixel_blend:]
-        else:
-            rest = nxt
-        out[:, :, filled:filled + rest.shape[2]] = rest
-        filled += rest.shape[2]
+        with span("decode.stitch"):
+            if idx == 0:
+                b, _, _, hh, ww = chunk.shape
+                out = np.empty((b, 3, 8 * (f - 1) + 1, hh, ww), chunk.dtype)
+                out[:, :, :chunk.shape[2]] = chunk
+                filled = chunk.shape[2]
+                continue
+            nxt = chunk[:, :, 1:]  # drop the re-anchored first pixel frame
+            if 0 < pixel_blend < filled and pixel_blend < nxt.shape[2]:
+                wts = (np.arange(1, pixel_blend + 1, dtype=np.float32)
+                       / (pixel_blend + 1)).reshape(1, 1, -1, 1, 1)
+                blended = (out[:, :, filled - pixel_blend:filled] * (1 - wts)
+                           + nxt[:, :, :pixel_blend] * wts)
+                if transfer_uint8:
+                    blended = np.round(blended)
+                out[:, :, filled - pixel_blend:filled] = blended
+                rest = nxt[:, :, pixel_blend:]
+            else:
+                rest = nxt
+            out[:, :, filled:filled + rest.shape[2]] = rest
+            filled += rest.shape[2]
     if filled != out.shape[2]:
         raise AssertionError(f"tiled decode filled {filled} of {out.shape[2]} frames")
-    if transfer_uint8:
-        frames = out.astype(np.float32) / 255.0
-    else:
-        frames = np.clip((out + 1.0) / 2.0, 0.0, 1.0)
+    with span("decode.widen"):
+        if transfer_uint8:
+            frames = out.astype(np.float32) / 255.0
+        else:
+            frames = np.clip((out + 1.0) / 2.0, 0.0, 1.0)
     return frames[0].transpose(1, 2, 3, 0)
 
 

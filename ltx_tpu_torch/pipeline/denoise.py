@@ -45,6 +45,7 @@ from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.ops.schedule import euler_step
 from ltx_tpu_torch.parallel.pipeline import check_plan
 from ltx_tpu_torch.parallel.sharding import data_rows, gather_rows
+from ltx_tpu_torch.utils.diagnostics import diag_stats, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,10 +202,11 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
     g = guidance.num_rows
     b = shape.batch
     device = context.device
-    cos, sin = video_rope(shape.frames, shape.height, shape.width, tcfg.inner_dim,
-                          tcfg.num_heads, theta=tcfg.rope_theta,
-                          max_pos=tcfg.max_pos, fps=fps)
-    pe = (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
+    with span("denoise.rope"):
+        cos, sin = video_rope(shape.frames, shape.height, shape.width, tcfg.inner_dim,
+                              tcfg.num_heads, theta=tcfg.rope_theta,
+                              max_pos=tcfg.max_pos, fps=fps)
+        pe = (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
 
     skip_sa = skip_ff = None
     if guidance.use_stg:
@@ -339,8 +341,9 @@ def make_av_denoise_step(transformer: LTXAVTransformer, guidance: GuidanceSpec,
     tcfg = transformer.cfg
     g = guidance.num_rows
     device = video_context.device
-    ropes = prepare_av_ropes(tcfg, shape.frames, shape.height, shape.width, audio_frames,
-                             fps=fps, device=device)
+    with span("denoise.rope"):
+        ropes = prepare_av_ropes(tcfg, shape.frames, shape.height, shape.width, audio_frames,
+                                 fps=fps, device=device)
 
     cond_mask, cond_lat, fidx, fmask = _video_conditioning(
         shape, device, conditioning_mask, conditioned_latent, image_cond_noise_scale,
@@ -447,7 +450,13 @@ def run_av_denoise_loop(step_fn, video_latent, audio_packed, sigmas, cond_noise=
     audio_cond_noise: one draw per step (a sequence of len(sigmas) - 1
     tensors) when the step re-noises conditioned video / audio frames.
     on_step(i, n, sigma) runs after each step, once the device has finished
-    it. Returns (video latent, audio packed)."""
+    it. Returns (video latent, audio packed).
+
+    Spans (utils.diagnostics.span), one of each a step: `denoise.launch`,
+    the step function's call (it enqueues the step, and waits where the
+    step copies host values to the device); inside `denoise.step`, which
+    ends at the step's synchronise (with on_step; without, at its launch's
+    end)."""
     num_steps = len(sigmas) - 1
     for needs, draws, what in ((getattr(step_fn, "needs_noise", False), cond_noise,
                                 "cond_noise"),
@@ -457,13 +466,15 @@ def run_av_denoise_loop(step_fn, video_latent, audio_packed, sigmas, cond_noise=
             raise ValueError(f"the conditioned frames' re-noise needs {num_steps} draws "
                              f"({what}), one per step")
     for i in range(num_steps):
-        video_latent, audio_packed = step_fn(
-            video_latent, audio_packed, float(sigmas[i]), float(sigmas[i + 1]),
-            None if cond_noise is None else cond_noise[i],
-            None if audio_cond_noise is None else audio_cond_noise[i])
-        if on_step is not None:
-            if video_latent.is_cuda:
+        with span("denoise.step"):
+            with span("denoise.launch"):
+                video_latent, audio_packed = step_fn(
+                    video_latent, audio_packed, float(sigmas[i]), float(sigmas[i + 1]),
+                    None if cond_noise is None else cond_noise[i],
+                    None if audio_cond_noise is None else audio_cond_noise[i])
+            if on_step is not None and video_latent.is_cuda:
                 torch.cuda.synchronize(video_latent.device)
+        if on_step is not None:
             on_step(i, num_steps, float(sigmas[i]))
     return video_latent, audio_packed
 
@@ -482,9 +493,11 @@ def run_denoise_loop(step_fn, latent, sigmas, cond_noise=None, on_step=None,
     step then saves (every checkpoint.every_n_steps) with `seed`. The
     per-step draws are arguments, so a resumed step takes the draw an
     uninterrupted run takes. With LTX_DIAG=1 each step logs its latent's
-    [DIAG] line."""
-    from ltx_tpu_torch.utils.diagnostics import diag_stats
+    [DIAG] line.
 
+    Spans as `run_av_denoise_loop`'s, for the steps that run: a skipped
+    step records none. A step's save and [DIAG] line lie in its
+    `denoise.step`, after its `denoise.launch`."""
     num_steps = len(sigmas) - 1
     if getattr(step_fn, "needs_noise", False) and (
             cond_noise is None or len(cond_noise) != num_steps):
@@ -506,15 +519,17 @@ def run_denoise_loop(step_fn, latent, sigmas, cond_noise=None, on_step=None,
     for i in range(num_steps):
         if i <= resume_from:
             continue
-        latent, velocity = step_fn(
-            latent, float(sigmas[i]), float(sigmas[i + 1]), velocity, has_prev,
-            None if cond_noise is None else cond_noise[i])
-        has_prev = True
-        if checkpoint is not None:
-            checkpoint.save(i, latent, velocity, sigmas, seed)
-        diag_stats(f"denoise step {i} latent", latent)
-        if on_step is not None:
-            if latent.is_cuda:
+        with span("denoise.step"):
+            with span("denoise.launch"):
+                latent, velocity = step_fn(
+                    latent, float(sigmas[i]), float(sigmas[i + 1]), velocity, has_prev,
+                    None if cond_noise is None else cond_noise[i])
+            has_prev = True
+            if checkpoint is not None:
+                checkpoint.save(i, latent, velocity, sigmas, seed)
+            diag_stats(f"denoise step {i} latent", latent)
+            if on_step is not None and latent.is_cuda:
                 torch.cuda.synchronize(latent.device)
+        if on_step is not None:
             on_step(i, num_steps, float(sigmas[i]))
     return latent

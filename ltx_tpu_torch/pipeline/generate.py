@@ -42,6 +42,7 @@ counterpart here: a chain builds each segment's step over the staged DiT.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Optional
@@ -90,16 +91,38 @@ from ltx_tpu_torch.pipeline.denoise import (
     run_av_denoise_loop,
     run_denoise_loop,
 )
+from ltx_tpu_torch.utils import diagnostics
+from ltx_tpu_torch.utils.diagnostics import span
 
 log = logging.getLogger("ltx_tpu_torch")
 
 
+# the phase field each span adds its seconds to; the other spans are parts
+# of a phase ("denoise.rope", "denoise.launch", "decode.wait",
+# "decode.stitch", "decode.widen", "decode.copy")
+_PHASE_OF_SPAN = {"clip": "total", "staging": "staging", "enhancement": "enhancement",
+                  "text.gemma": "gemma", "text.connector": "connector",
+                  "image_encode": "image_encode", "upscale": "upscale",
+                  "decode.vae": "vae_decode", "decode.audio": "audio_decode"}
+
+
 @dataclasses.dataclass
 class GenerationTimings:
-    """Seconds per phase, each ended by a device synchronise. `staging` is
-    the time spent moving components to the device, outside the phases;
-    `enhancement` the prompt enhancement's, with its generated tokens and
-    decode forwards."""
+    """A generate_* call's span recorder (utils.diagnostics.recording) and
+    its seconds per phase, each phase the sum of its spans and ended by a
+    device synchronise: `total` the call's `clip` span; `staging` the
+    components' moves to the device, outside the phases; `enhancement` the
+    prompt enhancement's, with its generated tokens and decode forwards;
+    `gemma` and `connector` the text phase's `text.gemma` and
+    `text.connector`; `denoise_steps` one `denoise.step` a step, from its
+    launch to its synchronise; `vae_decode` and `audio_decode` the
+    `decode.vae` and `decode.audio` spans. The parts no phase field sums:
+    `denoise.rope` (a loop's RoPE tables built and copied to the device),
+    `denoise.launch` (the step function's call), and the decode's `decode.wait`
+    (the host blocked on the device), `decode.stitch`, `decode.widen` and
+    `decode.copy` (its host work). `spans` holds every span as (name,
+    start_ns, end_ns) on time.time_ns, in the order they ended; `clip_id`
+    is the call's process-wide id (utils.diagnostics.next_clip_id)."""
 
     staging: float = 0.0
     enhancement: float = 0.0
@@ -113,21 +136,43 @@ class GenerationTimings:
     vae_decode: float = 0.0
     audio_decode: float = 0.0  # the audio VAE and the vocoder
     total: float = 0.0
+    clip_id: int = 0
+    spans: list = dataclasses.field(default_factory=list)
+
+    def record(self, name: str, start_ns: int, end_ns: int) -> None:
+        """Keep one span and add its seconds to its phase."""
+        self.spans.append((name, start_ns, end_ns))
+        seconds = (end_ns - start_ns) / 1e9
+        if name == "denoise.step":
+            self.denoise_steps.append(seconds)
+        elif name in _PHASE_OF_SPAN:
+            field = _PHASE_OF_SPAN[name]
+            setattr(self, field, getattr(self, field) + seconds)
+
+    def span_seconds(self, *names: str) -> float:
+        """The summed seconds of the spans named `names`."""
+        return sum(e - s for n, s, e in self.spans if n in names) / 1e9
 
     def report(self) -> str:
         """The phases, one a line (the reference's lines, the text phase
         split into Gemma and the connector, staging and the upscale and
-        audio decode added)."""
+        audio decode added), with the RoPE build, the mean launch a step
+        and the decode's host work."""
         steps = self.denoise_steps
+        launches = [e - s for n, s, e in self.spans if n == "denoise.launch"]
         return "\n".join([
             f"Staging: {self.staging:.2f}s",
             f"Prompt enhancement: {self.enhancement:.2f}s ({self.enhancement_tokens} tokens)",
             f"Text encoding: {self.gemma + self.connector:.2f}s (Gemma {self.gemma:.2f}s, "
             f"connector {self.connector:.2f}s)",
+            f"RoPE build: {self.span_seconds('denoise.rope'):.2f}s",
             f"Denoise: {sum(steps):.2f}s ({len(steps)} steps, "
-            f"avg {np.mean(steps) if steps else 0:.2f}s)",
+            f"avg {np.mean(steps) if steps else 0:.2f}s, launch avg "
+            f"{np.mean(launches) / 1e6 if launches else 0:.1f}ms)",
             f"Upscale: {self.upscale:.2f}s",
-            f"VAE decode: {self.vae_decode:.2f}s",
+            f"VAE decode: {self.vae_decode:.2f}s (host "
+            f"{self.span_seconds('decode.stitch', 'decode.widen', 'decode.copy'):.2f}s, "
+            f"waits {self.span_seconds('decode.wait'):.2f}s)",
             f"Audio decode: {self.audio_decode:.2f}s",
             f"Total: {self.total:.2f}s",
         ])
@@ -139,6 +184,28 @@ class VideoGenerationResult:
     timings: GenerationTimings
     seed: int = 0  # config.seed (the draws themselves are arguments)
     audio: Optional[np.ndarray] = None  # (2, samples) float32 in [-1, 1], the audio paths
+
+
+def _one_clip(generate):
+    """A generate_* entry's call as one clip: a GenerationTimings with the
+    next clip_id is the active recorder for the call (the entry reads it
+    from diagnostics.active()), its `clip` span the call's total. A call
+    that returns joins diagnostics.recent_clips; one that raises leaves
+    nothing behind."""
+    @functools.wraps(generate)
+    def call(self, *args, **kwargs):
+        timings = GenerationTimings(clip_id=diagnostics.next_clip_id())
+        with diagnostics.recording(timings), span("clip"):
+            result = generate(self, *args, **kwargs)
+        diagnostics.recent_clips.append(timings)
+        return result
+
+    return call
+
+
+def _no_progress(i: int, n: int, sigma: float) -> None:
+    """The denoise loops' on_step without a caller's: with one, a loop
+    synchronises after each step, which ends the step's span."""
 
 
 def _sync(device: torch.device) -> None:
@@ -297,22 +364,21 @@ class LTXPipeline:
     # Phase staging
     # ------------------------------------------------------------------
 
-    def _on_device(self, name: str, timings: GenerationTimings):
+    def _on_device(self, name: str):
         """Place a component on the device for its phase. With phase staging
         its host tensors are kept, so that `_release` frees the device copy
         without copying anything back."""
         module = getattr(self, name)
         if module is None:
             raise ModelNotLoadedError(name)
-        t0 = time.perf_counter()
-        if name in self._to_shard:
-            self._to_shard.discard(name)
-            self._shard_component(name, module)
-        if self.memory.phase_staging and name not in self._host_store:
-            self._host_store[name] = {n: p.data for n, p in module.named_parameters()}
-        module.to(self.device)
-        _sync(self.device)
-        timings.staging += time.perf_counter() - t0
+        with span("staging"):
+            if name in self._to_shard:
+                self._to_shard.discard(name)
+                self._shard_component(name, module)
+            if self.memory.phase_staging and name not in self._host_store:
+                self._host_store[name] = {n: p.data for n, p in module.named_parameters()}
+            module.to(self.device)
+            _sync(self.device)
         return module
 
     def _release(self, name: str) -> None:
@@ -415,16 +481,15 @@ class LTXPipeline:
         return (torch.from_numpy(input_ids).to(self.device),
                 torch.from_numpy(mask).to(self.device))
 
-    def encode_prompt(self, prompt: str, timings: Optional[GenerationTimings] = None):
+    def encode_prompt(self, prompt: str):
         """prompt -> {"video": (1, S, D), "mask": (1, S)} (and "audio": (1,
         S, D) with the audio connector): the Gemma tower, then the
         connector(s), each staged on the device for its own phase."""
-        return self.encode_prompts([prompt], timings=timings)[0]
+        return self.encode_prompts([prompt])[0]
 
     @torch.inference_mode()
     def encode_prompts(self, prompts, batch: Optional[int] = None,
-                       stage: Optional[bool] = None,
-                       timings: Optional[GenerationTimings] = None) -> list:
+                       stage: Optional[bool] = None) -> list:
         """Encode many prompts with Gemma and the connector each placed on
         the device once. Chunks of `batch` prompts (default 4) go through the
         tower together; a tail chunk is padded by repeating its last row and
@@ -433,7 +498,6 @@ class LTXPipeline:
         tower leaves and the connector arrives, so the two never share the
         device. Returns one {"video": (1, S, D), "mask": (1, S)} per prompt
         (and "audio" with the audio connector), on the pipeline's device."""
-        timings = timings if timings is not None else GenerationTimings()
         prompts = list(prompts)
         if not prompts:
             return []
@@ -453,26 +517,24 @@ class LTXPipeline:
                 msk += [msk[-1]] * (batch - n)
             chunks.append((torch.cat(ids), torch.cat(msk), n))
 
-        gemma = self._on_device("gemma", timings)
-        t0 = time.perf_counter()
-        hidden = []
-        for ids, msk, _ in chunks:
-            h = gemma.forward_hidden_states(ids, msk)
-            hidden.append(h.cpu() if stage and len(chunks) > 1 else h)
-        _sync(self.device)
-        timings.gemma += time.perf_counter() - t0
+        gemma = self._on_device("gemma")
+        with span("text.gemma"):
+            hidden = []
+            for ids, msk, _ in chunks:
+                h = gemma.forward_hidden_states(ids, msk)
+                hidden.append(h.cpu() if stage and len(chunks) > 1 else h)
+            _sync(self.device)
         self._release("gemma")
 
-        text_encoder = self._on_device("text_encoder", timings)
-        t0 = time.perf_counter()
-        results = []
-        for ci, (_, msk, n) in enumerate(chunks):
-            out = text_encoder.encode_from_hidden_states(hidden[ci].to(self.device), msk)
-            hidden[ci] = None
-            for r in range(n):
-                results.append({k: v[r:r + 1] for k, v in out.items()})
-        _sync(self.device)
-        timings.connector += time.perf_counter() - t0
+        text_encoder = self._on_device("text_encoder")
+        with span("text.connector"):
+            results = []
+            for ci, (_, msk, n) in enumerate(chunks):
+                out = text_encoder.encode_from_hidden_states(hidden[ci].to(self.device), msk)
+                hidden[ci] = None
+                for r in range(n):
+                    results.append({k: v[r:r + 1] for k, v in out.items()})
+            _sync(self.device)
         self._release("text_encoder")
         return results
 
@@ -482,14 +544,13 @@ class LTXPipeline:
             self.gemma = None
             self.text_encoder = None
 
-    def _encode_text(self, prompts, config: GenerationConfig, guidance: GuidanceSpec,
-                     timings: GenerationTimings):
+    def _encode_text(self, prompts, config: GenerationConfig, guidance: GuidanceSpec):
         """The positives and, under CFG, the negative prompt after them, in
         one pass. Returns (positive rows, the negative row or None)."""
         to_encode = list(prompts)
         if guidance.use_cfg:
             to_encode.append(config.negative_prompt or DEFAULT_NEGATIVE_PROMPT)
-        rows = self.encode_prompts(to_encode, timings=timings)
+        rows = self.encode_prompts(to_encode)
         if self.memory.offload_text_encoder:
             self.offload_text_encoder()
         return rows[:len(prompts)], (rows[-1] if guidance.use_cfg else None)
@@ -499,44 +560,39 @@ class LTXPipeline:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def encode_image(self, pixels, timings: Optional[GenerationTimings] = None,
-                     release: bool = True):
+    def encode_image(self, pixels, release: bool = True):
         """(1, 3, 1, H, W) pixels in [-1, 1] (numpy or tensor) -> the
         normalized f32 latent (1, C, 1, H/32, W/32) for I2V conditioning:
         the VAE encoder's mean, normalized with the decoder's per-channel
         statistics. release=False leaves a staged encoder on the device for
         the caller's next encode (the caller releases it)."""
-        timings = timings if timings is not None else GenerationTimings()
         if self.vae_encoder is None:
             raise ModelNotLoadedError("vae_encoder")
         if self.vae_decoder is None:
             raise ModelNotLoadedError("vae_decoder")
-        encoder = self._on_device("vae_encoder", timings)
-        t0 = time.perf_counter()
-        pixels = torch.as_tensor(pixels).to(self.device, encoder.dtype)
-        latent = encoder(pixels).float()
-        mean = self.vae_decoder.mean_of_means.to(self.device, torch.float32)
-        std = self.vae_decoder.std_of_means.to(self.device, torch.float32)
-        out = (latent - mean.reshape(1, -1, 1, 1, 1)) / std.reshape(1, -1, 1, 1, 1)
-        _sync(self.device)
-        timings.image_encode += time.perf_counter() - t0
+        encoder = self._on_device("vae_encoder")
+        with span("image_encode"):
+            pixels = torch.as_tensor(pixels).to(self.device, encoder.dtype)
+            latent = encoder(pixels).float()
+            mean = self.vae_decoder.mean_of_means.to(self.device, torch.float32)
+            std = self.vae_decoder.std_of_means.to(self.device, torch.float32)
+            out = (latent - mean.reshape(1, -1, 1, 1, 1)) / std.reshape(1, -1, 1, 1, 1)
+            _sync(self.device)
         if release:
             self._release("vae_encoder")
         return out
 
-    def encode_video(self, pixels, timings: Optional[GenerationTimings] = None,
-                     release: bool = True):
+    def encode_video(self, pixels, release: bool = True):
         """(1, 3, F, H, W) pixels in [-1, 1], F = 8k + 1 -> the normalized f32
         latent (1, C, k + 1, H/32, W/32): the multi-frame twin of
         `encode_image` (the causal encoder takes any 8k + 1 frames)."""
-        return self.encode_image(pixels, timings, release)
+        return self.encode_image(pixels, release)
 
-    def _encode_image_at(self, image_path: str, width: int, height: int,
-                         timings: GenerationTimings):
+    def _encode_image_at(self, image_path: str, width: int, height: int):
         """Load the conditioning image at a target resolution and encode it."""
         from ltx_tpu_torch.io.video import load_image
 
-        return self.encode_image(load_image(image_path, width, height), timings)
+        return self.encode_image(load_image(image_path, width, height))
 
     def _clip_frames(self, video_path, video_frames, config: GenerationConfig,
                      frames: int, sample: str):
@@ -564,8 +620,7 @@ class LTXPipeline:
             raise InvalidConfigurationError(
                 f"cond_frames {cond_frames} must be < num_frames {config.num_frames}")
 
-    def _encode_keyframe_sources(self, keyframes, config: GenerationConfig,
-                                 timings: GenerationTimings):
+    def _encode_keyframe_sources(self, keyframes, config: GenerationConfig):
         """[(pixel frame index, source)] -> (the sources' latents stacked on
         the frame axis, f32, in index order; their latent-frame indices,
         int64). A source is an image path, pixels (1, 3, 1, H, W) in [-1, 1]
@@ -585,7 +640,7 @@ class LTXPipeline:
             if k in lat_idx:
                 raise InvalidConfigurationError(f"duplicate keyframe at latent index {k}")
             if isinstance(src, str):
-                lat = self._encode_image_at(src, config.width, config.height, timings)
+                lat = self._encode_image_at(src, config.width, config.height)
             else:
                 src = torch.as_tensor(src)
                 if src.ndim != 5 or src.shape[2] != 1:
@@ -593,7 +648,7 @@ class LTXPipeline:
                         f"keyframe source shape {tuple(src.shape)} is neither pixels "
                         "(1, 3, 1, H, W) nor a latent (1, C, 1, h, w)")
                 if src.shape[1] == 3:
-                    lat = self.encode_image(src, timings)
+                    lat = self.encode_image(src)
                 elif src.shape[1] == self.tcfg.in_channels:
                     lat = src
                 else:
@@ -682,27 +737,19 @@ class LTXPipeline:
                 row("neg_video", "neg_mask") if guidance.use_cfg else None)
 
     def _denoise(self, latent, sigmas, shape, guidance, context, bias,
-                 conditioning_mask, cond_noise_scale, fps, cond_noise, timings,
+                 conditioning_mask, cond_noise_scale, fps, cond_noise,
                  on_progress, conditioned_latent=None, cond_frames: int = 1,
                  cond_frame_idx=None, checkpoint=None, seed: int = 0):
         """One denoise loop on the DiT, which stays on the device after it;
         `checkpoint` (a DenoiseCheckpoint) saves and resumes it."""
         step_fn = make_denoise_step(
-            self._on_device("transformer", timings), guidance, shape, context, bias,
+            self._on_device("transformer"), guidance, shape, context, bias,
             conditioning_mask=conditioning_mask, conditioned_latent=conditioned_latent,
             image_cond_noise_scale=cond_noise_scale, cond_frames=cond_frames,
             cond_frame_idx=cond_frame_idx, fps=fps, pp_mesh=self.pp_mesh)
-
-        def on_step(i, n, sigma):
-            now = time.perf_counter()
-            timings.denoise_steps.append(now - on_step.t0)
-            on_step.t0 = now
-            if on_progress:
-                on_progress(i, n, sigma)
-
-        on_step.t0 = time.perf_counter()
         return run_denoise_loop(step_fn, latent, sigmas, cond_noise=cond_noise,
-                                on_step=on_step, checkpoint=checkpoint, seed=seed)
+                                on_step=on_progress or _no_progress, checkpoint=checkpoint,
+                                seed=seed)
 
     def decode_tile_frames(self, latent_frames: int):
         """Latent frames of each decode tile under this pipeline's memory
@@ -716,18 +763,27 @@ class LTXPipeline:
         return tile_latent_frames(latent_frames, self.memory.vae_tile_size,
                                   self.memory.vae_tile_overlap)
 
-    def _decode_frames(self, latent, decode_noise, timings: GenerationTimings,
-                       release: bool = True):
-        """VAE decode in the decoder's own dtype -> host (F, H, W, 3) f32.
-        The DiT leaves the device first (phase staging). A tiled decode
-        copies each tile to the host as uint8. decode_noise: None, a tensor
-        (untiled) or one tensor per tile. release=False keeps the decoder
-        placed for the next decode (a chain's segments)."""
+    def _decode_frames(self, latent, decode_noise, release: bool = True):
+        """VAE decode in the decoder's own dtype -> host (F, H, W, 3) f32,
+        one `decode.vae` span. The DiT leaves the device first (phase
+        staging). A tiled decode copies each tile to the host as uint8
+        (`decode_video`'s spans); an untiled one waits for its kernels
+        (`decode.wait`, on a CUDA event recorded after them) and then copies
+        its frames (`decode.copy`). decode_noise: None, a tensor (untiled)
+        or one tensor per tile. release=False keeps the decoder placed for
+        the next decode (a chain's segments)."""
         if self.memory.decode_transfer not in ("uint8", "yuv420"):
             raise ValueError(f"unknown decode_transfer {self.memory.decode_transfer!r}")
         self._release("transformer")
-        decoder = self._on_device("vae_decoder", timings)
-        t0 = time.perf_counter()
+        decoder = self._on_device("vae_decoder")
+        with span("decode.vae"):
+            frames = self._decode_on(decoder, latent, decode_noise)
+        if release:
+            self._release("vae_decoder")
+        return frames
+
+    def _decode_on(self, decoder, latent, decode_noise) -> np.ndarray:
+        """`_decode_frames`' decode on the placed decoder."""
         latent = latent.to(decoder.dtype)
         ts = 0.05 if self.vcfg.timestep_conditioning else None
         noise = None
@@ -750,15 +806,17 @@ class LTXPipeline:
                                   tile_size=self.memory.vae_tile_size,
                                   tile_overlap=self.memory.vae_tile_overlap,
                                   transfer_uint8=transfer)
-        if torch.is_tensor(frames):
-            frames = frames.float().cpu().numpy()
-        timings.vae_decode += time.perf_counter() - t0
-        if release:
-            self._release("vae_decoder")
-        return frames
+        if not torch.is_tensor(frames):
+            return frames
+        if frames.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(frames.device))
+            with span("decode.wait"):
+                done.synchronize()
+        with span("decode.copy"):
+            return frames.float().cpu().numpy()
 
-    def _maybe_enhance(self, prompt: str, config: GenerationConfig, is_i2v: bool,
-                       timings: GenerationTimings) -> str:
+    def _maybe_enhance(self, prompt: str, config: GenerationConfig, is_i2v: bool) -> str:
         """Prompt enhancement when `config.enhance_prompt` asks for it, on
         every generation path as the reference: Gemma (and for I2V the
         SigLIP tower) on the device, `enhance.enhance_prompt` with the
@@ -772,17 +830,17 @@ class LTXPipeline:
             return prompt
         from ltx_tpu_torch.pipeline.enhance import enhance_prompt
 
-        gemma = self._on_device("gemma", timings)
-        vision = self._on_device("vision", timings) if self.vision is not None else None
-        t0 = time.perf_counter()
+        gemma = self._on_device("gemma")
+        vision = self._on_device("vision") if self.vision is not None else None
         stats = {}
-        enhanced = enhance_prompt(gemma, self.tokenizer, prompt, is_i2v=is_i2v,
-                                  image_path=config.image_path, vision=vision,
-                                  vision_config=self.vision_config,
-                                  spec_k=config.enhancement_spec_k, stats=stats,
-                                  mesh=self.mesh)
-        _sync(self.device)
-        timings.enhancement += time.perf_counter() - t0
+        with span("enhancement"):
+            enhanced = enhance_prompt(gemma, self.tokenizer, prompt, is_i2v=is_i2v,
+                                      image_path=config.image_path, vision=vision,
+                                      vision_config=self.vision_config,
+                                      spec_k=config.enhancement_spec_k, stats=stats,
+                                      mesh=self.mesh)
+            _sync(self.device)
+        timings = diagnostics.active()
         timings.enhancement_tokens += stats.get("tokens", 0)
         timings.enhancement_forwards += stats.get("forwards", 0)
         self._release("vision")
@@ -793,6 +851,7 @@ class LTXPipeline:
     def _seed(config: GenerationConfig) -> int:
         return config.seed if config.seed is not None else int(time.time())
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video(self, prompt: str, config: GenerationConfig,
                        initial_noise, decode_noise=None, image_latent=None,
@@ -815,22 +874,20 @@ class LTXPipeline:
         interrupted run from its file (the same draws give the same frames).
         Returns frames (F, H, W, 3) in [0, 1] on the host."""
         config.validate()
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = GuidanceSpec.from_config(config)
 
         is_i2v = image_latent is not None or config.image_path is not None
         if image_latent is None and config.image_path is not None:
             image_latent = self._encode_image_at(config.image_path, config.width,
-                                                 config.height, timings)
+                                                 config.height)
 
-        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
+        prompt = self._maybe_enhance(prompt, config, is_i2v)
         if precomputed_embeddings is not None:
             pos, neg = self._precomputed(precomputed_embeddings, guidance)
             if self.memory.offload_text_encoder:
                 self.offload_text_encoder()
         else:
-            (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+            (pos,), neg = self._encode_text([prompt], config, guidance)
         context, bias = self._guidance_context(guidance, pos, neg)
 
         shape = self._shape(config)
@@ -848,15 +905,15 @@ class LTXPipeline:
         seed = self._seed(config)
         latent = self._denoise(latent, sigmas, shape, guidance, context, bias,
                                conditioning_mask, config.image_cond_noise_scale,
-                               config.fps, cond_noise, timings, on_progress,
+                               config.fps, cond_noise, on_progress,
                                conditioned_latent=image_latent, checkpoint=checkpoint,
                                seed=seed)
 
-        frames = self._decode_frames(latent, decode_noise, timings)
+        frames = self._decode_frames(latent, decode_noise)
         frames = frames[: config.num_frames]
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames, timings=timings, seed=seed)
+        return VideoGenerationResult(frames=frames, timings=diagnostics.active(), seed=seed)
 
+    @_one_clip
     @torch.inference_mode()
     def generate_videos(self, prompts, config: GenerationConfig, initial_noise,
                         decode_noise=None, seeds=None) -> list:
@@ -884,20 +941,18 @@ class LTXPipeline:
         if decode_noise is not None and len(decode_noise) != b:
             raise ValueError(f"{len(decode_noise)} decode noises for {b} prompts")
         guidance = GuidanceSpec.from_config(config)
-        timings = GenerationTimings()
 
         if config.enhance_prompt and self.gemma is not None:
             from ltx_tpu_torch.pipeline.enhance import enhance_prompts
 
-            gemma = self._on_device("gemma", timings)
-            t0 = time.perf_counter()
-            prompts = enhance_prompts(gemma, self.tokenizer, prompts,
-                                      spec_k=config.enhancement_spec_k)
-            _sync(self.device)
-            timings.enhancement += time.perf_counter() - t0
+            gemma = self._on_device("gemma")
+            with span("enhancement"):
+                prompts = enhance_prompts(gemma, self.tokenizer, prompts,
+                                          spec_k=config.enhancement_spec_k)
+                _sync(self.device)
 
         # the positives and the shared negative ride one text pass
-        pos_rows, neg = self._encode_text(prompts, config, guidance, timings)
+        pos_rows, neg = self._encode_text(prompts, config, guidance)
         pos_v = torch.cat([r["video"] for r in pos_rows], dim=0)
         pos_m = torch.cat([r["mask"] for r in pos_rows], dim=0)
         neg_v = neg_m = None
@@ -914,22 +969,26 @@ class LTXPipeline:
         latent = self._initial_latent(initial_noise, shape, "initial_noise") \
             * float(sigmas[0])
         latent = self._denoise(latent, sigmas, shape, guidance, context, bias, None,
-                               0.0, config.fps, None, timings, None)
+                               0.0, config.fps, None, None)
 
         results = []
+        timings = diagnostics.active()
         for i in range(b):
+            # the shared phases' share; the decode's spans are the prompt's own
             t_i = GenerationTimings(
                 staging=timings.staging / b, enhancement=timings.enhancement / b,
                 gemma=timings.gemma / b,
                 connector=timings.connector / b,
-                denoise_steps=[d / b for d in timings.denoise_steps])
-            frames = self._decode_frames(
-                latent[i:i + 1], None if decode_noise is None else decode_noise[i], t_i)
+                denoise_steps=[d / b for d in timings.denoise_steps], clip_id=timings.clip_id)
+            with diagnostics.recording(t_i):
+                frames = self._decode_frames(
+                    latent[i:i + 1], None if decode_noise is None else decode_noise[i])
             t_i.total = time.perf_counter() - total_start
             results.append(VideoGenerationResult(frames=frames[: config.num_frames],
                                                  timings=t_i, seed=seeds[i]))
         return results
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_two_stage(self, prompt: str, config: GenerationConfig,
                                  stage1_noise, stage2_noise, decode_noise=None,
@@ -954,8 +1013,6 @@ class LTXPipeline:
         config.validate()
         if self.upscaler is None:
             raise ModelNotLoadedError("upscaler")
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = GuidanceSpec.from_config(config)
         g2 = GuidanceSpec.from_config(config, use_cfg=False)
 
@@ -963,10 +1020,10 @@ class LTXPipeline:
                   or full_res_image_latent is not None)
         if image_latent is None and config.image_path is not None:
             image_latent = self._encode_image_at(
-                config.image_path, config.width // 2, config.height // 2, timings)
+                config.image_path, config.width // 2, config.height // 2)
 
-        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
-        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        prompt = self._maybe_enhance(prompt, config, is_i2v)
+        (pos,), neg = self._encode_text([prompt], config, guidance)
         context, bias = self._guidance_context(guidance, pos, neg)
 
         # === stage 1: half resolution ===
@@ -981,19 +1038,18 @@ class LTXPipeline:
             s1_cond_mask = self._conditioning_mask(s1_shape)
         latent = self._denoise(latent, s1_sigmas, s1_shape, guidance, context, bias,
                                s1_cond_mask, config.image_cond_noise_scale, config.fps,
-                               stage1_cond_noise, timings, on_progress,
+                               stage1_cond_noise, on_progress,
                                conditioned_latent=image_latent)
         stage1_output = latent
 
         # === upscale 2x, AdaIN toward the stage-1 statistics ===
-        upscaler = self._on_device("upscaler", timings)
-        t0 = time.perf_counter()
-        mean = self.vae_decoder.mean_of_means.to(self.device)
-        std = self.vae_decoder.std_of_means.to(self.device)
-        latent = adain_filter_latent(upsample_latents(upscaler, latent, mean, std),
-                                     stage1_output)
-        _sync(self.device)
-        timings.upscale += time.perf_counter() - t0
+        upscaler = self._on_device("upscaler")
+        with span("upscale"):
+            mean = self.vae_decoder.mean_of_means.to(self.device)
+            std = self.vae_decoder.std_of_means.to(self.device)
+            latent = adain_filter_latent(upsample_latents(upscaler, latent, mean, std),
+                                         stage1_output)
+            _sync(self.device)
         self._release("upscaler")
 
         # === stage 2: full resolution, 3 steps, never CFG ===
@@ -1004,7 +1060,7 @@ class LTXPipeline:
 
         if full_res_image_latent is None and config.image_path is not None:
             full_res_image_latent = self._encode_image_at(
-                config.image_path, config.width, config.height, timings)
+                config.image_path, config.width, config.height)
         s2_cond_mask = None
         if full_res_image_latent is not None:
             full_res_image_latent = full_res_image_latent.to(self.device, torch.float32)
@@ -1014,13 +1070,12 @@ class LTXPipeline:
         context2, bias2 = build_guidance_context(g2, pos["video"], pos["mask"])
         latent = self._denoise(latent, s2_sigmas, s2_shape, g2, context2, bias2,
                                s2_cond_mask, config.image_cond_noise_scale, config.fps,
-                               stage2_cond_noise, timings, on_progress,
+                               stage2_cond_noise, on_progress,
                                conditioned_latent=full_res_image_latent)
 
-        frames = self._decode_frames(latent, decode_noise, timings)
+        frames = self._decode_frames(latent, decode_noise)
         frames = frames[: config.num_frames]
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames, timings=timings,
+        return VideoGenerationResult(frames=frames, timings=diagnostics.active(),
                                      seed=self._seed(config))
 
     # ------------------------------------------------------------------
@@ -1062,6 +1117,7 @@ class LTXPipeline:
         return [dataclasses.replace(shape, batch=1, frames=f).shape
                 for f in self.decode_tile_frames(shape.frames)]
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_from_video(self, prompt: str, config: GenerationConfig,
                                   initial_noise, video_path: Optional[str] = None,
@@ -1082,15 +1138,13 @@ class LTXPipeline:
             raise InvalidConfigurationError(f"v2v strength must be in (0, 1], got {strength}")
         video_frames = self._clip_frames(video_path, video_frames, config, config.num_frames,
                                          "even")
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = GuidanceSpec.from_config(config)
-        prompt = self._maybe_enhance(prompt, config, False, timings)
-        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        prompt = self._maybe_enhance(prompt, config, False)
+        (pos,), neg = self._encode_text([prompt], config, guidance)
         context, bias = self._guidance_context(guidance, pos, neg)
 
         shape = self._shape(config)
-        src_latent = self.encode_video(video_frames, timings)
+        src_latent = self.encode_video(video_frames)
         sig_full = self._sigmas(config, shape)
         n_steps = len(sig_full) - 1
         k = min(max(int(round((1.0 - strength) * n_steps)), 0), n_steps - 1)
@@ -1098,12 +1152,13 @@ class LTXPipeline:
         noise = self._initial_latent(initial_noise, shape, "initial_noise")
         latent = schedule.add_noise(src_latent, noise, float(sigmas[0]))
         latent = self._denoise(latent, sigmas, shape, guidance, context, bias, None, 0.0,
-                               config.fps, None, timings, on_progress)
-        frames = self._decode_frames(latent, decode_noise, timings)
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+                               config.fps, None, on_progress)
+        frames = self._decode_frames(latent, decode_noise)
+        return VideoGenerationResult(frames=frames[: config.num_frames],
+                                     timings=diagnostics.active(),
                                      seed=self._seed(config))
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_extension(self, prompt: str, config: GenerationConfig,
                                  initial_noise, video_path: Optional[str] = None,
@@ -1124,15 +1179,13 @@ class LTXPipeline:
         config.validate()
         self._check_cond_frames(cond_frames, config)
         video_frames = self._clip_frames(video_path, video_frames, config, cond_frames, "tail")
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = GuidanceSpec.from_config(config)
-        prompt = self._maybe_enhance(prompt, config, False, timings)
-        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        prompt = self._maybe_enhance(prompt, config, False)
+        (pos,), neg = self._encode_text([prompt], config, guidance)
         context, bias = self._guidance_context(guidance, pos, neg)
 
         shape = self._shape(config)
-        cond_latent = self.encode_video(video_frames, timings)
+        cond_latent = self.encode_video(video_frames)
         k_lat = cond_latent.shape[2]
         sigmas = self._sigmas(config, shape)
         if config.image_cond_noise_scale > 0:
@@ -1142,13 +1195,14 @@ class LTXPipeline:
         latent[:, :, :k_lat] = cond_latent
         latent = self._denoise(latent, sigmas, shape, guidance, context, bias,
                                self._conditioning_mask(shape, frames=k_lat),
-                               config.image_cond_noise_scale, config.fps, cond_noise, timings,
+                               config.image_cond_noise_scale, config.fps, cond_noise,
                                on_progress, conditioned_latent=cond_latent, cond_frames=k_lat)
-        frames = self._decode_frames(latent, decode_noise, timings)
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+        frames = self._decode_frames(latent, decode_noise)
+        return VideoGenerationResult(frames=frames[: config.num_frames],
+                                     timings=diagnostics.active(),
                                      seed=self._seed(config))
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_keyframes(self, prompt: str, config: GenerationConfig, keyframes,
                                  initial_noise, audio_noise=None, decode_noise=None,
@@ -1174,19 +1228,16 @@ class LTXPipeline:
             raise InvalidConfigurationError("keyframes must be non-empty")
         if audio:
             self._require_audio()
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = GuidanceSpec.from_config(config)
         if audio:
             guidance = dataclasses.replace(guidance, stg_scale=0.0)
         shape = self._shape(config)
-        cond_latent, cond_idx = self._encode_keyframe_sources(keyframes, config, timings)
-        prompt = self._maybe_enhance(prompt, config, True, timings)
+        cond_latent, cond_idx = self._encode_keyframe_sources(keyframes, config)
+        prompt = self._maybe_enhance(prompt, config, True)
         if audio:
-            v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance,
-                                                              timings)
+            v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance)
         else:
-            (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+            (pos,), neg = self._encode_text([prompt], config, guidance)
             context, bias = self._guidance_context(guidance, pos, neg)
 
         sigmas = self._sigmas(config, shape)
@@ -1201,17 +1252,16 @@ class LTXPipeline:
                 * float(sigmas[0])
             latent, audio_packed = self._av_denoise(
                 latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx, bias, cm,
-                cond_latent, config, cond_noise, timings, on_progress, cond_frame_idx=cond_idx)
-            frames, waveform = self._decode_av(latent, audio_packed, decode_noise, audio_gain,
-                                               timings)
+                cond_latent, config, cond_noise, on_progress, cond_frame_idx=cond_idx)
+            frames, waveform = self._decode_av(latent, audio_packed, decode_noise, audio_gain)
         else:
             latent = self._denoise(latent, sigmas, shape, guidance, context, bias, cm,
                                    config.image_cond_noise_scale, config.fps, cond_noise,
-                                   timings, on_progress, conditioned_latent=cond_latent,
+                                   on_progress, conditioned_latent=cond_latent,
                                    cond_frame_idx=cond_idx)
-            frames, waveform = self._decode_frames(latent, decode_noise, timings), None
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+            frames, waveform = self._decode_frames(latent, decode_noise), None
+        return VideoGenerationResult(frames=frames[: config.num_frames],
+                                     timings=diagnostics.active(),
                                      seed=self._seed(config), audio=waveform)
 
     def _check_chain(self, segments: int, cond_frames: int, prompts,
@@ -1227,7 +1277,7 @@ class LTXPipeline:
             raise InvalidConfigurationError(f"{len(prompts)} prompts for {segments} segments")
 
     def _encode_chain_anchors(self, anchors, segments: int, k_lat: int,
-                              config: GenerationConfig, timings: GenerationTimings) -> dict:
+                              config: GenerationConfig) -> dict:
         """{segment: [(pixel frame index, source), ...]} -> {segment:
         (latents, latent indices)}, encoded and checked before any text or
         denoise work; an anchor of a segment after the first must lie past
@@ -1237,7 +1287,7 @@ class LTXPipeline:
             si = int(si)
             if not 0 <= si < segments:
                 raise InvalidConfigurationError(f"anchor segment {si} outside [0, {segments})")
-            a_lat, a_idx = self._encode_keyframe_sources(kfs, config, timings)
+            a_lat, a_idx = self._encode_keyframe_sources(kfs, config)
             if si > 0 and int(a_idx[0]) < k_lat:
                 raise InvalidConfigurationError(
                     f"segment {si} anchor at latent frame {int(a_idx[0])} overlaps the "
@@ -1246,7 +1296,7 @@ class LTXPipeline:
         return anchor_enc
 
     def _encode_chain_prompts(self, seg_prompts, config: GenerationConfig,
-                              guidance: GuidanceSpec, timings: GenerationTimings,
+                              guidance: GuidanceSpec,
                               need_audio: bool = False):
         """A chain's prompts -> ({prompt: row}, the negative row or None).
         One unique prompt takes `generate_video`'s sequence (its enhancement,
@@ -1255,7 +1305,7 @@ class LTXPipeline:
         encoded in one text pass with the negative after them."""
         unique = list(dict.fromkeys(seg_prompts))
         if len(unique) == 1:
-            enhanced = [self._maybe_enhance(unique[0], config, False, timings)]
+            enhanced = [self._maybe_enhance(unique[0], config, False)]
         else:
             enhanced = unique
             if config.enhance_prompt:
@@ -1265,13 +1315,13 @@ class LTXPipeline:
                 else:
                     from ltx_tpu_torch.pipeline.enhance import enhance_prompts
 
-                    gemma = self._on_device("gemma", timings)
-                    t0 = time.perf_counter()
-                    enhanced = enhance_prompts(gemma, self.tokenizer, unique,
-                                               spec_k=config.enhancement_spec_k, max_batch=4)
-                    _sync(self.device)
-                    timings.enhancement += time.perf_counter() - t0
-        rows, neg = self._encode_text(enhanced, config, guidance, timings)
+                    gemma = self._on_device("gemma")
+                    with span("enhancement"):
+                        enhanced = enhance_prompts(gemma, self.tokenizer, unique,
+                                                   spec_k=config.enhancement_spec_k,
+                                                   max_batch=4)
+                        _sync(self.device)
+        rows, neg = self._encode_text(enhanced, config, guidance)
         if need_audio and any("audio" not in r for r in rows + ([neg] if neg else [])):
             raise TextEncodingFailedError("text encoder lacks the audio connector")
         return dict(zip(unique, rows)), neg
@@ -1313,6 +1363,7 @@ class LTXPipeline:
             c_lat = torch.cat([tail, a_lat], dim=2)
         return sets, self._conditioning_mask(shape, frame_idx=idx), c_lat, 1, idx
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_chain(self, prompt: str, config: GenerationConfig, segments: int,
                              initial_noise, cond_frames: int = 9, prompts=None,
@@ -1353,12 +1404,10 @@ class LTXPipeline:
         initial_noise = self._per_segment(initial_noise, segments, "initial_noise")
         decode_noise = self._per_segment(decode_noise, segments, "decode_noise", required=False)
         cond_noise = self._per_segment(cond_noise, segments, "cond_noise", required=False)
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = GuidanceSpec.from_config(config)
         seg_prompts = list(prompts) if prompts is not None else [prompt] * segments
         k_lat = (cond_frames - 1) // 8 + 1
-        anchor_enc = self._encode_chain_anchors(anchors, segments, k_lat, config, timings)
+        anchor_enc = self._encode_chain_anchors(anchors, segments, k_lat, config)
 
         if precomputed_embeddings is not None:
             if len(set(seg_prompts)) > 1:
@@ -1368,7 +1417,7 @@ class LTXPipeline:
             pos, neg = self._precomputed(precomputed_embeddings, guidance)
             encoded = {p: pos for p in seg_prompts}
         else:
-            encoded, neg = self._encode_chain_prompts(seg_prompts, config, guidance, timings)
+            encoded, neg = self._encode_chain_prompts(seg_prompts, config, guidance)
         contexts = [self._guidance_context(guidance, encoded[p], neg) for p in seg_prompts]
 
         shape = self._shape(config)
@@ -1388,7 +1437,7 @@ class LTXPipeline:
             context, bias = contexts[i]
             latent = self._denoise(
                 latent, sigmas, shape, guidance, context, bias, cm, scale, config.fps,
-                cond_noise[i], timings, self._chain_progress(on_progress, i, n_steps, segments),
+                cond_noise[i], self._chain_progress(on_progress, i, n_steps, segments),
                 conditioned_latent=c_lat, cond_frames=cf, cond_frame_idx=idx)
             tail = latent[:, :, -k_lat:].float()
             if i == 0:
@@ -1399,11 +1448,11 @@ class LTXPipeline:
 
         parts = []
         for i, latent in enumerate(latents):
-            frames = self._decode_frames(latent, decode_noise[i], timings,
+            frames = self._decode_frames(latent, decode_noise[i],
                                          release=i == segments - 1)[: config.num_frames]
             parts.append(frames if i == 0 else frames[cond_frames:])
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=np.concatenate(parts, axis=0), timings=timings,
+        return VideoGenerationResult(frames=np.concatenate(parts, axis=0),
+                                     timings=diagnostics.active(),
                                      seed=self._seed(config))
 
     @staticmethod
@@ -1447,10 +1496,10 @@ class LTXPipeline:
         return max(1, int(round(self.audio_frames(config) * cond_frames / config.num_frames)))
 
     def _encode_text_with_audio(self, prompt: str, config: GenerationConfig,
-                                guidance: GuidanceSpec, timings: GenerationTimings):
+                                guidance: GuidanceSpec):
         """The video and audio contexts of the guidance rows, and their one
         key bias."""
-        (pos,), neg = self._encode_text([prompt], config, guidance, timings)
+        (pos,), neg = self._encode_text([prompt], config, guidance)
         if "audio" not in pos:
             raise TextEncodingFailedError("text encoder lacks the audio connector")
         return self._av_contexts(guidance, pos, neg)
@@ -1475,12 +1524,12 @@ class LTXPipeline:
 
     def _av_denoise(self, video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx,
                     bias, conditioning_mask, conditioned_latent, config, cond_noise,
-                    timings, on_progress, video_euler: str = "scheduler",
-                    cond_frames: int = 1, cond_frame_idx=None, audio_cond_frames: int = 0,
+                    on_progress, video_euler: str = "scheduler", cond_frames: int = 1,
+                    cond_frame_idx=None, audio_cond_frames: int = 0,
                     audio_conditioned_latent=None, audio_cond_noise=None):
         """One dual denoise loop on the AV DiT, which stays on the device."""
         step_fn = make_av_denoise_step(
-            self._on_device("av_transformer", timings), guidance, shape,
+            self._on_device("av_transformer"), guidance, shape,
             self.audio_frames(config), v_ctx, a_ctx, bias,
             conditioning_mask=conditioning_mask, conditioned_latent=conditioned_latent,
             image_cond_noise_scale=config.image_cond_noise_scale,
@@ -1488,50 +1537,39 @@ class LTXPipeline:
             audio_cond_frames=audio_cond_frames,
             audio_conditioned_latent=audio_conditioned_latent, fps=config.fps,
             video_euler=video_euler, pp_mesh=self.pp_mesh)
-
-        def on_step(i, n, sigma):
-            now = time.perf_counter()
-            timings.denoise_steps.append(now - on_step.t0)
-            on_step.t0 = now
-            if on_progress:
-                on_progress(i, n, sigma)
-
-        on_step.t0 = time.perf_counter()
         return run_av_denoise_loop(step_fn, video_latent, audio_packed, sigmas,
                                    cond_noise=cond_noise, audio_cond_noise=audio_cond_noise,
-                                   on_step=on_step)
+                                   on_step=on_progress or _no_progress)
 
-    def _decode_av(self, video_latent, audio_packed, decode_noise, audio_gain: float,
-                   timings: GenerationTimings):
+    def _decode_av(self, video_latent, audio_packed, decode_noise, audio_gain: float):
         """Frames (the dual DiT leaves the device first under phase staging)
         and the waveform (2, samples) on the host, gain applied and clipped
         to [-1, 1]."""
         self._release("av_transformer")
-        frames = self._decode_frames(video_latent, decode_noise, timings)
-        (waveform,) = self._decode_waveforms([audio_packed], audio_gain, timings)
+        frames = self._decode_frames(video_latent, decode_noise)
+        (waveform,) = self._decode_waveforms([audio_packed], audio_gain)
         return frames, waveform
 
-    def _decode_waveforms(self, packed: list, audio_gain: float,
-                          timings: GenerationTimings) -> list:
+    def _decode_waveforms(self, packed: list, audio_gain: float) -> list:
         """Each packed audio latent through the audio VAE and the vocoder,
         both placed once -> (2, samples) f32 on the host, gain applied and
         clipped to [-1, 1]."""
-        vae = self._on_device("audio_vae", timings)
-        vocoder = self._on_device("vocoder", timings)
-        t0 = time.perf_counter()
+        vae = self._on_device("audio_vae")
+        vocoder = self._on_device("vocoder")
         out = []
-        for audio_packed in packed:
-            latents = dit_av.unpack_audio_latents(audio_packed, channels=8,
-                                                  mel=self.tcfg.audio_in_channels // 8)
-            waveform = decode_audio(vae, vocoder, latents.to(vae.latents_mean.dtype))
-            if audio_gain != 1.0:
-                waveform = torch.clamp(waveform * audio_gain, -1.0, 1.0)
-            out.append(waveform[0].float().cpu().numpy())
-        timings.audio_decode += time.perf_counter() - t0
+        with span("decode.audio"):
+            for audio_packed in packed:
+                latents = dit_av.unpack_audio_latents(audio_packed, channels=8,
+                                                      mel=self.tcfg.audio_in_channels // 8)
+                waveform = decode_audio(vae, vocoder, latents.to(vae.latents_mean.dtype))
+                if audio_gain != 1.0:
+                    waveform = torch.clamp(waveform * audio_gain, -1.0, 1.0)
+                out.append(waveform[0].float().cpu().numpy())
         self._release("audio_vae")
         self._release("vocoder")
         return out
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_with_audio(self, prompt: str, config: GenerationConfig,
                                   initial_noise, audio_noise, decode_noise=None,
@@ -1559,8 +1597,6 @@ class LTXPipeline:
         samples) in [-1, 1] on the host."""
         config.validate()
         self._require_audio()
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = dataclasses.replace(GuidanceSpec.from_config(config), stg_scale=0.0)
 
         is_i2v = image_latent is not None or config.image_path is not None
@@ -1571,7 +1607,7 @@ class LTXPipeline:
                 "image conditioning")
         if image_latent is None and config.image_path is not None:
             image_latent = self._encode_image_at(config.image_path, config.width,
-                                                 config.height, timings)
+                                                 config.height)
         cond_latent = None
         if image_latent is not None:
             cond_latent = image_latent.to(self.device, torch.float32)
@@ -1579,9 +1615,9 @@ class LTXPipeline:
             self._check_cond_frames(cond_frames, config)
             video_frames = self._clip_frames(video_path, video_frames, config, cond_frames,
                                              "tail")
-            cond_latent = self.encode_video(video_frames, timings)
-        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
-        v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance, timings)
+            cond_latent = self.encode_video(video_frames)
+        prompt = self._maybe_enhance(prompt, config, is_i2v)
+        v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance)
 
         shape = self._shape(config)
         sigmas = self._sigmas(config, shape)
@@ -1599,14 +1635,14 @@ class LTXPipeline:
 
         video_latent, audio_packed = self._av_denoise(
             video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx, bias,
-            conditioning_mask, cond_latent, config, cond_noise, timings, on_progress,
+            conditioning_mask, cond_latent, config, cond_noise, on_progress,
             cond_frames=k_lat)
-        frames, audio = self._decode_av(video_latent, audio_packed, decode_noise, audio_gain,
-                                        timings)
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+        frames, audio = self._decode_av(video_latent, audio_packed, decode_noise, audio_gain)
+        return VideoGenerationResult(frames=frames[: config.num_frames],
+                                     timings=diagnostics.active(),
                                      seed=self._seed(config), audio=audio)
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_with_audio_two_stage(
             self, prompt: str, config: GenerationConfig, stage1_noise, stage1_audio_noise,
@@ -1631,8 +1667,6 @@ class LTXPipeline:
         config.image_cond_noise_scale > 0."""
         config.validate()
         self._require_audio(upscaler=True)
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = dataclasses.replace(GuidanceSpec.from_config(config, use_cfg=False),
                                        stg_scale=0.0)
 
@@ -1640,9 +1674,9 @@ class LTXPipeline:
                   or full_res_image_latent is not None)
         if image_latent is None and config.image_path is not None:
             image_latent = self._encode_image_at(
-                config.image_path, config.width // 2, config.height // 2, timings)
-        prompt = self._maybe_enhance(prompt, config, is_i2v, timings)
-        v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance, timings)
+                config.image_path, config.width // 2, config.height // 2)
+        prompt = self._maybe_enhance(prompt, config, is_i2v)
+        v_ctx, a_ctx, bias = self._encode_text_with_audio(prompt, config, guidance)
 
         # === stage 1: half resolution, always the distilled schedule ===
         s1_shape, s2_shape = self.stage_shapes(config)
@@ -1658,18 +1692,17 @@ class LTXPipeline:
             s1_cond_mask = self._conditioning_mask(s1_shape)
         video_latent, audio_packed = self._av_denoise(
             video_latent, audio_packed, s1_sigmas, s1_shape, guidance, v_ctx, a_ctx, bias,
-            s1_cond_mask, image_latent, config, stage1_cond_noise, timings, on_progress)
+            s1_cond_mask, image_latent, config, stage1_cond_noise, on_progress)
         stage1_output = video_latent
 
         # === the video upscaled 2x, AdaIN toward stage 1; the audio as it is ===
-        upscaler = self._on_device("upscaler", timings)
-        t0 = time.perf_counter()
-        mean = self.vae_decoder.mean_of_means.to(self.device)
-        std = self.vae_decoder.std_of_means.to(self.device)
-        video_latent = adain_filter_latent(
-            upsample_latents(upscaler, video_latent, mean, std), stage1_output)
-        _sync(self.device)
-        timings.upscale += time.perf_counter() - t0
+        upscaler = self._on_device("upscaler")
+        with span("upscale"):
+            mean = self.vae_decoder.mean_of_means.to(self.device)
+            std = self.vae_decoder.std_of_means.to(self.device)
+            video_latent = adain_filter_latent(
+                upsample_latents(upscaler, video_latent, mean, std), stage1_output)
+            _sync(self.device)
         self._release("upscaler")
 
         # === stage 2: re-noise both, 3 full-resolution steps ===
@@ -1685,7 +1718,7 @@ class LTXPipeline:
                         + (1.0 - noise_scale) * audio_packed.float())
         if full_res_image_latent is None and config.image_path is not None:
             full_res_image_latent = self._encode_image_at(
-                config.image_path, config.width, config.height, timings)
+                config.image_path, config.width, config.height)
         s2_cond_mask = None
         if full_res_image_latent is not None:
             full_res_image_latent = full_res_image_latent.to(self.device, torch.float32)
@@ -1693,15 +1726,15 @@ class LTXPipeline:
             s2_cond_mask = self._conditioning_mask(s2_shape)
         video_latent, audio_packed = self._av_denoise(
             video_latent, audio_packed, s2_sigmas, s2_shape, guidance, v_ctx, a_ctx, bias,
-            s2_cond_mask, full_res_image_latent, config, stage2_cond_noise, timings,
+            s2_cond_mask, full_res_image_latent, config, stage2_cond_noise,
             on_progress, video_euler="plain")
 
-        frames, audio = self._decode_av(video_latent, audio_packed, decode_noise, audio_gain,
-                                        timings)
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=frames[: config.num_frames], timings=timings,
+        frames, audio = self._decode_av(video_latent, audio_packed, decode_noise, audio_gain)
+        return VideoGenerationResult(frames=frames[: config.num_frames],
+                                     timings=diagnostics.active(),
                                      seed=self._seed(config), audio=audio)
 
+    @_one_clip
     @torch.inference_mode()
     def generate_video_chain_with_audio(
             self, prompt: str, config: GenerationConfig, segments: int, initial_noise,
@@ -1743,12 +1776,10 @@ class LTXPipeline:
         cond_noise = self._per_segment(cond_noise, segments, "cond_noise", required=False)
         audio_cond_noise = self._per_segment(audio_cond_noise, segments, "audio_cond_noise",
                                              required=False)
-        total_start = time.perf_counter()
-        timings = GenerationTimings()
         guidance = dataclasses.replace(GuidanceSpec.from_config(config), stg_scale=0.0)
         seg_prompts = list(prompts) if prompts is not None else [prompt] * segments
-        anchor_enc = self._encode_chain_anchors(anchors, segments, k_lat, config, timings)
-        encoded, neg = self._encode_chain_prompts(seg_prompts, config, guidance, timings,
+        anchor_enc = self._encode_chain_anchors(anchors, segments, k_lat, config)
+        encoded, neg = self._encode_chain_prompts(seg_prompts, config, guidance,
                                                   need_audio=True)
         contexts = [self._av_contexts(guidance, encoded[p], neg) for p in seg_prompts]
 
@@ -1777,7 +1808,7 @@ class LTXPipeline:
             v_ctx, a_ctx, bias = contexts[i]
             video_latent, audio_packed = self._av_denoise(
                 video_latent, audio_packed, sigmas, shape, guidance, v_ctx, a_ctx, bias, cm,
-                c_lat, config, cond_noise[i], timings,
+                c_lat, config, cond_noise[i],
                 self._chain_progress(on_progress, i, n_steps, segments), cond_frames=cf,
                 cond_frame_idx=idx, audio_cond_frames=seg_k_a,
                 audio_conditioned_latent=audio_tail if seg_k_a and scale > 0 else None,
@@ -1790,12 +1821,12 @@ class LTXPipeline:
         self._release("av_transformer")
         parts = []
         for i, (video_latent, _) in enumerate(seg_latents):
-            frames = self._decode_frames(video_latent, decode_noise[i], timings,
+            frames = self._decode_frames(video_latent, decode_noise[i],
                                          release=i == segments - 1)[: config.num_frames]
             parts.append(frames if i == 0 else frames[cond_frames:])
-        waves = self._decode_waveforms([a for _, a in seg_latents], audio_gain, timings)
-        timings.total = time.perf_counter() - total_start
-        return VideoGenerationResult(frames=np.concatenate(parts, axis=0), timings=timings,
+        waves = self._decode_waveforms([a for _, a in seg_latents], audio_gain)
+        return VideoGenerationResult(frames=np.concatenate(parts, axis=0),
+                                     timings=diagnostics.active(),
                                      seed=self._seed(config),
                                      audio=crossfade(waves, cond_frames, config.num_frames))
 

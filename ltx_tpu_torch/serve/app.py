@@ -227,7 +227,6 @@ def warmup_pipeline(pipe, shapes, num_steps: int = 8) -> float:
 
     from ltx_tpu_torch.config import GenerationConfig
     from ltx_tpu_torch.models.upscaler import upsample_latents
-    from ltx_tpu_torch.pipeline.generate import GenerationTimings
 
     seeded = _seeded(pipe)
     base = seeded.pipe
@@ -247,8 +246,7 @@ def warmup_pipeline(pipe, shapes, num_steps: int = 8) -> float:
             half, _ = base.stage_shapes(cfg)
             s1 = dataclasses.replace(one, width=cfg.width // 2, height=cfg.height // 2)
             seeded.generate_video("warmup", _one_step(base, s1))
-            timings = GenerationTimings()
-            upscaler = base._on_device("upscaler", timings)
+            upscaler = base._on_device("upscaler")
             with torch.inference_mode():
                 latent = torch.zeros(half.shape, device=base.device)
                 upsample_latents(upscaler, latent,
@@ -325,10 +323,9 @@ def build_app(
     if base.gemma is not None and base.tokenizer is not None:
         def run_enhance_batch(payloads):
             from ltx_tpu_torch.pipeline.enhance import enhance_prompts
-            from ltx_tpu_torch.pipeline.generate import GenerationTimings
 
             p0 = payloads[0]  # group_key guarantees shared params
-            gemma = base._on_device("gemma", GenerationTimings())
+            gemma = base._on_device("gemma")
             try:
                 return enhance_prompts(
                     gemma, base.tokenizer, [p["prompt"] for p in payloads],

@@ -1,18 +1,24 @@
-"""Observability: [DIAG] stat lines, device syncs, profiler traces and the
-denoise loop's resume.
+"""Observability: [DIAG] stat lines, spans, profiler traces and the denoise
+loop's resume.
 
 Port of ltx_tpu/utils/diagnostics.py. `diag_stats` logs the reference's
 [DIAG] line, character for character, when LTX_DIAG=1, so that two runs'
-latents can be diffed line by line. `profile_trace` wraps torch.profiler
-(CPU and CUDA activities) and writes a Chrome trace. `DenoiseCheckpoint`
-pickles the loop's state as numpy arrays under the reference's keys with an
-atomic replace: a file written by either package resumes in the other.
+latents can be diffed line by line. `span` times a piece of host work into
+the active recorder (`recording`; the pipeline's is its call's
+GenerationTimings) and names it as a torch.profiler range. `profile_trace`
+wraps torch.profiler (CPU and CUDA activities) and writes a Chrome trace.
+`DenoiseCheckpoint` pickles the loop's state as numpy arrays under the
+reference's keys with an atomic replace: a file written by either package
+resumes in the other.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import contextvars
 import dataclasses
+import itertools
 import logging
 import os
 import pickle
@@ -49,11 +55,52 @@ def diag_stats(name: str, array, first_n: int = 5) -> Optional[str]:
     return msg
 
 
-def device_sync(array) -> None:
-    """Wait until the device has computed `array`: torch.cuda.synchronize
-    on its device for a CUDA tensor; nothing for host data."""
-    if isinstance(array, torch.Tensor) and array.is_cuda:
-        torch.cuda.synchronize(array.device)
+_active = contextvars.ContextVar("ltx_tpu_torch.recorder", default=None)
+_clip_ids = itertools.count(1)
+
+# the recorders of the last generate_* calls that returned, oldest first:
+# a benchmark reads its window's clips here after the window
+recent_clips = collections.deque(maxlen=256)
+
+
+def next_clip_id() -> int:
+    """A process-wide id, one higher each call: a clip's, carried by the
+    names of its profiler ranges."""
+    return next(_clip_ids)
+
+
+def active():
+    """The active recorder (`recording`), or None."""
+    return _active.get()
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Make `recorder` the active recorder over the block, in this thread or
+    task: every `span` inside it calls recorder.record(name, start_ns,
+    end_ns). The one active before is active again after, raised or not."""
+    token = _active.set(recorder)
+    try:
+        yield recorder
+    finally:
+        _active.reset(token)
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """Time the block on the host's realtime clock (time.time_ns, the clock
+    Kineto stamps device events with, so a span lines up with the kernels
+    of a trace) into the active recorder, and name it as the profiler range
+    `ltx/clip<id>/<name>` (`ltx/<name>` with no recorder active). A block
+    that raises records nothing. It waits for nothing on the device."""
+    recorder = _active.get()
+    label = f"ltx/{name}" if recorder is None else f"ltx/clip{recorder.clip_id}/{name}"
+    with torch.profiler.record_function(label):
+        start = time.time_ns()
+        yield
+        end = time.time_ns()
+    if recorder is not None:
+        recorder.record(name, start, end)
 
 
 @contextlib.contextmanager

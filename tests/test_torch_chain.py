@@ -133,9 +133,9 @@ def test_chain_identities_and_phase_order(pipes):
     events, progress = [], []
     on_device, release = port._on_device, port._release
 
-    def place_spy(name, timings):
+    def place_spy(name):
         events.append(("place", name))
-        return on_device(name, timings)
+        return on_device(name)
 
     def release_spy(name):
         events.append(("release", name))
