@@ -24,7 +24,13 @@ Phases, each printing its own lines:
      decode rows, 1 and 9, among the int4 and W8A8 cases; flash attention
      at SigLIP's head dim 72 and at the dual audio-video DiT's head dim 64
      among the attention cases, rms_norm at its audio stream's 2048; both at
-     the long-video modes' 6144 tokens and four-prompt text pass);
+     the long-video modes' 6144 tokens and four-prompt text pass); the
+     RoPE tables' kernel (not a TPU kernel: the reference builds them in
+     host numpy) within one f32 ulp of the plain float64 build at the
+     three cells' geometries, its elements that differ counted, one
+     launch a table of a denoise loop (one video, four dual), timed at
+     the path shapes beside its byte bound, the plain build's host time
+     and the plain build with its copy to the card;
      then the tiny pipeline, the tiny two-stage I2V pipeline, the tiny
      joint-audio pipeline (CFG, then I2V; frames and waveform, the flash
      launches by head dim), the tiny long-video modes (video-to-video,
@@ -40,7 +46,8 @@ Phases, each printing its own lines:
      On every inference path below as here, nothing overrides the norm
      route: every norm of the DiT and the connector launches rms_norm and
      none takes the plain chain (`ops.normalization.rms_chain_on_cuda` read
-     beside the launch counts);
+     beside the launch counts); each denoise loop launches rope_tables once
+     (four times a dual loop);
   3b. the two-stage path: LTXPipeline.generate_video_two_stage at full width and depth, I2V from
      a seeded pixel array through encode_image at half and at full
      resolution (the full-width VAE encoder), 121 frames at 1024x576: a
@@ -236,7 +243,7 @@ Phases, each printing its own lines:
      value, B2, B3a and B3b counted per rank.
      A rank that fails fails the phase; times taken while the two ranks
      share the card are printed as such;
-  8. a JSON line of the seven kernels: launches (each from the paths that
+  8. a JSON line of the eight kernels: launches (each from the paths that
      run it, by path where there are several, the long-video modes' and
      phase 7's among them; B1's and B6's times at their shapes in
      `long_video_cases`), max
@@ -267,6 +274,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -278,12 +286,14 @@ from ltx_tpu_torch.kernels import build
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
+from ltx_tpu_torch.kernels import rope as rope_kernel
 from ltx_tpu_torch.models import gemma3
 from ltx_tpu_torch.models.common import QuantizedLinear, W8A8Linear
 from ltx_tpu_torch.models.dit import quantize_transformer
 from ltx_tpu_torch.ops import normalization, schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape, generate_noise
 from ltx_tpu_torch.ops.normalization import forced_rms_chain
+from ltx_tpu_torch.ops.rope import precompute_freqs_cis
 from ltx_tpu_torch.pipeline.denoise import GuidanceSpec, make_denoise_step
 from ltx_tpu_torch.pipeline import enhance
 from ltx_tpu_torch.pipeline.generate import GenerationTimings, LTXPipeline
@@ -988,6 +998,86 @@ def phase_rms_kernel(device) -> dict:
                for key, prefix in (("av_cases", "av_"), ("long_video_cases", "long_"))}}
 
 
+ROPE_LINE_CASE = "video_121f"  # the kernels line's shape: a 121f video loop's table
+ROPE_HOST_RUNS = 3  # synchronised runs of the host builds, the median kept
+
+
+def old_rope_build(grid, kw: dict, device):
+    """The denoise loop's build before the kernel: the plain float64 tables
+    on the host, each copied to the card from pageable memory."""
+    cos, sin = precompute_freqs_cis(grid, **kw)
+    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+def host_ms(fn, device) -> float:
+    """Median host milliseconds of fn() and a synchronise, over ROPE_HOST_RUNS."""
+    runs = []
+    for _ in range(ROPE_HOST_RUNS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return sorted(runs)[len(runs) // 2]
+
+
+def phase_rope_kernel(device) -> dict:
+    """rope_tables against the plain float64 host build at the three cells'
+    geometries and at padded, odd-length ones (checks.ROPE_CASES: every
+    element within one f32 ulp, the elements that are not bit for bit
+    counted), one launch a table of a denoise loop built at 121f (one
+    video, four dual: checks.rope_loop_launches); then at each case the
+    wrapper's time with its launches queued (`queued_ms`: the pinned copy
+    of the grid and the frequencies, then the kernel), its `cuda_ms` on an
+    idle card and the host's microseconds a call, beside the bound by bytes
+    (the f32 tables written once, the inputs read once), the plain build's
+    host milliseconds and the old build's (the plain build and its
+    pageable copy to the card, synchronised). Returns the kernels-line
+    entry (without launches), timed at ROPE_LINE_CASE."""
+    loops = checks.rope_loop_launches(device)
+    if loops != {"video": 1, "av": 4}:
+        raise AssertionError(f"rope_tables launches a denoise loop: {loops}")
+    timings, differ, elements, max_ulps = {}, 0, 0, 0.0
+    for case in checks.ROPE_CASES:
+        res = checks.check_rope_tables(case, device)
+        differ, elements = differ + res["differ"], elements + res["elements"]
+        max_ulps = max(max_ulps, res["max_ulps"])
+        grid, kw = checks.rope_case_inputs(case)
+
+        def call(grid=grid, kw=kw):
+            return rope_kernel.rope_tables(grid, device=device, **kw)
+
+        # the first run allocates the pinned blocks that queued calls hold
+        queued_ms([call])
+        ms = queued_ms([call])
+        idle_ms = cuda_ms(call)
+        host = host_us(call)
+        plain = host_ms(lambda: precompute_freqs_cis(grid, **kw), device)
+        old = host_ms(lambda: old_rope_build(grid, kw, device), device)
+        nbytes = 4.0 * res["elements"] + grid.nbytes
+        bound_ms, bound_by = bound(0.0, nbytes)
+        timings[case.name] = (ms, plain, old, bound_ms, bound_by, idle_ms, host)
+        log(f"[kernel] rope_tables {case.name} ({kw['num_heads']}, {grid.shape[1]}, "
+            f"{res['elements'] // 2 // grid.shape[1] // kw['num_heads']}) f32 x 2: "
+            f"{res['differ']} of {res['elements']} elements differ from the plain build, up "
+            f"to {res['max_ulps']:.0f} f32 ulp; kernel {ms:.4f} ms queued ({idle_ms:.4f} ms "
+            f"from an idle card, host {host:.1f} us a call), bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / ms:.3f} of it; plain build {plain:.2f} ms on the "
+            f"host, plain build and copy {old:.2f} ms")
+    log(f"[kernel] rope_tables: {differ} of {elements} elements differ over "
+        f"{len(checks.ROPE_CASES)} cases; launches a denoise loop {json.dumps(loops)}")
+    ms, plain, old, bound_ms, bound_by, idle_ms, host = timings[ROPE_LINE_CASE]
+    return {"name": "rope_tables", "route": "cuda",
+            "source": "ltx_tpu_torch/csrc/rope_tables.cu",
+            "replaces": "none (ltx_tpu/ops/rope.py::precompute_freqs_cis, host numpy)",
+            "max_ulps": max_ulps, "differ": differ, "ms": ms, "plain_ms": plain,
+            "old_build_ms": old, "bound_ms": bound_ms, "bound_by": bound_by,
+            "timing": "queued", "idle_ms": idle_ms, "host_us": host,
+            "cases": {name: dict(zip(("ms", "plain_ms", "old_build_ms", "bound_ms",
+                                      "bound_by", "idle_ms", "host_us"), t))
+                      for name, t in timings.items()}}
+
+
 def phase_tiny_agreement(device) -> None:
     """The tiny pipeline, the tiny two-stage I2V pipeline, the tiny LoRA
     train and the tiny AV QLoRA step on the card against the same weights
@@ -1038,7 +1128,7 @@ KERNELS = {"flash_attention": fa.flash_attention,
            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
            "int4_matmul": qz.int4_matmul, "dequant_int4": qz.dequant_int4,
-           "rms_norm": rk.rms_norm}
+           "rms_norm": rk.rms_norm, "rope_tables": rope_kernel.rope_tables}
 
 
 # the kernels' launches and, beside them, the CUDA calls of rms_norm that
@@ -1046,6 +1136,7 @@ KERNELS = {"flash_attention": fa.flash_attention,
 # the library's int8 product, the W8A8 linears' (kernels.quantization.int8_mm)
 CHAIN = "rms_chain_on_cuda"
 INT8 = "int8_mm"
+ROPE = "rope_tables"
 NO_LAUNCHES = {**{name: 0 for name in KERNELS}, CHAIN: 0, INT8: 0}
 
 
@@ -1058,7 +1149,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {**checks.read_kernel_counts(), INT8: qz.int8_mm.calls}
+    return {**checks.read_kernel_counts(), INT8: qz.int8_mm.calls,
+            ROPE: rope_kernel.rope_tables.launches}
 
 
 def norm_launches(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
@@ -1069,12 +1161,21 @@ def norm_launches(tcfg, tecfg, dit_calls: int, text_passes: int) -> dict:
             CHAIN: 0}
 
 
-def expected_launches(pipe: LTXPipeline, dit_calls: int, text_passes: int) -> dict:
+def rope_launches(loops: int, av: bool = False) -> dict:
+    """The rope_tables launches of `loops` denoise loops: one table a video
+    loop, four a dual loop."""
+    return {ROPE: loops * (4 if av else 1)}
+
+
+def expected_launches(pipe: LTXPipeline, dit_calls: int, text_passes: int,
+                      loops: Optional[int] = None) -> dict:
     """The launch counts of a video inference path on the card: the DiT's
-    and the connector's flash attentions and norms."""
+    and the connector's flash attentions and norms, and the RoPE tables of
+    its denoise loops (default: one where the DiT runs)."""
     return {**NO_LAUNCHES, "flash_attention": checks.flash_inference_counts(
         pipe.tcfg, pipe.tecfg, dit_calls, text_passes),
-            **norm_launches(pipe.tcfg, pipe.tecfg, dit_calls, text_passes)}
+            **norm_launches(pipe.tcfg, pipe.tecfg, dit_calls, text_passes),
+            **rope_launches(int(dit_calls > 0) if loops is None else loops)}
 
 
 def run_counted(fn):
@@ -1518,7 +1619,7 @@ def phase_two_stage(pipe: LTXPipeline, device) -> dict:
                                  token_count=s1.token_count)) - 1
     n2 = len(schedule.STAGE_2_SIGMAS) - 1
     dit_calls = n1 + n2
-    expected = expected_launches(pipe, dit_calls, 1)
+    expected = expected_launches(pipe, dit_calls, 1, loops=2)
     gen = torch.Generator(device=device).manual_seed(7)
     image = torch.rand(1, 3, 1, config.height, config.width, generator=gen,
                        device=device) * 2 - 1
@@ -1872,7 +1973,8 @@ def phase_long_video(pipe: LTXPipeline, device) -> dict:
             "long chain", lambda: pipe.generate_video_chain(
                 CHAIN_PROMPTS[0], config, segments, noise, cond_frames=CHAIN_COND_FRAMES,
                 prompts=CHAIN_PROMPTS, anchors={2: [(16, anchor)]}, tail_renorm=0.5),
-            expected_launches(pipe, segments * steps, 1), config, chain_frames, device)
+            expected_launches(pipe, segments * steps, 1, loops=segments), config, chain_frames,
+            device)
         rows = pipe.encode_prompts(CHAIN_PROMPTS)  # the chain's one text pass again
         solo, launches["long chain segment 0 alone"] = long_run(
             "long segment 0", lambda: pipe.generate_video(
@@ -2045,7 +2147,7 @@ def phase_enhancement(pipe: LTXPipeline, tok: Tokenizer, noise, steps: int, devi
     config = dataclasses.replace(NORTH_STAR, enhance_prompt=True)
     expected = {**NO_LAUNCHES, "flash_attention": steps * pipe.tcfg.num_layers * 2
                 + pipe.tecfg.connector_layers,
-                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)}
+                **norm_launches(pipe.tcfg, pipe.tecfg, steps, 1), **rope_launches(1)}
     pipe.tokenizer = tok
     try:
         torch.cuda.synchronize(device)
@@ -2673,15 +2775,16 @@ def release_host_memory() -> None:
     ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
-def av_expected(pipe: LTXPipeline, dit_calls: int, text_passes: int = 1) -> tuple:
+def av_expected(pipe: LTXPipeline, dit_calls: int, text_passes: int = 1,
+                loops: int = 1) -> tuple:
     """(launch counts, flash launches by head dim) of a joint-audio path on
     the card, from the code: the dual blocks' six attentions and twenty
-    norms, both connectors a text pass."""
+    norms, both connectors a text pass, four RoPE tables a denoise loop."""
     by_dim = checks.av_flash_counts(pipe.tcfg, pipe.tecfg, dit_calls, text_passes)
     launches, chain = checks.rms_inference_counts(pipe.tcfg, pipe.tecfg, dit_calls,
                                                   text_passes, av=True)
     return ({**NO_LAUNCHES, "flash_attention": sum(by_dim.values()), "rms_norm": launches,
-             CHAIN: chain}, by_dim)
+             CHAIN: chain, **rope_launches(loops, av=True)}, by_dim)
 
 
 def check_waveform(tag: str, audio, config: GenerationConfig, vocoder_cfg) -> None:
@@ -2790,7 +2893,7 @@ def phase_av_flagship(pipe: LTXPipeline, device) -> dict:
     n1 = len(schedule.get_sigmas(config.num_steps, distilled=True,
                                  token_count=s1.token_count)) - 1
     n2 = len(schedule.STAGE_2_SIGMAS) - 1
-    expected = av_expected(pipe, n1 + n2)
+    expected = av_expected(pipe, n1 + n2, loops=2)
     gen = torch.Generator(device=device).manual_seed(9)
     image = torch.rand(1, 3, 1, config.height, config.width, generator=gen,
                        device=device) * 2 - 1
@@ -2881,7 +2984,7 @@ def phase_av_long_video(pipe: LTXPipeline, device) -> dict:
             "av chain", lambda: pipe.generate_video_chain_with_audio(
                 PROMPT, config, segments, [generate_noise(shape, gen) for _ in range(segments)],
                 [audio_noise() for _ in range(segments)], cond_frames=cond, audio_cond=True),
-            av_expected(pipe, segments * steps), device)
+            av_expected(pipe, segments * steps, loops=segments), device)
         log_run("av chain", chain, peak)
         frames = config.num_frames + (segments - 1) * (config.num_frames - cond)
         check_frames("av chain", chain.frames, dataclasses.replace(config, num_frames=frames))
@@ -3592,9 +3695,10 @@ def phase_files_to_frames(device, data) -> int:
     steps = len(pipe._sigmas(NORTH_STAR, shape)) - 1
     log(f"[files] prompt tokens: {len(pipe.tokenizer.encode(PROMPT).ids)}")
     flash = steps * FILES_DIT_BLOCKS * 2 + pipe.tecfg.connector_layers
-    norms = norm_launches(pipe.tcfg, pipe.tecfg, steps, 1)
+    # the norms and the RoPE tables of one north-star loop
+    per_clip = {**norm_launches(pipe.tcfg, pipe.tecfg, steps, 1), **rope_launches(1)}
     north_star_run("files bf16", pipe, noise,
-                   {**NO_LAUNCHES, "flash_attention": flash, **norms}, device)
+                   {**NO_LAUNCHES, "flash_attention": flash, **per_clip}, device)
     gemma_files = sorted((base / "vlm-gemma").glob("*.safetensors"))
     key = "language_model.model.layers.0.self_attn.q_proj"
     first = next(p for p in gemma_files if f"{key}.weight" in safetensors_io.read_header(p)[0])
@@ -3663,7 +3767,7 @@ def phase_files_to_frames(device, data) -> int:
     states = gemma_states("int4", pipe, {**NO_LAUNCHES, "int4_matmul": gemma_linears})
     states_beside_bf16("int4", states, bf16_states)
     decode_launches = gemma_decode("int4", pipe, "int4_matmul")
-    expected = {**NO_LAUNCHES, "flash_attention": flash, **norms,
+    expected = {**NO_LAUNCHES, "flash_attention": flash, **per_clip,
                 "int4_matmul": steps * FILES_DIT_BLOCKS * 10 + gemma_linears}
     north_star_run("files int4", pipe, noise, expected, device)
     first_dit = {n: p.detach().cpu().clone() for n, p in pipe.transformer.named_parameters()}
@@ -3687,7 +3791,7 @@ def phase_files_to_frames(device, data) -> int:
     states = gemma_states("w8a8", pipe, {**NO_LAUNCHES, INT8: gemma_linears})
     states_beside_bf16("w8a8", states, bf16_states)
     gemma_decode("w8a8", pipe, INT8)
-    expected = {**NO_LAUNCHES, "flash_attention": flash, **norms,
+    expected = {**NO_LAUNCHES, "flash_attention": flash, **per_clip,
                 INT8: steps * FILES_DIT_BLOCKS * 10 + gemma_linears}
     north_star_run("files w8a8", pipe, noise, expected, device)
     first_dit = {n: p.detach().cpu().clone() for n, p in pipe.transformer.named_parameters()}
@@ -3853,11 +3957,14 @@ def main() -> int:
     rms = phase_rms_kernel(device)
     phase_w8a8_products(device)
     mark("phase 2 (B6 and the W8A8 products against their plain versions)")
+    rope = phase_rope_kernel(device)
+    mark("phase 2 (the RoPE tables' kernel against its plain version)")
     phase_tiny_agreement(device)
     mark("phase 2 (tiny pipelines)")
     pipe, noise, steps, (launches, bf16_run) = phase_main_path(device)
     rms["launches_by_path"] = {"north star": launches["rms_norm"]}
     rms["launches"] = launches["rms_norm"]
+    rope["launches_by_path"] = {"north star": launches[ROPE]}
     mark("phase 3 (main path)")
     pp_one = phase_world_of_one(pipe, noise, steps, bf16_run, device)
     mark("phase 7.1 (world of one, nccl; staged)")
@@ -3893,7 +4000,8 @@ def main() -> int:
     flash["launches_by_path"] = {"north star": launches["flash_attention"],
                                  **{k: v["flash_attention"] for k, v in paths.items()},
                                  "SigLIP tower (I2V enhancement)": siglip}
-    rms["launches_by_path"].update({k: v["rms_norm"] for k, v in paths.items()})
+    for entry in (rms, rope):
+        entry["launches_by_path"].update({k: v[entry["name"]] for k, v in paths.items()})
     flash["launches"] = sum(flash["launches_by_path"].values())
     w8a8_run = phase_w8a8_main_path(pipe, noise, steps, device)
     north_star = phase_int4_main_path(pipe, noise, steps, bf16_run, device,
@@ -3922,7 +4030,7 @@ def main() -> int:
     mark("phase 5b (files to frames)")
     av_paths = {"AV north star": av_north, "AV flagship 241f@1024x640": av_flagship,
                 **av_long, f"AV clip from files ({FILES_DIT_BLOCKS} blocks)": files_av}
-    for entry in (flash, rms):
+    for entry in (flash, rms, rope):
         entry["launches_by_path"].update({k: v[entry["name"]] for k, v in av_paths.items()})
         entry["launches"] = sum(entry["launches_by_path"].values())
     # B4's paths: the int4 north star, the int4 Gemma's text pass and its
@@ -3968,7 +4076,7 @@ def main() -> int:
              if key.startswith(entry["name"] + " (PP-2")})
     for entry in (flash, stats, dq, dkv, matmul, dequant, rms):
         entry["launches"] = sum(entry["launches_by_path"].values())
-    kernels = [flash, stats, dq, dkv, matmul, dequant, rms]
+    kernels = [flash, stats, dq, dkv, matmul, dequant, rms, rope]
     for entry in kernels:
         # which clock read ms, plain_ms and library_ms: `cuda_ms` on an idle
         # card unless the entry says `queued_ms`

@@ -145,6 +145,7 @@ from ltx_tpu_torch.config import GenerationConfig, MemoryConfig, TransformerConf
 from ltx_tpu_torch.kernels import flash_attention as fa
 from ltx_tpu_torch.kernels import quantization as qz
 from ltx_tpu_torch.kernels import rms_norm as rk
+from ltx_tpu_torch.kernels import rope as rope_kernel
 from ltx_tpu_torch.models.common import QuantizedLinear, init_random_
 from ltx_tpu_torch.models.dit import LTXTransformer, quantize_transformer
 from ltx_tpu_torch.models.dit_av import LTXAVTransformer, prepare_av_ropes
@@ -152,6 +153,7 @@ from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from ltx_tpu_torch.ops import schedule
 from ltx_tpu_torch.ops.latents import VideoLatentShape
 from ltx_tpu_torch.ops import normalization
+from ltx_tpu_torch.ops import rope as rope_ops
 from ltx_tpu_torch.ops.rope import video_rope
 from ltx_tpu_torch.pipeline.generate import LTXPipeline
 from ltx_tpu_torch.train.flow_match import av_flow_match_loss, flow_match_loss
@@ -782,6 +784,109 @@ def check_rms_bitwise(case: RmsCase, device, eps: float = 1e-6) -> dict:
         out[name] = int((rk.rms_norm(x[rows], weight, eps) != full[rows]).sum())
     if any(out.values()):
         raise AssertionError(f"rms_norm {case.name}: not bitwise the same {out}")
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeCase:
+    """One RoPE table of a denoise loop (`kernels.rope.rope_tables`):
+    "video" (the 3-D grid of `latent` frames x height x width), "cross_video"
+    (that grid's time row), "audio" or "cross_audio" (`audio_frames`), at
+    `cfg`'s widths as `models.dit_av.prepare_av_ropes` takes them."""
+    name: str
+    table: str
+    latent: tuple = (16, 16, 24)  # 121f@768x512
+    audio_frames: int = 126
+    cfg: TransformerConfig = TransformerConfig()
+
+
+# the three cells' tables (121f and 25f at 768x512, the AV loop's four at
+# 121f with 126 audio frames), and two small ones: two columns of (1, 0)
+# in front (pad 2), an odd token count and 17 columns a head; an odd audio
+# length at 3 heads of 16 columns
+_ROPE_ODD = dataclasses.replace(TransformerConfig().tiny(), num_heads=4, head_dim=34,
+                                audio_num_heads=3, audio_head_dim=32)
+ROPE_CASES = (
+    RopeCase("video_121f", "video"),
+    RopeCase("av_121f_audio", "audio"),
+    RopeCase("av_121f_cross_video", "cross_video"),
+    RopeCase("av_121f_cross_audio", "cross_audio"),
+    RopeCase("video_25f", "video", latent=(4, 16, 24)),
+    RopeCase("padded_odd_tokens", "video", latent=(3, 3, 5), cfg=_ROPE_ODD),
+    RopeCase("audio_odd_tokens", "audio", audio_frames=25, cfg=_ROPE_ODD),
+)
+
+
+def rope_case_inputs(case: RopeCase):
+    """(grid, keyword arguments of `rope_tables` and of
+    `precompute_freqs_cis` but the device) of a case."""
+    cfg = case.cfg
+    if case.table in ("video", "cross_video"):
+        grid = rope_ops.create_position_grid(*case.latent)
+    else:
+        grid = rope_ops.create_audio_position_grid(case.audio_frames)
+    if case.table == "video":
+        return grid, dict(dim=cfg.inner_dim, theta=cfg.rope_theta, max_pos=cfg.max_pos,
+                          num_heads=cfg.num_heads)
+    dim = cfg.audio_inner_dim if case.table == "audio" else cfg.audio_cross_attention_dim
+    return grid[:1], dict(dim=dim, theta=cfg.rope_theta, max_pos=cfg.audio_max_pos,
+                          num_heads=cfg.audio_num_heads)
+
+
+def check_rope_tables(case: RopeCase, device) -> dict:
+    """One launch of the rope_tables kernel against the plain float64 host
+    build: every element within one f32 ulp (libdevice's and the host's
+    float64 cos and sin differ by a few float64 ulps, which move an f32
+    rounding only next to its boundary). Raises AssertionError otherwise;
+    returns the count and share of elements that are not bit for bit the
+    plain ones, and the largest difference in f32 ulps."""
+    grid, kw = rope_case_inputs(case)
+    before = rope_kernel.rope_tables.launches
+    got = rope_kernel.rope_tables(grid, device=device, **kw)
+    launched = rope_kernel.rope_tables.launches - before
+    torch.cuda.synchronize(device)
+    out = {"elements": 0, "differ": 0, "max_ulps": 0.0}
+    for table, want in zip(got, rope_ops.precompute_freqs_cis(grid, **kw)):
+        g = table.cpu().numpy()
+        if g.shape != want.shape or g.dtype != want.dtype:
+            raise AssertionError(f"rope_tables {case.name}: {g.shape} {g.dtype}, "
+                                 f"want {want.shape} {want.dtype}")
+        ulp = np.spacing(np.maximum(np.abs(g), np.abs(want)))
+        err = np.abs(g.astype(np.float64) - want.astype(np.float64)) / ulp
+        out["elements"] += g.size
+        out["differ"] += int((g != want).sum())
+        out["max_ulps"] = max(out["max_ulps"], float(err.max()))
+    out["differ_share"] = out["differ"] / out["elements"]
+    if launched != 1 or not out["max_ulps"] <= 1.0:
+        raise AssertionError(f"rope_tables {case.name}: {launched} launches, "
+                             f"{out['differ']} elements differ, up to {out['max_ulps']} ulps")
+    return out
+
+
+def rope_loop_launches(device) -> dict:
+    """The rope_tables launches of building one denoise step, video and
+    dual, at 121f@768x512 on `device` (the DiTs at full width on "meta":
+    building a step reads their configuration, no weight)."""
+    from ltx_tpu_torch.pipeline.denoise import (
+        GuidanceSpec,
+        make_av_denoise_step,
+        make_denoise_step,
+    )
+
+    cfg = TransformerConfig()
+    config = GenerationConfig(width=768, height=512, num_frames=121)
+    guidance = GuidanceSpec.from_config(config)
+    shape = VideoLatentShape.from_pixels(1, config.num_frames, config.height, config.width,
+                                         channels=cfg.in_channels)
+    context = torch.zeros(1, 16, cfg.caption_channels, dtype=torch.bfloat16, device=device)
+    out = {}
+    before = rope_kernel.rope_tables.launches
+    make_denoise_step(LTXTransformer(cfg, device="meta"), guidance, shape, context, None)
+    out["video"] = rope_kernel.rope_tables.launches - before
+    before = rope_kernel.rope_tables.launches
+    make_av_denoise_step(LTXAVTransformer(cfg, device="meta"), guidance, shape, 126, context,
+                         context, None)
+    out["av"] = rope_kernel.rope_tables.launches - before
     return out
 
 

@@ -26,7 +26,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ltx_tpu_torch"
 
 # every kernel source of the port, by stem
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "int4_matmul", "rms_norm")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "int4_matmul", "rms_norm",
+           "rope_tables")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ltx_tpu_torch.config import TransformerConfig
+from ltx_tpu_torch.kernels.rope import rope_tables
 from ltx_tpu_torch.models.common import Linear, NormWeight, gelu_tanh, param
 from ltx_tpu_torch.models.dit import (
     AdaLNSingle,
@@ -46,24 +47,19 @@ from ltx_tpu_torch.ops.normalization import rms_norm
 def prepare_av_ropes(cfg: TransformerConfig, frames: int, height: int, width: int,
                      audio_frames: int, fps: float = 24.0, device=None):
     """(video 3D, audio 1D, cross-video 1D, cross-audio 1D) (cos, sin)
-    tables, f32 tensors on `device`, computed in float64 on the host. The
-    cross-modal tables use temporal-only coordinates at the audio inner dim
-    with the audio max_pos."""
-    video = rope_ops.video_rope(frames, height, width, cfg.inner_dim, cfg.num_heads,
-                                theta=cfg.rope_theta, max_pos=cfg.max_pos, fps=fps)
-    audio_grid = rope_ops.create_audio_position_grid(audio_frames)
-    audio = rope_ops.precompute_freqs_cis(audio_grid, cfg.audio_inner_dim,
-                                          theta=cfg.rope_theta, max_pos=cfg.audio_max_pos,
-                                          num_heads=cfg.audio_num_heads)
+    tables, f32 tensors on `device` (None: the CPU), computed in float64 by
+    `kernels.rope.rope_tables`: on the card by its kernel, one launch a
+    table. The cross-modal tables use temporal-only coordinates at the
+    audio inner dim with the audio max_pos."""
     video_grid = rope_ops.create_position_grid(frames, height, width, fps=fps)
-    cross_video = rope_ops.precompute_freqs_cis(
-        video_grid[0:1], cfg.audio_cross_attention_dim, theta=cfg.rope_theta,
-        max_pos=cfg.audio_max_pos, num_heads=cfg.audio_num_heads)
-    cross_audio = rope_ops.precompute_freqs_cis(
-        audio_grid, cfg.audio_cross_attention_dim, theta=cfg.rope_theta,
-        max_pos=cfg.audio_max_pos, num_heads=cfg.audio_num_heads)
-    return tuple((torch.from_numpy(c).to(device), torch.from_numpy(s).to(device))
-                 for c, s in (video, audio, cross_video, cross_audio))
+    audio_grid = rope_ops.create_audio_position_grid(audio_frames)
+    audio_args = dict(theta=cfg.rope_theta, max_pos=cfg.audio_max_pos,
+                       num_heads=cfg.audio_num_heads, device=device)
+    return (rope_tables(video_grid, cfg.inner_dim, theta=cfg.rope_theta, max_pos=cfg.max_pos,
+                        num_heads=cfg.num_heads, device=device),
+            rope_tables(audio_grid, cfg.audio_inner_dim, **audio_args),
+            rope_tables(video_grid[0:1], cfg.audio_cross_attention_dim, **audio_args),
+            rope_tables(audio_grid, cfg.audio_cross_attention_dim, **audio_args))
 
 
 def _modulated(norm: NormWeight, x, scale, shift, eps: float):

@@ -1,9 +1,11 @@
 """3D fractional-position rotary embeddings.
 
-Port of ltx_tpu/ops/rope.py. The tables are computed once per geometry on
-the host in float64 numpy and shipped as float32 (the reference shows float32
-frequency math degrades quality over 48 blocks); applying them is torch, in
-float32, cast back to the input dtype.
+Port of ltx_tpu/ops/rope.py. The tables' frequency math is float64 (the
+reference shows float32 frequency math degrades quality over 48 blocks) and
+the tables are float32. `precompute_freqs_cis` computes them in host numpy;
+the denoise loops take `kernels.rope.rope_tables`, which builds the same
+tables on the card, every loop. Applying them is torch, in float32, cast
+back to the input dtype.
 """
 
 from __future__ import annotations

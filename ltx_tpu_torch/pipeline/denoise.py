@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ltx_tpu_torch.config import GenerationConfig
+from ltx_tpu_torch.kernels.rope import rope_tables
 from ltx_tpu_torch.models.dit import LTXTransformer, stg_skip_masks
 from ltx_tpu_torch.models.dit_av import LTXAVTransformer, prepare_av_ropes
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
@@ -41,7 +42,7 @@ from ltx_tpu_torch.ops.latents import (
     patchify,
     unpatchify,
 )
-from ltx_tpu_torch.ops.rope import video_rope
+from ltx_tpu_torch.ops.rope import create_position_grid
 from ltx_tpu_torch.ops.schedule import euler_step
 from ltx_tpu_torch.parallel.pipeline import check_plan
 from ltx_tpu_torch.parallel.sharding import data_rows, gather_rows
@@ -203,10 +204,9 @@ def make_denoise_step(transformer: LTXTransformer, guidance: GuidanceSpec,
     b = shape.batch
     device = context.device
     with span("denoise.rope"):
-        cos, sin = video_rope(shape.frames, shape.height, shape.width, tcfg.inner_dim,
-                              tcfg.num_heads, theta=tcfg.rope_theta,
-                              max_pos=tcfg.max_pos, fps=fps)
-        pe = (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
+        pe = rope_tables(create_position_grid(shape.frames, shape.height, shape.width, fps=fps),
+                         tcfg.inner_dim, theta=tcfg.rope_theta, max_pos=tcfg.max_pos,
+                         num_heads=tcfg.num_heads, device=device)
 
     skip_sa = skip_ff = None
     if guidance.use_stg:

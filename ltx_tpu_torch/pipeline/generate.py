@@ -117,7 +117,8 @@ class GenerationTimings:
     `text.connector`; `denoise_steps` one `denoise.step` a step, from its
     launch to its synchronise; `vae_decode` and `audio_decode` the
     `decode.vae` and `decode.audio` spans. The parts no phase field sums:
-    `denoise.rope` (a loop's RoPE tables built and copied to the device),
+    `denoise.rope` (a loop's RoPE tables: on the card, the pinned copy of
+    their inputs and the launches of `kernels.rope.rope_tables`),
     `denoise.launch` (the step function's call), and the decode's `decode.wait`
     (the host blocked on the device), `decode.stitch`, `decode.widen` and
     `decode.copy` (its host work). `spans` holds every span as (name,

@@ -24,6 +24,8 @@ in bf16 and with a float32 compute dtype; the tiny AV QLoRA step (int4
 dual DiT, head dim 64) within 5e-2 relative, with its launches;
 rms_norm within 16 f32 ulps of the plain version's f32 value plus, for a
 bf16 output, half a bf16 ulp, bitwise equal from run to run and row by row;
+the RoPE tables within one f32 ulp of the plain float64 host build, one
+launch a table of a denoise loop;
 the tiny two-stage I2V pipeline, its norms through that kernel by the
 default route, within 2e-2; the tiny long-video modes (video-to-video,
 extension, keyframes, chains, and their audio twins) within the tiny
@@ -287,6 +289,20 @@ def test_rms_norm_kernel_bitwise_run_to_run_and_row_independent(device, name):
     row of the whole batch, bit for bit."""
     case = next(c for c in checks.RMS_CASES if c.name == name)
     assert not any(checks.check_rms_bitwise(case, device).values())
+
+
+@pytest.mark.parametrize("case", checks.ROPE_CASES, ids=lambda c: c.name)
+def test_rope_tables_kernel_matches_plain(device, case):
+    """The kernel's f32 tables within one f32 ulp of the plain float64 host
+    build; the count of elements that are not bit for bit (expected 0)."""
+    out = checks.check_rope_tables(case, device)
+    print(f"rope_tables {case.name}: {out['differ']} of {out['elements']} elements differ, "
+          f"up to {out['max_ulps']} ulps")
+    assert out["max_ulps"] <= 1.0
+
+
+def test_rope_tables_launch_once_a_table_of_a_denoise_loop(device):
+    assert checks.rope_loop_launches(device) == {"video": 1, "av": 4}
 
 
 def test_tiny_two_stage_cuda_matches_cpu(device):

@@ -19,7 +19,9 @@ from ltx_tpu.ops import normalization as jnorm
 from ltx_tpu.ops import rope as jrope
 from ltx_tpu.ops import schedule as jsched
 from ltx_tpu.ops.attention import prepare_additive_mask as j_prepare_mask
+from ltx_tpu_torch.checks import ROPE_CASES, RopeCase, rope_case_inputs
 from ltx_tpu_torch.kernels import rms_norm as rms_kernel
+from ltx_tpu_torch.kernels import rope as rope_kernel
 from ltx_tpu_torch.ops import embeddings, latents, normalization, rope, schedule
 from ltx_tpu_torch.ops.attention import prepare_additive_mask
 from torch_parity import as_np, as_torch, assert_rel
@@ -62,6 +64,35 @@ def test_rope_tables_match():
     for g, w in zip(rope.precompute_freqs_cis(grid, 64, max_pos=(4096,), num_heads=4),
                     jrope.precompute_freqs_cis(grid, 64, max_pos=(4096,), num_heads=4)):
         np.testing.assert_array_equal(g, w)
+
+
+# the small padded and odd-length cases and the north star's tables, video
+# and the AV loop's three others (26 audio latent frames at 25f)
+ROPE_CPU_CASES = [c for c in ROPE_CASES if c.name.endswith("odd_tokens")] + [
+    RopeCase("video_25f", "video", latent=(4, 16, 24))] + [
+    RopeCase(f"av_25f_{table}", table, latent=(4, 16, 24), audio_frames=26)
+    for table in ("audio", "cross_video", "cross_audio")]
+
+
+@pytest.mark.parametrize("case", ROPE_CPU_CASES, ids=lambda c: c.name)
+def test_rope_tables_on_the_cpu_are_the_plain_tables(case):
+    """kernels.rope.rope_tables on the CPU (or with no device) is the plain
+    float64 build, bit for bit, as f32 CPU tensors, and launches nothing."""
+    grid, kw = rope_case_inputs(case)
+    want = rope.precompute_freqs_cis(grid, **kw)
+    for device in ("cpu", None):
+        got = rope_kernel.rope_tables(grid, device=device, **kw)
+        for g, w in zip(got, want):
+            assert g.device.type == "cpu" and g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), w)
+    assert rope_kernel.rope_tables.launches == 0
+
+
+def test_rope_tables_refuse_other_devices():
+    grid, kw = rope_case_inputs(ROPE_CPU_CASES[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        rope_kernel.rope_tables(grid, device="meta", **kw)
+    assert rope_kernel.rope_tables.launches == 0
 
 
 @pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
