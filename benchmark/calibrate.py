@@ -21,19 +21,19 @@ import time
 
 import torch
 
-from benchmark import harness, program
-from benchmark.reference import pipeline as reference
+from benchmark import harness, paths, program
 from benchmark.run import cell_of, manifest
 from benchmark.traffic import Traffic
 
 
 def reading(config, traffic, seed: int, control: bool, device) -> dict:
     t0 = time.perf_counter()
+    path = paths.program_side(config)
     pipe, drawn = harness.build(config, seed, device)
-    shapes = reference.clip_shapes(config, traffic.params)
+    shapes = paths.reference_side(config).clip_shapes(config, traffic.params)
     clip = traffic.clip(seed, 0, shapes, device)
     t1 = time.perf_counter()
-    frames, audio, _ = program.run_clip(pipe, program.generation_config(traffic), clip)
+    frames, audio, _ = path.run_clip(pipe, path.generation_config(traffic), clip)
     harness.sync(device)
     t2 = time.perf_counter()
     del pipe

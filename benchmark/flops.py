@@ -89,35 +89,30 @@ def _connector(te: dict, s: int):
     return attns, norms
 
 
-def clip_work(config: dict, traffic) -> dict:
-    """One clip's counted work: `dit_step_flops`, `steps`, the number of
-    `attentions` and `norms` (every flash-attention and RMSNorm call of the
-    clip, as the pipeline makes them) and `attention_seconds`, the least
-    times of the attentions summed."""
-    from benchmark.reference.pipeline import audio_frame_count, transformer_dims
-
-    t = transformer_dims(config["transformer"])
-    te = config["text_encoder"]
-    s = te["max_length"]
-    tv = ((traffic["frames"] - 1) // 8 + 1) * (traffic["height"] // 32) * (traffic["width"] // 32)
-    steps = traffic["steps"]
-    audio = config["pipeline"] == "audio_video"
-    if audio:
-        ta = audio_frame_count(traffic["frames"], traffic["fps"])
-        flops, attns, norms = _av_block(t, tv, ta, s)
-    else:
-        flops, attns, norms = _video_block(t, tv, s)
-    layers = t["num_layers"]
-    c_attns, c_norms = _connector(te, s)
-    connectors = 2 if audio else 1
-    attentions = attns * (layers * steps) + c_attns * connectors
-    all_norms = norms * (layers * steps) + c_norms * connectors
+def work(dit_step_flops: float, steps: int, attentions: list, norms: list,
+         rope_tables: int) -> dict:
+    """A clip's counted work from its pieces: `dit_step_flops`, `steps`,
+    `denoise_flops` (the DiT's FLOPs over all the clip's steps), the number
+    of `attentions` and `norms` (every flash-attention and RMSNorm call of
+    the clip, as the pipeline makes them), `attention_seconds` (the least
+    times of the attentions summed) and `rope_tables`, the RoPE tables its
+    denoise loops build."""
     return {
-        "dit_step_flops": flops * layers,
+        "dit_step_flops": dit_step_flops,
         "steps": steps,
+        "denoise_flops": dit_step_flops * steps,
         "attentions": len(attentions),
-        "norms": len(all_norms),
+        "norms": len(norms),
         "attention_seconds": sum(least_seconds(attention_flops(h, q, k, d),
                                                attention_bytes(h, q, k, d, b))
                                  for h, q, k, d, b in attentions),
+        "rope_tables": rope_tables,
     }
+
+
+def clip_work(config: dict, traffic) -> dict:
+    """One clip's counted work (`work`), as the pipeline of `config` counts
+    it in its own file (benchmark.paths)."""
+    from benchmark import paths
+
+    return paths.program_side(config).clip_work(config, traffic)

@@ -3,7 +3,10 @@ and the metrics.
 
 Set-up builds (or finds built) the port's kernels, draws the weights on the
 device from the seed, builds the pipeline with every component resident and
-runs one warm-up clip of the cell's own shapes. The window then drives
+runs one warm-up clip of the cell's own shapes. What belongs to one pipeline
+(its components, its call, its draws, its counted work and its reference)
+is in its pair of files, found by the configuration's `pipeline`
+(benchmark.paths). The window then drives
 clips back to back from one client, each with its own prompt and draws,
 until `seconds` have passed; it closes when the clip in flight ends. With
 `trace` the device's kernels are profiled over the whole window. After the
@@ -25,9 +28,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from benchmark import flops, program, weights
+from benchmark import paths, program, spans, weights
 from benchmark.metrics import reader
-from benchmark.reference import pipeline as reference
 from benchmark.seeds import rng
 from benchmark.trace import DeviceTrace, summarize
 
@@ -38,7 +40,7 @@ CHECKS_DIR = Path(__file__).resolve().parent / "checks"
 class RunRecord:
     """What the metric readers read: each clip's latency and phases, the
     window's wall seconds, set-up seconds, the device's peak bytes, one
-    clip's counted work (benchmark.flops.clip_work) and, in a traced run,
+    clip's counted work (benchmark.flops.work) and, in a traced run,
     the trace's summary (benchmark.trace.summarize)."""
 
     clips: list
@@ -85,16 +87,17 @@ def sync(device) -> None:
 def build(config: dict, seed: int, device):
     """(pipeline, weights): the port's pipeline resident on `device` over
     weights drawn from `seed`."""
-    modules = program.meta_modules(config)
+    path = paths.program_side(config)
+    modules = path.meta_modules(config)
     drawn = weights.draw(weights.inventory(modules), config["init"], seed, device)
-    return program.build_pipeline(config, modules, drawn, device), drawn
+    return path.build_pipeline(config, modules, drawn, device), drawn
 
 
 def reference_output(config: dict, traffic, drawn: dict, clip: dict,
                      precision: str = "f32") -> dict:
-    modules = reference.build(config, drawn, precision)
-    return reference.generate(modules, config, traffic.params, clip["prompt"], clip["noise"],
-                              clip.get("audio_noise"))
+    """The plain reference's output for `clip`, on the weights `drawn`."""
+    ref = paths.reference_side(config)
+    return ref.generate(ref.build(config, drawn, precision), config, traffic.params, clip)
 
 
 def run_cell(config: dict, traffic, seed: int, seconds: float, trace: bool, device,
@@ -108,10 +111,11 @@ def run_cell(config: dict, traffic, seed: int, seconds: float, trace: bool, devi
     pipe, drawn = build(config, seed, device)
     sync(device)
     log(f"[setup] weights drawn and pipeline built: {time.perf_counter() - t0:.3f} s")
-    gen_config = program.generation_config(traffic)
-    shapes = reference.clip_shapes(config, traffic.params)
+    path = paths.program_side(config)
+    gen_config = path.generation_config(traffic)
+    shapes = paths.reference_side(config).clip_shapes(config, traffic.params)
     t0 = time.perf_counter()
-    program.run_clip(pipe, gen_config, traffic.clip(seed, -1, shapes, device))
+    path.run_clip(pipe, gen_config, traffic.clip(seed, -1, shapes, device))
     sync(device)
     log(f"[setup] warm-up clip: {time.perf_counter() - t0:.3f} s")
     setup_s = time.perf_counter() - t_start
@@ -133,7 +137,7 @@ def run_cell(config: dict, traffic, seed: int, seconds: float, trace: bool, devi
         call_ns = time.time_ns()
         t0 = time.perf_counter()
         try:
-            frames, audio, timings = program.run_clip(
+            frames, audio, timings = path.run_clip(
                 pipe, gen_config, clip, on_progress=lambda i, n, s: step_ends.append(
                     time.time_ns()))
         except Exception as exc:  # a failed clip is counted; the window goes on
@@ -147,6 +151,8 @@ def run_cell(config: dict, traffic, seed: int, seconds: float, trace: bool, devi
             if sampler.random() * len(clips) < 1.0:
                 kept = (clip["index"], frames, audio)
             del frames, audio
+            # the gaps named by the innermost program span, then by the coarse marks
+            marks += spans.marks(getattr(timings, "spans", ()))
             if step_ends:
                 text_end = step_ends[0] - int(phases["steps"][0] * 1e9)
                 marks += [(call_ns, text_end, "text"), (text_end, step_ends[-1], "denoise"),
@@ -166,9 +172,10 @@ def run_cell(config: dict, traffic, seed: int, seconds: float, trace: bool, devi
         log(f"[clip {c['index']}] latency {c['latency_s']:.4f} s: text {c['text']:.4f}, "
             f"steps {sum(steps):.4f} ({min(steps):.4f}-{max(steps):.4f}), decode "
             f"{c['decode']:.4f}, total {c['total']:.4f}")
-    work = flops.clip_work(config, traffic.params)
+    work = path.clip_work(config, traffic.params)
     log(f"[window] launches: {json.dumps(counts)}; counted from the shapes: "
-        f"{work['attentions'] * len(clips)} attentions, {work['norms'] * len(clips)} RMSNorms")
+        f"{work['attentions'] * len(clips)} attentions, {work['norms'] * len(clips)} RMSNorms, "
+        f"{work['rope_tables'] * len(clips)} rope_tables")
 
     summary = None
     if tracer is not None:

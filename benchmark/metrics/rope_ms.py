@@ -1,6 +1,8 @@
-"""Milliseconds a clip of the RoPE tables' build and their copy to the
-device: the program's `denoise.rope` spans (benchmark.spans), one a denoise
-loop. Part of `glue_ms`."""
+"""Milliseconds a clip of the RoPE tables: the program's `denoise.rope`
+spans (benchmark.spans), one a denoise loop, each the pinned copy of the
+tables' inputs to the device and the launches of the kernel that builds the
+tables there (`kernels.rope.rope_tables`), not waiting for it. Part of
+`glue_ms`."""
 
 from benchmark.spans import per_clip_ms
 

@@ -3,8 +3,9 @@
     python3 -m benchmark.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout. The cell (BENCHMARK.json's `workloads`) names
-its configuration (`configs/<name>.json`) and its traffic
-(`traffic/<name>.json`); its limits are in `checks/<workload>.json`. The
+its configuration (`configs/<name>.json`), whose `pipeline` names its pair
+of files (`paths/<pipeline>.py`, `reference/paths/<pipeline>.py`), and its
+traffic (`traffic/<name>.json`); its limits are in `checks/<workload>.json`. The
 last line of standard output is the result: correct, attempted, failed,
 the metrics (the cell's end-to-end metrics, or with --trace 1 its per-layer
 metrics), the device, with --trace 1 the breakdown, and the checks, each

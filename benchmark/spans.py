@@ -10,8 +10,8 @@ A program without them (one before spans) gives the readers nothing.
     python3 -m benchmark.spans --workload <name> --seed <n> --seconds <s>
 
 runs one traced run of the cell as `python3 -m benchmark.run ... --trace 1`
-does, its idle gaps named by the innermost program span each falls in (the
-harness's coarse marks after the spans), and logs the clock check (for
+does (whose idle gaps the harness names by the innermost program span each
+falls in, its coarse marks after the spans), and logs the clock check (for
 every `denoise.step` span, its end minus the end of the last kernel that
 starts inside it) and the device's idle time inside the steps.
 """
@@ -110,12 +110,12 @@ def main(argv=None) -> int:
 
     lags, idle = [], []
 
-    def summarize(kernels, start_ns, end_ns, coarse, top=10):
+    def summarize(kernels, start_ns, end_ns, window_marks, top=10):
         spans = [sp for t in diagnostics.recent_clips for sp in t.spans
                  if start_ns <= sp[1] and sp[2] <= end_ns]
         lags.extend(step_end_lags_ms(kernels, spans))
         idle.extend(step_idle_ms(kernels, spans))
-        return trace.summarize(kernels, start_ns, end_ns, marks(spans) + coarse, top)
+        return trace.summarize(kernels, start_ns, end_ns, window_marks, top)
 
     args = list(sys.argv[1:] if argv is None else argv)
     with mock.patch.object(harness, "summarize", summarize):

@@ -39,6 +39,21 @@ def test_the_reference_imports_nothing_of_the_program(path):
                                         "benchmark"}
 
 
+@pytest.mark.parametrize("name", ["ltx2-video", "ltx2-av"])
+def test_a_pipeline_s_files_load_no_forbidden_module(name):
+    """A configuration's pair of pipeline files, loaded by name as the harness
+    loads them: the reference side, its draws taken, loads nothing of the
+    program; the program side, its components built at the tiny size (which
+    imports the port), loads nothing of JAX or of the JAX package."""
+    code = ("import sys; from benchmark import paths; from benchmark.run import loaded_forbidden; "
+            "from benchmark.tests.tiny import tiny_config, tiny_traffic; "
+            f"cfg = tiny_config({name!r}); "
+            "paths.reference_side(cfg).clip_shapes(cfg, tiny_traffic().params); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0].startswith('ltx'))); "
+            "paths.program_side(cfg).meta_modules(cfg); print(loaded_forbidden())")
+    assert run_python(code).splitlines() == ["[]", "[]"]
+
+
 def test_whole_names_are_compared():
     assert "ltx_tpu_torch" not in FORBIDDEN and "ltx_tpu" in FORBIDDEN
 

@@ -16,8 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import harness, program, weights
-from benchmark.reference import pipeline as reference
+from benchmark import harness, paths, weights
 from benchmark.tests.tiny import tiny_config, tiny_traffic
 
 TINY_LIMITS = {"frames_worst_mae": 8e-3, "audio_rel_rms": 3e-2}
@@ -27,9 +26,10 @@ CONFIGS = ("ltx2-video", "ltx2-av")
 def one_clip(name: str, seed: int, precision=None):
     """(program output, reference output[, control output]) of clip 0."""
     cfg, tr = tiny_config(name), tiny_traffic()
+    path = paths.program_side(cfg)
     pipe, drawn = harness.build(cfg, seed, "cpu")
-    clip = tr.clip(seed, 0, reference.clip_shapes(cfg, tr.params), "cpu")
-    frames, audio, _ = program.run_clip(pipe, program.generation_config(tr), clip)
+    clip = tr.clip(seed, 0, paths.reference_side(cfg).clip_shapes(cfg, tr.params), "cpu")
+    frames, audio, _ = path.run_clip(pipe, path.generation_config(tr), clip)
     ref = harness.reference_output(cfg, tr, drawn, clip)
     out = [{"frames": frames, "audio": audio}, ref]
     if precision:
@@ -52,7 +52,7 @@ def test_program_agrees_with_the_reference_and_the_control_does_not(name, seed):
 
 def test_weights_and_traffic_come_from_the_seed():
     cfg, tr = tiny_config("ltx2-video"), tiny_traffic()
-    items = weights.inventory(program.meta_modules(cfg))
+    items = weights.inventory(paths.program_side(cfg).meta_modules(cfg))
     a = weights.draw(items, cfg["init"], 5, "cpu")
     b = weights.draw(items, cfg["init"], 5, "cpu")
     c = weights.draw(items, cfg["init"], 6, "cpu")
@@ -64,7 +64,7 @@ def test_weights_and_traffic_come_from_the_seed():
     assert a["gemma"]["norm.weight"].float().abs().mean().item() < 0.1
     assert a["transformer"]["blocks.0.attn1.q_norm.weight"].float().mean().item() == \
         pytest.approx(1.0, abs=0.01)
-    shapes = reference.clip_shapes(cfg, tr.params)
+    shapes = paths.reference_side(cfg).clip_shapes(cfg, tr.params)
     x, y = tr.clip(2**40 + 3, 4, shapes, "cpu"), tr.clip(2**40 + 3, 4, shapes, "cpu")
     assert x["prompt"] == y["prompt"] and torch.equal(x["noise"], y["noise"])
     assert not torch.equal(x["noise"], tr.clip(2**40 + 3, 5, shapes, "cpu")["noise"])

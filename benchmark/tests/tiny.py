@@ -1,4 +1,4 @@
-"""Tiny configurations of the benchmark's two pipelines, for CPU tests: the
+"""Tiny configurations of the benchmark's configurations, for CPU tests: the
 port's test sizes (two DiT blocks, a 7-layer Gemma) with the full-size
 configurations' structure and init rules."""
 
@@ -18,7 +18,7 @@ def tiny_config(name: str) -> dict:
     cfg = copy.deepcopy(cfg)
     cfg["transformer"].update(num_layers=2, num_heads=4, head_dim=32, in_channels=16,
                               out_channels=16, cross_attention_dim=128, caption_channels=64)
-    if cfg["pipeline"] == "audio_video":
+    if "audio_vae" in cfg:
         cfg["transformer"].update(audio_num_heads=4, audio_head_dim=16, audio_in_channels=16,
                                   audio_out_channels=16)
         cfg["audio_vae"].update(base_channels=16, num_res_blocks=0, mel_bins=8,
